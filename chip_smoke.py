@@ -10,12 +10,14 @@ Phases (any failed check exits non-zero and prints no result):
 1. Device line: the card's name and power limit from ``nvidia-smi``; then
    the hand-written kernels are built from ``src/repro_torch/kernels/csrc``.
 2. Kernel phase: K3 ``flash_attention`` and K4 ``decode_attention`` at the
-   serving chain's shapes, each held against its plain PyTorch version at
-   rtol = atol = 2e-2 and timed with CUDA events (median of 21 samples of
-   10 back-to-back calls, after warm-up) beside its plain version, one
-   ``scaled_dot_product_attention`` call on the same inputs (a yardstick
-   only; the port never calls it) and the least time the card could take
-   (``bound_ms``).
+   dense serving chain's shapes, K1 ``paged_decode_attention`` and K2
+   ``paged_chunk_attention`` at the paged serve path's, each held against
+   its plain PyTorch version at rtol = atol = 2e-2 and timed with CUDA
+   events (median of 21 samples of 10 back-to-back calls, after warm-up)
+   beside its plain version, one ``scaled_dot_product_attention`` call on
+   the same inputs (a yardstick only; the port never calls it — for K1 and
+   K2 on the pre-gathered contiguous cache, the gather timed apart) and the
+   least time the card could take (``bound_ms``).
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -25,19 +27,29 @@ Phases (any failed check exits non-zero and prints no result):
    tokens on both platforms and against the model run without the
    platform, and that the main path launched K3 and K4 and never called
    their plain versions.
-4. Reference phase: the card against the host's CPU (plain versions, the
+4. Paged serve phase: full-width ``llama3.2-1b`` served from the paged KV
+   arena (321 pages of 16 tokens) by the continuous batcher at capacity 8:
+   24 requests of 37, 128 and 300 prompt tokens (8 sharing a 128-token
+   prefix, 2 exact repeats) generating 18-30 tokens each, fused (the chain
+   fused on dense traffic first) and then unfused. Checks: every request
+   completes, K1 and K2 launched and no plain version ran, the arena is
+   consistent and empty afterwards, 1 live instance fused with a healthy
+   merge and less ``ram_bytes``, one batched paged decode step against the
+   dense one block by block within 5e-2, and a small model served by the
+   batcher gives per-request generate's tokens.
+5. Reference phase: the card against the host's CPU (plain versions, the
    same bf16 weights). A small input — llama3.2-1b cut to 2 layers of width
    256 (head dim 64, which the kernels take) — must give the same prefill
    and decode logits within 2e-2 of max |logit|; at full width each
    block's contribution on the same input must agree within 5e-2, and how
    far bf16 rounding alone carries the end-to-end logits is reported.
-5. Profile phase: where a fused decode step's time goes — the host's wall
+6. Profile phase: where a fused decode step's time goes — the host's wall
    clock against the device's kernel time (``torch.profiler``) — and its
    ten costliest kernels.
 
-Standard output opens with the device line; its last five lines are the
-``serve``, ``reference``, ``profile`` and ``kernels`` JSON lines and
-``{"ok": true, "device": {...}}``.
+Standard output opens with the device line; its last six lines are the
+``serve``, ``paged_serve``, ``reference``, ``profile`` and ``kernels`` JSON
+lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -188,6 +200,101 @@ def kernel_phase(torch, F) -> dict:
             "bound_by": b_by,
         })
     out["decode_attention"] = cases
+    out.update(paged_kernel_cases(torch, F, gen))
+    return out
+
+
+def _paged_inputs(torch, gen, b, n, page, p, kv, hd):
+    """Random bf16 pages and a block table of distinct live pages per
+    sequence (page 0 is the arena's scratch page)."""
+    dev = torch.device("cuda")
+    kp = torch.randn(p, page, kv, hd, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(p, page, kv, hd, generator=gen, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(p - 1, generator=gen, device=dev)[: b * n] + 1
+    return kp, vp, perm.reshape(b, n).to(torch.int32).contiguous()
+
+
+def paged_kernel_cases(torch, F, gen) -> dict:
+    """K1 and K2 at the paged serve path's shapes (and an MQA one), each
+    against its plain version, timed beside it and beside the library
+    yardstick: ``scaled_dot_product_attention`` on the PRE-GATHERED
+    contiguous cache (no single PyTorch call computes the paged function;
+    the gather's own time is reported apart, as ``gather_ms``)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import gather_pages
+
+    dev = torch.device("cuda")
+    out = {}
+    cases = []
+    # (label, B, n, page, P, H, KV, hd, cur_len): the serve shape (capacity
+    # 8, 32 pages of 16 per sequence, the arena of 321 pages), B = 1, MQA
+    for label, b, n, page, p, h, kv, hd, lens in (
+        ("serve", 8, 32, 16, 321, 32, 8, 64, [0, 37, 129, 300, 406, 511, 150, 64]),
+        ("B=1", 1, 32, 16, 321, 32, 8, 64, [406]),
+        ("MQA", 4, 32, 16, 321, 16, 1, 64, [37, 128, 300, 500]),  # G * hd = 1024, the kernel's most
+    ):
+        kp, vp, bt = _paged_inputs(torch, gen, b, n, page, p, kv, hd)
+        q = torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+        cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = pa.paged_decode_attention(q, kp, vp, bt, cur)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, pa.plain_decode(q, kp, vp, bt, cur))
+        for i, n_valid in enumerate(lens):
+            if n_valid == 0:
+                check(bool((got[i] == 0).all()), "paged_decode_attention must give exact zeros at cur_len 0")
+        g = h // kv
+        kr = gather_pages(kp, bt).transpose(1, 2).repeat_interleave(g, dim=1)
+        vr = gather_pages(vp, bt).transpose(1, 2).repeat_interleave(g, dim=1)
+        mask = (torch.arange(n * page, device=dev)[None, :] < cur[:, None])[:, None, None, :]
+        qt = q[:, :, None, :]
+        rows = sum(lens)
+        nbytes = 2 * (2 * rows * kv * hd + q.numel() + got.numel()) + 4 * (bt.numel() + b)
+        b_ms, b_by = bound(4 * h * hd * rows, nbytes)
+        cases.append({
+            "shape": f"{label}: B={b} n={n} page={page} P={p} H={h} KV={kv} hd={hd} cur_len={lens} bf16",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, cur)),
+            "plain_ms": time_ms(torch, lambda: pa.plain_decode(q, kp, vp, bt, cur)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)),
+            "library": "scaled_dot_product_attention on the pre-gathered contiguous cache",
+            "gather_ms": time_ms(torch, lambda: (gather_pages(kp, bt), gather_pages(vp, bt))),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        })
+    out["paged_decode_attention"] = cases
+
+    cases = []
+    n, page, p, h, kv, hd = 32, 16, 321, 32, 8, 64
+    # (C, start, valid rows): a 37-token prompt padded to 64, a chunk from
+    # 192, a 300-token prompt padded to 512, a 5-row chunk from 37
+    for c, start, valid in ((64, 0, 37), (64, 192, 64), (512, 0, 300), (5, 37, 5)):
+        kp, vp, bt = _paged_inputs(torch, gen, 1, n, page, p, kv, hd)
+        q = torch.randn(1, c, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        got = pa.paged_chunk_attention(q, kp, vp, bt, st)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, pa.plain_chunk(q, kp, vp, bt, st))
+        g = h // kv
+        qt = q.transpose(1, 2)
+        kr = gather_pages(kp, bt).transpose(1, 2).repeat_interleave(g, dim=1)
+        vr = gather_pages(vp, bt).transpose(1, 2).repeat_interleave(g, dim=1)
+        limit = start + torch.arange(c, device=dev)
+        mask = (torch.arange(n * page, device=dev)[None, :] <= limit[:, None])[None, None]
+        pairs = c * start + c * (c + 1) // 2  # (row, visible column) pairs: all C rows are computed
+        nbytes = 2 * (q.numel() + got.numel() + 2 * min(start + c, n * page) * kv * hd) + 4 * (n + 1)
+        b_ms, b_by = bound(4 * h * hd * pairs, nbytes)
+        cases.append({
+            "shape": f"B=1 C={c} start={start} valid={valid} n={n} page={page} P={p} H={h} KV={kv} hd={hd} bf16",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: pa.paged_chunk_attention(q, kp, vp, bt, st)),
+            "plain_ms": time_ms(torch, lambda: pa.plain_chunk(q, kp, vp, bt, st)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)),
+            "library": "scaled_dot_product_attention on the pre-gathered contiguous cache",
+            "gather_ms": time_ms(torch, lambda: (gather_pages(kp, bt), gather_pages(vp, bt))),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        })
+    out["paged_chunk_attention"] = cases
     return out
 
 
@@ -314,6 +421,255 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
             "decode_attention_per_decode_step": counts["decode_attention"] / decode_steps,
         },
         "first_tokens": results["fused"]["tokens"][0][0, :8].tolist(),
+    }
+
+
+# ---------------------------------------------------------- paged serve phase
+
+PAGED_REQUESTS = 24
+PAGED_STEPS = 24  # load_bench's --steps: generation lengths 18-30
+PAGE = 16
+CAPACITY = 8
+SHARED_PREFIX = 128
+
+
+def paged_requests(cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED_REQUESTS, steps=PAGED_STEPS,
+                   prefix_len=SHARED_PREFIX, seed=0):
+    """The paged serve phase's requests, made on the host from ``seed``:
+    prompts of ``prompt_lens`` in turn; request 3 repeats request 0 and
+    request 4 repeats request 1 (whole-prompt hits: the frozen K1 step, and
+    copy-on-write of a shared partial tail page); the (up to 8) prompts
+    longer than the prefix begin with one shared ``prefix_len``-token
+    prefix (shared pages, K2 from ``start > 0``). Generation lengths follow
+    load_bench's formula (``run_serve``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len)
+    prompts, shared = [], 0
+    for i in range(n_requests):
+        t = prompt_lens[i % len(prompt_lens)]
+        if i in (3, 4):
+            p = prompts[i - 3][0]
+        elif t > prefix_len and shared < 8:
+            p = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, t - prefix_len)])
+            shared += 1
+        else:
+            p = rng.integers(0, cfg.vocab_size, t)
+        prompts.append(np.asarray(p, np.int32)[None, :])
+    gens = [max(6, steps + ((i * 7) % 13) - 6) for i in range(n_requests)]
+    return prompts, gens
+
+
+def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
+    """One run of the continuous batcher over ``engine``'s arena: warm-up
+    (one request per prompt shape and one whole-prompt repeat), then the
+    measured requests, all submitted at once. The kernel counts are set to
+    0 just before the measured requests and read just after them."""
+    from repro_torch.kernels import ops
+    from repro_torch.scheduler.metrics import percentiles_ms
+    from repro_torch.serving.continuous import ContinuousBatcher
+
+    arena, platform = engine.arena, engine.platform
+    cb = ContinuousBatcher(engine, capacity=capacity)
+    try:
+        for f in [cb.submit({"tokens": w}, 3) for w in warm_prompts]:
+            f.result(timeout=600)
+        cb.submit({"tokens": warm_prompts[0]}, 3).result(timeout=600)
+        platform.meter.reset()
+        cb.reset_stats()
+        hits0, cow0 = arena.shared_hits, arena.cow_copies
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        futs = [cb.submit({"tokens": p}, g) for p, g in zip(prompts, gens)]
+        results = [f.result(timeout=600) for f in futs]
+        elapsed = time.perf_counter() - t0
+        counts = ops.counts()
+        stats = cb.stats()
+    finally:
+        cb.shutdown()
+    for r, g in zip(results, gens):
+        check(r["tokens"].shape == (1, g), f"a request returned {r['tokens'].shape[1]} of {g} tokens")
+    arena.check_consistency()
+    check(arena.used_pages() == 0, f"{arena.used_pages()} pages still held after the run")
+    itl = [x for r in results for x in r["step_s"]]
+    pct = percentiles_ms(itl, points=(50, 95))
+    bill = platform.meter.arena_summary()
+    n_tokens = sum(r["tokens"].shape[1] for r in results)
+    return {
+        "tokens": [r["tokens"] for r in results],
+        "tokens_per_s": n_tokens / elapsed,
+        "elapsed_s": elapsed,
+        "itl_p50_ms": pct["p50_ms"],
+        "itl_p95_ms": pct["p95_ms"],
+        "mean_occupancy": stats["mean_occupancy"],
+        "decode_steps": stats["steps"],
+        "prefill_chunks": stats["prefill_chunks"],
+        "mean_pages_per_request": bill["mean_pages"],
+        "mean_billed_pages_per_request": bill["mean_billed_pages"],
+        "arena_gb_s": bill["gb_s"],
+        "shared_hits": arena.shared_hits - hits0,
+        "cow_copies": arena.cow_copies - cow0,
+        "live_instances": len(platform.registry.live_instances()),
+        "ram_bytes": platform.ram_bytes(),
+        "counts": counts,
+    }
+
+
+def paged_block_check(torch, engine, lens, seed=3) -> list:
+    """One batched paged decode step against the dense decode step from the
+    same prompt state, block by block on the same input: each prompt's
+    dense prefill cache is both kept (K4's side) and scattered into the
+    arena (K1's side). Returns each block's contribution's difference over
+    its max."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    cfg, arena, dev = engine.cfg, engine.arena, engine.device
+    rng = np.random.default_rng(seed)
+    per = cfg.num_layers // len(engine.group_names)
+    dense, sids, first = [], [], []
+    for i, t in enumerate(lens):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32)).to(dev)
+        logits, caches, _ = engine.prefill({"tokens": toks})
+        sid = ("block-check", i)
+        arena.alloc(sid, t)
+        arena.write_prefill(sid, caches, t)
+        arena.extend(sid, t + 1)
+        dense.append(caches)
+        sids.append(sid)
+        first.append(torch.argmax(logits, -1).to(torch.int32))
+    errs = []
+    try:
+        with torch.no_grad():
+            bt = torch.from_numpy(np.stack([arena.block_row(s, engine.block_width) for s in sids])).to(dev)
+            cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+            x = embed_tokens(engine.params["embed"], torch.stack(first))  # (B, 1, d)
+            for layer in range(cfg.num_layers):
+                lp = tree.map(lambda a: a[layer], engine.params["blocks"])
+                stage, j = f"g{layer // per}", layer % per
+                cache = {kv: torch.cat([c[stage][kv][j] for c in dense]) for kv in ("k", "v")}
+                y_dense, _ = tfm.apply_block_decode(lp, x, cache, cfg, cur)
+                pages = arena.data[stage]
+                y_paged, _, _ = tfm.apply_block_decode_paged(lp, x, pages["k"][j], pages["v"][j], bt, cfg, cur)
+                errs.append(rel_err(y_paged - x, y_dense - x))
+                x = y_dense
+    finally:
+        for sid in sids:
+            arena.free(sid)
+    return errs
+
+
+def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED_REQUESTS,
+                      steps=PAGED_STEPS, max_len=MAX_LEN, page=PAGE, capacity=CAPACITY,
+                      prefix_len=SHARED_PREFIX, small_cfg=None) -> dict:
+    """The paged continuous-batching serve path: ``ServingEngine(...,
+    kv_pages=(capacity + 2) * max_len / page + 1)`` (load_bench's arena
+    size) and ``ContinuousBatcher(engine, capacity)`` with the default chunk
+    budget, fused (the chain fused on dense traffic first, as load_bench's
+    ``run_serve`` warms it) and then unfused, with the same requests. On
+    the card it also checks that K1 and K2, and never a plain version, ran.
+    Then one batched paged decode step against the dense one, block by
+    block, and a small model (``small_cfg``) served by the batcher against
+    per-request generate."""
+    import numpy as np
+
+    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.continuous import ContinuousBatcher
+    from repro_torch.serving.engine import ServingEngine
+
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    prompts, gens = paged_requests(cfg, prompt_lens, n_requests, steps, prefix_len)
+    warm_rng = np.random.default_rng(1)
+    warm = [warm_rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32) for t in prompt_lens]
+    kv_pages = (capacity + 2) * (max_len // page) + 1
+    runs, block_errs = {}, None
+    for label, policy in (("fused", FusionPolicy(min_observations=2, merge_cost_s=0.0)),
+                          ("unfused", FusionPolicy(enabled=False))):
+        platform = TinyTorchBackend(policy)
+        try:
+            engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev,
+                                   kv_pages=kv_pages, kv_page_size=page)
+            # dense traffic first: the fusing platform merges the chain here
+            engine.generate({"tokens": torch.from_numpy(warm[0]).to(dev)}, steps=6)
+            platform.merger.wait_idle()
+            run = serve_paged(torch, engine, prompts, gens, capacity, warm)
+            run["merges"] = [(m.members, m.healthy) for m in platform.merger.merge_log]
+            run["chain"] = set(engine.chain_names())
+            runs[label] = run
+            if label == "fused":
+                block_errs = paged_block_check(torch, engine, [t + 5 * i for i, t in
+                                                                enumerate(prompt_lens * 3)][:capacity])
+        finally:
+            platform.shutdown()
+
+    fused, unfused = runs["fused"], runs["unfused"]
+    check(unfused["live_instances"] == len(unfused["chain"]),
+          f"unfused chain should hold {len(unfused['chain'])} instances, has {unfused['live_instances']}")
+    check(fused["live_instances"] == 1, f"fused chain should hold 1 instance, has {fused['live_instances']}")
+    check(any(ok and set(m) == fused["chain"] for m, ok in fused["merges"]),
+          "no healthy merge of the whole chain in merge_log")
+    check(fused["ram_bytes"] < unfused["ram_bytes"], "fused ram_bytes is not below unfused")
+    check(fused["shared_hits"] > 0, "no request hit the shared-prefix cache")
+    check(max(block_errs) <= BLOCK_TOL,
+          f"a block's paged decode step differs from its dense one beyond {BLOCK_TOL}: {block_errs}")
+    plain = ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref")
+    if dev.type == "cuda":
+        for label, run in runs.items():
+            c = run["counts"]
+            check(c["paged_decode_attention"] > 0 and c["paged_chunk_attention"] > 0,
+                  f"{label}: the paged serve path did not launch K1 and K2: {c}")
+            check(all(c[k] == 0 for k in plain), f"{label}: a plain version ran on the card: {c}")
+
+    # a small model served by the batcher gives per-request generate's tokens
+    small = build_model(small_cfg or cfg)
+    rng = np.random.default_rng(2)
+    small_prompts = [rng.integers(0, small.cfg.vocab_size, (1, t)).astype(np.int32) for t in (9, 23, 40)]
+    platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0))
+    try:
+        engine = ServingEngine(small, platform, max_len=64, device=dev, kv_pages=25, kv_page_size=16)
+        refs = [engine.generate({"tokens": torch.from_numpy(p).to(dev)}, steps=8)[0].cpu().numpy()
+                for p in small_prompts]
+        cb = ContinuousBatcher(engine, capacity=4)
+        try:
+            got = [f.result(timeout=600)["tokens"] for f in
+                   [cb.submit({"tokens": p}, 8) for p in small_prompts]]
+        finally:
+            cb.shutdown()
+    finally:
+        platform.shutdown()
+    for t, (a, b) in zip((9, 23, 40), zip(got, refs)):
+        check(np.array_equal(a, b), f"small model, prompt {t}: batcher tokens {a} != generate {b}")
+
+    agree = [bool(np.array_equal(a, b)) for a, b in zip(fused["tokens"], unfused["tokens"])]
+    keys = ("tokens_per_s", "itl_p50_ms", "itl_p95_ms", "mean_occupancy", "decode_steps",
+            "prefill_chunks", "mean_pages_per_request", "mean_billed_pages_per_request",
+            "arena_gb_s", "shared_hits", "cow_copies", "live_instances", "ram_bytes", "elapsed_s")
+    return {
+        "arch": cfg.name,
+        "layers": cfg.num_layers,
+        "d_model": cfg.d_model,
+        "requests": n_requests,
+        "prompt_lens": list(prompt_lens),
+        "gen_lens": gens,
+        "capacity": capacity,
+        "max_len": max_len,
+        "page": page,
+        "kv_pages": kv_pages,
+        **{k: {label: run[k] for label, run in runs.items()} for k in keys},
+        "launches": {label: {k: run["counts"][k] for k in ("paged_decode_attention", "paged_chunk_attention")}
+                     for label, run in runs.items()},
+        "plain_calls": {label: {k: run["counts"][k] for k in plain} for label, run in runs.items()},
+        "block_rel_err": block_errs,
+        "small_model_tokens_identical": True,
+        "fused_vs_unfused_identical_requests": sum(agree),
     }
 
 
@@ -451,22 +807,29 @@ def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
 
 
 def kernels_line(kern: dict, launches: dict) -> dict:
-    meta = {
+    """One entry per kernel: its source, the TPU kernel it replaces, its
+    launches on the main path that runs it, and the kernel phase's figures
+    at that path's shape (``main_case``: the serve shape of each)."""
+    paged = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    meta = {  # source, TPU kernel, index of the main path's case
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:73"),
+                            "src/repro/kernels/flash_attention.py:73", -1),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention.py:59"),
+                             "src/repro/kernels/decode_attention.py:59", 0),
+        "paged_decode_attention": (paged, "src/repro/kernels/paged_attention.py:86", 0),
+        "paged_chunk_attention": (paged, "src/repro/kernels/paged_attention.py:178", 2),
     }
     entries = []
     for name, cases in kern.items():
-        main = cases[-1] if name == "flash_attention" else cases[0]  # the serve path's shape
-        source, replaces = meta[name]
+        source, replaces, main_case = meta[name]
+        main = cases[main_case]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": main.get("library", "scaled_dot_product_attention"),
             "shape": main["shape"], "cases": cases,
         })
     return {"kernels": entries}
@@ -497,7 +860,9 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
-    from repro_torch.configs import get_arch
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_config
 
     cfg, dev = get_arch("llama3.2-1b"), torch.device("cuda")
     t0 = time.perf_counter()
@@ -508,12 +873,18 @@ def main() -> int:
     print(json.dumps({"serve": serve}), flush=True)
     print(f"serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
+    small = dataclasses.replace(reduced_config(cfg), d_model=256, d_head=64)  # as reference_phase
+    paged = paged_serve_phase(torch, dev, cfg, small_cfg=small)
+    print(json.dumps({"paged_serve": paged}), flush=True)
+    print(f"paged serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
     print(json.dumps({"reference": reference_phase(torch, dev, cfg)}), flush=True)
     print(f"reference phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     print(json.dumps({"profile": profile_phase(torch, dev, cfg)}), flush=True)
     print(f"profile phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    print(json.dumps(kernels_line(kern, serve["launches"])), flush=True)
+    launches = {**serve["launches"], **paged["launches"]["fused"]}
+    print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0

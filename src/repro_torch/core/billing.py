@@ -16,6 +16,39 @@ from repro_torch.scheduler.metrics import LatencyWindow
 
 
 @dataclasses.dataclass
+class ArenaLease:
+    """One request's stay in the paged KV arena: the per-request RAM bill.
+
+    With per-client cache pytrees every request was billed (implicitly) for
+    a full ``max_len`` cache; under paging a request holds only the pages
+    its tokens occupy, so its GB-s is ``pages x page_bytes x residency`` —
+    the platform-side RAM reduction the paper claims, made billable."""
+
+    function: str
+    request_id: str
+    pages: int          # peak pages held
+    page_bytes: int     # bytes per page across the whole chain (all stages)
+    t_alloc: float
+    t_free: float
+    # pages weighted by 1/refcount at release: a fleet sharing a prompt
+    # prefix splits the prefix pages' bill across the sharers. None means
+    # unshared serving — the nominal `pages` count is billed.
+    amortized_pages: float | None = None
+
+    @property
+    def duration_s(self) -> float:
+        return self.t_free - self.t_alloc
+
+    @property
+    def billed_pages(self) -> float:
+        return float(self.pages) if self.amortized_pages is None else self.amortized_pages
+
+    @property
+    def gb_seconds(self) -> float:
+        return self.duration_s * self.billed_pages * self.page_bytes / 1e9
+
+
+@dataclasses.dataclass
 class InvocationRecord:
     function: str
     instance: str
@@ -34,11 +67,12 @@ class InvocationRecord:
 
 
 class BillingMeter:
-    GUARDED_FIELDS = {"records": "_lock"}
+    GUARDED_FIELDS = {"records": "_lock", "arena_leases": "_lock"}
 
     def __init__(self, clock=None):
         self._lock = threading.Lock()
         self.records: list[InvocationRecord] = []
+        self.arena_leases: list[ArenaLease] = []
         # the platform's time source stamps each completion to compute
         # sustained throughput alongside the tail percentiles
         self._latency = LatencyWindow(clock=clock)
@@ -46,6 +80,10 @@ class BillingMeter:
     def record(self, rec: InvocationRecord) -> None:
         with self._lock:
             self.records.append(rec)
+
+    def record_arena(self, lease: ArenaLease) -> None:
+        with self._lock:
+            self.arena_leases.append(lease)
 
     def observe_latency(self, function: str, seconds: float) -> None:
         """One *external* request completed end-to-end after ``seconds``.
@@ -56,7 +94,28 @@ class BillingMeter:
     def reset(self) -> None:
         with self._lock:
             self.records = []
+            self.arena_leases = []
         self._latency.reset()
+
+    def arena_summary(self) -> dict:
+        """Per-request page residency: the serve path's RAM story."""
+        with self._lock:
+            leases = list(self.arena_leases)
+        if not leases:
+            return {
+                "requests": 0, "gb_s": 0.0, "mean_pages": 0.0, "max_pages": 0,
+                "mean_billed_pages": 0.0,
+            }
+        return {
+            "requests": len(leases),
+            "gb_s": sum(l.gb_seconds for l in leases),
+            "mean_pages": sum(l.pages for l in leases) / len(leases),
+            "max_pages": max(l.pages for l in leases),
+            # amortized by sharing: the RAM the platform ACTUALLY spent per
+            # request (shared prefix pages counted once across the fleet)
+            "mean_billed_pages": sum(l.billed_pages for l in leases) / len(leases),
+            "mean_residency_s": sum(l.duration_s for l in leases) / len(leases),
+        }
 
     def blocked_gb_seconds(self) -> float:
         """The double-billed component: memory held while blocked downstream."""

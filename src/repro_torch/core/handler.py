@@ -13,10 +13,13 @@ The handler also:
 * captures the latest request per function as the *canary* used by the
   Merger's health check;
 * maintains the per-thread invocation stack so blocked time is attributed
-  to the right billing record (the double-billing measurement).
+  to the right billing record (the double-billing measurement);
+* counts direct client demand per function (``note_demand``).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import math
 import threading
@@ -26,6 +29,7 @@ from repro_torch.core.billing import BillingMeter, InvocationRecord
 from repro_torch.scheduler.clock import SYSTEM_CLOCK
 
 _RECENT_WAITS = 64  # bounded per-edge wait history for the tail estimate
+_RECENT_TS = 256  # bounded per-function timestamp history of direct demand
 
 
 @dataclasses.dataclass
@@ -65,7 +69,7 @@ class _ActiveInvocation:
 
 
 class FunctionHandler:
-    GUARDED_FIELDS = {"edges": "_lock", "canaries": "_lock"}
+    GUARDED_FIELDS = {"edges": "_lock", "canaries": "_lock", "_recent_calls": "_lock"}
 
     def __init__(self, meter: BillingMeter, on_fusion_candidate: Callable[[str, str], None] | None = None,
                  clock=None):
@@ -74,6 +78,7 @@ class FunctionHandler:
         self.on_fusion_candidate = on_fusion_candidate
         self.edges: dict[tuple[str, str], EdgeStats] = {}
         self.canaries: dict[str, tuple] = {}
+        self._recent_calls: dict[str, collections.deque] = {}
         self._lock = threading.Lock()
         self._tls = threading.local()
 
@@ -116,16 +121,43 @@ class FunctionHandler:
     # ------------------------------------------------------- observation
 
     def record_canary(self, function: str, args: tuple) -> None:
-        """Keep the latest request by reference. Safe because the port's
-        functions never write their arguments in place: prefill and decode
-        return NEW cache tensors, so a replayed canary sees what the original
-        request saw."""
+        """Keep the latest request by reference. Safe because a recorded
+        request's arguments are never written in place: dense prefill and
+        decode return NEW cache tensors, so a replayed canary sees what the
+        original request saw. The paged routes write the KV arena in place,
+        so they run under :meth:`no_canaries` and record nothing."""
+        if getattr(self._tls, "no_canary", False):
+            return
         with self._lock:
             self.canaries[function] = args
+
+    @contextlib.contextmanager
+    def no_canaries(self):
+        """Record no canary on this thread, at any hop of the chain, while
+        the block runs: for requests whose arguments the functions write in
+        place (the paged KV arena), a later replay would write stale rows
+        into pages that may belong to another sequence by then."""
+        prev = getattr(self._tls, "no_canary", False)
+        self._tls.no_canary = True
+        try:
+            yield
+        finally:
+            self._tls.no_canary = prev
 
     def canary(self, function: str):
         with self._lock:
             return self.canaries.get(function)
+
+    def note_demand(self, function: str) -> None:
+        """One unit of direct external demand (a client invoke) landed on
+        ``function`` — the platform's entry points call this; internal
+        function-to-function dispatches and control-plane canary replays
+        deliberately do not."""
+        with self._lock:
+            recent = self._recent_calls.get(function)
+            if recent is None:
+                recent = self._recent_calls[function] = collections.deque(maxlen=_RECENT_TS)
+            recent.append(self.clock.now())
 
     def observe_edge(self, caller: str, callee: str, *, sync: bool, wait_s: float = 0.0) -> None:
         notify = False

@@ -170,6 +170,7 @@ class ProvusePlatform:
     def invoke(self, name: str, *args):
         """External (client) invocation — serial path."""
         self.handler.record_canary(name, args)
+        self.handler.note_demand(name)
         t0 = self.clock.now()
         out = self._invoke_with_retry(name, args)
         self.meter.observe_latency(name, self.clock.now() - t0)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
 
 
@@ -23,18 +24,30 @@ def decode_attention(q, k, v, cur_len):
     return _decode.decode_attention(q, k, v, cur_len)
 
 
+def paged_decode_attention(q, k_pages, v_pages, block_table, cur_len):
+    """q: (B,H,hd); pages: (P,page,KV,hd); block_table: (B,n); cur_len: (B,) -> (B,H,hd)."""
+    return _paged.paged_decode_attention(q, k_pages, v_pages, block_table, cur_len)
+
+
+def paged_chunk_attention(q, k_pages, v_pages, block_table, start):
+    """q: (B,C,H,hd); pages: (P,page,KV,hd); block_table: (B,n); start: (B,) -> (B,C,H,hd)."""
+    return _paged.paged_chunk_attention(q, k_pages, v_pages, block_table, start)
+
+
 def counts() -> dict:
     """Kernel launches and plain-version calls since the last reset."""
     return {
         "flash_attention": _flash.launches,
         "decode_attention": _decode.launches,
-        "mha_ref": ref.CALLS["mha_ref"],
-        "decode_attn_ref": ref.CALLS["decode_attn_ref"],
+        **_paged.launches,
+        **ref.CALLS,
     }
 
 
 def reset_counts() -> None:
     _flash.launches = 0
     _decode.launches = 0
+    for name in _paged.launches:
+        _paged.launches[name] = 0
     for name in ref.CALLS:
         ref.CALLS[name] = 0

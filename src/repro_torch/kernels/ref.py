@@ -11,7 +11,7 @@ import math
 
 import torch
 
-CALLS = {"mha_ref": 0, "decode_attn_ref": 0}
+CALLS = {"mha_ref": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0, "paged_chunk_attn_ref": 0}
 
 
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -50,6 +50,10 @@ def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, hd); k, v: (B, S, KV, hd); cur_len: (B,) -> (B, H, hd).
     Columns >= cur_len are masked; cur_len == 0 gives exact zeros."""
     CALLS["decode_attn_ref"] += 1
+    return _decode_attn(q, k, v, cur_len)
+
+
+def _decode_attn(q, k, v, cur_len):
     b, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, kv, h // kv, hd)
@@ -58,3 +62,46 @@ def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = _masked_softmax(scores, mask[:, None, None, :])
     out = torch.einsum("bkgs,bskh->bkgh", probs.to(v.dtype), v)
     return out.reshape(b, h, hd)
+
+
+def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """pages: (P, page, KV, hd); block_table: (B, n) -> (B, n*page, KV, hd).
+
+    Rebuilds each sequence's logical cache from its pages with one gather
+    (garbage past the sequence's length: callers mask)."""
+    b, n = block_table.shape
+    _, page, kv, hd = pages.shape
+    return pages[block_table.long()].reshape(b, n * page, kv, hd)
+
+
+def paged_decode_attn_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                          block_table: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, hd); pages: (P, page, KV, hd); block_table: (B, n) int32;
+    cur_len: (B,) -> (B, H, hd). The gather, then :func:`decode_attn_ref`:
+    columns >= cur_len are masked, cur_len == 0 gives exact zeros."""
+    CALLS["paged_decode_attn_ref"] += 1
+    k = gather_pages(k_pages, block_table)
+    v = gather_pages(v_pages, block_table)
+    return _decode_attn(q, k, v, cur_len)
+
+
+def paged_chunk_attn_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                         block_table: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """q: (B, C, H, hd) — C prefill rows whose absolute positions begin at
+    ``start`` (B,); pages: (P, page, KV, hd); block_table: (B, n) int32 ->
+    (B, C, H, hd). The gather, then causal attention with a per-sequence
+    query offset: row i sees the columns <= start + i, as
+    ``full_attention(..., q_offset=start)`` computes it in the JAX package.
+    ``start`` is read as a tensor, never on the host."""
+    CALLS["paged_chunk_attn_ref"] += 1
+    b, c, h, hd = q.shape
+    k = gather_pages(k_pages, block_table)
+    v = gather_pages(v_pages, block_table)
+    s, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, c, kv, h // kv, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float()) * (1.0 / math.sqrt(hd))
+    rows = start.to(q.device).long()[:, None] + torch.arange(c, device=q.device)[None, :]  # (B, C)
+    mask = torch.arange(s, device=q.device)[None, None, :] <= rows[:, :, None]  # (B, C, S)
+    probs = _masked_softmax(scores, mask[:, None, None])
+    out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
+    return out.reshape(b, c, h, hd)

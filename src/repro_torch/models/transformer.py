@@ -1,7 +1,10 @@
 """Pre-LN dense transformer blocks and layer stacks.
 
 Layers are stacked on a leading 'layers' axis, as in the JAX package; where
-JAX scans over that axis, the port runs a Python loop over layers.
+JAX scans over that axis, the port runs a Python loop over layers. The
+paged steps write each layer's slice of the arena in place (where JAX
+carries the pool through its scan and updates it there), so the pool stays
+one buffer through the stack.
 """
 from __future__ import annotations
 
@@ -61,6 +64,56 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     return x, {"k": k_cache, "v": v_cache}
 
 
+def apply_block_decode_paged(params, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             block_table: torch.Tensor, cfg: ModelConfig, cur_len: torch.Tensor,
+                             write_kv: bool = True):
+    """Single-token block step against one layer's page arena slice.
+
+    Same math as :func:`apply_block_decode` but the KV cache is
+    ``(num_pages, page, KV, hd)`` shared across requests, addressed through
+    the batch's block table: write the new token's K/V into its page (in
+    place), then attend through the table.
+
+    ``write_kv=False`` runs a FROZEN step: the new token's K/V is assumed
+    already resident at position ``cur_len`` (a shared-prefix-cache hit)
+    and nothing is written — the engine uses this to recover first-token
+    logits for a whole-prompt hit without touching shared pages. Returns
+    (x, k_pages, v_pages)."""
+    positions = cur_len[:, None]  # (B, 1)
+    h = apply_norm(params["ln1"], x, cfg)
+    q, k_new, v_new = attn_mod.qkv_project(params["attn"], h, cfg, positions)
+    if write_kv:
+        attn_mod.update_paged_kv(k_pages, v_pages, k_new, v_new, block_table, cur_len)
+    out = attn_mod.paged_decode_attention(q, k_pages, v_pages, block_table, cur_len + 1)
+    x = x + attn_mod.attn_output(params["attn"], out)
+    h = apply_norm(params["ln2"], x, cfg)
+    x = x + apply_mlp(params["mlp"], h, cfg)
+    return x, k_pages, v_pages
+
+
+def apply_block_prefill_chunk_paged(params, x: torch.Tensor, k_pages: torch.Tensor,
+                                    v_pages: torch.Tensor, block_table: torch.Tensor,
+                                    cfg: ModelConfig, start: torch.Tensor, valid: torch.Tensor):
+    """One prefill CHUNK's block step against a layer's page arena slice.
+
+    ``x``: (1, C, d) — C chunk rows whose absolute positions begin at
+    ``start`` (shape (1,)); ``valid`` (shape (1,)) counts the real rows
+    (the rest are padding whose K/V writes route to the scratch page). The
+    chunk's K/V is written BEFORE attention so chunk tokens attend to
+    themselves and each other, exactly like the matching rows of a dense
+    causal prefill. Returns (x, k_pages, v_pages)."""
+    c = x.shape[1]
+    positions = start[:, None] + torch.arange(c, device=x.device)[None, :]  # (1, C)
+    h = apply_norm(params["ln1"], x, cfg)
+    q, k_new, v_new = attn_mod.qkv_project(params["attn"], h, cfg, positions)
+    attn_mod.update_paged_kv_chunk(k_pages, v_pages, k_new, v_new, block_table, start, valid)
+    out = attn_mod.paged_chunk_attention(q, k_pages, v_pages, block_table, start)
+    x = x + attn_mod.attn_output(params["attn"], out)
+    h = apply_norm(params["ln2"], x, cfg)
+    x = x + apply_mlp(params["mlp"], h, cfg)
+    return x, k_pages, v_pages
+
+
 def _layer(stacked_params, i: int):
     return tree.map(lambda a: a[i], stacked_params)
 
@@ -94,3 +147,29 @@ def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: Model
         ks.append(new_cache["k"])
         vs.append(new_cache["v"])
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def apply_stack_decode_paged(stacked_params, x: torch.Tensor, arena: dict, block_table: torch.Tensor,
+                             cfg: ModelConfig, cur_len: torch.Tensor, write_kv: bool = True):
+    """One decode step through the stack against a paged arena.
+
+    ``arena``: ``{'k','v'}`` of shape (L, num_pages, page, KV, hd) — the
+    stage's slice of the shared pool, written in place layer by layer
+    (nothing is written when ``write_kv=False``, the frozen step). Returns
+    (x, arena) with the same tensors."""
+    for i in range(_num_layers(stacked_params)):
+        x, _, _ = apply_block_decode_paged(_layer(stacked_params, i), x, arena["k"][i], arena["v"][i],
+                                           block_table, cfg, cur_len, write_kv)
+    return x, arena
+
+
+def apply_stack_prefill_chunk_paged(stacked_params, x: torch.Tensor, arena: dict,
+                                    block_table: torch.Tensor, cfg: ModelConfig,
+                                    start: torch.Tensor, valid: torch.Tensor):
+    """One prefill chunk through the stack against a paged arena, written in
+    place layer by layer as :func:`apply_stack_decode_paged`. Returns
+    (x, arena) with the same tensors."""
+    for i in range(_num_layers(stacked_params)):
+        x, _, _ = apply_block_prefill_chunk_paged(_layer(stacked_params, i), x, arena["k"][i],
+                                                  arena["v"][i], block_table, cfg, start, valid)
+    return x, arena

@@ -1,2 +1,3 @@
-"""Scheduler pieces the platform core needs: the clock, latency windows and
-the signals type the fusion policy reads."""
+"""Scheduler pieces the port has so far: the clock, latency windows, the
+signals type the fusion policy reads, the shared service-time estimate, SLO
+class lanes and the shed error the continuous batcher uses."""

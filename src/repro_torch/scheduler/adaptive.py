@@ -1,12 +1,54 @@
-"""Live scheduler signals consumed by the fusion policy.
+"""Live scheduler signals consumed by the fusion policy, and the shared
+service-time estimate.
 
 The request scheduler itself is not ported yet; the policy already takes its
 signals type, so ``FusionPolicy.decide`` keeps one signature across slices.
+:class:`ServiceTimeEstimate` is the EWMA the continuous batcher prices its
+prefill chunks with (``serving/continuous.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+
+
+class ServiceTimeEstimate:
+    """Batch-service-time EWMA shared across one function's SLO lanes.
+
+    Service time is a property of the FUNCTION (its compiled batch
+    program), not of the admission class — but each lane used to keep its
+    own EWMA, so every new class lane cold-started its M/G/1 model with no
+    service estimate and spent its first batches flying blind. Sharing one
+    estimate per function means a fresh strict lane prices its slack
+    correctly from its very first window.
+
+    Thread-safe: lanes' dispatcher threads update concurrently."""
+
+    # provlint: the `value` property reads _value unlocked by design — a
+    # GIL-atomic reference read of a float; only writes take the lock.
+    GUARDED_WRITES = {"_value": "_lock"}
+
+    def __init__(self, alpha: float = 0.3):
+        self.alpha = alpha
+        self._lock = threading.Lock()
+        self._value: float | None = None
+
+    @property
+    def value(self) -> float | None:
+        return self._value
+
+    def observe(self, service_s: float) -> None:
+        if service_s < 0:
+            return
+        a = self.alpha
+        with self._lock:
+            v = self._value
+            self._value = service_s if v is None else (1 - a) * v + a * service_s
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = None
 
 
 @dataclasses.dataclass(frozen=True)

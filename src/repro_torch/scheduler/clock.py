@@ -7,6 +7,7 @@ module-level :data:`SYSTEM_CLOCK` singleton is the default everywhere.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 
@@ -15,6 +16,11 @@ class SystemClock:
 
     def now(self) -> float:
         return time.perf_counter()
+
+    def wait_on(self, cond: threading.Condition, timeout: float | None) -> None:
+        """``cond.wait`` with the caller holding ``cond``'s lock. May return
+        early (notify or spurious wake); callers must loop on their predicate."""
+        cond.wait(timeout)
 
 
 #: Shared default instance — every component's ``clock=None`` resolves here.

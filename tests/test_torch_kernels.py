@@ -97,7 +97,7 @@ def test_ops_shape_inference_on_meta():
     cur = torch.empty(2, dtype=torch.int32, device="meta")
     out = ops.decode_attention(qd, kd, kd, cur)
     assert out.device.type == "meta" and out.shape == qd.shape
-    assert ops.counts() == {"flash_attention": 0, "decode_attention": 0, "mha_ref": 0, "decode_attn_ref": 0}
+    assert set(ops.counts().values()) == {0}
 
 
 def test_cpu_tensors_take_the_plain_version_and_are_counted():
@@ -106,7 +106,7 @@ def test_cpu_tensors_take_the_plain_version_and_are_counted():
     q, k = torch.from_numpy(qn), torch.from_numpy(kn)
     ops.attention(q, k, k)
     ops.decode_attention(q[:, 0], k, k, torch.tensor([8], dtype=torch.int32))
-    assert ops.counts() == {"flash_attention": 0, "decode_attention": 0, "mha_ref": 1, "decode_attn_ref": 1}
+    assert ops.counts() == {**dict.fromkeys(ops.counts(), 0), "mha_ref": 1, "decode_attn_ref": 1}
 
 
 @pytest.mark.parametrize("case,exc", [

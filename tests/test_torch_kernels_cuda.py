@@ -1,5 +1,6 @@
-"""The hand-written kernels K3 (flash_attention) and K4 (decode_attention)
-against their plain versions, on the card.
+"""The hand-written kernels K3 (flash_attention), K4 (decode_attention),
+K1 (paged_decode_attention) and K2 (paged_chunk_attention) against their
+plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a CUDA
 device. The file imports no JAX, so it runs where only PyTorch is
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
 
 RTOL = ATOL = 2e-2  # bf16, as tests/test_kernels.py
 
@@ -113,3 +115,104 @@ def test_serving_chain_on_the_card_goes_through_the_kernels(cuda):
     got = logits.cpu()
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def paged_inputs(seed, b, n, page, p, h, kv, hd, device):
+    """Random bf16 pages and a block table of distinct live pages per
+    sequence (page 0 is the arena's scratch page: table padding)."""
+    rng = np.random.default_rng(seed)
+    kp, vp = (torch.from_numpy(rng.standard_normal((p, page, kv, hd)).astype(np.float32))
+              .to(device, torch.bfloat16) for _ in range(2))
+    perm = rng.permutation(np.arange(1, p))[: b * n].reshape(b, n)
+    bt = torch.from_numpy(perm.astype(np.int32)).to(device)
+    return kp, vp, bt, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,page,p,h,kv,hd,lens", [
+    (8, 32, 16, 321, 32, 8, 64, [0, 37, 129, 300, 406, 511, 1, 64]),  # the serve shape
+    (1, 32, 16, 321, 32, 8, 64, [406]),
+    (3, 8, 16, 40, 8, 1, 128, [5, 128, 77]),  # MQA, head dim 128
+    (2, 4, 128, 9, 4, 2, 64, [300, 512]),     # page 128
+])
+def test_paged_decode_kernel_matches_plain(cuda, b, n, page, p, h, kv, hd, lens):
+    kp, vp, bt, rng = paged_inputs(21, b, n, page, p, h, kv, hd, cuda)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    cur = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tpaged.launches["paged_decode_attention"]
+    got = tpaged.paged_decode_attention(q, kp, vp, bt, cur)
+    torch.cuda.synchronize()
+    assert tpaged.launches["paged_decode_attention"] == before + 1
+    np.testing.assert_allclose(as_np(got), as_np(tpaged.plain_decode(q, kp, vp, bt, cur)),
+                               rtol=RTOL, atol=ATOL)
+    for i, n_valid in enumerate(lens):
+        if n_valid == 0:  # a masked slot: exact zeros
+            assert torch.equal(got[i], torch.zeros_like(got[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,start,valid", [(64, 0, 64), (64, 192, 64), (512, 0, 300), (5, 37, 5)])
+def test_paged_chunk_kernel_matches_plain(cuda, c, start, valid):
+    n, page, p, h, kv, hd = 32, 16, 321, 32, 8, 64
+    kp, vp, bt, rng = paged_inputs(23, 1, n, page, p, h, kv, hd, cuda)
+    q = torch.from_numpy(rng.standard_normal((1, c, h, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    st = torch.tensor([start], dtype=torch.int32, device=cuda)
+    before = tpaged.launches["paged_chunk_attention"]
+    got = tpaged.paged_chunk_attention(q, kp, vp, bt, st)
+    torch.cuda.synchronize()
+    assert tpaged.launches["paged_chunk_attention"] == before + 1
+    want = tpaged.plain_chunk(q, kp, vp, bt, st)
+    # rows past `valid` are padding the head discards, but computed all the same
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_reject_what_they_do_not_take(cuda):
+    kp = torch.zeros(4, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    cur = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        tpaged.paged_decode_attention(torch.zeros(1, 4, 64, device=cuda), kp.float(), kp.float(), bt, cur)
+    with pytest.raises(ValueError):
+        tpaged.paged_decode_attention(torch.zeros(1, 4, 64, device=cuda, dtype=torch.bfloat16), kp, kp,
+                                      bt.long(), cur)
+
+
+@pytest.mark.cuda
+def test_batcher_on_the_card_goes_through_the_paged_kernels(cuda):
+    """A small llama3.2-1b served by the continuous batcher on the card:
+    chunked prefill runs K2, batched decode K1, never a plain version, and
+    every request completes with the arena consistent and empty."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.continuous import ContinuousBatcher
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(reduced_config(get_arch("llama3.2-1b")), d_model=256, d_head=64)
+    model = build_model(cfg)
+    platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32) for t in (9, 23, 40)]
+    try:
+        engine = ServingEngine(model, platform, max_len=64, device=cuda, kv_pages=24, kv_page_size=16)
+        engine.generate({"tokens": torch.from_numpy(prompts[0]).to(cuda)}, steps=4)  # fuse on dense traffic
+        assert len(platform.registry.live_instances()) == 1
+        ops.reset_counts()
+        cb = ContinuousBatcher(engine, capacity=4, prefill_chunk=16)
+        try:
+            results = [f.result(timeout=300) for f in [cb.submit({"tokens": p}, 6) for p in prompts]]
+        finally:
+            cb.shutdown()
+        counts = ops.counts()
+        engine.arena.check_consistency()
+        assert engine.arena.used_pages() == 0
+    finally:
+        platform.shutdown()
+    assert all(r["tokens"].shape == (1, 6) for r in results)
+    assert counts["paged_decode_attention"] > 0 and counts["paged_chunk_attention"] > 0
+    assert all(counts[k] == 0 for k in ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref",
+                                        "paged_chunk_attn_ref"))
