@@ -11,13 +11,15 @@ Phases (any failed check exits non-zero and prints no result):
    the hand-written kernels are built from ``src/repro_torch/kernels/csrc``.
 2. Kernel phase: K3 ``flash_attention`` and K4 ``decode_attention`` at the
    dense serving chain's shapes, K1 ``paged_decode_attention`` and K2
-   ``paged_chunk_attention`` at the paged serve path's, each held against
-   its plain PyTorch version at rtol = atol = 2e-2 and timed with CUDA
-   events (median of 21 samples of 10 back-to-back calls, after warm-up)
-   beside its plain version, one ``scaled_dot_product_attention`` call on
-   the same inputs (a yardstick only; the port never calls it — for K1 and
-   K2 on the pre-gathered contiguous cache, the gather timed apart) and the
-   least time the card could take (``bound_ms``).
+   ``paged_chunk_attention`` at the paged serve path's, K5 ``moe_gmm`` at
+   the MoE serve path's (E = 128; C = 8, 24, 40), each held against its
+   plain PyTorch version at rtol = atol = 2e-2 and timed with CUDA events
+   (median of 21 samples of 10 back-to-back calls, after warm-up) beside
+   its plain version, one library call on the same inputs (a yardstick
+   only; the port never calls it: ``scaled_dot_product_attention`` — for K1
+   and K2 on the pre-gathered contiguous cache, the gather timed apart —
+   and ``torch.bmm`` for K5) and the least time the card could take
+   (``bound_ms``).
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -46,10 +48,26 @@ Phases (any failed check exits non-zero and prints no result):
 6. Profile phase: where a fused decode step's time goes — the host's wall
    clock against the device's kernel time (``torch.profiler``) — and its
    ten costliest kernels.
+7. MoE serve phase: the llama tensors freed, full-width
+   ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
+   random bf16 weights from seed 0, about 61 GB) as the eight-function
+   chain, unfused and fused, with the serve phase's prompts and checks
+   (8 live instances unfused, 1 fused, less ``ram_bytes``, identical tokens
+   fused, unfused and without the platform), and K5 launched exactly three
+   times per MoE layer applied, the merges' canary replays counted.
+8. Paged MoE phase: the same weights served by the continuous batcher over
+   the 321-page arena, the first 8 of the paged phase's requests, fused and
+   then unfused, with the paged phase's checks (K1, K2 and K5 launched).
+9. MoE block check: one full-width MoE layer on the same bf16 input on the
+   card (K5) and on the host's CPU: at least 99 % of the tokens' top-8
+   expert sets agree, and the outputs on those tokens within 2e-2 of max |y|.
+10. MoE profile: phase 6 for a fused MoE decode step; then peak device
+   memory (``torch.cuda.max_memory_allocated``).
 
-Standard output opens with the device line; its last six lines are the
-``serve``, ``paged_serve``, ``reference``, ``profile`` and ``kernels`` JSON
-lines and ``{"ok": true, "device": {...}}``.
+Standard output opens with the device line; its last lines are the
+``serve``, ``paged_serve``, ``reference``, ``profile``, ``moe_serve``,
+``moe_paged_serve``, ``moe_block``, ``moe_profile``, ``moe_memory`` and
+``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -77,6 +95,10 @@ BLOCK_TOL = 5e-2
 TIMED_SAMPLES = 21  # CUDA-event samples per timing, of REPS calls each
 REPS = 10
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device sleep ahead of each sample
+
+
+# the plain versions' call counters (repro_torch.kernels.ref.CALLS)
+PLAIN = ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref", "gmm_ref")
 
 
 class SmokeFailure(Exception):
@@ -201,7 +223,47 @@ def kernel_phase(torch, F) -> dict:
         })
     out["decode_attention"] = cases
     out.update(paged_kernel_cases(torch, F, gen))
+    out["moe_gmm"] = moe_kernel_cases(torch, gen)
     return out
+
+
+# (C, d, f) of the MoE serve path's expert products, E = 128 (qwen3-moe-30b-a3b):
+# gate/up and down at a decode step (C = 8), gate/up at a 300-token dense
+# prefill (C = 24) and at a 512-row paged chunk (C = 40)
+MOE_CASES = ((8, 2048, 768), (8, 768, 2048), (24, 2048, 768), (40, 2048, 768))
+MOE_EXPERTS = 128
+
+
+def moe_kernel_cases(torch, gen) -> list:
+    """K5 at the MoE serve path's shapes against its plain version, timed
+    beside it and beside the library yardstick ``torch.bmm`` on the same
+    inputs (the port never calls it)."""
+    from repro_torch.kernels import moe_gmm as gm
+
+    dev = torch.device("cuda")
+    cases = []
+    for c, d, f in MOE_CASES:
+        xe = torch.randn(MOE_EXPERTS, c, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(MOE_EXPERTS, d, f, generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
+        got = gm.moe_gmm(xe, w)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, gm.plain(xe, w))
+        check(torch.equal(got, gm.moe_gmm(xe, w)), "moe_gmm is not deterministic")
+        nbytes = 2 * (xe.numel() + w.numel() + got.numel())
+        b_ms, b_by = bound(2 * MOE_EXPERTS * c * d * f, nbytes)
+        ms = time_ms(torch, lambda: gm.moe_gmm(xe, w))
+        cases.append({
+            "shape": f"E={MOE_EXPERTS} C={c} d={d} f={f} bf16",
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": time_ms(torch, lambda: gm.plain(xe, w)),
+            "library_ms": time_ms(torch, lambda: torch.bmm(xe, w)),
+            "library": "torch.bmm",
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "achieved_gb_s": nbytes / ms / 1e6,
+        })
+    return cases
 
 
 def _paged_inputs(torch, gen, b, n, page, p, kv, hd):
@@ -320,10 +382,24 @@ def direct_generate(torch, model, params, tokens, steps: int, max_len: int):
     return torch.cat(out, dim=1)
 
 
+def moe_layer_runs(cfg, engine, client_invocations: int, checked_members) -> int:
+    """How many MoE layers a run applied: each client invocation runs the
+    whole chain; each canary a merge's health check replayed runs the chain
+    from its member down, twice (through the live path and the new unit)."""
+    if cfg.family != "moe":
+        return 0
+    names = engine.chain_names()
+    per = cfg.num_layers // len(engine.group_names)
+    below = {n: per * sum(1 for m in names[i:] if m in engine.group_names) for i, n in enumerate(names)}
+    return client_invocations * cfg.num_layers + sum(2 * below[m] for m in checked_members)
+
+
 def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
-                max_len=MAX_LEN) -> dict:
-    """Drive the serving chain unfused and fused on ``dev``. On the card it
-    also checks that the kernels, and never their plain versions, ran."""
+                max_len=MAX_LEN, params=None) -> dict:
+    """Drive the serving chain unfused and fused on ``dev`` (``params``:
+    the model's weights, made from seed 0 when not given). On the card it
+    also checks that the kernels, and never their plain versions, ran; for
+    an MoE model, that K5 ran exactly three times per MoE layer applied."""
     from repro_torch.core import FusionPolicy, TinyTorchBackend
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -331,7 +407,8 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
 
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init(0, device=dev)
+    if params is None:
+        params = model.init(0, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -361,6 +438,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                     lats[label].extend(lat)
                 tokens[label].append(toks)
         for label, platform in platforms.items():
+            platform.merger.wait_idle()  # no merge (and no canary replay) still in flight
             results[label] = {
                 "tokens": tokens[label],
                 "p50_token_ms": statistics.median(lats[label]) * 1e3,
@@ -368,19 +446,25 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 "ram_bytes": platform.ram_bytes(),
                 "live_instances": len(platform.registry.live_instances()),
                 "merges": [(m.members, m.healthy) for m in platform.merger.merge_log],
+                "replayed": [n for m in platform.merger.merge_log for n in m.checked_members],
             }
     finally:
         for platform in platforms.values():
             platform.shutdown()
     counts = ops.counts()
 
-    chain = set(engines["fused"].chain_names())  # embed, g0..g3, head at full depth: 6
+    chain = set(engines["fused"].chain_names())  # embed, g0..g{G-1}, head
     check(results["unfused"]["live_instances"] == len(chain),
           f"unfused chain should hold {len(chain)} instances, has {results['unfused']['live_instances']}")
     check(results["fused"]["live_instances"] == 1,
           f"fused chain should hold 1 instance, has {results['fused']['live_instances']}")
     check(any(ok and set(m) == chain for m, ok in results["fused"]["merges"]),
           "no healthy merge of the whole chain in merge_log")
+    check(results["fused"]["ram_bytes"] < results["unfused"]["ram_bytes"],
+          "fused ram_bytes is not below unfused")
+    invocations = len(prompt_lens) * new_tokens  # per platform: a prefill and new_tokens - 1 steps
+    moe_runs = sum(moe_layer_runs(cfg, engines[label], invocations, results[label]["replayed"])
+                   for label in platforms)
     for i, t in enumerate(prompt_lens):
         a, b = results["unfused"]["tokens"][i], results["fused"]["tokens"][i]
         check(a.shape == (1, new_tokens), f"prompt {t}: tokens of shape {tuple(a.shape)}")
@@ -388,8 +472,9 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     if dev.type == "cuda":
         check(counts["flash_attention"] > 0 and counts["decode_attention"] > 0,
               f"the main path did not launch both kernels: {counts}")
-        check(counts["mha_ref"] == 0 and counts["decode_attn_ref"] == 0,
-              f"the main path called a plain version on the card: {counts}")
+        check(all(counts[k] == 0 for k in PLAIN), f"the main path called a plain version on the card: {counts}")
+        check(counts["moe_gmm"] == 3 * moe_runs,
+              f"K5 launched {counts['moe_gmm']} times for {moe_runs} MoE layers applied (3 each)")
 
     # the chain computes what the model computes without the platform
     ref = direct_generate(torch, model, params, prompts[0], new_tokens, max_len)
@@ -411,9 +496,10 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         "ram_bytes": {k: r["ram_bytes"] for k, r in results.items()},
         "live_instances": {k: r["live_instances"] for k, r in results.items()},
         "tokens_identical": True,
-        "launches": {"flash_attention": counts["flash_attention"],
-                     "decode_attention": counts["decode_attention"]},
-        "plain_calls": {"mha_ref": counts["mha_ref"], "decode_attn_ref": counts["decode_attn_ref"]},
+        "launches": {k: counts[k] for k in ("flash_attention", "decode_attention", "moe_gmm")},
+        "plain_calls": {k: counts[k] for k in PLAIN},
+        "moe_layers_applied": moe_runs,
+        "canary_replays": {label: len(r["replayed"]) for label, r in results.items()},
         "prefills": prefills,
         "decode_steps": decode_steps,
         "launches_per_request": {
@@ -421,6 +507,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
             "decode_attention_per_decode_step": counts["decode_attention"] / decode_steps,
         },
         "first_tokens": results["fused"]["tokens"][0][0, :8].tolist(),
+        "distinct_tokens": len(set(torch.cat(results["fused"]["tokens"], dim=1).flatten().tolist())),
     }
 
 
@@ -532,6 +619,7 @@ def paged_block_check(torch, engine, lens, seed=3) -> list:
 
     cfg, arena, dev = engine.cfg, engine.arena, engine.device
     rng = np.random.default_rng(seed)
+    kind = tfm.layer_kind(cfg)
     per = cfg.num_layers // len(engine.group_names)
     dense, sids, first = [], [], []
     for i, t in enumerate(lens):
@@ -554,9 +642,10 @@ def paged_block_check(torch, engine, lens, seed=3) -> list:
                 lp = tree.map(lambda a: a[layer], engine.params["blocks"])
                 stage, j = f"g{layer // per}", layer % per
                 cache = {kv: torch.cat([c[stage][kv][j] for c in dense]) for kv in ("k", "v")}
-                y_dense, _ = tfm.apply_block_decode(lp, x, cache, cfg, cur)
+                y_dense, _ = tfm.apply_block_decode(lp, x, cache, cfg, kind, cur)
                 pages = arena.data[stage]
-                y_paged, _, _ = tfm.apply_block_decode_paged(lp, x, pages["k"][j], pages["v"][j], bt, cfg, cur)
+                y_paged, _, _ = tfm.apply_block_decode_paged(lp, x, pages["k"][j], pages["v"][j], bt, cfg,
+                                                             kind, cur)
                 errs.append(rel_err(y_paged - x, y_dense - x))
                 x = y_dense
     finally:
@@ -567,7 +656,7 @@ def paged_block_check(torch, engine, lens, seed=3) -> list:
 
 def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED_REQUESTS,
                       steps=PAGED_STEPS, max_len=MAX_LEN, page=PAGE, capacity=CAPACITY,
-                      prefix_len=SHARED_PREFIX, small_cfg=None) -> dict:
+                      prefix_len=SHARED_PREFIX, small_cfg=None, params=None) -> dict:
     """The paged continuous-batching serve path: ``ServingEngine(...,
     kv_pages=(capacity + 2) * max_len / page + 1)`` (load_bench's arena
     size) and ``ContinuousBatcher(engine, capacity)`` with the default chunk
@@ -576,7 +665,8 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     the card it also checks that K1 and K2, and never a plain version, ran.
     Then one batched paged decode step against the dense one, block by
     block, and a small model (``small_cfg``) served by the batcher against
-    per-request generate."""
+    per-request generate. ``params``: the model's weights, made from seed 0
+    when not given."""
     import numpy as np
 
     from repro_torch.core import FusionPolicy, TinyTorchBackend
@@ -585,7 +675,8 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     from repro_torch.serving.engine import ServingEngine
 
     model = build_model(cfg)
-    params = model.init(0, device=dev)
+    if params is None:
+        params = model.init(0, device=dev)
     prompts, gens = paged_requests(cfg, prompt_lens, n_requests, steps, prefix_len)
     warm_rng = np.random.default_rng(1)
     warm = [warm_rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32) for t in prompt_lens]
@@ -620,13 +711,12 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     check(fused["shared_hits"] > 0, "no request hit the shared-prefix cache")
     check(max(block_errs) <= BLOCK_TOL,
           f"a block's paged decode step differs from its dense one beyond {BLOCK_TOL}: {block_errs}")
-    plain = ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref")
+    kernels = ("paged_decode_attention", "paged_chunk_attention") + (("moe_gmm",) if cfg.family == "moe" else ())
     if dev.type == "cuda":
         for label, run in runs.items():
             c = run["counts"]
-            check(c["paged_decode_attention"] > 0 and c["paged_chunk_attention"] > 0,
-                  f"{label}: the paged serve path did not launch K1 and K2: {c}")
-            check(all(c[k] == 0 for k in plain), f"{label}: a plain version ran on the card: {c}")
+            check(all(c[k] > 0 for k in kernels), f"{label}: the paged serve path did not launch {kernels}: {c}")
+            check(all(c[k] == 0 for k in PLAIN), f"{label}: a plain version ran on the card: {c}")
 
     # a small model served by the batcher gives per-request generate's tokens
     small = build_model(small_cfg or cfg)
@@ -649,6 +739,7 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
         check(np.array_equal(a, b), f"small model, prompt {t}: batcher tokens {a} != generate {b}")
 
     agree = [bool(np.array_equal(a, b)) for a, b in zip(fused["tokens"], unfused["tokens"])]
+    check(all(agree), f"fused and unfused tokens differ in {agree.count(False)} of {len(agree)} requests")
     keys = ("tokens_per_s", "itl_p50_ms", "itl_p95_ms", "mean_occupancy", "decode_steps",
             "prefill_chunks", "mean_pages_per_request", "mean_billed_pages_per_request",
             "arena_gb_s", "shared_hits", "cow_copies", "live_instances", "ram_bytes", "elapsed_s")
@@ -664,9 +755,8 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
         "page": page,
         "kv_pages": kv_pages,
         **{k: {label: run[k] for label, run in runs.items()} for k in keys},
-        "launches": {label: {k: run["counts"][k] for k in ("paged_decode_attention", "paged_chunk_attention")}
-                     for label, run in runs.items()},
-        "plain_calls": {label: {k: run["counts"][k] for k in plain} for label, run in runs.items()},
+        "launches": {label: {k: run["counts"][k] for k in kernels} for label, run in runs.items()},
+        "plain_calls": {label: {k: run["counts"][k] for k in PLAIN} for label, run in runs.items()},
         "block_rel_err": block_errs,
         "small_model_tokens_identical": True,
         "fused_vs_unfused_identical_requests": sum(agree),
@@ -721,13 +811,14 @@ def reference_phase(torch, dev, cfg, prompt_len: int = 37) -> dict:
         host_params = tree.map(lambda x: x.cpu(), params)
         toks = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev,
                              dtype=torch.int32)
+        kind = tfm.layer_kind(cfg)
         x = embed_tokens(params["embed"], toks)
         pos = torch.arange(prompt_len, device=dev)[None]
         blocks = []
         for i in range(cfg.num_layers):
-            y, _ = tfm.apply_block_full(tree.map(lambda a: a[i], params["blocks"]), x, cfg, pos)
+            y, _ = tfm.apply_block_full(tree.map(lambda a: a[i], params["blocks"]), x, cfg, kind, pos)
             y_host, _ = tfm.apply_block_full(tree.map(lambda a: a[i], host_params["blocks"]),
-                                             x.cpu(), cfg, pos.cpu())
+                                             x.cpu(), cfg, kind, pos.cpu())
             blocks.append(rel_err(y - x, y_host - x.cpu()))  # the block's own contribution
             x = y
         out["full_width_blocks_rel_err"] = blocks
@@ -743,10 +834,11 @@ def reference_phase(torch, dev, cfg, prompt_len: int = 37) -> dict:
 
 
 def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
-                  max_len: int = MAX_LEN) -> dict:
+                  max_len: int = MAX_LEN, params=None) -> dict:
     """Where a fused decode step's time goes: ``steps`` decode steps timed on
     the host clock, then ``steps`` more under torch.profiler for the
-    device's kernel time and the kernels that take most of it."""
+    device's kernel time and the kernels that take most of it. ``params``:
+    the model's weights, made from seed 0 when not given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -755,7 +847,8 @@ def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
     from repro_torch.serving.engine import ServingEngine, _greedy_token
 
     model = build_model(cfg)
-    params = model.init(0, device=dev)
+    if params is None:
+        params = model.init(0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev,
                            dtype=torch.int32)
@@ -806,6 +899,45 @@ def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
     }
 
 
+MOE_AGREE = 0.99  # share of tokens whose top-k expert sets must agree, card vs host
+
+
+def moe_block_phase(torch, dev, cfg, params, prompt_len: int = 37) -> dict:
+    """One full-width MoE layer (``apply_moe`` with layer 0's weights) on the
+    same bf16 input on ``dev`` (K5) and on the host's CPU (the plain
+    version): how many tokens' top-k expert sets agree (a flip needs an fp32
+    near-tie), and the outputs on the tokens that agree."""
+    from repro_torch import tree
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_norm, embed_tokens
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev, dtype=torch.int32)
+    layer = tree.map(lambda a: a[0], params["blocks"])
+    host = tree.map(lambda a: a.cpu(), layer["moe"])
+    k = cfg.num_experts_per_tok
+    with torch.no_grad():
+        x = apply_norm(layer["ln2"], embed_tokens(params["embed"], toks), cfg)
+        y, metrics = moe.apply_moe(layer["moe"], x, cfg)
+        y_host, metrics_host = moe.apply_moe(host, x.cpu(), cfg)
+        sets = moe.route(layer["moe"], x, cfg)[1].reshape(-1, k).sort(dim=-1).values.cpu()
+        sets_host = moe.route(host, x.cpu(), cfg)[1].reshape(-1, k).sort(dim=-1).values
+    agree = (sets == sets_host).all(dim=-1)
+    y, y_host = y.float().cpu()[0], y_host.float()[0]
+    check(bool(torch.isfinite(y).all()), "MoE layer output has non-finite values")
+    err = float((y - y_host)[agree].abs().max() / y_host.abs().max())
+    check(int(agree.sum()) >= MOE_AGREE * prompt_len,
+          f"top-{k} expert sets agree for {int(agree.sum())} of {prompt_len} tokens only")
+    check(err <= REF_TOL, f"MoE layer output, card vs host, differs by {err} of max |y| (limit {REF_TOL})")
+    return {
+        "tokens": prompt_len,
+        "topk_sets_agree": int(agree.sum()),
+        "rel_err_on_agreeing_tokens": err,
+        "moe_dropped": {"card": float(metrics["moe_dropped"]), "host": float(metrics_host["moe_dropped"])},
+        "moe_aux": {"card": float(metrics["moe_aux"]), "host": float(metrics_host["moe_aux"])},
+    }
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its source, the TPU kernel it replaces, its
     launches on the main path that runs it, and the kernel phase's figures
@@ -818,6 +950,7 @@ def kernels_line(kern: dict, launches: dict) -> dict:
                              "src/repro/kernels/decode_attention.py:59", 0),
         "paged_decode_attention": (paged, "src/repro/kernels/paged_attention.py:86", 0),
         "paged_chunk_attention": (paged, "src/repro/kernels/paged_attention.py:178", 2),
+        "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:39", 0),
     }
     entries = []
     for name, cases in kern.items():
@@ -833,6 +966,56 @@ def kernels_line(kern: dict, launches: dict) -> dict:
             "shape": main["shape"], "cases": cases,
         })
     return {"kernels": entries}
+
+
+def moe_phases(torch, dev) -> dict:
+    """Full-width qwen3-moe-30b-a3b at full depth (48 layers, random bf16
+    weights from seed 0, made once after the llama phases' tensors are
+    freed): the dense serve phase, the paged serve phase (the first 8
+    requests), the MoE block check and a profiled decode step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import param_bytes
+
+    gc.collect()  # the platforms of the llama phases hold reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    memory = {"param_bytes": param_bytes(model.param_defs), "params_init_s": init_s,
+              "after_init_gb": torch.cuda.memory_allocated() / 1e9}
+
+    t0 = time.perf_counter()
+    serve = serve_phase(torch, dev, cfg, params=params)
+    serve["params_init_s"] = init_s
+    serve["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"moe_serve": serve}), flush=True)
+    print(f"moe serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
+    t0 = time.perf_counter()
+    # the small model of the batcher-vs-generate check: capacity factor E / k,
+    # so that no prompt drops a token (a drop depends on the call's row count)
+    small = reduced_config(cfg)
+    small = dataclasses.replace(small, d_model=256, d_head=64,
+                                capacity_factor=small.num_experts / small.num_experts_per_tok)
+    paged = paged_serve_phase(torch, dev, cfg, n_requests=8, small_cfg=small, params=params)
+    print(json.dumps({"moe_paged_serve": paged}), flush=True)
+    print(f"moe paged serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
+    t0 = time.perf_counter()
+    print(json.dumps({"moe_block": moe_block_phase(torch, dev, cfg, params)}), flush=True)
+    print(json.dumps({"moe_profile": profile_phase(torch, dev, cfg, params=params)}), flush=True)
+    memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"moe_memory": memory}), flush=True)
+    print(f"moe block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return {"moe_gmm_launches": serve["launches"]["moe_gmm"]}
 
 
 def main() -> int:
@@ -883,7 +1066,9 @@ def main() -> int:
     t0 = time.perf_counter()
     print(json.dumps({"profile": profile_phase(torch, dev, cfg)}), flush=True)
     print(f"profile phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    launches = {**serve["launches"], **paged["launches"]["fused"]}
+
+    moe = moe_phases(torch, dev)
+    launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["moe_gmm_launches"]}
     print(json.dumps(kernels_line(kern, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)

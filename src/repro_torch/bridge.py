@@ -3,8 +3,11 @@
 ``params_from_numpy`` takes a parameter tree whose leaves are numpy
 **float32** arrays — the caller converts with ``np.asarray(x.astype(
 jnp.float32))``, because ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``
-— and returns the port's tree: same keys, same shapes, cast to ``dtype`` on
-``device``. Both packages then compute the same function on the same weights.
+— and the port's ``ParamDef`` tree of the same model, and returns the port's
+tree: same keys, same shapes, each leaf in the dtype its def gives it (the
+MoE router stays float32 beside bf16 weights), widened to ``dtype`` where
+that is wider, on ``device``. Both packages then compute the same function
+on the same weights.
 """
 from __future__ import annotations
 
@@ -15,13 +18,18 @@ from repro_torch import tree
 from repro_torch.device import resolve_device
 
 
-def params_from_numpy(params, *, dtype: torch.dtype = torch.bfloat16, device=None):
+def params_from_numpy(params, defs, *, dtype: torch.dtype = torch.bfloat16, device=None):
+    """``dtype=torch.bfloat16`` gives every leaf its def's dtype;
+    ``dtype=torch.float32`` gives every leaf float32 (a float32 reference)."""
     dev = resolve_device(device)
 
-    def convert(x):
+    def convert(x, d):
         a = np.asarray(x)
         if a.dtype != np.float32:
             raise TypeError(f"params_from_numpy takes float32 leaves, got {a.dtype}")
-        return torch.from_numpy(np.array(a, copy=True)).to(device=dev, dtype=dtype)
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"leaf of shape {a.shape} for a def of shape {d.shape}")
+        return torch.from_numpy(np.array(a, copy=True)).to(
+            device=dev, dtype=torch.promote_types(d.dtype, dtype))
 
-    return tree.map(convert, params)
+    return tree.map(convert, params, defs)

@@ -7,6 +7,7 @@ from repro_torch.configs.base import (  # noqa: F401
     register_arch,
 )
 
-# Importing the arch modules registers them (this slice ports the dense
-# llama3.2-1b configuration only).
+# Importing the arch modules registers them (the dense llama3.2-1b and the
+# MoE qwen3-moe-30b-a3b configurations).
 from repro_torch.configs import llama32_1b  # noqa: F401
+from repro_torch.configs import qwen3_moe_30b_a3b  # noqa: F401

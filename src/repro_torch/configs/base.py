@@ -2,7 +2,8 @@
 
 Every assigned architecture is a :class:`ModelConfig`; an input shape is a
 :class:`ShapeConfig`. The fields mirror the JAX package's, so a config
-carries across unchanged; this slice reads those of the dense family.
+carries across unchanged; the port reads those of the dense and MoE
+families.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -39,6 +39,8 @@ SIGNATURES = {
     "repro_paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, start, out, B, C, P, page, n, H, KV, D, stream
     "repro_paged_chunk_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # xe, w, out, E, C, D, F, stream
+    "repro_moe_gmm_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

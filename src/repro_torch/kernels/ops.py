@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
 
@@ -34,12 +35,18 @@ def paged_chunk_attention(q, k_pages, v_pages, block_table, start):
     return _paged.paged_chunk_attention(q, k_pages, v_pages, block_table, start)
 
 
+def gmm(xe, w):
+    """xe: (E,C,d); w: (E,d,f) -> (E,C,f)."""
+    return _gmm.moe_gmm(xe, w)
+
+
 def counts() -> dict:
     """Kernel launches and plain-version calls since the last reset."""
     return {
         "flash_attention": _flash.launches,
         "decode_attention": _decode.launches,
         **_paged.launches,
+        "moe_gmm": _gmm.launches,
         **ref.CALLS,
     }
 
@@ -47,6 +54,7 @@ def counts() -> dict:
 def reset_counts() -> None:
     _flash.launches = 0
     _decode.launches = 0
+    _gmm.launches = 0
     for name in _paged.launches:
         _paged.launches[name] = 0
     for name in ref.CALLS:

@@ -11,7 +11,8 @@ import math
 
 import torch
 
-CALLS = {"mha_ref": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0, "paged_chunk_attn_ref": 0}
+CALLS = {"mha_ref": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0, "paged_chunk_attn_ref": 0,
+         "gmm_ref": 0}
 
 
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -105,3 +106,10 @@ def paged_chunk_attn_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
     probs = _masked_softmax(scores, mask[:, None, None])
     out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
     return out.reshape(b, c, h, hd)
+
+
+def gmm_ref(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert GEMM. xe: (E, C, d); w: (E, d, f) -> (E, C, f), accumulated
+    in float32 and cast to the dtype of ``xe``."""
+    CALLS["gmm_ref"] += 1
+    return torch.einsum("ecd,edf->ecf", xe.float(), w.float()).to(xe.dtype)

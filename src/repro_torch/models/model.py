@@ -1,4 +1,4 @@
-"""build_model(cfg) — the Model API for the dense family.
+"""build_model(cfg) — the Model API for the block families (dense, MoE, VLM).
 
 A Model exposes the serving programs (plain functions of parameter trees —
 exactly what the Provuse platform deploys as FaaS functions):
@@ -33,26 +33,30 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port serves the dense family only, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(f"the port serves the dense, moe and vlm families, not {cfg.family!r}")
     L = cfg.num_layers
+    kind = tfm.layer_kind(cfg)
     defs: dict = {
         "embed": embedding_defs(cfg),
         "ln_f": norm_defs(cfg),
-        "blocks": tfm.stack_block_defs(cfg, L),
+        "blocks": tfm.stack_block_defs(cfg, kind, L),
     }
 
     def prefill_fn(params, batch):
-        x = embed_tokens(params["embed"], batch["tokens"])
+        if "embeds" in batch:  # vlm: precomputed frontend embeddings
+            x = batch["embeds"]
+        else:
+            x = embed_tokens(params["embed"], batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        h, cache = tfm.apply_stack_full(params["blocks"], x, cfg, positions, causal=True,
+        h, cache = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True,
                                         collect_cache=True)
         h = apply_norm(params["ln_f"], h[:, -1:], cfg)
         return unembed(params["embed"], h)[:, 0], cache  # last position only
 
     def decode_fn(params, batch, cache):
         x = embed_tokens(params["embed"], batch["tokens"])  # (B, 1, d)
-        h, new_cache = tfm.apply_stack_decode(params["blocks"], x, cache, cfg, batch["cur_len"])
+        h, new_cache = tfm.apply_stack_decode(params["blocks"], x, cache, cfg, kind, batch["cur_len"])
         h = apply_norm(params["ln_f"], h, cfg)
         return unembed(params["embed"], h)[:, 0], new_cache
 

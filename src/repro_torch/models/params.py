@@ -36,26 +36,35 @@ def _fan_in(d: ParamDef) -> int:
     return max(1, d.shape[ax])
 
 
+# float32 values drawn at once: a leaf is drawn in runs of leading-axis
+# slices of at most this many values (at least one slice), each written into
+# the final-dtype leaf, so the float32 temporary is one layer's slice at
+# most, never the whole stacked leaf.
+DRAW_VALUES = 1 << 26
+
+
 def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype, device=device)
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-    if d.init != "embed":
-        x.mul_(1.0 / math.sqrt(_fan_in(d)))
-    return x.to(d.dtype)
+    scale = 1.0 if d.init == "embed" else 1.0 / math.sqrt(_fan_in(d))
+    out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    rows = max(1, DRAW_VALUES // max(1, math.prod(d.shape[1:])))
+    for part in out.view(-1, *d.shape[1:]).split(rows):
+        x = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=device)
+        part.copy_(x.mul_(scale))
+    return out
 
 
 def init_params(defs, seed: int = 0, *, device=None):
     """Materialize ``defs`` on ``device`` (default: the card) from a
-    ``torch.Generator`` seeded with ``seed``; leaves draw in sorted-key order."""
+    ``torch.Generator`` seeded with ``seed``; leaves draw in sorted-key order,
+    each in its def's dtype."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    leaves, _ = tree.flatten(defs)
-    values = iter([_init_leaf(d, gen, dev) for d in leaves])
-    return tree.map(lambda _: next(values), defs)
+    return tree.map(lambda d: _init_leaf(d, gen, dev), defs)
 
 
 def param_bytes(defs) -> int:

@@ -1,10 +1,14 @@
-"""Pre-LN dense transformer blocks and layer stacks.
+"""Pre-LN transformer blocks (dense or MoE) and layer stacks.
 
 Layers are stacked on a leading 'layers' axis, as in the JAX package; where
 JAX scans over that axis, the port runs a Python loop over layers. The
 paged steps write each layer's slice of the arena in place (where JAX
 carries the pool through its scan and updates it there), so the pool stays
 one buffer through the stack.
+
+A block's ``kind`` is "dense" (SwiGLU MLP) or "moe" (the MoE layer in the
+MLP's place), as in the JAX package. The MoE layer's metrics (aux loss,
+drop share) are discarded here, as the JAX serving engine discards them.
 """
 from __future__ import annotations
 
@@ -13,28 +17,45 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_defs, norm_defs
 from repro_torch.models.params import stack_defs
 
 
-def block_defs(cfg: ModelConfig):
-    return {
+def block_defs(cfg: ModelConfig, kind: str):
+    """kind: dense | moe"""
+    defs = {
         "ln1": norm_defs(cfg),
         "attn": attn_mod.attn_defs(cfg),
         "ln2": norm_defs(cfg),
-        "mlp": mlp_defs(cfg),
     }
+    if kind == "moe":
+        defs["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(cfg)
+    return defs
 
 
-def stack_block_defs(cfg: ModelConfig, n_layers: int):
-    return stack_defs(block_defs(cfg), n_layers)
+def layer_kind(cfg: ModelConfig) -> str:
+    return "moe" if cfg.family == "moe" else "dense"
+
+
+def stack_block_defs(cfg: ModelConfig, kind: str, n_layers: int):
+    return stack_defs(block_defs(cfg, kind), n_layers)
+
+
+def _ffn(params, h: torch.Tensor, cfg: ModelConfig, kind: str) -> torch.Tensor:
+    """The block's second half: the MoE layer or the dense MLP."""
+    if kind == "moe":
+        return moe_mod.apply_moe(params["moe"], h, cfg)[0]
+    return apply_mlp(params["mlp"], h, cfg)
 
 
 def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.kv_cache_dtype)
 
 
-def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, kind: str, positions: torch.Tensor,
                      causal: bool = True, collect_cache: bool = False):
     """Full-sequence block. Returns (x, (k, v) in the cache dtype, or None)."""
     h = apply_norm(params["ln1"], x, cfg)
@@ -45,11 +66,11 @@ def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torch
     if collect_cache:
         entry = (k.to(_cache_dtype(cfg)), v.to(_cache_dtype(cfg)))
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + apply_mlp(params["mlp"], h, cfg)
+    x = x + _ffn(params, h, cfg, kind)
     return x, entry
 
 
-def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig, kind: str,
                        cur_len: torch.Tensor):
     """Single-token block step. cache: {'k','v'} of shape (B, S, KV, hd).
     Returns (x, new cache) — new tensors, the input cache is not written."""
@@ -60,13 +81,13 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     out = attn_mod.decode_attention(q, k_cache, v_cache, cur_len + 1)
     x = x + attn_mod.attn_output(params["attn"], out)
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + apply_mlp(params["mlp"], h, cfg)
+    x = x + _ffn(params, h, cfg, kind)
     return x, {"k": k_cache, "v": v_cache}
 
 
 def apply_block_decode_paged(params, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                             block_table: torch.Tensor, cfg: ModelConfig, cur_len: torch.Tensor,
-                             write_kv: bool = True):
+                             block_table: torch.Tensor, cfg: ModelConfig, kind: str,
+                             cur_len: torch.Tensor, write_kv: bool = True):
     """Single-token block step against one layer's page arena slice.
 
     Same math as :func:`apply_block_decode` but the KV cache is
@@ -87,13 +108,14 @@ def apply_block_decode_paged(params, x: torch.Tensor, k_pages: torch.Tensor, v_p
     out = attn_mod.paged_decode_attention(q, k_pages, v_pages, block_table, cur_len + 1)
     x = x + attn_mod.attn_output(params["attn"], out)
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + apply_mlp(params["mlp"], h, cfg)
+    x = x + _ffn(params, h, cfg, kind)
     return x, k_pages, v_pages
 
 
 def apply_block_prefill_chunk_paged(params, x: torch.Tensor, k_pages: torch.Tensor,
                                     v_pages: torch.Tensor, block_table: torch.Tensor,
-                                    cfg: ModelConfig, start: torch.Tensor, valid: torch.Tensor):
+                                    cfg: ModelConfig, kind: str, start: torch.Tensor,
+                                    valid: torch.Tensor):
     """One prefill CHUNK's block step against a layer's page arena slice.
 
     ``x``: (1, C, d) — C chunk rows whose absolute positions begin at
@@ -110,7 +132,7 @@ def apply_block_prefill_chunk_paged(params, x: torch.Tensor, k_pages: torch.Tens
     out = attn_mod.paged_chunk_attention(q, k_pages, v_pages, block_table, start)
     x = x + attn_mod.attn_output(params["attn"], out)
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + apply_mlp(params["mlp"], h, cfg)
+    x = x + _ffn(params, h, cfg, kind)
     return x, k_pages, v_pages
 
 
@@ -122,13 +144,14 @@ def _num_layers(stacked_params) -> int:
     return tree.leaves(stacked_params)[0].shape[0]
 
 
-def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                     causal: bool = True, collect_cache: bool = False):
+def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                     positions: torch.Tensor, causal: bool = True, collect_cache: bool = False):
     """Full-sequence pass through the stack. Returns (x, {'k','v'} stacked
     on a leading 'layers' axis, or None)."""
     ks, vs = [], []
     for i in range(_num_layers(stacked_params)):
-        x, entry = apply_block_full(_layer(stacked_params, i), x, cfg, positions, causal, collect_cache)
+        x, entry = apply_block_full(_layer(stacked_params, i), x, cfg, kind, positions, causal,
+                                    collect_cache)
         if collect_cache:
             ks.append(entry[0])
             vs.append(entry[1])
@@ -136,21 +159,22 @@ def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, position
     return x, cache
 
 
-def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: ModelConfig,
+def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: ModelConfig, kind: str,
                        cur_len: torch.Tensor):
     """One decode step through the stack; caches have a leading 'layers' dim.
     Returns (x, new caches)."""
     ks, vs = [], []
     for i in range(_num_layers(stacked_params)):
         cache_i = {"k": caches["k"][i], "v": caches["v"][i]}
-        x, new_cache = apply_block_decode(_layer(stacked_params, i), x, cache_i, cfg, cur_len)
+        x, new_cache = apply_block_decode(_layer(stacked_params, i), x, cache_i, cfg, kind, cur_len)
         ks.append(new_cache["k"])
         vs.append(new_cache["v"])
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def apply_stack_decode_paged(stacked_params, x: torch.Tensor, arena: dict, block_table: torch.Tensor,
-                             cfg: ModelConfig, cur_len: torch.Tensor, write_kv: bool = True):
+                             cfg: ModelConfig, kind: str, cur_len: torch.Tensor,
+                             write_kv: bool = True):
     """One decode step through the stack against a paged arena.
 
     ``arena``: ``{'k','v'}`` of shape (L, num_pages, page, KV, hd) — the
@@ -159,17 +183,18 @@ def apply_stack_decode_paged(stacked_params, x: torch.Tensor, arena: dict, block
     (x, arena) with the same tensors."""
     for i in range(_num_layers(stacked_params)):
         x, _, _ = apply_block_decode_paged(_layer(stacked_params, i), x, arena["k"][i], arena["v"][i],
-                                           block_table, cfg, cur_len, write_kv)
+                                           block_table, cfg, kind, cur_len, write_kv)
     return x, arena
 
 
 def apply_stack_prefill_chunk_paged(stacked_params, x: torch.Tensor, arena: dict,
-                                    block_table: torch.Tensor, cfg: ModelConfig,
+                                    block_table: torch.Tensor, cfg: ModelConfig, kind: str,
                                     start: torch.Tensor, valid: torch.Tensor):
     """One prefill chunk through the stack against a paged arena, written in
     place layer by layer as :func:`apply_stack_decode_paged`. Returns
     (x, arena) with the same tensors."""
     for i in range(_num_layers(stacked_params)):
         x, _, _ = apply_block_prefill_chunk_paged(_layer(stacked_params, i), x, arena["k"][i],
-                                                  arena["v"][i], block_table, cfg, start, valid)
+                                                  arena["v"][i], block_table, cfg, kind, start,
+                                                  valid)
     return x, arena

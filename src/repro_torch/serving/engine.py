@@ -1,7 +1,7 @@
 """Serving engine: deploys a model on the Provuse platform as a FaaS
 function *chain* and serves prefill/decode through it.
 
-Chain layout (dense family):
+Chain layout (the block families: dense and MoE):
 
     <arch>/embed  ->  <arch>/g0  ->  ...  ->  <arch>/g{G-1}  ->  <arch>/head
 
@@ -119,6 +119,7 @@ class ServingEngine:
         L = cfg.num_layers
         g = _pick_groups(L, cfg.num_function_groups)
         per = L // g
+        kind = tfm.layer_kind(cfg)
         names = [f"{self.prefix}/g{i}" for i in range(g)]
         head_name = f"{self.prefix}/head"
 
@@ -137,12 +138,12 @@ class ServingEngine:
                 if "block_table" in caches:  # paged: caches hold the arena
                     if "chunk_valid" in caches:  # chunked-prefill rows
                         h, arena = tfm.apply_stack_prefill_chunk_paged(
-                            params, x, caches[key], caches["block_table"], cfg, cur_len,
+                            params, x, caches[key], caches["block_table"], cfg, kind, cur_len,
                             caches["chunk_valid"],
                         )
                     else:  # single-token decode ("__frozen__" = no KV write)
                         h, arena = tfm.apply_stack_decode_paged(
-                            params, x, caches[key], caches["block_table"], cfg, cur_len,
+                            params, x, caches[key], caches["block_table"], cfg, kind, cur_len,
                             "__frozen__" not in caches,
                         )
                     caches = dict(caches)
@@ -150,10 +151,10 @@ class ServingEngine:
                     return ctx.call(nxt, h, cur_len, caches)
                 old = caches[key]
                 if x.shape[1] == 1:  # decode
-                    h, new_cache = tfm.apply_stack_decode(params, x, old, cfg, cur_len)
+                    h, new_cache = tfm.apply_stack_decode(params, x, old, cfg, kind, cur_len)
                 else:  # prefill: build the cache and place it in the max_len slots
                     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-                    h, built = tfm.apply_stack_full(params, x, cfg, positions, collect_cache=True)
+                    h, built = tfm.apply_stack_full(params, x, cfg, kind, positions, collect_cache=True)
                     new_cache = {}
                     for name, full in old.items():
                         filled = full.clone()

@@ -505,10 +505,11 @@ def test_paged_logits_match_jax_engine(jax_paged_logits):
     steps, within 2e-2 of max |logit|."""
     ref = jax_paged_logits
     cfg = reduced_config(get_arch(ARCH))
-    params = params_from_numpy(ref["params"], dtype=torch.bfloat16, device=CPU)
+    model = build_model(cfg)
+    params = params_from_numpy(ref["params"], model.param_defs, dtype=torch.bfloat16, device=CPU)
     platform = TinyTorchBackend(FusionPolicy(enabled=False))
     try:
-        engine = ServingEngine(build_model(cfg), platform, max_len=64, params=params, device=CPU,
+        engine = ServingEngine(model, platform, max_len=64, params=params, device=CPU,
                                kv_pages=16, kv_page_size=16)
         arena = engine.arena
         la, _ = engine.prefill_paged("A", {"tokens": SEQS[0:1, :10]})

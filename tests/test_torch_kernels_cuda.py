@@ -1,6 +1,6 @@
 """The hand-written kernels K3 (flash_attention), K4 (decode_attention),
-K1 (paged_decode_attention) and K2 (paged_chunk_attention) against their
-plain versions, on the card.
+K1 (paged_decode_attention), K2 (paged_chunk_attention) and K5 (moe_gmm)
+against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a CUDA
 device. The file imports no JAX, so it runs where only PyTorch is
@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
 
 RTOL = ATOL = 2e-2  # bf16, as tests/test_kernels.py
@@ -216,3 +217,79 @@ def test_batcher_on_the_card_goes_through_the_paged_kernels(cuda):
     assert counts["paged_decode_attention"] > 0 and counts["paged_chunk_attention"] > 0
     assert all(counts[k] == 0 for k in ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref",
                                         "paged_chunk_attn_ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [
+    (128, 8, 2048, 768),   # gate/up at a decode step (qwen3-moe-30b-a3b)
+    (128, 8, 768, 2048),   # down at a decode step
+    (128, 24, 2048, 768),  # gate/up at a 300-token dense prefill
+    (128, 40, 2048, 768),  # gate/up at a 512-row paged chunk
+    (4, 5, 64, 40),        # ragged: C and f past the tile edges
+    (3, 70, 136, 48),      # ragged: C over two tiles, d past a stage
+])
+def test_moe_gmm_kernel_matches_plain(cuda, e, c, d, f):
+    xn, wn = inputs(29, (e, c, d), (e, d, f))
+    xe = torch.from_numpy(xn).to(cuda, torch.bfloat16)
+    w = (torch.from_numpy(wn) * d ** -0.5).to(cuda, torch.bfloat16)
+    before = tgmm.launches
+    got = tgmm.moe_gmm(xe, w)
+    torch.cuda.synchronize()
+    assert tgmm.launches == before + 1
+    assert got.shape == (e, c, f) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(as_np(got), as_np(tgmm.plain(xe, w)), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, tgmm.moe_gmm(xe, w))  # deterministic: no split-K, no atomics
+
+
+@pytest.mark.cuda
+def test_moe_gmm_kernel_rejects_what_it_does_not_take(cuda):
+    xe = torch.zeros(2, 8, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(2, 64, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        tgmm.moe_gmm(xe.float(), w.float())
+    with pytest.raises(ValueError):
+        tgmm.moe_gmm(xe[:, :, :60].contiguous(), w[:, :60].contiguous())  # d not a multiple of 8
+    with pytest.raises(ValueError):
+        tgmm.moe_gmm(xe, w[:1])  # expert count mismatch
+
+
+@pytest.mark.cuda
+def test_moe_chain_on_the_card_goes_through_k5(cuda):
+    """A small qwen3-moe-30b-a3b (head dim 64, so the attention kernels take
+    it) served by the chain on the card: K5 launches three times per MoE
+    layer and no plain version runs; its first MoE layer, on the same bf16
+    input, matches the CPU's (fp32 routing on both sides: the same experts)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(reduced_config(get_arch("qwen3-moe-30b-a3b")), d_model=256, d_head=64)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 9)).astype(np.int32))
+    platform = TinyTorchBackend(FusionPolicy(enabled=False))
+    try:
+        engine = ServingEngine(model, platform, max_len=32, params=params, device=cuda)
+        ops.reset_counts()
+        logits, _, _ = engine.prefill({"tokens": toks.to(cuda)})
+        counts = ops.counts()
+    finally:
+        platform.shutdown()
+    assert counts["moe_gmm"] == 3 * cfg.num_layers
+    assert all(v == 0 for k, v in counts.items() if k.endswith("_ref"))
+    assert logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()
+    layer = tree.map(lambda x: x[0], params["blocks"]["moe"])
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 9, 256)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        got, _ = moe.apply_moe(layer, x, cfg)
+        want, _ = moe.apply_moe(tree.map(lambda a: a.cpu(), layer), x.cpu(), cfg)
+        assert torch.equal(moe.route(layer, x, cfg)[1].cpu(),
+                           moe.route(tree.map(lambda a: a.cpu(), layer), x.cpu(), cfg)[1])
+    assert (got.cpu().float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()

@@ -22,6 +22,7 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_arch, reduced_config  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.params import ParamDef  # noqa: E402
 
 ARCH = "llama3.2-1b"
 T = 12
@@ -55,7 +56,7 @@ def run_both(kv_cache_dtype, jdtype, tdtype):
     jcfg, tcfg = configs(kv_cache_dtype)
     jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
     jparams = jax.tree.map(lambda x: x.astype(jdtype), jmodel.init(jax.random.PRNGKey(0)))
-    tparams = params_from_numpy(to_numpy_f32(jparams), dtype=tdtype, device=CPU)
+    tparams = params_from_numpy(to_numpy_f32(jparams), tmodel.param_defs, dtype=tdtype, device=CPU)
     toks = tokens_np(1, (2, T + 1), tcfg.vocab_size)
     cur = np.full((2,), T, np.int32)
 
@@ -142,4 +143,4 @@ def test_causality_future_tokens_do_not_change_past():
 
 def test_bridge_rejects_non_float32_leaves():
     with pytest.raises(TypeError):
-        params_from_numpy({"w": np.zeros(3, np.float16)}, device=CPU)
+        params_from_numpy({"w": np.zeros(3, np.float16)}, {"w": ParamDef((3,))}, device=CPU)

@@ -144,10 +144,11 @@ def test_teacher_forced_logits_match_jax_engine(jax_chain_logits, dtype):
     ref = jax_chain_logits[dtype]
     tdt = getattr(torch, dtype)
     tcfg = dataclasses.replace(reduced_config(get_arch(ARCH)), kv_cache_dtype=dtype)
-    tparams = params_from_numpy(ref["params"], dtype=tdt, device=CPU)
+    tmodel = build_model(tcfg)
+    tparams = params_from_numpy(ref["params"], tmodel.param_defs, dtype=tdt, device=CPU)
     tplat = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0))
     try:
-        teng = ServingEngine(build_model(tcfg), tplat, max_len=MAX_LEN, params=tparams, device=CPU)
+        teng = ServingEngine(tmodel, tplat, max_len=MAX_LEN, params=tparams, device=CPU)
         tl, tc, tcur = teng.prefill({"tokens": torch.from_numpy(seq[:, :t_in])})
         got = [tl.numpy()]
         for i in range(t_in, seq.shape[1]):
