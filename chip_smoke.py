@@ -10,16 +10,18 @@ Phases (any failed check exits non-zero and prints no result):
 1. Device line: the card's name and power limit from ``nvidia-smi``; then
    the hand-written kernels are built from ``src/repro_torch/kernels/csrc``.
 2. Kernel phase: K3 ``flash_attention`` and K4 ``decode_attention`` at the
-   dense serving chain's shapes, K1 ``paged_decode_attention`` and K2
-   ``paged_chunk_attention`` at the paged serve path's, K5 ``moe_gmm`` at
-   the MoE serve path's (E = 128; C = 8, 24, 40), each held against its
-   plain PyTorch version at rtol = atol = 2e-2 and timed with CUDA events
-   (median of 21 samples of 10 back-to-back calls, after warm-up) beside
-   its plain version, one library call on the same inputs (a yardstick
-   only; the port never calls it: ``scaled_dot_product_attention`` — for K1
-   and K2 on the pre-gathered contiguous cache, the gather timed apart —
-   and ``torch.bmm`` for K5) and the least time the card could take
-   (``bound_ms``).
+   dense serving chain's shapes and at zamba2-7b's shared block (32 heads of
+   112), K1 ``paged_decode_attention`` and K2 ``paged_chunk_attention`` at
+   the paged serve path's, K5 ``moe_gmm`` at the MoE serve path's (E = 128;
+   C = 8, 24, 40), K6 ``ssd_scan`` at the SSM and hybrid paths' (T = 300 for
+   each model, T = 37, T = 512, G = 2), each held against its plain PyTorch
+   version at rtol = atol = 2e-2 and timed with CUDA events (median of 21
+   samples of 10 back-to-back calls, after warm-up) beside its plain
+   version, one library call on the same inputs (a yardstick only; the port
+   never calls it: ``scaled_dot_product_attention`` — for K1 and K2 on the
+   pre-gathered contiguous cache, the gather timed apart — ``torch.bmm`` for
+   K5; none computes K6) and the least time the card could take
+   (``bound_ms``). K5 and K6 must give equal bits on two launches.
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -27,8 +29,9 @@ Phases (any failed check exits non-zero and prints no result):
    taking turns; the first prompt (warm-up and the merges) is not timed.
    Checks: 6 live instances unfused, 1 fused with a healthy merge, identical
    tokens on both platforms and against the model run without the
-   platform, and that the main path launched K3 and K4 and never called
-   their plain versions.
+   platform, and that the main path launched K3 once per layer of each
+   prefill and K4 once per layer of each decode step (the merges' canary
+   replays counted) and never called their plain versions.
 4. Paged serve phase: full-width ``llama3.2-1b`` served from the paged KV
    arena (321 pages of 16 tokens) by the continuous batcher at capacity 8:
    24 requests of 37, 128 and 300 prompt tokens (8 sharing a 128-token
@@ -63,11 +66,27 @@ Phases (any failed check exits non-zero and prints no result):
    expert sets agree, and the outputs on those tokens within 2e-2 of max |y|.
 10. MoE profile: phase 6 for a fused MoE decode step; then peak device
    memory (``torch.cuda.max_memory_allocated``).
+11. SSM phases: the qwen3 tensors freed, full-width ``mamba2-370m`` at full
+   depth (48 layers, 0.74 GB) as the six-function chain, unfused and fused,
+   with the serve phase's prompts and checks, every kernel's launches
+   exactly as the run's prefills, decode steps and canary replays make them
+   (K6 once per SSM layer of each prefill, none in a decode step: that is
+   the recurrent form); K6 on the inputs the first layer gives it (held at
+   2e-2 of max |y|); the first block card vs host, every block's prefill +
+   one decode step against its longer prefill, a small model card vs host;
+   a profiled fused decode step and prefill.
+12. Hybrid phases: the same for full-width ``zamba2-7b`` (81 layers: 13
+   groups of 6 Mamba layers each followed by the shared attention block,
+   and a tail of 3; 13.5 GB) as the three-function chain
+   ``embed -> core -> head``; K3 once per shared-block application of each
+   prefill, K4 once per application of each decode step, K6 as above.
 
 Standard output opens with the device line; its last lines are the
 ``serve``, ``paged_serve``, ``reference``, ``profile``, ``moe_serve``,
-``moe_paged_serve``, ``moe_block``, ``moe_profile``, ``moe_memory`` and
-``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
+``moe_paged_serve``, ``moe_block``, ``moe_profile``, ``moe_memory``,
+``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
+``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
+and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -98,7 +117,10 @@ SLEEP_CYCLES = 2_000_000  # ~1 ms of device sleep ahead of each sample
 
 
 # the plain versions' call counters (repro_torch.kernels.ref.CALLS)
-PLAIN = ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref", "gmm_ref")
+PLAIN = ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref", "gmm_ref", "ssd_ref")
+# each kernel of a serve phase and the plain version that stands in for it on
+# the CPU (the CPU's SSM prefill runs the chunked scan, not the plain K6)
+STAND_INS = {"flash_attention": "mha_ref", "decode_attention": "decode_attn_ref", "moe_gmm": "gmm_ref"}
 
 
 class SmokeFailure(Exception):
@@ -162,15 +184,19 @@ def kernel_phase(torch, F) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    H, KV, HD = 32, 8, 64
-    G = H // KV
+    # zamba2-7b's shared-block cases draw from a generator of their own, so
+    # that every other case draws the inputs it drew before they were added
+    gen112 = torch.Generator(device=dev).manual_seed(112)
     out = {}
 
     cases = []
-    for t in (37, 128, 300):
-        q = torch.randn(1, t, H, HD, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(1, t, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(1, t, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
+    # the dense chain's prompts (llama3.2-1b), then zamba2-7b's shared block
+    for t, H, KV, HD, rng in ((37, 32, 8, 64, gen), (128, 32, 8, 64, gen), (300, 32, 8, 64, gen),
+                              (300, 32, 32, 112, gen112)):
+        G = H // KV
+        q = torch.randn(1, t, H, HD, generator=rng, device=dev).to(torch.bfloat16)
+        k = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+        v = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
         got = fa.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = max_err(torch, got, fa.plain(q, k, v, causal=True))
@@ -192,11 +218,13 @@ def kernel_phase(torch, F) -> dict:
 
     cases = []
     S = 512
-    for b in (1, 4):
-        q = torch.randn(b, H, HD, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(b, S, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(b, S, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
-        cur = torch.randint(1, S + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    # the dense chain's decode (B = 1, 4; llama3.2-1b), then zamba2-7b's shared block
+    for b, H, KV, HD, rng in ((1, 32, 8, 64, gen), (4, 32, 8, 64, gen), (1, 32, 32, 112, gen112)):
+        G = H // KV
+        q = torch.randn(b, H, HD, generator=rng, device=dev).to(torch.bfloat16)
+        k = torch.randn(b, S, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, S, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+        cur = torch.randint(1, S + 1, (b,), generator=rng, device=dev, dtype=torch.int32)
         if b > 1:  # the edges: one visible row, every row
             cur[0] = 1
             cur[-1] = S
@@ -224,7 +252,83 @@ def kernel_phase(torch, F) -> dict:
     out["decode_attention"] = cases
     out.update(paged_kernel_cases(torch, F, gen))
     out["moe_gmm"] = moe_kernel_cases(torch, gen)
+    out["ssd_scan"] = ssd_kernel_cases(torch, gen)
     return out
+
+
+# (label, B, T, H, G, P, N) of K6: each model's prompt of 300 tokens
+# (mamba2-370m: 32 heads of 64 over a state of 128; zamba2-7b: 112 heads of 64
+# over 64), one partial chunk, two full chunks of the configured 256, groups
+SSD_CASES = (
+    ("mamba2-370m T=300", 1, 300, 32, 1, 64, 128),
+    ("zamba2-7b T=300", 1, 300, 112, 1, 64, 64),
+    ("T=37", 1, 37, 32, 1, 64, 128),
+    ("T=512", 1, 512, 112, 1, 64, 64),
+    ("G=2", 2, 300, 8, 2, 64, 64),
+)
+SSD_CHUNK = 64  # the kernel's own chunk (csrc/ssd_scan.cu: kQ)
+
+
+def ssd_bound(b, t, h, g, p, n) -> tuple[float, str]:
+    """K6's least time: x, B, C, dt, A_log, D read once and y written once;
+    per (b, h) the dual form's products over chunks of the kernel's
+    SSD_CHUNK rows, sum of 2Q^2 N + 2Q^2 P + 4QNP."""
+    chunks = [min(SSD_CHUNK, t - c) for c in range(0, t, SSD_CHUNK)]
+    flops = b * h * sum(2 * q * q * n + 2 * q * q * p + 4 * q * n * p for q in chunks)
+    nbytes = 2 * (2 * b * t * h * p + 2 * b * t * g * n) + 4 * (b * t * h + 2 * h)
+    return bound(flops, nbytes)
+
+
+def ssd_case(torch, label, x, bm, cm, dt, a_log, d_skip, captured: bool = False) -> dict:
+    """K6 against its plain version on the same inputs, timed beside it (no
+    single PyTorch call computes the SSD scan: library "none"). A captured
+    case is held at 2e-2 of max |y| (its outputs reach ~1e6, where the two
+    summation orders differ by more than the elementwise atol near y = 0);
+    every other case elementwise at rtol = atol = 2e-2."""
+    from repro_torch.kernels import ssd_scan as sd
+
+    b, t, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    got = sd.ssd_scan(x, bm, cm, dt, a_log, d_skip)
+    torch.cuda.synchronize()
+    want = sd.plain(x, bm, cm, dt, a_log, d_skip)[0]
+    check(bool(torch.isfinite(got).all()), f"ssd_scan {label}: non-finite output")
+    rel = rel_err(got, want)
+    if captured:
+        check(rel <= RTOL, f"ssd_scan {label}: {rel} of max |y| from its plain version")
+        err = float((got.float() - want).abs().max())
+    else:
+        err = max_err(torch, got, want)
+    check(torch.equal(got, sd.ssd_scan(x, bm, cm, dt, a_log, d_skip)), f"ssd_scan {label} is not deterministic")
+    b_ms, b_by = ssd_bound(b, t, h, g, p, n)
+    return {
+        "shape": f"{label}: B={b} T={t} H={h} G={g} P={p} N={n} x/B/C bf16, dt fp32",
+        "max_abs_err": err,
+        "rel_err_of_max": rel,
+        "max_abs_y": float(want.abs().max()),
+        "ms": time_ms(torch, lambda: sd.ssd_scan(x, bm, cm, dt, a_log, d_skip)),
+        "plain_ms": time_ms(torch, lambda: sd.plain(x, bm, cm, dt, a_log, d_skip)),
+        "library_ms": None,
+        "library": "none",
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def ssd_kernel_cases(torch, gen) -> list:
+    """K6 at the SSM and hybrid serve paths' shapes on unit-scale inputs
+    (tests/test_kernels.py's recipe: B, C of std 0.5, dt = softplus(N(0, 1)),
+    A_log of std 0.3, D = 1)."""
+    dev = torch.device("cuda")
+    cases = []
+    for label, b, t, h, g, p, n in SSD_CASES:
+        x = torch.randn(b, t, h, p, generator=gen, device=dev).to(torch.bfloat16)
+        bm = (torch.randn(b, t, g, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        cm = (torch.randn(b, t, g, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=gen, device=dev))
+        a_log = torch.randn(h, generator=gen, device=dev) * 0.3
+        cases.append(ssd_case(torch, label, x, bm, cm, dt, a_log, torch.ones(h, device=dev)))
+    return cases
 
 
 # (C, d, f) of the MoE serve path's expert products, E = 128 (qwen3-moe-30b-a3b):
@@ -367,12 +471,21 @@ NEW_TOKENS = 16
 MAX_LEN = 512
 
 
+def pad_caches(torch, cache: dict, pad: int) -> dict:
+    """A prefill's cache with its attention caches ((layers, B, S, KV, hd))
+    grown by ``pad`` sequence slots; SSM states are not length-indexed."""
+    if "attn" in cache:  # the hybrid
+        return {**cache, "attn": pad_caches(torch, cache["attn"], pad)}
+    if "k" in cache:
+        return {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad)) for n, c in cache.items()}
+    return cache
+
+
 def direct_generate(torch, model, params, tokens, steps: int, max_len: int):
     """The model without the platform: prefill_fn + decode_fn in a loop."""
     t = tokens.shape[1]
     logits, cache = model.prefill_fn(params, {"tokens": tokens})
-    pad = max_len - t
-    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad)) for n, c in cache.items()}
+    cache = pad_caches(torch, cache, max_len - t)
     cur = torch.full((tokens.shape[0],), t, dtype=torch.int32, device=tokens.device)
     out = [torch.argmax(logits, -1)[:, None].to(torch.int32)]
     for _ in range(steps - 1):
@@ -382,24 +495,80 @@ def direct_generate(torch, model, params, tokens, steps: int, max_len: int):
     return torch.cat(out, dim=1)
 
 
+def layers_below(cfg, engine) -> dict:
+    """For each member of ``engine``'s chain, the attention, SSM and MoE
+    layers that one invocation entering there applies (it runs the chain
+    from that member down)."""
+    names = engine.chain_names()
+    if cfg.family == "hybrid":  # embed -> core -> head: the core holds every layer
+        every = {"attn": cfg.num_layers // cfg.shared_attn_every, "ssm": cfg.num_layers, "moe": 0}
+        none = {"attn": 0, "ssm": 0, "moe": 0}
+        return {n: none if n == names[-1] else every for n in names}
+    per = cfg.num_layers // len(engine.group_names)
+    out = {}
+    for i, n in enumerate(names):
+        layers = per * sum(1 for m in names[i:] if m in engine.group_names)
+        out[n] = {"attn": 0 if cfg.family == "ssm" else layers, "ssm": layers if cfg.family == "ssm" else 0,
+                  "moe": layers if cfg.family == "moe" else 0}
+    return out
+
+
 def moe_layer_runs(cfg, engine, client_invocations: int, checked_members) -> int:
     """How many MoE layers a run applied: each client invocation runs the
     whole chain; each canary a merge's health check replayed runs the chain
     from its member down, twice (through the live path and the new unit)."""
     if cfg.family != "moe":
         return 0
-    names = engine.chain_names()
-    per = cfg.num_layers // len(engine.group_names)
-    below = {n: per * sum(1 for m in names[i:] if m in engine.group_names) for i, n in enumerate(names)}
-    return client_invocations * cfg.num_layers + sum(2 * below[m] for m in checked_members)
+    below = layers_below(cfg, engine)
+    return client_invocations * cfg.num_layers + sum(2 * below[m]["moe"] for m in checked_members)
+
+
+def expected_launches(cfg, engine, prefills: int, decodes: int, replays) -> dict:
+    """The attention and SSD launches a run makes: K3 once per attention
+    layer and K6 once per SSM layer of each prefill, K4 once per attention
+    layer of each decode step (an SSM decode step is the recurrent form, no
+    kernel); ``prefills`` and ``decodes`` client invocations run the whole
+    chain, and each replayed canary ``(member, is_prefill)`` runs it from its
+    member down twice (the live path and the new unit)."""
+    below = layers_below(cfg, engine)
+    entry = below[engine.entry]
+    exp = {"flash_attention": prefills * entry["attn"], "decode_attention": decodes * entry["attn"],
+           "ssd_scan": prefills * entry["ssm"]}
+    for member, is_prefill in replays:
+        layers = below[member]
+        if is_prefill:
+            exp["flash_attention"] += 2 * layers["attn"]
+            exp["ssd_scan"] += 2 * layers["ssm"]
+        else:
+            exp["decode_attention"] += 2 * layers["attn"]
+    return exp
+
+
+def record_replays(platform) -> list:
+    """Record, for every canary a merge's health check fetches to replay,
+    its member and whether it was a prefill (T > 1) or a decode step."""
+    replays = []
+    fetch = platform.handler.canary
+
+    def canary(name):
+        args = fetch(name)
+        if args is not None:
+            x = args[0]["tokens"] if isinstance(args[0], dict) else args[0]
+            replays.append((name, x.shape[1] > 1))
+        return args
+
+    platform.handler.canary = canary
+    return replays
 
 
 def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 max_len=MAX_LEN, params=None) -> dict:
     """Drive the serving chain unfused and fused on ``dev`` (``params``:
     the model's weights, made from seed 0 when not given). On the card it
-    also checks that the kernels, and never their plain versions, ran; for
-    an MoE model, that K5 ran exactly three times per MoE layer applied."""
+    also checks that the kernels, and never their plain versions, ran, each
+    exactly as often as the run's prefills, decode steps and canary replays
+    make it (:func:`expected_launches`; K5 three times per MoE layer
+    applied); on the CPU the plain attention versions stand in."""
     from repro_torch.core import FusionPolicy, TinyTorchBackend
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -421,6 +590,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         "fused": TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0)),
     }
     results = {}
+    replays = {label: record_replays(p) for label, p in platforms.items()}
     ops.reset_counts()
     try:
         engines = {label: ServingEngine(model, p, max_len=max_len, params=params, device=dev)
@@ -448,6 +618,8 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 "merges": [(m.members, m.healthy) for m in platform.merger.merge_log],
                 "replayed": [n for m in platform.merger.merge_log for n in m.checked_members],
             }
+            check([n for n, _ in replays[label]] == results[label]["replayed"],
+                  f"{label}: replayed canaries {replays[label]} against the merge log's {results[label]['replayed']}")
     finally:
         for platform in platforms.values():
             platform.shutdown()
@@ -465,16 +637,22 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     invocations = len(prompt_lens) * new_tokens  # per platform: a prefill and new_tokens - 1 steps
     moe_runs = sum(moe_layer_runs(cfg, engines[label], invocations, results[label]["replayed"])
                    for label in platforms)
+    expected = {"moe_gmm": 3 * moe_runs}
+    for label in platforms:
+        for k, n in expected_launches(cfg, engines[label], len(prompt_lens), len(prompt_lens) * (new_tokens - 1),
+                                      replays[label]).items():
+            expected[k] = expected.get(k, 0) + n
     for i, t in enumerate(prompt_lens):
         a, b = results["unfused"]["tokens"][i], results["fused"]["tokens"][i]
         check(a.shape == (1, new_tokens), f"prompt {t}: tokens of shape {tuple(a.shape)}")
         check(torch.equal(a, b), f"prompt {t}: greedy tokens differ fused vs unfused")
+    for k, want in expected.items():
+        if dev.type == "cuda":
+            check(counts[k] == want, f"{k} launched {counts[k]} times, the run makes {want} ({counts})")
+        elif k in STAND_INS:
+            check(counts[STAND_INS[k]] == want, f"{STAND_INS[k]} ran {counts[STAND_INS[k]]} times for {want}")
     if dev.type == "cuda":
-        check(counts["flash_attention"] > 0 and counts["decode_attention"] > 0,
-              f"the main path did not launch both kernels: {counts}")
         check(all(counts[k] == 0 for k in PLAIN), f"the main path called a plain version on the card: {counts}")
-        check(counts["moe_gmm"] == 3 * moe_runs,
-              f"K5 launched {counts['moe_gmm']} times for {moe_runs} MoE layers applied (3 each)")
 
     # the chain computes what the model computes without the platform
     ref = direct_generate(torch, model, params, prompts[0], new_tokens, max_len)
@@ -496,15 +674,18 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         "ram_bytes": {k: r["ram_bytes"] for k, r in results.items()},
         "live_instances": {k: r["live_instances"] for k, r in results.items()},
         "tokens_identical": True,
-        "launches": {k: counts[k] for k in ("flash_attention", "decode_attention", "moe_gmm")},
+        "launches": {k: counts[k] for k in ("flash_attention", "decode_attention", "moe_gmm", "ssd_scan")},
+        "expected_launches": expected,
         "plain_calls": {k: counts[k] for k in PLAIN},
         "moe_layers_applied": moe_runs,
         "canary_replays": {label: len(r["replayed"]) for label, r in results.items()},
+        "prefill_replays": {label: sum(p for _, p in replays[label]) for label in platforms},
         "prefills": prefills,
         "decode_steps": decode_steps,
         "launches_per_request": {
             "flash_attention_per_prefill": counts["flash_attention"] / prefills,
             "decode_attention_per_decode_step": counts["decode_attention"] / decode_steps,
+            "ssd_scan_per_prefill": counts["ssd_scan"] / prefills,
         },
         "first_tokens": results["fused"]["tokens"][0][0, :8].tolist(),
         "distinct_tokens": len(set(torch.cat(results["fused"]["tokens"], dim=1).flatten().tolist())),
@@ -769,6 +950,74 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def small_config(cfg):
+    """``cfg`` reduced (2 layers; the hybrid 5) at width 256 with the head
+    dims the kernels take (attention heads of 64; SSM heads of 64 over a
+    state of 64): the small model of the card-vs-host and batcher checks."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+
+    changes: dict = {"d_model": 256}
+    if cfg.num_heads:
+        changes["d_head"] = 64
+    if cfg.ssm_state:
+        changes.update(ssm_head_dim=64, ssm_state=64)
+    return dataclasses.replace(reduced_config(cfg), **changes)
+
+
+def attention_fan_in_d(params, cfg) -> None:
+    """Rescale, in place, every attention block's wq and wk as if drawn with
+    the fan-in d_model instead of the JAX init rule's H and KV (axis -2 of
+    (d, H, hd)). Under the JAX rule a small model's attention is near-hard
+    (scores of std ~100), and a hybrid's prefill logits move by 20-54 % of
+    max |logit| when K6's output is rounded once instead of twice (6 of 8
+    seeds on the host); with fan-in d, by at most 1 %."""
+    import math
+
+    for key, sub in params.items():
+        if key == "attn":
+            sub["wq"].mul_(math.sqrt(cfg.num_heads / cfg.d_model))
+            sub["wk"].mul_(math.sqrt(cfg.num_kv_heads / cfg.d_model))
+        elif isinstance(sub, dict):
+            attention_fan_in_d(sub, cfg)
+
+
+def small_model_check(torch, dev, small_cfg, prompt_len: int = 37, fan_in_d: bool = False) -> dict:
+    """The small model on ``dev`` against the same bf16 weights on the
+    host's CPU (the plain versions): prefill and one decode step, end to end,
+    within REF_TOL of max |logit|; ``fan_in_d``: its attention projections
+    rescaled by :func:`attention_fan_in_d`."""
+    from repro_torch import tree
+    from repro_torch.models.model import build_model
+
+    def prefill_and_decode(model, p, toks, nxt):
+        logits, cache = model.prefill_fn(p, {"tokens": toks})
+        cache = pad_caches(torch, cache, 1)
+        cur = torch.full((toks.shape[0],), toks.shape[1], dtype=torch.int32, device=toks.device)
+        step, _ = model.decode_fn(p, {"tokens": nxt, "cur_len": cur}, cache)
+        return logits, step
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        small = build_model(small_cfg)
+        params = small.init(0, device=dev)
+        if fan_in_d:
+            attention_fan_in_d(params, small_cfg)
+        toks = torch.randint(0, small.cfg.vocab_size, (1, prompt_len), generator=gen, device=dev,
+                             dtype=torch.int32)
+        nxt = torch.argmax(small.prefill_fn(params, {"tokens": toks})[0], -1)[:, None].to(torch.int32)
+        here = prefill_and_decode(small, params, toks, nxt)
+        host = prefill_and_decode(small, tree.map(lambda x: x.cpu(), params), toks.cpu(), nxt.cpu())
+    for a in here:
+        check(tuple(a.shape) == (1, small.cfg.vocab_size), f"logits of shape {tuple(a.shape)}")
+        check(bool(torch.isfinite(a).all()), "non-finite logits")
+    out = {"arch": small.cfg.name, "d_model": small.cfg.d_model, "layers": small.cfg.num_layers,
+           "attention_fan_in_d": fan_in_d, "rel_err": [rel_err(a, b) for a, b in zip(here, host)]}
+    check(max(out["rel_err"]) <= REF_TOL, f"small-input logits differ from the host's beyond {REF_TOL}: {out}")
+    return out
+
+
 def reference_phase(torch, dev, cfg, prompt_len: int = 37) -> dict:
     """The model on ``dev`` against the same bf16 weights on the host's CPU
     (the plain versions): a small input end to end, and the full width
@@ -776,36 +1025,13 @@ def reference_phase(torch, dev, cfg, prompt_len: int = 37) -> dict:
     import dataclasses
 
     from repro_torch import tree
-    from repro_torch.configs import reduced_config
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import embed_tokens
     from repro_torch.models.model import build_model
 
-    def prefill_and_decode(model, p, toks, nxt):
-        logits, cache = model.prefill_fn(p, {"tokens": toks})
-        cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1)) for n, c in cache.items()}
-        cur = torch.full((toks.shape[0],), toks.shape[1], dtype=torch.int32, device=toks.device)
-        step, _ = model.decode_fn(p, {"tokens": nxt, "cur_len": cur}, cache)
-        return logits, step
-
     gen = torch.Generator(device=dev).manual_seed(5)
-    out = {}
+    out = {"small": small_model_check(torch, dev, small_config(cfg), prompt_len)}
     with torch.no_grad():
-        small = build_model(dataclasses.replace(reduced_config(cfg), d_model=256, d_head=64))
-        params = small.init(0, device=dev)
-        toks = torch.randint(0, small.cfg.vocab_size, (1, prompt_len), generator=gen, device=dev,
-                             dtype=torch.int32)
-        nxt = torch.argmax(small.prefill_fn(params, {"tokens": toks})[0], -1)[:, None].to(torch.int32)
-        here = prefill_and_decode(small, params, toks, nxt)
-        host = prefill_and_decode(small, tree.map(lambda x: x.cpu(), params), toks.cpu(), nxt.cpu())
-        for a in here:
-            check(tuple(a.shape) == (1, small.cfg.vocab_size), f"logits of shape {tuple(a.shape)}")
-            check(bool(torch.isfinite(a).all()), "non-finite logits")
-        out["small"] = {"d_model": small.cfg.d_model, "layers": small.cfg.num_layers,
-                        "rel_err": [rel_err(a, b) for a, b in zip(here, host)]}
-        check(max(out["small"]["rel_err"]) <= REF_TOL,
-              f"small-input logits differ from the host's beyond {REF_TOL}: {out['small']}")
-
         model = build_model(cfg)
         params = model.init(0, device=dev)
         host_params = tree.map(lambda x: x.cpu(), params)
@@ -833,15 +1059,44 @@ def reference_phase(torch, dev, cfg, prompt_len: int = 37) -> dict:
     return out
 
 
-def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
-                  max_len: int = MAX_LEN, params=None) -> dict:
-    """Where a fused decode step's time goes: ``steps`` decode steps timed on
-    the host clock, then ``steps`` more under torch.profiler for the
-    device's kernel time and the kernels that take most of it. ``params``:
-    the model's weights, made from seed 0 when not given."""
+def device_profile(torch, run, steps: int) -> dict:
+    """Where the time of ``run()`` (``steps`` invocations, ending in a
+    device sync; returns its wall ms) goes: one run timed on the host clock,
+    then one under torch.profiler for the device's kernel time, the host's
+    top-level ops and the kernels that take most of it, per invocation."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = run()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device_ms = sum(sum(v) for v in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    return {
+        "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "profiled_wall_ms_per_step": profiled_wall_ms / steps,
+        "device_kernel_ms_per_step": device_ms / steps,
+        "device_busy_share": device_ms / wall_ms,
+        "kernels_per_step": len(kernels) / steps,
+        "host_ops_per_step": sum(1 for e in prof.events()
+                                 if e.device_type == DeviceType.CPU and e.name.startswith("aten::")
+                                 and e.cpu_parent is None) / steps,
+        "top_kernels": [{"name": n[:80], "calls_per_step": len(v) / steps,
+                         "ms_per_step": sum(v) / 1e3 / steps} for n, v in top],
+    }
+
+
+def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
+                  max_len: int = MAX_LEN, params=None, prefill: bool = False) -> dict:
+    """Where a fused decode step's time goes (:func:`device_profile` over
+    ``steps`` decode steps) and, with ``prefill``, a fused prefill's (over
+    ``steps`` prefills of the prompt, under "prefill"). ``params``: the
+    model's weights, made from seed 0 when not given."""
     from repro_torch.core import FusionPolicy, TinyTorchBackend
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ServingEngine, _greedy_token
@@ -872,31 +1127,20 @@ def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3
 
-        wall_ms = run_steps()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiled_wall_ms = run_steps()
+        def run_prefills() -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine.prefill({"tokens": prompt})
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        out = {"prompt_len": prompt_len, **device_profile(torch, run_steps, steps)}
+        if prefill:
+            out["prefill"] = device_profile(torch, run_prefills, steps)
     finally:
         platform.shutdown()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    device_ms = sum(sum(v) for v in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
-    return {
-        "prompt_len": prompt_len,
-        "steps": steps,
-        "wall_ms_per_step": wall_ms / steps,
-        "profiled_wall_ms_per_step": profiled_wall_ms / steps,
-        "device_kernel_ms_per_step": device_ms / steps,
-        "device_busy_share": device_ms / wall_ms,
-        "kernels_per_step": len(kernels) / steps,
-        "host_ops_per_step": sum(1 for e in prof.events()
-                                 if e.device_type == DeviceType.CPU and e.name.startswith("aten::")
-                                 and e.cpu_parent is None) / steps,
-        "top_kernels": [{"name": n[:80], "calls_per_step": len(v) / steps,
-                         "ms_per_step": sum(v) / 1e3 / steps} for n, v in top],
-    }
+    return out
 
 
 MOE_AGREE = 0.99  # share of tokens whose top-k expert sets must agree, card vs host
@@ -938,19 +1182,115 @@ def moe_block_phase(torch, dev, cfg, params, prompt_len: int = 37) -> dict:
     }
 
 
-def kernels_line(kern: dict, launches: dict) -> dict:
+def model_blocks(cfg, params) -> list:
+    """The SSM or hybrid model's blocks in the order a forward applies them:
+    (name, kind, the block's weights)."""
+    from repro_torch import tree
+
+    layer = lambda stack, i: tree.map(lambda a: a[i], stack)  # noqa: E731
+    if cfg.family == "ssm":
+        return [(f"ssm_{i}", "ssm", layer(params["blocks"], i)) for i in range(cfg.num_layers)]
+    hyb, every = params["hybrid"], cfg.shared_attn_every
+    n_groups = cfg.num_layers // every
+    out = []
+    for g in range(n_groups):
+        group = layer(hyb["groups"], g)
+        out += [(f"ssm_{g * every + j}", "ssm", layer(group, j)) for j in range(every)]
+        out.append((f"shared_{g}", "dense", hyb["shared"]))
+    if "tail" in hyb:
+        out += [(f"ssm_{n_groups * every + j}", "ssm", layer(hyb["tail"], j))
+                for j in range(cfg.num_layers - n_groups * every)]
+    return out
+
+
+def ssm_block_phase(torch, dev, cfg, params, small_cfg, prompt_len: int = 37) -> dict:
+    """The SSM and hybrid models' block checks on a random prompt of
+    ``prompt_len`` + 1 tokens, each block on the input the previous ones
+    give it: (1) the first SSM block and the first application of the
+    shared block, full width on ``dev`` against the same bf16 weights on the
+    host's CPU (the chunked scan and the plain attention there), relative to
+    the block's own largest contribution, within BLOCK_TOL; (2) every
+    block's prefill of T tokens plus one decode step against its prefill of
+    T + 1 tokens (the recurrent step against K6's dual form; K4 against K3),
+    relative to the block output's max |y| at row T (a contribution that is
+    small beside the residual stream is rounded at the stream's scale in
+    bf16, so its own max is no yardstick there), within BLOCK_TOL; (3) the
+    small model end to end, card against host (:func:`small_model_check`,
+    the hybrid's shared attention drawn with fan-in d so that rounding is
+    not amplified)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    t = prompt_len
+    gen = torch.Generator(device=dev).manual_seed(17)
+    toks = torch.randint(0, cfg.vocab_size, (1, t + 1), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.arange(t + 1, device=dev)[None]
+    cur = torch.full((1,), t, dtype=torch.int32, device=dev)
+    host, consistency = {}, {}
+    with torch.no_grad():
+        x = embed_tokens(params["embed"], toks)
+        for name, kind, lp in model_blocks(cfg, params):
+            y, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
+            label = "ssm_block_0" if kind == "ssm" else "shared_block"
+            if label not in host:
+                y_host, _ = tfm.apply_block_full(tree.map(lambda a: a.cpu(), lp), x.cpu(), cfg, kind, pos.cpu())
+                host[label] = rel_err(y - x, y_host - x.cpu())
+            _, cache = tfm.apply_block_full(lp, x[:, :t], cfg, kind, pos[:, :t], collect_cache=True)
+            if kind != "ssm":  # (k, v) of (B, T, KV, hd): one more slot for the step's write
+                cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1)) for n, c in zip("kv", cache)}
+            step, _ = tfm.apply_block_decode(lp, x[:, t:], cache, cfg, kind, cur)
+            consistency[name] = rel_err(step[:, 0], y[:, t])
+            x = y
+    check(bool(torch.isfinite(x).all()), "non-finite hidden state after the last block")
+    check(max(host.values()) <= BLOCK_TOL, f"a full-width block differs from the host's beyond {BLOCK_TOL}: {host}")
+    worst = max(consistency, key=consistency.get)
+    check(consistency[worst] <= BLOCK_TOL,
+          f"block {worst}: prefill + decode differs from the longer prefill by {consistency[worst]}")
+    return {
+        "prompt_len": t,
+        "card_vs_host_rel_err": host,
+        "prefill_decode_rel_err": consistency,
+        "prefill_decode_worst": [worst, consistency[worst]],
+        "small": small_model_check(torch, dev, small_cfg, fan_in_d=True),
+    }
+
+
+def ssd_captured_case(torch, dev, cfg, params, prompt_len: int = 300) -> dict:
+    """K6 against its plain version on the inputs the model's first SSM
+    layer gives it for a random prompt (:func:`ssd_case`, captured): at full
+    width with the JAX init rule, in_B and in_C have a fan-in of G = 1, so
+    B and C reach a std of about sqrt(d_model) and the scores the thousands."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_norm, embed_tokens
+
+    _, _, layer = model_blocks(cfg, params)[0]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        u = apply_norm(layer["ln1"], embed_tokens(params["embed"], toks), cfg)
+        *_, xh, bm, cm, dt = ssm.ssd_inputs(layer["ssm"], u, cfg)
+        return ssd_case(torch, f"captured: {cfg.name} layer 0, T={prompt_len}", xh.contiguous(),
+                        bm.contiguous(), cm.contiguous(), dt.contiguous(), layer["ssm"]["A_log"],
+                        layer["ssm"]["D"], captured=True)
+
+
+def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict) -> dict:
     """One entry per kernel: its source, the TPU kernel it replaces, its
-    launches on the main path that runs it, and the kernel phase's figures
-    at that path's shape (``main_case``: the serve shape of each)."""
+    launches on the main path that runs it (and on every path of the run,
+    ``launches_by_path``), and the kernel phase's figures at that path's
+    shape (``main_case``: the serve shape of each); ``captured``: cases on
+    a model's own inputs, held relative to max |y| (K6)."""
     paged = "src/repro_torch/kernels/csrc/paged_attention.cu"
     meta = {  # source, TPU kernel, index of the main path's case
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:73", -1),
+                            "src/repro/kernels/flash_attention.py:73", 2),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:59", 0),
         "paged_decode_attention": (paged, "src/repro/kernels/paged_attention.py:86", 0),
         "paged_chunk_attention": (paged, "src/repro/kernels/paged_attention.py:178", 2),
         "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:39", 0),
+        "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:63", 0),
     }
     entries = []
     for name, cases in kern.items():
@@ -958,14 +1298,37 @@ def kernels_line(kern: dict, launches: dict) -> dict:
         main = cases[main_case]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[name], "launches_by_path": by_path.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library": main.get("library", "scaled_dot_product_attention"),
-            "shape": main["shape"], "cases": cases,
+            "shape": main["shape"], "cases": cases, "captured_cases": captured.get(name, []),
         })
     return {"kernels": entries}
+
+
+def fresh_model(torch, dev, arch: str):
+    """Free the earlier phases' tensors, then make ``arch`` at full width and
+    depth with random bf16 weights from seed 0. Returns (cfg, params, the
+    memory record: parameter bytes, init seconds, allocated GB after it)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import param_bytes
+
+    gc.collect()  # the platforms of earlier phases hold reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    memory = {"param_bytes": param_bytes(model.param_defs), "params_init_s": time.perf_counter() - t0,
+              "after_init_gb": torch.cuda.memory_allocated() / 1e9}
+    return cfg, params, memory
 
 
 def moe_phases(torch, dev) -> dict:
@@ -974,27 +1337,11 @@ def moe_phases(torch, dev) -> dict:
     freed): the dense serve phase, the paged serve phase (the first 8
     requests), the MoE block check and a profiled decode step."""
     import dataclasses
-    import gc
 
-    from repro_torch.configs import get_arch, reduced_config
-    from repro_torch.models.model import build_model
-    from repro_torch.models.params import param_bytes
-
-    gc.collect()  # the platforms of the llama phases hold reference cycles
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch("qwen3-moe-30b-a3b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    memory = {"param_bytes": param_bytes(model.param_defs), "params_init_s": init_s,
-              "after_init_gb": torch.cuda.memory_allocated() / 1e9}
-
+    cfg, params, memory = fresh_model(torch, dev, "qwen3-moe-30b-a3b")
     t0 = time.perf_counter()
     serve = serve_phase(torch, dev, cfg, params=params)
-    serve["params_init_s"] = init_s
+    serve["params_init_s"] = memory["params_init_s"]
     serve["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"moe_serve": serve}), flush=True)
     print(f"moe serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
@@ -1002,9 +1349,8 @@ def moe_phases(torch, dev) -> dict:
     t0 = time.perf_counter()
     # the small model of the batcher-vs-generate check: capacity factor E / k,
     # so that no prompt drops a token (a drop depends on the call's row count)
-    small = reduced_config(cfg)
-    small = dataclasses.replace(small, d_model=256, d_head=64,
-                                capacity_factor=small.num_experts / small.num_experts_per_tok)
+    small = small_config(cfg)
+    small = dataclasses.replace(small, capacity_factor=small.num_experts / small.num_experts_per_tok)
     paged = paged_serve_phase(torch, dev, cfg, n_requests=8, small_cfg=small, params=params)
     print(json.dumps({"moe_paged_serve": paged}), flush=True)
     print(f"moe paged serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
@@ -1016,6 +1362,34 @@ def moe_phases(torch, dev) -> dict:
     print(json.dumps({"moe_memory": memory}), flush=True)
     print(f"moe block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return {"moe_gmm_launches": serve["launches"]["moe_gmm"]}
+
+
+def ssm_phases(torch, dev, arch: str, key: str) -> dict:
+    """Full-width ``arch`` (mamba2-370m or zamba2-7b) at full depth, random
+    bf16 weights from seed 0, made after the earlier phases' tensors are
+    freed: the serve phase (unfused, then fused to one instance; K6 once per
+    SSM layer of each prefill), K6 on the inputs the first layer gives it,
+    the block checks and a profiled fused decode step and prefill. Prints the
+    ``<key>_serve``, ``<key>_block``, ``<key>_profile`` and ``<key>_memory``
+    lines."""
+    cfg, params, memory = fresh_model(torch, dev, arch)
+    t0 = time.perf_counter()
+    serve = serve_phase(torch, dev, cfg, params=params)
+    serve["params_init_s"] = memory["params_init_s"]
+    serve["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({f"{key}_serve": serve}), flush=True)
+    print(f"{key} serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
+    t0 = time.perf_counter()
+    captured = ssd_captured_case(torch, dev, cfg, params)
+    block = ssm_block_phase(torch, dev, cfg, params, small_config(cfg))
+    print(json.dumps({f"{key}_block": {**block, "ssd_captured": captured}}), flush=True)
+    print(json.dumps({f"{key}_profile": profile_phase(torch, dev, cfg, params=params, prefill=True)}),
+          flush=True)
+    memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({f"{key}_memory": memory}), flush=True)
+    print(f"{key} block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return {"launches": serve["launches"], "captured": captured}
 
 
 def main() -> int:
@@ -1043,9 +1417,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
-    import dataclasses
-
-    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.configs import get_arch
 
     cfg, dev = get_arch("llama3.2-1b"), torch.device("cuda")
     t0 = time.perf_counter()
@@ -1056,8 +1428,7 @@ def main() -> int:
     print(json.dumps({"serve": serve}), flush=True)
     print(f"serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
-    small = dataclasses.replace(reduced_config(cfg), d_model=256, d_head=64)  # as reference_phase
-    paged = paged_serve_phase(torch, dev, cfg, small_cfg=small)
+    paged = paged_serve_phase(torch, dev, cfg, small_cfg=small_config(cfg))
     print(json.dumps({"paged_serve": paged}), flush=True)
     print(f"paged serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
@@ -1068,8 +1439,19 @@ def main() -> int:
     print(f"profile phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
     moe = moe_phases(torch, dev)
-    launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["moe_gmm_launches"]}
-    print(json.dumps(kernels_line(kern, launches)), flush=True)
+    ssm = ssm_phases(torch, dev, "mamba2-370m", "ssm")
+    hybrid = ssm_phases(torch, dev, "zamba2-7b", "hybrid")
+    launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["moe_gmm_launches"],
+                "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"]}
+    by_path = {
+        "flash_attention": {"llama3.2-1b": serve["launches"]["flash_attention"],
+                            "zamba2-7b": hybrid["launches"]["flash_attention"]},
+        "decode_attention": {"llama3.2-1b": serve["launches"]["decode_attention"],
+                             "zamba2-7b": hybrid["launches"]["decode_attention"]},
+        "ssd_scan": {"mamba2-370m": ssm["launches"]["ssd_scan"], "zamba2-7b": hybrid["launches"]["ssd_scan"]},
+    }
+    captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
+    print(json.dumps(kernels_line(kern, launches, by_path, captured)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0

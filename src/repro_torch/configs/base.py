@@ -2,8 +2,8 @@
 
 Every assigned architecture is a :class:`ModelConfig`; an input shape is a
 :class:`ShapeConfig`. The fields mirror the JAX package's, so a config
-carries across unchanged; the port reads those of the dense and MoE
-families.
+carries across unchanged; the port reads those of the dense, MoE, SSM
+and hybrid families.
 """
 from __future__ import annotations
 
@@ -61,6 +61,14 @@ class ModelConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // max(1, self.num_heads)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
 
 @dataclasses.dataclass(frozen=True)

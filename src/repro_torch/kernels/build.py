@@ -21,7 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu", "ssd_scan.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -41,6 +41,8 @@ SIGNATURES = {
     "repro_paged_chunk_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # xe, w, out, E, C, D, F, stream
     "repro_moe_gmm_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, bm, cm, dt, a_log, d_skip, y, B, T, H, P, G, N, stream
+    "repro_ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -216,6 +216,8 @@ int repro_decode_attention_fwd(const void* q, const void* k, const void* v, cons
   switch (D) {
     case 64:
       return (int)launch<64>(q, k, v, cur_len, out, B, S, H, KV, st);
+    case 112:  // zamba2-7b's shared attention block
+      return (int)launch<112>(q, k, v, cur_len, out, B, S, H, KV, st);
     case 128:
       return (int)launch<128>(q, k, v, cur_len, out, B, S, H, KV, st);
     default:

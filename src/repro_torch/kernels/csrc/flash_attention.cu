@@ -278,6 +278,8 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
   switch (D) {
     case 64:
       return (int)launch<64>(q, k, v, out, B, T, S, H, KV, causal, st);
+    case 112:  // zamba2-7b's shared attention block
+      return (int)launch<112>(q, k, v, out, B, T, S, H, KV, causal, st);
     case 128:
       return (int)launch<128>(q, k, v, out, B, T, S, H, KV, causal, st);
     default:

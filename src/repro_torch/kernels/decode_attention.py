@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attn_ref as plain
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 MAX_GROUP_WIDTH = 1024  # G * hd outputs per block (8 per thread x 128 threads)
 
 #: Kernel launches; the wrapper adds one where it launches, nowhere else.

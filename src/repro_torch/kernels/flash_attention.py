@@ -1,7 +1,7 @@
 """K3: causal / non-causal GQA flash attention (forward).
 
 The hand-written Hopper kernel is ``csrc/flash_attention.cu`` (mma.sync
-bf16 tiles, online softmax in fp32 registers, any T and S, head dim 64 or
+bf16 tiles, online softmax in fp32 registers, any T and S, head dim 64, 112 or
 128); its plain PyTorch version is :func:`repro_torch.kernels.ref.mha_ref`,
 re-exported here as :data:`plain`. It replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py: flash_attention``.
@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import mha_ref as plain
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 
 #: Kernel launches; the wrapper adds one where it launches, nowhere else.
 launches = 0

@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def attention(q, k, v, *, causal: bool = True):
@@ -40,6 +41,11 @@ def gmm(xe, w):
     return _gmm.moe_gmm(xe, w)
 
 
+def ssd(x, bm, cm, dt, a_log, d_skip):
+    """x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log/d_skip: (H,) -> y (B,T,H,P)."""
+    return _ssd.ssd_scan(x, bm, cm, dt, a_log, d_skip)
+
+
 def counts() -> dict:
     """Kernel launches and plain-version calls since the last reset."""
     return {
@@ -47,6 +53,7 @@ def counts() -> dict:
         "decode_attention": _decode.launches,
         **_paged.launches,
         "moe_gmm": _gmm.launches,
+        "ssd_scan": _ssd.launches,
         **ref.CALLS,
     }
 
@@ -55,6 +62,7 @@ def reset_counts() -> None:
     _flash.launches = 0
     _decode.launches = 0
     _gmm.launches = 0
+    _ssd.launches = 0
     for name in _paged.launches:
         _paged.launches[name] = 0
     for name in ref.CALLS:

@@ -12,7 +12,7 @@ import math
 import torch
 
 CALLS = {"mha_ref": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0, "paged_chunk_attn_ref": 0,
-         "gmm_ref": 0}
+         "gmm_ref": 0, "ssd_ref": 0}
 
 
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -113,3 +113,33 @@ def gmm_ref(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     in float32 and cast to the dtype of ``xe``."""
     CALLS["gmm_ref"] += 1
     return torch.einsum("ecd,edf->ecf", xe.float(), w.float()).to(xe.dtype)
+
+
+def ssd_ref(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
+            a_log: torch.Tensor, d_skip: torch.Tensor):
+    """Naive O(T^2) SSD (the exact dual form, no chunking).
+
+    x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log, d_skip: (H,)
+    -> y (B,T,H,P) fp32 and the final state (B,H,P,N) fp32. Head h reads
+    group h // (H // G). Decay factors are computed only where i >= j."""
+    CALLS["ssd_ref"] += 1
+    b, t, h, p = x.shape
+    hpg = h // bm.shape[2]
+    a = -torch.exp(a_log.float())
+    dtf = dt.float()
+    cum = torch.cumsum(dtf * a, dim=1)  # (B,T,H)
+    # decay[i, j] = exp(cum_i - cum_j) for i >= j (the difference is positive
+    # above the diagonal, where exp may overflow: masked before exp)
+    li = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Ti, Tj, H)
+    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()[None, :, :, None]
+    decay = torch.exp(torch.where(causal, li, torch.full_like(li, float("-inf"))))
+    lmat = decay * dtf[:, None, :, :]  # (B,Ti,Tj,H)
+    scores = torch.einsum("bign,bjgn->bijg", cm.float(), bm.float())
+    scores = torch.repeat_interleave(scores, hpg, dim=3) * lmat
+    xf = x.float()
+    y = torch.einsum("bijh,bjhp->bihp", scores, xf)
+    y = y + xf * d_skip.float()[None, None, :, None]
+    w_j = torch.exp(cum[:, -1:, :] - cum) * dtf  # (B,T,H)
+    bh = torch.repeat_interleave(bm, hpg, dim=2).float()  # (B,T,H,N)
+    state = torch.einsum("bthp,bthn->bhpn", xf * w_j[..., None], bh)
+    return y, state

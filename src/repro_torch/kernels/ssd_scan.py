@@ -1,0 +1,80 @@
+"""K6: the Mamba-2 SSD chunked scan (forward), y only.
+
+The hand-written Hopper kernel is ``csrc/ssd_scan.cu`` (one block per
+(sequence, head, 32-row slice of the head dim) looping over chunks of 64
+rows with the fp32 state slice in shared memory; any T, state dim 64 or 128,
+head dim a multiple of 32, B and C grouped by ``h // (H / G)``); its plain
+PyTorch version is :func:`repro_torch.kernels.ref.ssd_ref`, re-exported here
+as :data:`plain` (it also returns the final state, which the kernel does
+not). It replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py:
+ssd_scan``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import ssd_ref as plain
+
+STATE_DIMS = (64, 128)
+HEAD_DIM_MULTIPLE = 32  # the head dim splits into 32-row state slices, one block each
+
+#: Kernel launches; the wrapper adds one where it launches, nowhere else.
+launches = 0
+
+
+def _check(x, bm, cm, dt, a_log, d_skip) -> None:
+    if x.dim() != 4 or bm.dim() != 4 or cm.shape != bm.shape:
+        raise ValueError(f"expected x (B,T,H,P), bm/cm (B,T,G,N); got {tuple(x.shape)}, "
+                         f"{tuple(bm.shape)}, {tuple(cm.shape)}")
+    b, t, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    if bm.shape[:2] != (b, t) or h % g:
+        raise ValueError(f"incompatible x {tuple(x.shape)} and bm/cm {tuple(bm.shape)}")
+    if dt.shape != (b, t, h) or a_log.shape != (h,) or d_skip.shape != (h,):
+        raise ValueError(f"expected dt ({b},{t},{h}) and a_log, d_skip ({h},); got {tuple(dt.shape)}, "
+                         f"{tuple(a_log.shape)}, {tuple(d_skip.shape)}")
+    if n not in STATE_DIMS:
+        raise ValueError(f"ssd_scan kernel takes state dim {STATE_DIMS}, got {n}")
+    if p % HEAD_DIM_MULTIPLE:
+        raise ValueError(f"ssd_scan kernel takes a head dim that is a multiple of {HEAD_DIM_MULTIPLE}, got {p}")
+    for name, v, dtype in (("x", x, torch.bfloat16), ("bm", bm, torch.bfloat16), ("cm", cm, torch.bfloat16),
+                           ("dt", dt, torch.float32), ("a_log", a_log, torch.float32),
+                           ("d_skip", d_skip, torch.float32)):
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+        if v.dtype != dtype:
+            raise TypeError(f"ssd_scan kernel takes {name} in {dtype}, got {v.dtype}")
+        if not v.is_contiguous() or v.data_ptr() % (16 if dtype == torch.bfloat16 else 4):
+            raise ValueError(f"{name} must be contiguous and aligned")
+
+
+def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
+             a_log: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:
+    """x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log, d_skip: (H,)
+    fp32 -> y (B,T,H,P) in the dtype of ``x`` (fp32 accumulated).
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+    plain version; a meta tensor returns an empty output of the right shape
+    (the shape-only run of a fused unit)."""
+    if x.device.type == "cpu":
+        return plain(x, bm, cm, dt, a_log, d_skip)[0].to(x.dtype)
+    if x.device.type == "meta":
+        return torch.empty_like(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    _check(x, bm, cm, dt, a_log, d_skip)
+    b, t, h, p = x.shape
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    lib = build.load()
+    err = lib.repro_ssd_scan_fwd(
+        x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
+        d_skip.data_ptr(), y.data_ptr(), b, t, h, p, bm.shape[2], bm.shape[3],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "ssd_scan launch")
+    global launches
+    launches += 1
+    return y

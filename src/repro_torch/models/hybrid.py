@@ -1,0 +1,86 @@
+"""Zamba2-style hybrid: Mamba-2 backbone + ONE shared transformer block
+applied every `shared_attn_every` layers. [arXiv:2411.15242]
+
+81 layers = 13 groups of 6 + a tail of 3 (config-derived). Where the JAX
+package scans over the groups and, inside each, over the group's Mamba
+layers, the port loops over both in Python. The shared block's *weights*
+are reused at every application, but each application has its own KV cache
+(``n_groups`` leading dim).
+
+Deviation kept from the JAX package: the real Zamba2 feeds concat(hidden,
+embedding) through per-application LoRA on the shared block; here the
+shared block is applied to the hidden state directly — the same compute
+shape, simpler plumbing.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.models.params import stack_defs
+
+
+def split_layers(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(n_groups, group_size, tail)."""
+    every = cfg.shared_attn_every
+    n_groups, tail = divmod(cfg.num_layers, every)
+    return n_groups, every, tail
+
+
+def hybrid_defs(cfg: ModelConfig):
+    n_groups, every, tail = split_layers(cfg)
+    defs = {
+        "groups": stack_defs(stack_defs(tfm.block_defs(cfg, "ssm"), every), n_groups),
+        "shared": tfm.block_defs(cfg, "dense"),
+    }
+    if tail:
+        defs["tail"] = stack_defs(tfm.block_defs(cfg, "ssm"), tail)
+    return defs
+
+
+def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                      collect_cache: bool = False):
+    """Returns (x, caches). caches (collect_cache=True) = {'groups': SSM
+    states (n_groups, every, ...), 'attn': {'k','v'} (n_groups, B, S, KV,
+    hd), 'tail': SSM states (tail, ...)}; else None."""
+    n_groups, _, tail = split_layers(cfg)
+    ssm_caches, kvs = [], []
+    for gi in range(n_groups):
+        group = tree.map(lambda a: a[gi], params["groups"])
+        x, ssm_cache = tfm.apply_stack_full(group, x, cfg, "ssm", positions, collect_cache=collect_cache)
+        x, kv = tfm.apply_block_full(params["shared"], x, cfg, "dense", positions, causal=True,
+                                     collect_cache=collect_cache)
+        ssm_caches.append(ssm_cache)
+        kvs.append(kv)
+    tail_cache = None
+    if tail:
+        x, tail_cache = tfm.apply_stack_full(params["tail"], x, cfg, "ssm", positions,
+                                             collect_cache=collect_cache)
+    if not collect_cache:
+        return x, None
+    caches = {"groups": tfm.stack_entries(ssm_caches), "attn": tfm.stack_entries(kvs)}
+    if tail:
+        caches["tail"] = tail_cache
+    return x, caches
+
+
+def apply_hybrid_decode(params, x: torch.Tensor, caches: dict, cfg: ModelConfig, cur_len: torch.Tensor):
+    """caches: {'groups': SSM states stacked (n_groups, every, ...), 'attn':
+    {'k','v'} (n_groups, B, S, KV, hd), 'tail': (tail, ...)}. Returns (x, new
+    caches) — new tensors, the input caches are not written."""
+    n_groups, _, tail = split_layers(cfg)
+    new_groups, new_attn = [], []
+    for gi in range(n_groups):
+        group = tree.map(lambda a: a[gi], params["groups"])
+        x, new_ssm = tfm.apply_stack_decode(group, x, tree.map(lambda a: a[gi], caches["groups"]), cfg,
+                                            "ssm", cur_len)
+        x, attn = tfm.apply_block_decode(params["shared"], x, tree.map(lambda a: a[gi], caches["attn"]),
+                                         cfg, "dense", cur_len)
+        new_groups.append(new_ssm)
+        new_attn.append(attn)
+    new_caches = {"groups": tfm.stack_entries(new_groups), "attn": tfm.stack_entries(new_attn)}
+    if tail:
+        x, new_caches["tail"] = tfm.apply_stack_decode(params["tail"], x, caches["tail"], cfg, "ssm", cur_len)
+    return x, new_caches

@@ -1,4 +1,5 @@
-"""build_model(cfg) — the Model API for the block families (dense, MoE, VLM).
+"""build_model(cfg) — the Model API for the block families (dense, MoE, VLM,
+SSM) and the hybrid family.
 
 A Model exposes the serving programs (plain functions of parameter trees —
 exactly what the Provuse platform deploys as FaaS functions):
@@ -6,8 +7,9 @@ exactly what the Provuse platform deploys as FaaS functions):
   prefill_fn(params, batch)         -> (last_logits, cache)
   decode_fn(params, batch, cache)   -> (logits, new_cache)
 
-plus ``cache_defs`` (the dense KV cache's ParamDef tree for a shape) and
-``init`` (seeded parameters on a device).
+plus ``cache_defs`` (the decode cache's ParamDef tree for a shape: the
+dense KV cache, the SSM states, or the hybrid's mix of both) and ``init``
+(seeded parameters on a device).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import hybrid as hy
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, embedding_defs, norm_defs, unembed
 from repro_torch.models.params import ParamDef, init_params
@@ -33,15 +37,16 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"the port serves the dense, moe and vlm families, not {cfg.family!r}")
+    fam = cfg.family
+    if fam not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise NotImplementedError(f"the port serves the dense, moe, vlm, ssm and hybrid families, not {fam!r}")
     L = cfg.num_layers
     kind = tfm.layer_kind(cfg)
-    defs: dict = {
-        "embed": embedding_defs(cfg),
-        "ln_f": norm_defs(cfg),
-        "blocks": tfm.stack_block_defs(cfg, kind, L),
-    }
+    defs: dict = {"embed": embedding_defs(cfg), "ln_f": norm_defs(cfg)}
+    if fam == "hybrid":
+        defs["hybrid"] = hy.hybrid_defs(cfg)
+    else:
+        defs["blocks"] = tfm.stack_block_defs(cfg, kind, L)
 
     def prefill_fn(params, batch):
         if "embeds" in batch:  # vlm: precomputed frontend embeddings
@@ -49,21 +54,43 @@ def build_model(cfg: ModelConfig) -> Model:
         else:
             x = embed_tokens(params["embed"], batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        h, cache = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True,
-                                        collect_cache=True)
+        if fam == "hybrid":
+            h, cache = hy.apply_hybrid_full(params["hybrid"], x, cfg, positions, collect_cache=True)
+        else:
+            h, cache = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True,
+                                            collect_cache=True)
         h = apply_norm(params["ln_f"], h[:, -1:], cfg)
         return unembed(params["embed"], h)[:, 0], cache  # last position only
 
     def decode_fn(params, batch, cache):
         x = embed_tokens(params["embed"], batch["tokens"])  # (B, 1, d)
-        h, new_cache = tfm.apply_stack_decode(params["blocks"], x, cache, cfg, kind, batch["cur_len"])
+        if fam == "hybrid":
+            h, new_cache = hy.apply_hybrid_decode(params["hybrid"], x, cache, cfg, batch["cur_len"])
+        else:
+            h, new_cache = tfm.apply_stack_decode(params["blocks"], x, cache, cfg, kind, batch["cur_len"])
         h = apply_norm(params["ln_f"], h, cfg)
         return unembed(params["embed"], h)[:, 0], new_cache
 
-    def cache_defs(shape: ShapeConfig):
-        sh = (L, shape.global_batch, shape.seq_len, cfg.num_kv_heads, cfg.head_dim)
+    def _attn_cache_defs(lead: tuple, batch: int, seq: int):
+        sh = (*lead, batch, seq, cfg.num_kv_heads, cfg.head_dim)
         dt = getattr(torch, cfg.kv_cache_dtype)
         return {"k": ParamDef(sh, init="zeros", dtype=dt), "v": ParamDef(sh, init="zeros", dtype=dt)}
+
+    def _ssm_cache_defs(lead: tuple, batch: int):
+        return {name: ParamDef((*lead, *sh), init="zeros", dtype=dt)
+                for name, (sh, dt) in ssm_mod.ssm_cache_shapes(cfg, batch).items()}
+
+    def cache_defs(shape: ShapeConfig):
+        b, s = shape.global_batch, shape.seq_len
+        if fam == "ssm":
+            return _ssm_cache_defs((L,), b)
+        if fam == "hybrid":
+            n_groups, every, tail = hy.split_layers(cfg)
+            out = {"groups": _ssm_cache_defs((n_groups, every), b), "attn": _attn_cache_defs((n_groups,), b, s)}
+            if tail:
+                out["tail"] = _ssm_cache_defs((tail,), b)
+            return out
+        return _attn_cache_defs((L,), b, s)
 
     return Model(
         cfg=cfg,

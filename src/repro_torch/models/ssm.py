@@ -1,0 +1,224 @@
+"""Mamba-2 (SSD — state-space duality) block. [arXiv:2405.21060]
+
+Prefill uses the *chunked dual form*: intra-chunk attention-like products
+plus an inter-chunk state recurrence — O(T * Q) compute and memory instead
+of O(T^2). Decode is the O(1) recurrent step: the state (B, H, P, N) is
+updated and read out.
+
+On the card the SSD scan of a prefill is the hand-written kernel K6
+(``repro_torch.kernels.ops.ssd``, any T) for y, and the final state is the
+closed form :func:`_final_state_only`, as the JAX package does on the TPU.
+On the CPU the chunked scan below runs, as the JAX package runs it off the
+TPU (its ``lax.scan`` over chunks is a Python loop here).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.params import ParamDef
+
+
+def ssm_defs(cfg: ModelConfig):
+    d, di = cfg.d_model, cfg.d_inner
+    h, n, grp = cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_groups
+    return {
+        "in_z": ParamDef((d, di)),
+        "in_x": ParamDef((d, di)),
+        "in_B": ParamDef((d, grp, n)),
+        "in_C": ParamDef((d, grp, n)),
+        "in_dt": ParamDef((d, h)),
+        "conv_x": ParamDef((cfg.conv_kernel, di)),
+        "conv_B": ParamDef((cfg.conv_kernel, grp, n)),
+        "conv_C": ParamDef((cfg.conv_kernel, grp, n)),
+        "A_log": ParamDef((h,), init="zeros", dtype=torch.float32),
+        "D": ParamDef((h,), init="ones", dtype=torch.float32),
+        "dt_bias": ParamDef((h,), init="zeros", dtype=torch.float32),
+        "gate_norm": ParamDef((di,), init="ones"),
+        "out": ParamDef((di, d)),
+    }
+
+
+def ssm_cache_shapes(cfg: ModelConfig, batch: int):
+    """Decode-state shapes and dtypes for ONE layer (stacked by the caller)."""
+    return {
+        "ssd": ((batch, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32),
+        "conv_x": ((batch, cfg.conv_kernel - 1, cfg.d_inner), torch.bfloat16),
+        "conv_B": ((batch, cfg.conv_kernel - 1, cfg.ssm_groups, cfg.ssm_state), torch.bfloat16),
+        "conv_C": ((batch, cfg.conv_kernel - 1, cfg.ssm_groups, cfg.ssm_state), torch.bfloat16),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time. x: (B, T, C...), w: (K, C...)."""
+    k = w.shape[0]
+    orig = x.shape
+    x2 = x.reshape(orig[0], orig[1], -1)
+    w2 = w.reshape(k, -1)
+    pad = torch.zeros(orig[0], k - 1, x2.shape[-1], dtype=x2.dtype, device=x2.device)
+    xp = torch.cat([pad, x2], dim=1)
+    out = sum(xp[:, i : i + orig[1]] * w2[i] for i in range(k))
+    return out.reshape(orig)
+
+
+def _project_inputs(params, u: torch.Tensor, cfg: ModelConfig):
+    """u: (B, T, d) -> z, x, Bm, Cm, dt (pre-conv x/B/C; post-softplus dt)."""
+    z = torch.einsum("btd,de->bte", u, params["in_z"])
+    x = torch.einsum("btd,de->bte", u, params["in_x"])
+    bm = torch.einsum("btd,dgn->btgn", u, params["in_B"])
+    cm = torch.einsum("btd,dgn->btgn", u, params["in_C"])
+    dt = torch.einsum("btd,dh->bth", u, params["in_dt"]).float()
+    dt = F.softplus(dt + params["dt_bias"])  # (B, T, H) fp32
+    return z, x, bm, cm, dt
+
+
+def _gated_out(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, eps: float = 1e-5):
+    """SiLU(z)-gated RMSNorm then output projection."""
+    yf = y.float() * F.silu(z.float())
+    ms = yf.square().mean(dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(ms + eps) * params["gate_norm"].float()
+    return torch.einsum("bte,ed->btd", yf.to(y.dtype), params["out"])
+
+
+def _final_state_only(x, bm, dt, a_log):
+    """Closed-form final SSD state (B,H,P,N) without the output sweep."""
+    h = x.shape[2]
+    grp = bm.shape[2]
+    a = -torch.exp(a_log.float())
+    cum = torch.cumsum(dt.float() * a, dim=1)  # (B,T,H)
+    w_j = torch.exp(cum[:, -1:, :] - cum) * dt.float()
+    bh = torch.repeat_interleave(bm, h // grp, dim=2).float()
+    state = torch.einsum("bthp,bthn->bhpn", x.float() * w_j[..., None], bh)
+    return None, state
+
+
+def ssd_chunked(x, bm, cm, dt, a_log, d_skip, chunk: int, init_state=None):
+    """SSD dual form. x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32.
+
+    Returns (y (B,T,H,P) in the dtype of x, final_state (B,H,P,N) fp32)."""
+    if init_state is None and x.device.type in ("cuda", "meta"):
+        # K6 for y (any T), then the closed-form state — the JAX package's
+        # kernel path (repro/models/ssm.py:104-112)
+        y = kops.ssd(x.contiguous(), bm.contiguous(), cm.contiguous(), dt.contiguous(), a_log, d_skip)
+        _, state = _final_state_only(x, bm, dt, a_log)
+        return y, state
+    b, t, h, p = x.shape
+    grp, n = bm.shape[2], bm.shape[3]
+    q = min(chunk, t)
+    if t % q:
+        q = t
+    nc = t // q
+    heads_per_group = h // grp
+
+    a = -torch.exp(a_log.float())  # (H,) negative
+    dta = dt * a  # (B,T,H) log-decay per step
+    xc = x.reshape(b, nc, q, h, p)
+    bc = bm.reshape(b, nc, q, grp, n)
+    cc = cm.reshape(b, nc, q, grp, n)
+    dtc = dt.reshape(b, nc, q, h)
+    dtac = dta.reshape(b, nc, q, h)
+
+    state = init_state if init_state is not None else torch.zeros(b, h, p, n, dtype=torch.float32,
+                                                                 device=x.device)
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()[None, :, :, None]
+    ys = []
+    for c in range(nc):
+        xq, bq, cq, dtq, dtaq = xc[:, c], bc[:, c], cc[:, c], dtc[:, c], dtac[:, c]
+        cum = torch.cumsum(dtaq, dim=1)  # (B,Q,H) log-decay prefix
+        # intra-chunk: L[i,j] = exp(cum_i - cum_j) * dt_j for i >= j (masked
+        # before exp: above the diagonal the difference is positive)
+        li = cum[:, :, None, :] - cum[:, None, :, :]  # (B,Qi,Qj,H)
+        decay = torch.exp(torch.where(causal, li, torch.full_like(li, float("-inf"))))
+        lmat = decay * dtq[:, None, :, :]
+        scores = torch.einsum("bigm,bjgm->bijg", cq.float(), bq.float())
+        scores = torch.repeat_interleave(scores, heads_per_group, dim=3) * lmat  # (B,Qi,Qj,H)
+        y_intra = torch.einsum("bijh,bjhp->bihp", scores, xq.float())
+        # inter-chunk: contribution of the carried state
+        cqh = torch.repeat_interleave(cq, heads_per_group, dim=2)  # (B,Q,H,N)
+        y_inter = torch.einsum("bqhn,bhpn->bqhp", cqh.float(), state) * torch.exp(cum)[..., None]
+        # state update: S' = S * exp(sum dta) + sum_j exp(cum_Q - cum_j) dt_j B_j x_j
+        total = cum[:, -1, :]  # (B,H)
+        w_j = torch.exp(total[:, None, :] - cum) * dtq  # (B,Q,H)
+        bqh = torch.repeat_interleave(bq, heads_per_group, dim=2).float()  # (B,Q,H,N)
+        ds = torch.einsum("bqhp,bqhn->bhpn", xq.float() * w_j[..., None], bqh)
+        state = state * torch.exp(total)[:, :, None, None] + ds
+        ys.append((y_intra + y_inter).to(x.dtype))  # kept in the model dtype (memory)
+    y = torch.stack(ys, dim=1).reshape(b, t, h, p)
+    skip = (x.float() * d_skip.float()[None, None, :, None]).to(x.dtype)
+    return y + skip, state
+
+
+def ssd_inputs(params, u: torch.Tensor, cfg: ModelConfig):
+    """The projections and causal convs of a full-sequence pass: (z, x0, bm0,
+    cm0 before the convs; xh (B,T,H,P), bm, cm (B,T,G,N) after them; dt (B,T,H)
+    fp32) — the SSD scan's inputs and what the decode cache keeps."""
+    b, t, _ = u.shape
+    z, x0, bm0, cm0, dt = _project_inputs(params, u, cfg)
+    x = F.silu(_causal_conv(x0, params["conv_x"]).float()).to(x0.dtype)
+    bm = F.silu(_causal_conv(bm0, params["conv_B"]).float()).to(bm0.dtype)
+    cm = F.silu(_causal_conv(cm0, params["conv_C"]).float()).to(cm0.dtype)
+    xh = x.reshape(b, t, cfg.ssm_nheads, cfg.ssm_head_dim)
+    return z, x0, bm0, cm0, xh, bm, cm, dt
+
+
+def apply_ssm(params, u: torch.Tensor, cfg: ModelConfig, init_state=None, return_cache: bool = False):
+    """Full-sequence Mamba-2 mixer. u: (B, T, d) -> (B, T, d).
+
+    With ``return_cache`` also returns the decode-continuation state
+    (matches :func:`ssm_cache_shapes`)."""
+    b, t, _ = u.shape
+    z, x0, bm0, cm0, xh, bm, cm, dt = ssd_inputs(params, u, cfg)
+    y, state = ssd_chunked(xh, bm, cm, dt, params["A_log"], params["D"], cfg.ssm_chunk, init_state)
+    out = _gated_out(params, y.reshape(b, t, -1), z, cfg)
+    if return_cache:
+        km1 = cfg.conv_kernel - 1
+        cache = {
+            "ssd": state,
+            "conv_x": x0[:, -km1:].to(torch.bfloat16),
+            "conv_B": bm0[:, -km1:].to(torch.bfloat16),
+            "conv_C": cm0[:, -km1:].to(torch.bfloat16),
+        }
+        return out, cache
+    return out
+
+
+def ssm_decode_step(params, u: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """One-token recurrent step. u: (B, 1, d); cache per ssm_cache_shapes.
+
+    Returns (out (B, 1, d), new_cache) — new tensors, the input cache is not
+    written."""
+    b = u.shape[0]
+    h, p = cfg.ssm_nheads, cfg.ssm_head_dim
+    grp = cfg.ssm_groups
+    z, x, bm, cm, dt = _project_inputs(params, u, cfg)
+
+    def conv_step(state, new, w):
+        # state: (B, K-1, C...), new: (B, 1, C...), w: (K, C...)
+        dtype = torch.promote_types(state.dtype, new.dtype)
+        hist = torch.cat([state.to(dtype), new.to(dtype)], dim=1)  # (B, K, C...)
+        k = w.shape[0]
+        h2 = hist.reshape(b, k, -1)
+        out = torch.einsum("bkc,kc->bc", h2, w.reshape(k, -1).to(dtype))
+        return out.reshape(new.shape[0], *new.shape[2:]), hist[:, 1:]
+
+    x1, conv_x = conv_step(cache["conv_x"], x, params["conv_x"])
+    b1, conv_b = conv_step(cache["conv_B"], bm, params["conv_B"])
+    c1, conv_c = conv_step(cache["conv_C"], cm, params["conv_C"])
+    x1 = F.silu(x1.float())  # (B, di)
+    b1 = F.silu(b1.float())  # (B, G, N)
+    c1 = F.silu(c1.float())
+
+    a = -torch.exp(params["A_log"].float())  # (H,)
+    dt1 = dt[:, 0]  # (B, H)
+    da = torch.exp(dt1 * a)  # (B, H)
+    xh = x1.reshape(b, h, p)
+    heads_per_group = h // grp
+    bh = torch.repeat_interleave(b1, heads_per_group, dim=1)  # (B, H, N)
+    ch = torch.repeat_interleave(c1, heads_per_group, dim=1)
+    state = cache["ssd"] * da[..., None, None] + torch.einsum("bhp,bhn->bhpn", xh * dt1[..., None], bh)
+    y = torch.einsum("bhpn,bhn->bhp", state, ch) + xh * params["D"].float()[None, :, None]
+    out = _gated_out(params, y.reshape(b, 1, -1).to(u.dtype), z, cfg)
+    new_cache = {"ssd": state, "conv_x": conv_x, "conv_B": conv_b, "conv_C": conv_c}
+    return out, new_cache

@@ -1,4 +1,4 @@
-"""Pre-LN transformer blocks (dense or MoE) and layer stacks.
+"""Pre-LN transformer blocks (dense, MoE or Mamba-2 SSM) and layer stacks.
 
 Layers are stacked on a leading 'layers' axis, as in the JAX package; where
 JAX scans over that axis, the port runs a Python loop over layers. The
@@ -6,9 +6,12 @@ paged steps write each layer's slice of the arena in place (where JAX
 carries the pool through its scan and updates it there), so the pool stays
 one buffer through the stack.
 
-A block's ``kind`` is "dense" (SwiGLU MLP) or "moe" (the MoE layer in the
-MLP's place), as in the JAX package. The MoE layer's metrics (aux loss,
-drop share) are discarded here, as the JAX serving engine discards them.
+A block's ``kind`` is "dense" (SwiGLU MLP), "moe" (the MoE layer in the
+MLP's place) or "ssm" (a pre-norm Mamba-2 mixer, no attention and no MLP),
+as in the JAX package. An attention block's cache entry is (k, v); an SSM
+block's is its state dict (``models/ssm.py: ssm_cache_shapes``), which has
+no pages. The MoE layer's metrics (aux loss, drop share) are discarded here,
+as the JAX serving engine discards them.
 """
 from __future__ import annotations
 
@@ -18,12 +21,15 @@ from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_defs, norm_defs
 from repro_torch.models.params import stack_defs
 
 
 def block_defs(cfg: ModelConfig, kind: str):
-    """kind: dense | moe"""
+    """kind: dense | moe | ssm"""
+    if kind == "ssm":
+        return {"ln1": norm_defs(cfg), "ssm": ssm_mod.ssm_defs(cfg)}
     defs = {
         "ln1": norm_defs(cfg),
         "attn": attn_mod.attn_defs(cfg),
@@ -37,6 +43,8 @@ def block_defs(cfg: ModelConfig, kind: str):
 
 
 def layer_kind(cfg: ModelConfig) -> str:
+    if cfg.family == "ssm":
+        return "ssm"
     return "moe" if cfg.family == "moe" else "dense"
 
 
@@ -57,7 +65,15 @@ def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, kind: str, positions: torch.Tensor,
                      causal: bool = True, collect_cache: bool = False):
-    """Full-sequence block. Returns (x, (k, v) in the cache dtype, or None)."""
+    """Full-sequence block. Returns (x, cache entry or None): (k, v) in the
+    cache dtype for attention kinds, the state dict for 'ssm'."""
+    if kind == "ssm":
+        h = apply_norm(params["ln1"], x, cfg)
+        if collect_cache:
+            out, cache = ssm_mod.apply_ssm(params["ssm"], h, cfg, return_cache=True)
+        else:
+            out, cache = ssm_mod.apply_ssm(params["ssm"], h, cfg), None
+        return x + out, cache
     h = apply_norm(params["ln1"], x, cfg)
     q, k, v = attn_mod.qkv_project(params["attn"], h, cfg, positions)
     out = attn_mod.full_attention(q, k, v, causal=causal)
@@ -72,8 +88,13 @@ def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, kind: str, posit
 
 def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig, kind: str,
                        cur_len: torch.Tensor):
-    """Single-token block step. cache: {'k','v'} of shape (B, S, KV, hd).
-    Returns (x, new cache) — new tensors, the input cache is not written."""
+    """Single-token block step. cache: {'k','v'} of shape (B, S, KV, hd), or
+    the SSM state dict for 'ssm'. Returns (x, new cache) — new tensors, the
+    input cache is not written."""
+    if kind == "ssm":
+        h = apply_norm(params["ln1"], x, cfg)
+        out, new_cache = ssm_mod.ssm_decode_step(params["ssm"], h, cache, cfg)
+        return x + out, new_cache
     positions = cur_len[:, None]  # (B, 1)
     h = apply_norm(params["ln1"], x, cfg)
     q, k_new, v_new = attn_mod.qkv_project(params["attn"], h, cfg, positions)
@@ -99,7 +120,10 @@ def apply_block_decode_paged(params, x: torch.Tensor, k_pages: torch.Tensor, v_p
     already resident at position ``cur_len`` (a shared-prefix-cache hit)
     and nothing is written — the engine uses this to recover first-token
     logits for a whole-prompt hit without touching shared pages. Returns
-    (x, k_pages, v_pages)."""
+    (x, k_pages, v_pages). Attention kinds only: an SSM state is recurrent,
+    not length-indexed, so it has no pages."""
+    if kind == "ssm":
+        raise ValueError("paged decode applies to attention caches only")
     positions = cur_len[:, None]  # (B, 1)
     h = apply_norm(params["ln1"], x, cfg)
     q, k_new, v_new = attn_mod.qkv_project(params["attn"], h, cfg, positions)
@@ -123,7 +147,9 @@ def apply_block_prefill_chunk_paged(params, x: torch.Tensor, k_pages: torch.Tens
     (the rest are padding whose K/V writes route to the scratch page). The
     chunk's K/V is written BEFORE attention so chunk tokens attend to
     themselves and each other, exactly like the matching rows of a dense
-    causal prefill. Returns (x, k_pages, v_pages)."""
+    causal prefill. Returns (x, k_pages, v_pages). Attention kinds only."""
+    if kind == "ssm":
+        raise ValueError("paged prefill applies to attention caches only")
     c = x.shape[1]
     positions = start[:, None] + torch.arange(c, device=x.device)[None, :]  # (1, C)
     h = apply_norm(params["ln1"], x, cfg)
@@ -144,32 +170,39 @@ def _num_layers(stacked_params) -> int:
     return tree.leaves(stacked_params)[0].shape[0]
 
 
+def stack_entries(entries: list) -> dict:
+    """Per-layer cache entries ((k, v) tuples, or dicts of tensors nested to
+    any depth) stacked on a new leading axis, as a dict."""
+    if isinstance(entries[0], tuple):
+        entries = [{"k": k, "v": v} for k, v in entries]
+    return tree.map(lambda *xs: torch.stack(xs), *entries)
+
+
 def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                      positions: torch.Tensor, causal: bool = True, collect_cache: bool = False):
-    """Full-sequence pass through the stack. Returns (x, {'k','v'} stacked
-    on a leading 'layers' axis, or None)."""
-    ks, vs = [], []
+    """Full-sequence pass through the stack. Returns (x, the cache stacked on
+    a leading 'layers' axis — {'k','v'} for attention kinds, the SSM state
+    dict for 'ssm' — or None)."""
+    entries = []
     for i in range(_num_layers(stacked_params)):
         x, entry = apply_block_full(_layer(stacked_params, i), x, cfg, kind, positions, causal,
                                     collect_cache)
-        if collect_cache:
-            ks.append(entry[0])
-            vs.append(entry[1])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
-    return x, cache
+        entries.append(entry)
+    return x, stack_entries(entries) if collect_cache else None
 
 
 def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: ModelConfig, kind: str,
                        cur_len: torch.Tensor):
     """One decode step through the stack; caches have a leading 'layers' dim.
-    Returns (x, new caches)."""
-    ks, vs = [], []
+    Returns (x, new caches), each in the dtype of the cache it replaces (as
+    the JAX package's carry keeps it)."""
+    entries = []
     for i in range(_num_layers(stacked_params)):
-        cache_i = {"k": caches["k"][i], "v": caches["v"][i]}
-        x, new_cache = apply_block_decode(_layer(stacked_params, i), x, cache_i, cfg, kind, cur_len)
-        ks.append(new_cache["k"])
-        vs.append(new_cache["v"])
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        x, new_cache = apply_block_decode(_layer(stacked_params, i), x, _layer(caches, i), cfg, kind,
+                                          cur_len)
+        entries.append(new_cache)
+    stacked = stack_entries(entries)
+    return x, {name: stacked[name].to(caches[name].dtype) for name in stacked}
 
 
 def apply_stack_decode_paged(stacked_params, x: torch.Tensor, arena: dict, block_table: torch.Tensor,

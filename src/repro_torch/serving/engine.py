@@ -1,9 +1,12 @@
 """Serving engine: deploys a model on the Provuse platform as a FaaS
 function *chain* and serves prefill/decode through it.
 
-Chain layout (the block families: dense and MoE):
+Chain layout (the block families: dense, MoE and SSM):
 
     <arch>/embed  ->  <arch>/g0  ->  ...  ->  <arch>/g{G-1}  ->  <arch>/head
+
+The hybrid family deploys ``<arch>/embed -> <arch>/core -> <arch>/head``:
+the core holds every Mamba group and the shared attention block.
 
 Each stage is an independently deployed function holding its own layer-slice
 weights; every stage synchronously calls the next and returns the final
@@ -16,9 +19,11 @@ ever asks for fusion; it *happens to* the deployment (transparent,
 platform-side). Per-token latency before/after is the paper's Fig. 5.
 
 Stage functions are shape-polymorphic: a (B, T>1) input takes the prefill
-path (and fills the preallocated max_len cache); (B, 1) takes the decode
-path. One deployed function serves both request types. Dense caches are
-never written in place: every stage returns new cache tensors.
+path (and fills the preallocated max_len cache; an SSM stage's built state
+simply becomes its cache); (B, 1) takes the decode path. One deployed
+function serves both request types. Dense caches are never written in
+place: every stage returns new cache tensors, so a canary replay sees the
+cache its request saw.
 
 Paged serving: with ``enable_paging`` the chain can also serve from a shared
 :class:`~repro_torch.serving.kvpool.KVArena` — ``caches`` then carries a
@@ -42,6 +47,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.function import FunctionSpec
 from repro_torch.core.platform import ProvusePlatform
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid as hy
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, unembed
 from repro_torch.models.model import Model
@@ -87,6 +93,14 @@ def _slice_tree(t, lo: int, hi: int):
     return tree.map(lambda x: x[lo:hi], t)
 
 
+def _fill_prefix(full: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """A NEW tensor: ``full`` with ``part`` in its leading sequence slots
+    (axis 2: (layers, B, S, KV, hd)); ``full`` itself is not written."""
+    filled = full.clone()
+    filled[:, :, : part.shape[2]] = part.to(full.dtype)
+    return filled
+
+
 def _pick_groups(n_layers: int, requested: int) -> int:
     g = min(requested, n_layers)
     while g > 1 and n_layers % g:
@@ -108,7 +122,10 @@ class ServingEngine:
         self.trust = trust_domain or self.cfg.name
         self.entry = f"{self.prefix}/embed"
         self.arena: KVArena | None = None
-        self._deploy_blocks_chain()
+        if self.cfg.family == "hybrid":
+            self._deploy_monolithic_chain()
+        else:
+            self._deploy_blocks_chain()
         if kv_pages:
             self.enable_paging(kv_pages, kv_page_size)
 
@@ -155,11 +172,10 @@ class ServingEngine:
                 else:  # prefill: build the cache and place it in the max_len slots
                     positions = torch.arange(x.shape[1], device=x.device)[None, :]
                     h, built = tfm.apply_stack_full(params, x, cfg, kind, positions, collect_cache=True)
-                    new_cache = {}
-                    for name, full in old.items():
-                        filled = full.clone()
-                        filled[:, :, : x.shape[1]] = built[name].to(full.dtype)
-                        new_cache[name] = filled
+                    if kind == "ssm":  # the built state IS the cache
+                        new_cache = built
+                    else:
+                        new_cache = {name: _fill_prefix(full, built[name]) for name, full in old.items()}
                 caches = dict(caches)
                 caches[key] = new_cache
                 return ctx.call(nxt, h, cur_len, caches)
@@ -188,26 +204,74 @@ class ServingEngine:
         )
         self.group_names = names
 
+    def _deploy_monolithic_chain(self) -> None:
+        """The hybrid family's chain, embed -> core -> head: the core holds
+        every Mamba group and the shared block. On prefill the SSM states are
+        the built ones and the attention caches land in their max_len slots
+        as new tensors."""
+        cfg = self.cfg
+        core_name = f"{self.prefix}/core"
+        head_name = f"{self.prefix}/head"
+
+        def embed_fn(ctx, params, inputs, cur_len, caches):
+            return ctx.call(core_name, embed_tokens(params, inputs["tokens"]), cur_len, caches)
+
+        def core_fn(ctx, params, x, cur_len, caches):
+            if x.shape[1] == 1:  # decode
+                h, new_caches = hy.apply_hybrid_decode(params, x, caches, cfg, cur_len)
+            else:  # prefill
+                positions = torch.arange(x.shape[1], device=x.device)[None, :]
+                h, built = hy.apply_hybrid_full(params, x, cfg, positions, collect_cache=True)
+                attn = {name: _fill_prefix(full, built["attn"][name]) for name, full in caches["attn"].items()}
+                new_caches = {**caches, **built, "attn": attn}
+            return ctx.call(head_name, h, cur_len, new_caches)
+
+        def head_fn(ctx, params, x, cur_len, caches):
+            h = apply_norm(params["ln_f"], x[:, -1:], cfg)
+            return unembed(params["embed"], h)[:, 0], caches
+
+        self.platform.deploy(
+            FunctionSpec(self.entry, embed_fn, {"table": self.params["embed"]["table"]}, self.trust)
+        )
+        self.platform.deploy(FunctionSpec(core_name, core_fn, self.params["hybrid"], self.trust))
+        self.platform.deploy(
+            FunctionSpec(head_name, head_fn, {"ln_f": self.params["ln_f"], "embed": self.params["embed"]}, self.trust)
+        )
+
     def chain_names(self) -> list[str]:
         """Every function name this engine deployed, in chain order."""
+        if self.cfg.family == "hybrid":
+            return [self.entry, f"{self.prefix}/core", f"{self.prefix}/head"]
         return [self.entry, *self.group_names, f"{self.prefix}/head"]
 
     # ------------------------------------------------------------ caches
 
     def empty_caches(self, batch: int):
-        """Zeroed max_len caches, re-keyed by chain stage."""
+        """Zeroed max_len caches: re-keyed by chain stage for the block
+        families (an SSM stage's states included), the model's own layout
+        for the hybrid."""
         shape = ShapeConfig("serve", self.max_len, batch, "decode")
         cache = init_params(self.model.cache_defs(shape), device=self.device)
+        if self.cfg.family == "hybrid":
+            return cache
         g = len(self.group_names)
         per = self.cfg.num_layers // g
         return {f"g{i}": _slice_tree(cache, i * per, (i + 1) * per) for i in range(g)}
 
     # ------------------------------------------------------------ paging
 
+    @property
+    def paging_supported(self) -> bool:
+        """Paged KV applies to length-indexed attention caches: an SSM state
+        is recurrent, and the hybrid keeps its dedicated layout."""
+        return self.cfg.family in ("dense", "moe", "vlm")
+
     def enable_paging(self, num_pages: int, page_size: int = 16) -> KVArena:
         """Preallocate the shared KV arena on the engine's device: one
         (layers, pages, page, KV, hd) pool per chain stage, one allocator and
         block table across stages."""
+        if not self.paging_supported:
+            raise ValueError(f"paged KV unsupported for family {self.cfg.family!r}")
         if self.max_len % page_size:
             raise ValueError(f"max_len={self.max_len} must be a multiple of page_size={page_size}")
         g = len(self.group_names)

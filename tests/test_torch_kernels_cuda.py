@@ -1,6 +1,6 @@
 """The hand-written kernels K3 (flash_attention), K4 (decode_attention),
-K1 (paged_decode_attention), K2 (paged_chunk_attention) and K5 (moe_gmm)
-against their plain versions, on the card.
+K1 (paged_decode_attention), K2 (paged_chunk_attention), K5 (moe_gmm) and
+K6 (ssd_scan) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a CUDA
 device. The file imports no JAX, so it runs where only PyTorch is
@@ -17,6 +17,7 @@ from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 
 RTOL = ATOL = 2e-2  # bf16, as tests/test_kernels.py
 
@@ -45,6 +46,8 @@ def cuda():
     (2, 256, 256, 4, 1, 64, False),   # MQA
     (1, 200, 200, 8, 2, 128, True),
     (2, 65, 130, 4, 2, 64, False),    # ragged T != S
+    (1, 300, 300, 32, 32, 112, True),  # zamba2-7b's shared block: MHA, head dim 112
+    (2, 65, 130, 4, 4, 112, False),
 ])
 def test_flash_kernel_matches_plain(cuda, b, t, s, h, kv, hd, causal):
     qn, kn, vn = inputs(13, (b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd))
@@ -58,7 +61,8 @@ def test_flash_kernel_matches_plain(cuda, b, t, s, h, kv, hd, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kv,hd", [(1, 512, 32, 8, 64), (4, 512, 32, 8, 64), (3, 300, 8, 2, 128)])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(1, 512, 32, 8, 64), (4, 512, 32, 8, 64), (3, 300, 8, 2, 128),
+                                          (1, 512, 32, 32, 112), (2, 300, 32, 32, 112)])  # zamba2-7b
 def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd):
     qn, kn, vn = inputs(17, (b, h, hd), (b, s, kv, hd), (b, s, kv, hd))
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
@@ -293,3 +297,110 @@ def test_moe_chain_on_the_card_goes_through_k5(cuda):
         assert torch.equal(moe.route(layer, x, cfg)[1].cpu(),
                            moe.route(tree.map(lambda a: a.cpu(), layer), x.cpu(), cfg)[1])
     assert (got.cpu().float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()
+
+
+def ssd_inputs(seed, b, t, h, g, p, n, device):
+    """tests/test_kernels.py's SSD recipe: B, C of std 0.5, dt = softplus of
+    a normal, A_log of std 0.3, D = 1; x, B, C in bf16 (the model dtype)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, t, h, p)).astype(np.float32)).to(device, torch.bfloat16)
+    bm, cm = (torch.from_numpy((rng.standard_normal((b, t, g, n)) * 0.5).astype(np.float32))
+              .to(device, torch.bfloat16) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.from_numpy(rng.standard_normal((b, t, h)).astype(np.float32))).to(device)
+    a_log = torch.from_numpy((rng.standard_normal(h) * 0.3).astype(np.float32)).to(device)
+    return x, bm, cm, dt, a_log, torch.ones(h, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,g,p,n", [
+    (1, 300, 32, 1, 64, 128),  # mamba2-370m's prompt of 300
+    (1, 300, 112, 1, 64, 64),  # zamba2-7b's
+    (1, 37, 32, 1, 64, 128),   # one partial chunk
+    (1, 512, 112, 1, 64, 64),  # two full chunks of the configured 256
+    (2, 300, 8, 2, 64, 64),    # groups: heads 0-3 read group 0, 4-7 group 1
+    (1, 1, 4, 1, 32, 64),      # one token
+    (1, 65, 6, 3, 96, 128),    # three head-dim slices; a chunk of one row
+])
+def test_ssd_kernel_matches_plain(cuda, b, t, h, g, p, n):
+    args = ssd_inputs(31, b, t, h, g, p, n, cuda)
+    before = tssd.launches
+    got = tssd.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert tssd.launches == before + 1
+    assert got.shape == (b, t, h, p) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(as_np(got), as_np(tssd.plain(*args)[0]), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, tssd.ssd_scan(*args))  # deterministic: one fixed summation order
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_is_finite_where_the_decay_overflows(cuda):
+    """dt = 1 and a = -1 over 512 steps: cum_i - cum_j above the diagonal
+    reaches +511, where exp overflows; the kernel never evaluates it."""
+    x, bm, cm, dt, a_log, d = ssd_inputs(33, 1, 512, 4, 1, 64, 64, cuda)
+    dt, a_log = torch.ones_like(dt), torch.zeros_like(a_log)
+    got = tssd.ssd_scan(x, bm, cm, dt, a_log, d)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(as_np(got), as_np(tssd.plain(x, bm, cm, dt, a_log, d)[0]), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, bm, cm, dt, a_log, d = ssd_inputs(35, 1, 16, 4, 1, 64, 64, cuda)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan(x.float(), bm, cm, dt, a_log, d)
+    with pytest.raises(ValueError):
+        tssd.ssd_scan(x, bm[..., :32].contiguous(), cm[..., :32].contiguous(), dt, a_log, d)  # N = 32
+    with pytest.raises(ValueError):
+        tssd.ssd_scan(x[..., :48].contiguous(), bm, cm, dt, a_log, d)  # P = 48
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_ssm_and_hybrid_chains_on_the_card_go_through_the_kernels(cuda, arch):
+    """A small mamba2-370m and zamba2-7b (SSM heads of 64 over a state of 64,
+    attention heads of 64) served by the chain on the card: a prefill
+    launches K6 once per Mamba layer and K3 once per shared-block
+    application, a decode step K4 once per application and no K6 (the
+    recurrent form), no plain version runs, and the prefill's logits match
+    the same model on the CPU. The model is chip_smoke.py's small one, its
+    shared attention drawn with fan-in d (``attention_fan_in_d``): under the
+    JAX init rule the small hybrid's prefill logits move by tens of percent
+    when K6's output is rounded once instead of twice."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = smoke.small_config(get_arch(arch))
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    smoke.attention_fan_in_d(params, cfg)
+    apps = cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 41)).astype(np.int32))
+    platform = TinyTorchBackend(FusionPolicy(enabled=False))
+    try:
+        engine = ServingEngine(model, platform, max_len=64, params=params, device=cuda)
+        ops.reset_counts()
+        logits, caches, cur = engine.prefill({"tokens": toks.to(cuda)})
+        prefill = ops.counts()
+        ops.reset_counts()
+        step, _ = engine.decode_step(torch.argmax(logits, -1)[:, None].to(torch.int32), cur, caches)
+        decode = ops.counts()
+    finally:
+        platform.shutdown()
+    assert prefill["ssd_scan"] == cfg.num_layers and decode["ssd_scan"] == 0
+    assert prefill["flash_attention"] == apps and decode["decode_attention"] == apps
+    assert all(v == 0 for k, v in {**prefill, **decode}.items() if k.endswith("_ref"))
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    with torch.no_grad():
+        want, _ = model.prefill_fn(tree.map(lambda x: x.cpu(), params), {"tokens": toks})
+    assert (logits.cpu() - want).abs().max() <= 2e-2 * want.abs().max()

@@ -433,8 +433,9 @@ def test_moe_decode_step_never_drops_at_batch_8():
 
 
 def test_build_model_families():
-    """The port builds the block families (dense, moe, vlm); the vlm prefill
-    takes frontend embeddings in place of tokens."""
+    """The port builds the block families (dense, moe, vlm, ssm) and the
+    hybrid; the vlm prefill takes frontend embeddings in place of tokens;
+    the enc-dec family (audio) is not ported and raises."""
     llama = reduced_config(get_arch("llama3.2-1b"))
     vlm = build_model(dataclasses.replace(llama, family="vlm"))
     params = vlm.init(0, device=CPU)
@@ -444,7 +445,10 @@ def test_build_model_families():
         b, _ = vlm.prefill_fn(params, {"embeds": params["embed"]["table"][toks.long()]})
     assert torch.equal(a, b)
     assert "moe" in build_model(reduced_config(get_arch(ARCH))).param_defs["blocks"]
-    for family in ("ssm", "hybrid", "audio"):
+    assert "ssm" in build_model(reduced_config(get_arch("mamba2-370m"))).param_defs["blocks"]
+    hybrid = build_model(reduced_config(get_arch("zamba2-7b"))).param_defs["hybrid"]
+    assert set(hybrid) == {"groups", "shared", "tail"} and "attn" in hybrid["shared"]
+    for family in ("audio",):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(llama, family=family))
 
