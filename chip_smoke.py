@@ -11,7 +11,12 @@ Phases (any failed check exits non-zero and prints no result):
    the hand-written kernels are built from ``src/repro_torch/kernels/csrc``.
 2. Kernel phase: K3 ``flash_attention`` and K4 ``decode_attention`` at the
    dense serving chain's shapes and at zamba2-7b's shared block (32 heads of
-   112), K1 ``paged_decode_attention`` and K2 ``paged_chunk_attention`` at
+   112), then at fixed lengths a later change can compare with (K3 at a
+   causal T = 1024; K4 over a full cache of 512 rows at both shapes and of
+   4096 rows, where the bytes set the time: ``bound_share`` is bound_ms / ms,
+   and every timed call reads the next of enough copies of the cache to
+   exceed the L2 four times over), then at qwen3-moe-30b-a3b's attention
+   (32 query heads over 4 kv heads of 128), K1 ``paged_decode_attention`` and K2 ``paged_chunk_attention`` at
    the paged serve path's, K5 ``moe_gmm`` at the MoE serve path's (E = 128;
    C = 8, 24, 40), K6 ``ssd_scan`` at the SSM and hybrid paths' (T = 300 for
    each model, T = 37, T = 512, G = 2), each held against its plain PyTorch
@@ -21,7 +26,9 @@ Phases (any failed check exits non-zero and prints no result):
    never calls it: ``scaled_dot_product_attention`` — for K1 and K2 on the
    pre-gathered contiguous cache, the gather timed apart — ``torch.bmm`` for
    K5; none computes K6) and the least time the card could take
-   (``bound_ms``). K5 and K6 must give equal bits on two launches.
+   (``bound_ms``). K3, K4, K5 and K6 must give equal bits on two launches.
+   A ``ptxas`` line gives every kernel's registers and spills, per head dim
+   for K3 and K4.
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -49,8 +56,8 @@ Phases (any failed check exits non-zero and prints no result):
    block's contribution on the same input must agree within 5e-2, and how
    far bf16 rounding alone carries the end-to-end logits is reported.
 6. Profile phase: where a fused decode step's time goes — the host's wall
-   clock against the device's kernel time (``torch.profiler``) — and its
-   ten costliest kernels.
+   clock against the device's kernel time (``torch.profiler``) — its ten
+   costliest kernels and the device time of each hand-written kernel.
 7. MoE serve phase: the llama tensors freed, full-width
    ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
    random bf16 weights from seed 0, about 61 GB) as the eight-function
@@ -81,8 +88,8 @@ Phases (any failed check exits non-zero and prints no result):
    ``embed -> core -> head``; K3 once per shared-block application of each
    prefill, K4 once per application of each decode step, K6 as above.
 
-Standard output opens with the device line; its last lines are the
-``serve``, ``paged_serve``, ``reference``, ``profile``, ``moe_serve``,
+Standard output opens with the device line and the ``ptxas`` line; its
+last lines are the ``serve``, ``paged_serve``, ``reference``, ``profile``, ``moe_serve``,
 ``moe_paged_serve``, ``moe_block``, ``moe_profile``, ``moe_memory``,
 ``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
 ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
@@ -90,7 +97,9 @@ and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -114,6 +123,8 @@ BLOCK_TOL = 5e-2
 TIMED_SAMPLES = 21  # CUDA-event samples per timing, of REPS calls each
 REPS = 10
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device sleep ahead of each sample
+# K/V bytes a cold K4 case rotates through: four times the H100's 50 MB L2
+COLD_BYTES = 4 * 50 * 2**20
 
 
 # the plain versions' call counters (repro_torch.kernels.ref.CALLS)
@@ -121,6 +132,11 @@ PLAIN = ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_att
 # each kernel of a serve phase and the plain version that stands in for it on
 # the CPU (the CPU's SSM prefill runs the chunked scan, not the plain K6)
 STAND_INS = {"flash_attention": "mha_ref", "decode_attention": "decode_attn_ref", "moe_gmm": "gmm_ref"}
+
+
+# the device-side names of the hand-written kernels (csrc/*.cu)
+PORT_KERNELS = ("flash_attention_kernel", "decode_attention_kernel", "paged_decode_kernel",
+                "paged_chunk_kernel", "moe_gmm_kernel", "ssd_scan_kernel")
 
 
 class SmokeFailure(Exception):
@@ -178,81 +194,143 @@ def max_err(torch, got, want) -> float:
 # --------------------------------------------------------------- kernel phase
 
 
-def kernel_phase(torch, F) -> dict:
-    from repro_torch.kernels import decode_attention as dec
+def flash_case(torch, F, t, H, KV, HD, rng) -> dict:
+    """K3 at B = 1, T = S = ``t``, causal, on inputs drawn from ``rng``:
+    against its plain version, two launches for equal bits, timed beside the
+    plain version and SDPA on the same inputs."""
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    # zamba2-7b's shared-block cases draw from a generator of their own, so
-    # that every other case draws the inputs it drew before they were added
-    gen112 = torch.Generator(device=dev).manual_seed(112)
-    out = {}
+    G = H // KV
+    q = torch.randn(1, t, H, HD, generator=rng, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max_err(torch, got, fa.plain(q, k, v, causal=True))
+    check(torch.equal(got, fa.flash_attention(q, k, v, causal=True)), f"flash_attention T={t} is not deterministic")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kr, vr = kt.repeat_interleave(G, dim=1), vt.repeat_interleave(G, dim=1)
+    flops = 4 * H * t * t * HD / 2
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+    b_ms, b_by = bound(flops, nbytes)
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+    return {
+        "shape": f"B=1 T=S={t} H={H} KV={KV} hd={HD} causal bf16",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": time_ms(torch, lambda: fa.plain(q, k, v, causal=True)),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "bound_share": b_ms / ms,
+    }
 
-    cases = []
-    # the dense chain's prompts (llama3.2-1b), then zamba2-7b's shared block
-    for t, H, KV, HD, rng in ((37, 32, 8, 64, gen), (128, 32, 8, 64, gen), (300, 32, 8, 64, gen),
-                              (300, 32, 32, 112, gen112)):
-        G = H // KV
-        q = torch.randn(1, t, H, HD, generator=rng, device=dev).to(torch.bfloat16)
-        k = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
-        v = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
-        got = fa.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        err = max_err(torch, got, fa.plain(q, k, v, causal=True))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        kr, vr = kt.repeat_interleave(G, dim=1), vt.repeat_interleave(G, dim=1)
-        flops = 4 * H * t * t * HD / 2
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-        b_ms, b_by = bound(flops, nbytes)
-        cases.append({
-            "shape": f"B=1 T=S={t} H={H} KV={KV} hd={HD} causal bf16",
-            "max_abs_err": err,
-            "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
-            "plain_ms": time_ms(torch, lambda: fa.plain(q, k, v, causal=True)),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-        })
-    out["flash_attention"] = cases
 
-    cases = []
-    S = 512
-    # the dense chain's decode (B = 1, 4; llama3.2-1b), then zamba2-7b's shared block
-    for b, H, KV, HD, rng in ((1, 32, 8, 64, gen), (4, 32, 8, 64, gen), (1, 32, 32, 112, gen112)):
-        G = H // KV
-        q = torch.randn(b, H, HD, generator=rng, device=dev).to(torch.bfloat16)
-        k = torch.randn(b, S, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
-        v = torch.randn(b, S, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+def rotating(fn, n: int):
+    """A call that passes 0, 1, ..., n - 1, 0, ... to ``fn`` in turn."""
+    calls = itertools.count()
+    return lambda: fn(next(calls) % n)
+
+
+def decode_case(torch, F, b, S, H, KV, HD, rng, lens=None, cold: bool = False) -> dict:
+    """K4 at batch ``b`` over a cache of ``S`` rows on inputs drawn from
+    ``rng`` (cur_len ``lens``, else drawn from ``rng`` too: random in [1, S],
+    the edges 1 and S where b > 1): against its plain version, exact zeros
+    at cur_len 0, two launches for equal bits, timed beside the plain version
+    and SDPA with the cur_len mask on the same inputs. ``cold``: every timed
+    call (kernel, plain version and SDPA alike) reads the next of ``copies``
+    copies of K and V, together at least COLD_BYTES, so that the cache comes
+    from device memory and not from the L2, as in a decode step, where each
+    layer's cache is read once between the other layers' weights."""
+    from repro_torch.kernels import decode_attention as dec
+
+    dev = torch.device("cuda")
+    G = H // KV
+    q = torch.randn(b, H, HD, generator=rng, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, S, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, S, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
+    if lens is None:
         cur = torch.randint(1, S + 1, (b,), generator=rng, device=dev, dtype=torch.int32)
         if b > 1:  # the edges: one visible row, every row
             cur[0] = 1
             cur[-1] = S
-        got = dec.decode_attention(q, k, v, cur)
-        torch.cuda.synchronize()
-        err = max_err(torch, got, dec.plain(q, k, v, cur))
-        zeros = dec.decode_attention(q, k, v, torch.zeros_like(cur))
-        check(bool((zeros == 0).all()), "decode_attention must give exact zeros at cur_len == 0")
-        mask = (torch.arange(S, device=dev)[None, :] < cur[:, None])[:, None, None, :]
-        qt = q[:, :, None, :]
-        kr = k.transpose(1, 2).repeat_interleave(G, dim=1)
-        vr = v.transpose(1, 2).repeat_interleave(G, dim=1)
-        rows = int(cur.clamp(max=S).sum())
-        nbytes = 2 * (2 * rows * KV * HD + q.numel() + got.numel())
-        b_ms, b_by = bound(4 * H * HD * rows, nbytes)
-        cases.append({
-            "shape": f"B={b} S={S} H={H} KV={KV} hd={HD} cur_len={cur.tolist()} bf16",
-            "max_abs_err": err,
-            "ms": time_ms(torch, lambda: dec.decode_attention(q, k, v, cur)),
-            "plain_ms": time_ms(torch, lambda: dec.plain(q, k, v, cur)),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-        })
-    out["decode_attention"] = cases
+    else:
+        cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = dec.decode_attention(q, k, v, cur)
+    torch.cuda.synchronize()
+    err = max_err(torch, got, dec.plain(q, k, v, cur))
+    check(torch.equal(got, dec.decode_attention(q, k, v, cur)), f"decode_attention S={S} is not deterministic")
+    zeros = dec.decode_attention(q, k, v, torch.zeros_like(cur))
+    check(bool((zeros == 0).all()), "decode_attention must give exact zeros at cur_len == 0")
+    mask = (torch.arange(S, device=dev)[None, :] < cur[:, None])[:, None, None, :]
+    qt = q[:, :, None, :]
+    copies = -(-COLD_BYTES // (2 * k.numel() * k.element_size())) if cold else 1
+    ks = [k] + [k.clone() for _ in range(copies - 1)]
+    vs = [v] + [v.clone() for _ in range(copies - 1)]
+    krs = [x.transpose(1, 2).repeat_interleave(G, dim=1) for x in ks]
+    vrs = [x.transpose(1, 2).repeat_interleave(G, dim=1) for x in vs]
+    rows = int(cur.clamp(max=S).sum())
+    nbytes = 2 * (2 * rows * KV * HD + q.numel() + got.numel())
+    b_ms, b_by = bound(4 * H * HD * rows, nbytes)
+    ms = time_ms(torch, rotating(lambda i: dec.decode_attention(q, ks[i], vs[i], cur), copies))
+    return {
+        "shape": f"B={b} S={S} H={H} KV={KV} hd={HD} cur_len={cur.tolist()} bf16",
+        "copies": copies,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": time_ms(torch, rotating(lambda i: dec.plain(q, ks[i], vs[i], cur), copies)),
+        "library_ms": time_ms(torch, rotating(
+            lambda i: F.scaled_dot_product_attention(qt, krs[i], vrs[i], attn_mask=mask), copies)),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "bound_share": b_ms / ms,
+    }
+
+
+def kernel_phase(torch, F) -> dict:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    # zamba2-7b's shared-block cases, and the fixed-length and long cases
+    # after them, draw from generators of their own, so that every earlier
+    # case draws the inputs it drew before they were added
+    gen112 = torch.Generator(device=dev).manual_seed(112)
+    gen_fixed = torch.Generator(device=dev).manual_seed(15)
+    gen128 = torch.Generator(device=dev).manual_seed(128)
+    out = {}
+    # the dense chain's prompts (llama3.2-1b), zamba2-7b's shared block, a
+    # long causal prompt, and qwen3-moe-30b-a3b's attention (32/4 heads of 128)
+    out["flash_attention"] = [flash_case(torch, F, *args) for args in (
+        (37, 32, 8, 64, gen), (128, 32, 8, 64, gen), (300, 32, 8, 64, gen), (300, 32, 32, 112, gen112),
+        (1024, 32, 8, 64, gen_fixed), (300, 32, 4, 128, gen128))]
+    # the dense chain's decode (B = 1, 4; llama3.2-1b), zamba2-7b's shared
+    # block; then fixed lengths that a later change can compare with: the
+    # full S = 512 cache at both shapes, and a long cache of 4096 rows, where
+    # the bytes, not the launch, set the time (read cold: see decode_case);
+    # then qwen3-moe-30b-a3b's decode at the main case's cur_len
+    out["decode_attention"] = [decode_case(torch, F, *args) for args in (
+        (1, 512, 32, 8, 64, gen), (4, 512, 32, 8, 64, gen), (1, 512, 32, 32, 112, gen112))] + [
+        decode_case(torch, F, 1, S, H, KV, HD, gen_fixed, lens=[S], cold=S > 512)
+        for S, H, KV, HD in ((512, 32, 8, 64), (512, 32, 32, 112), (4096, 32, 8, 64), (4096, 32, 32, 112))] + [
+        decode_case(torch, F, 1, 512, 32, 4, 128, gen128, lens=[406])]
     out.update(paged_kernel_cases(torch, F, gen))
     out["moe_gmm"] = moe_kernel_cases(torch, gen)
     out["ssd_scan"] = ssd_kernel_cases(torch, gen)
+    return out
+
+
+def ptxas_report(report: str) -> dict:
+    """Registers, spills and shared memory of each hand-written kernel's
+    instantiations (``name<template ints>``), from the compiler's
+    ``-Xptxas -v`` report of this run's build."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            args = ",".join(re.findall(r"Li(\d+)E", mangled))
+            entry = next((f"{k}<{args}>" if args else k for k in PORT_KERNELS if k in mangled), None)
+        elif entry and ("registers" in line or "spill" in line):
+            out.setdefault(entry, []).append(line.split("ptxas info    :")[-1].strip())
     return out
 
 
@@ -1088,6 +1166,10 @@ def device_profile(torch, run, steps: int) -> dict:
                                  and e.cpu_parent is None) / steps,
         "top_kernels": [{"name": n[:80], "calls_per_step": len(v) / steps,
                          "ms_per_step": sum(v) / 1e3 / steps} for n, v in top],
+        # the port's own kernels, wherever they rank
+        "port_kernels": {k: {"calls_per_step": sum(len(v) for n, v in by_name.items() if k in n) / steps,
+                             "ms_per_step": sum(sum(v) for n, v in by_name.items() if k in n) / 1e3 / steps}
+                         for k in PORT_KERNELS if any(k in n for n in by_name)},
     }
 
 
@@ -1361,7 +1443,7 @@ def moe_phases(torch, dev) -> dict:
     memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"moe_memory": memory}), flush=True)
     print(f"moe block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    return {"moe_gmm_launches": serve["launches"]["moe_gmm"]}
+    return {"launches": serve["launches"]}
 
 
 def ssm_phases(torch, dev, arch: str, key: str) -> dict:
@@ -1413,9 +1495,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    for line in build.build_report().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}", file=sys.stderr)
+    print(json.dumps({"ptxas": ptxas_report(build.build_report())}), flush=True)
 
     from repro_torch.configs import get_arch
 
@@ -1441,15 +1521,11 @@ def main() -> int:
     moe = moe_phases(torch, dev)
     ssm = ssm_phases(torch, dev, "mamba2-370m", "ssm")
     hybrid = ssm_phases(torch, dev, "zamba2-7b", "hybrid")
-    launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["moe_gmm_launches"],
+    launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["launches"]["moe_gmm"],
                 "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"]}
-    by_path = {
-        "flash_attention": {"llama3.2-1b": serve["launches"]["flash_attention"],
-                            "zamba2-7b": hybrid["launches"]["flash_attention"]},
-        "decode_attention": {"llama3.2-1b": serve["launches"]["decode_attention"],
-                             "zamba2-7b": hybrid["launches"]["decode_attention"]},
-        "ssd_scan": {"mamba2-370m": ssm["launches"]["ssd_scan"], "zamba2-7b": hybrid["launches"]["ssd_scan"]},
-    }
+    by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
+                      "zamba2-7b": hybrid["launches"][name]} for name in ("flash_attention", "decode_attention")}
+    by_path["ssd_scan"] = {"mamba2-370m": ssm["launches"]["ssd_scan"], "zamba2-7b": hybrid["launches"]["ssd_scan"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
     print(json.dumps(kernels_line(kern, launches, by_path, captured)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,7 +4,7 @@ Each source compiles with its own ``nvcc`` process, all started together, to
 an object for ``sm_90a``; the objects link into ONE shared library with a
 plain C interface, loaded with ``ctypes``. The library lands in
 ``build/repro_torch_kernels/<hash>/`` at the repository root (git-ignored),
-keyed by a hash of the sources and flags, so the first call after a source
+keyed by a hash of the sources, the headers they include and the flags, so the first call after a source
 change rebuilds and every later call reuses it. Nothing here runs at import
 time: the CPU tests import every module, and only a CUDA tensor reaches
 :func:`load`.
@@ -22,6 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu", "ssd_scan.cu")
+HEADERS = ("async_copy.cuh",)  # included by sources; hashed with them, never compiled alone
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -61,7 +62,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

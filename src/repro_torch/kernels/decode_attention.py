@@ -1,8 +1,13 @@
 """K4: one-token GQA decode attention over a contiguous KV cache.
 
-The hand-written Hopper kernel is ``csrc/decode_attention.cu`` (one block
-per (sequence, kv head), so each K/V row is read once for its G query
-heads; only rows below ``cur_len`` are read); its plain PyTorch version is
+The hand-written Hopper kernel is ``csrc/decode_attention.cu``: split-K in
+one launch. A thread-block cluster of ``min(8, ceil(S/64))`` blocks serves
+each (sequence, kv head), every block a contiguous run of 64-row tiles of the
+cache (so each K/V row is read once for its G query heads, and only rows
+below ``cur_len`` are read, on the device); rank 0 combines the blocks'
+partial softmax states through distributed shared memory in rank order. The
+split depends on S only, and nothing is summed with atomics, so two launches
+give equal bits. Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.decode_attn_ref`, re-exported here as
 :data:`plain`. It replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention.py: decode_attention``.
@@ -15,7 +20,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attn_ref as plain
 
 HEAD_DIMS = (64, 112, 128)
-MAX_GROUP_WIDTH = 1024  # G * hd outputs per block (8 per thread x 128 threads)
+MAX_GROUP_WIDTH = 1024  # G * hd outputs per block (4 per thread x 256 threads)
 
 #: Kernel launches; the wrapper adds one where it launches, nowhere else.
 launches = 0

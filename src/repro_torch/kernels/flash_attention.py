@@ -1,9 +1,14 @@
 """K3: causal / non-causal GQA flash attention (forward).
 
-The hand-written Hopper kernel is ``csrc/flash_attention.cu`` (mma.sync
-bf16 tiles, online softmax in fp32 registers, any T and S, head dim 64, 112 or
-128); its plain PyTorch version is :func:`repro_torch.kernels.ref.mha_ref`,
-re-exported here as :data:`plain`. It replaces the Pallas TPU kernel
+The hand-written Hopper kernel is ``csrc/flash_attention.cu``: one block of
+two warpgroups per 64 query rows of a head, the heaviest causal tiles issued
+first; K/V tiles come through a 2-stage cp.async ring, the two warpgroups
+split each tile's columns with online-softmax states of their own (merged at
+the end), QK^T and PV are mma.sync bf16 tiles fed by ldmatrix (V by
+ldmatrix.trans, no transposed copy), and every sum runs in one fixed order,
+so two launches give equal bits. Any T and S, head dim 64, 112 or 128. Its
+plain PyTorch version is :func:`repro_torch.kernels.ref.mha_ref`, re-exported
+here as :data:`plain`. It replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py: flash_attention``.
 """
 from __future__ import annotations

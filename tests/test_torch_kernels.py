@@ -163,3 +163,21 @@ def test_build_compiles_each_source_for_sm90a_links_once_and_reuses(tmp_path, mo
     assert sorted(c.split(" -c ")[1].split()[0].rsplit("/", 1)[1] for c in compiles) == sorted(build.SOURCES)
     assert not list(lib.parent.glob("*.o"))
     assert build.build() == lib and len(log.read_text().splitlines()) == len(calls)  # built once
+
+
+def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
+    """Every header a source includes by a relative path is listed in
+    HEADERS, and changing one rebuilds: the library's hash moves with it."""
+    import re
+    import shutil
+
+    included = {m for name in build.SOURCES
+                for m in re.findall(r'#include "([^"]+)"', (build.CSRC / name).read_text())}
+    assert included and included <= set(build.HEADERS)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.source_hash()
+    header = csrc / build.HEADERS[0]
+    header.write_text(header.read_text() + "\n// changed\n")
+    assert build.source_hash() != before

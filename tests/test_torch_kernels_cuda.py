@@ -48,6 +48,15 @@ def cuda():
     (2, 65, 130, 4, 2, 64, False),    # ragged T != S
     (1, 300, 300, 32, 32, 112, True),  # zamba2-7b's shared block: MHA, head dim 112
     (2, 65, 130, 4, 4, 112, False),
+    # the ragged edges: one row, one tile, one row past a tile, many tiles
+    (1, 1, 1, 32, 8, 64, True),
+    (1, 64, 64, 32, 8, 64, True),
+    (1, 65, 65, 32, 8, 64, True),
+    (1, 1000, 1000, 32, 8, 64, True),
+    (1, 65, 65, 8, 8, 112, True),
+    (1, 1000, 1000, 8, 2, 128, True),
+    (1, 200, 70, 8, 2, 128, False),   # non-causal T > S, S not a multiple of 64
+    (1, 1, 300, 4, 1, 112, False),    # non-causal: one query row over S = 300
 ])
 def test_flash_kernel_matches_plain(cuda, b, t, s, h, kv, hd, causal):
     qn, kn, vn = inputs(13, (b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd))
@@ -58,6 +67,7 @@ def test_flash_kernel_matches_plain(cuda, b, t, s, h, kv, hd, causal):
     assert tflash.launches == before + 1
     want = tflash.plain(q, k, v, causal=causal)
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, tflash.flash_attention(q, k, v, causal=causal))  # one fixed order
 
 
 @pytest.mark.cuda
@@ -75,6 +85,76 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd):
     np.testing.assert_allclose(as_np(got), as_np(tdec.plain(q, k, v, cur)), rtol=RTOL, atol=ATOL)
     zeros = tdec.decode_attention(q, k, v, torch.zeros_like(cur))
     assert torch.equal(zeros, torch.zeros_like(zeros))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("s", [300, 512, 4096, 4100])
+def test_decode_kernel_edges(cuda, s, g, hd):
+    """K4's split-K over the cache's ragged edges: one sequence per cur_len
+    of 1, 63, 64, 65 (a tile boundary on either side) and S; S not a multiple
+    of 64 (300, 4100) and S > 8 * 64, where each of the 8 splits loops over
+    several tiles; G = 1, 4, 8 query heads per kv head."""
+    kv = 2
+    lens = [1, 63, 64, 65, s]
+    b = len(lens)
+    qn, kn, vn = inputs(19, (b, g * kv, hd), (b, s, kv, hd), (b, s, kv, hd))
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
+    cur = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tdec.launches
+    got = tdec.decode_attention(q, k, v, cur)
+    torch.cuda.synchronize()
+    assert tdec.launches == before + 1
+    np.testing.assert_allclose(as_np(got), as_np(tdec.plain(q, k, v, cur)), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, tdec.decode_attention(q, k, v, cur))  # one fixed order, no atomics
+    zeros = tdec.decode_attention(q, k, v, torch.tensor([0, 5, 0, 64, 0], dtype=torch.int32, device=cuda))
+    assert torch.equal(zeros[0::2], torch.zeros_like(zeros[0::2]))  # cur_len 0: exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+def test_attention_kernels_give_equal_bits_on_two_launches(cuda, kernel):
+    """The serve phases require identical greedy tokens fused, unfused and
+    without the platform: K3 and K4 must sum in one fixed order. At the serve
+    shapes, 20 launches on the same inputs give the same bits."""
+    if kernel == "flash_attention":
+        qn, kn, vn = inputs(37, (1, 300, 32, 64), (1, 300, 8, 64), (1, 300, 8, 64))
+        q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
+        run = lambda: tflash.flash_attention(q, k, v, causal=True)  # noqa: E731
+    else:
+        qn, kn, vn = inputs(37, (1, 32, 64), (1, 512, 8, 64), (1, 512, 8, 64))
+        q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
+        cur = torch.tensor([406], dtype=torch.int32, device=cuda)
+        run = lambda: tdec.decode_attention(q, k, v, cur)  # noqa: E731
+    first = run()
+    assert all(torch.equal(first, run()) for _ in range(20))
+
+
+@pytest.mark.cuda
+def test_attention_c_entries_reject_an_unsupported_launch(cuda):
+    """A launch the C entry refuses (head dim 96 has no instantiation) comes
+    back as an error that the wrapper's check raises, never as a silent no-op."""
+    from repro_torch.kernels import build
+
+    lib = build.load()
+    x = torch.zeros(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, 96, device=cuda, dtype=torch.bfloat16)
+    cur = torch.ones(1, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib.repro_flash_attention_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                                  1, 64, 64, 2, 2, 96, 1, stream), "flash_attention launch")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib.repro_decode_attention_fwd(q.data_ptr(), x.data_ptr(), x.data_ptr(), cur.data_ptr(),
+                                                   q.data_ptr(), 1, 64, 2, 2, 96, stream), "decode_attention launch")
+    # G * hd above what a block holds (G = 16 at hd 128)
+    q16 = torch.zeros(1, 32, 128, device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib.repro_decode_attention_fwd(q16.data_ptr(), kv.data_ptr(), kv.data_ptr(), cur.data_ptr(),
+                                                   q16.data_ptr(), 1, 64, 32, 2, 128, stream),
+                    "decode_attention launch")
 
 
 @pytest.mark.cuda
