@@ -16,9 +16,17 @@ Phases (any failed check exits non-zero and prints no result):
    4096 rows, where the bytes set the time: ``bound_share`` is bound_ms / ms,
    and every timed call reads the next of enough copies of the cache to
    exceed the L2 four times over), then at qwen3-moe-30b-a3b's attention
-   (32 query heads over 4 kv heads of 128), K1 ``paged_decode_attention`` and K2 ``paged_chunk_attention`` at
-   the paged serve path's, K5 ``moe_gmm`` at the MoE serve path's (E = 128;
-   C = 8, 24, 40), K6 ``ssd_scan`` at the SSM and hybrid paths' (T = 300 for
+   (32 query heads over 4 kv heads of 128) and at the groups of starcoder2-3b
+   (24/2 heads of 128) and granite-34b (48/1), wider than one head slice of
+   the kernel; K1 ``paged_decode_attention`` (the paged serve path's shape,
+   B = 1, MQA, qwen3's 32/4 heads of 128 and the two wide groups) and K2
+   ``paged_chunk_attention`` at the paged serve path's; K5 ``moe_gmm`` at the
+   MoE serve path's (E = 128): every row kept at C = 8, 24, 40, and ``rows``
+   from a top-8 routing through the layer's own ``route`` (a decode step's
+   gate/up and down, 8 paged sequences' gate/up: skipped rows exact zeros,
+   equal to the kernel without ``rows``, timed over copies of w that exceed
+   the L2, the bound counting the active experts' bytes; the dense bound
+   beside it); K6 ``ssd_scan`` at the SSM and hybrid paths' (T = 300 for
    each model, T = 37, T = 512, G = 2), each held against its plain PyTorch
    version at rtol = atol = 2e-2 and timed with CUDA events (median of 21
    samples of 10 back-to-back calls, after warm-up) beside its plain
@@ -26,9 +34,11 @@ Phases (any failed check exits non-zero and prints no result):
    never calls it: ``scaled_dot_product_attention`` — for K1 and K2 on the
    pre-gathered contiguous cache, the gather timed apart — ``torch.bmm`` for
    K5; none computes K6) and the least time the card could take
-   (``bound_ms``). K3, K4, K5 and K6 must give equal bits on two launches.
-   A ``ptxas`` line gives every kernel's registers and spills, per head dim
-   for K3 and K4.
+   (``bound_ms``). K1, K3, K4, K5 and K6 must give equal bits on two
+   launches. A ``ptxas`` line gives every kernel's registers and spills, per
+   head dim for K3 and K4. A ``grad_refusal`` line: each of the six wrappers,
+   given a CUDA input that requires grad under grad mode, raises before its
+   launch (the kernels have no backward on the card yet).
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -38,7 +48,13 @@ Phases (any failed check exits non-zero and prints no result):
    tokens on both platforms and against the model run without the
    platform, and that the main path launched K3 once per layer of each
    prefill and K4 once per layer of each decode step (the merges' canary
-   replays counted) and never called their plain versions.
+   replays counted) and never called their plain versions. ``ram_bytes``
+   counts, per live instance, the 32 MiB runtime constant, the weights and
+   the largest recorded workspace + output bytes of its compiled entries
+   (``footprints`` lists each instance's entries); fused must stay below
+   unfused. (A unit's first run resets the device's peak-memory counter to
+   measure its workspace, so a phase's ``peak_allocated_gb`` is the peak
+   since the last such run.)
 4. Paged serve phase: full-width ``llama3.2-1b`` served from the paged KV
    arena (321 pages of 16 tokens) by the continuous batcher at capacity 8:
    24 requests of 37, 128 and 300 prompt tokens (8 sharing a 128-token
@@ -297,6 +313,7 @@ def kernel_phase(torch, F) -> dict:
     gen112 = torch.Generator(device=dev).manual_seed(112)
     gen_fixed = torch.Generator(device=dev).manual_seed(15)
     gen128 = torch.Generator(device=dev).manual_seed(128)
+    gen_wide = torch.Generator(device=dev).manual_seed(16)
     out = {}
     # the dense chain's prompts (llama3.2-1b), zamba2-7b's shared block, a
     # long causal prompt, and qwen3-moe-30b-a3b's attention (32/4 heads of 128)
@@ -312,10 +329,54 @@ def kernel_phase(torch, F) -> dict:
         (1, 512, 32, 8, 64, gen), (4, 512, 32, 8, 64, gen), (1, 512, 32, 32, 112, gen112))] + [
         decode_case(torch, F, 1, S, H, KV, HD, gen_fixed, lens=[S], cold=S > 512)
         for S, H, KV, HD in ((512, 32, 8, 64), (512, 32, 32, 112), (4096, 32, 8, 64), (4096, 32, 32, 112))] + [
-        decode_case(torch, F, 1, 512, 32, 4, 128, gen128, lens=[406])]
+        decode_case(torch, F, 1, 512, 32, 4, 128, gen128, lens=[406])] + [
+        # starcoder2-3b's and granite-34b's groups (G * hd 1536 and 6144),
+        # wider than one head slice of the kernel
+        decode_case(torch, F, 2, 512, h, kv, 128, gen_wide) for h, kv in ((24, 2), (48, 1))]
     out.update(paged_kernel_cases(torch, F, gen))
     out["moe_gmm"] = moe_kernel_cases(torch, gen)
     out["ssd_scan"] = ssd_kernel_cases(torch, gen)
+    return out
+
+
+def grad_refusal_check(torch) -> dict:
+    """Each of the six kernel wrappers, given a CUDA input that requires grad
+    under grad mode, raises before its launch (the kernels have no backward
+    on the card yet: an output filled by a kernel would carry no gradient)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as sd
+
+    dev = torch.device("cuda")
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    pages = torch.zeros(3, 16, 2, 64, **bf)
+    table = torch.ones(1, 2, dtype=torch.int32, device=dev)
+    x = lambda *shape: torch.zeros(*shape, **bf).requires_grad_()  # noqa: E731
+    calls = {
+        "flash_attention": lambda: fa.flash_attention(x(1, 8, 4, 64), torch.zeros(1, 8, 2, 64, **bf),
+                                                      torch.zeros(1, 8, 2, 64, **bf)),
+        "decode_attention": lambda: dec.decode_attention(x(1, 4, 64), torch.zeros(1, 16, 2, 64, **bf),
+                                                         torch.zeros(1, 16, 2, 64, **bf), one),
+        "paged_decode_attention": lambda: pa.paged_decode_attention(x(1, 4, 64), pages, pages, table, one),
+        "paged_chunk_attention": lambda: pa.paged_chunk_attention(x(1, 4, 4, 64), pages, pages, table, one),
+        "moe_gmm": lambda: gm.moe_gmm(x(2, 8, 64), torch.zeros(2, 64, 32, **bf)),
+        "ssd_scan": lambda: sd.ssd_scan(x(1, 8, 2, 64), torch.zeros(1, 8, 1, 64, **bf),
+                                        torch.zeros(1, 8, 1, 64, **bf), torch.ones(1, 8, 2, device=dev),
+                                        torch.zeros(2, device=dev), torch.ones(2, device=dev)),
+    }
+    out = {}
+    with torch.enable_grad():
+        for name, call in calls.items():
+            try:
+                call()
+            except RuntimeError as exc:
+                check("no backward" in str(exc), f"{name}: raised, but not the refusal: {exc}")
+                out[name] = "raises"
+            else:
+                raise SmokeFailure(f"{name}: launched on a requires-grad input under grad mode")
     return out
 
 
@@ -411,40 +472,96 @@ def ssd_kernel_cases(torch, gen) -> list:
 
 # (C, d, f) of the MoE serve path's expert products, E = 128 (qwen3-moe-30b-a3b):
 # gate/up and down at a decode step (C = 8), gate/up at a 300-token dense
-# prefill (C = 24) and at a 512-row paged chunk (C = 40)
+# prefill (C = 24) and at a 512-row paged chunk (C = 40); every row kept
 MOE_CASES = ((8, 2048, 768), (8, 768, 2048), (24, 2048, 768), (40, 2048, 768))
 MOE_EXPERTS = 128
+# (label, tokens routed, d, f) of the routed cases: rows from a top-8 routing
+# of that many tokens through the MoE layer's own route() and capacity
+MOE_ROUTED = (("decode gate/up", 1, 2048, 768), ("decode down", 1, 768, 2048),
+              ("paged decode gate/up", 8, 2048, 768))
+MOE_MAIN_CASE = len(MOE_CASES)  # the main path's shape: the routed decode gate/up
+
+
+def moe_routing(torch, gen, tokens: int):
+    """Each expert's kept rows (min(count, capacity)) and the capacity C for
+    ``tokens`` tokens routed by qwen3-moe-30b-a3b's own ``route`` (a random
+    fp32 router on random hidden states), as ``apply_moe`` computes them."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda")
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    router = torch.randn(cfg.d_model, cfg.num_experts, generator=gen, device=dev) * cfg.d_model ** -0.5
+    x = torch.randn(1, tokens, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    _, e_flat, _, pos = moe.route({"router": router}, x, cfg)
+    cap = moe.capacity(tokens, cfg)
+    rows = torch.zeros(cfg.num_experts, dtype=torch.int32, device=dev).index_add_(0, e_flat, (pos < cap).int())
+    return rows, cap, min(cfg.num_experts, tokens * cfg.num_experts_per_tok)
 
 
 def moe_kernel_cases(torch, gen) -> list:
     """K5 at the MoE serve path's shapes against its plain version, timed
-    beside it and beside the library yardstick ``torch.bmm`` on the same
-    inputs (the port never calls it)."""
+    beside it and beside the library yardstick ``torch.bmm`` on the same full
+    buffers (the port never calls it). The dense cases keep every row of
+    every expert; the routed cases take ``rows`` from a real top-8 routing
+    (:func:`moe_routing`), zero xe's rows past them (as the layer's scatter
+    leaves them) and check the outputs' skipped rows are exact zeros, equal
+    bits on two launches, and equality with the kernel without ``rows`` on
+    the same input. A routed call reads only its active experts' weights, so
+    it is timed reading the next of ``copies`` copies of w each call, together
+    at least COLD_BYTES of active weights (a decode step reads each layer's
+    experts once, between the other layers' weights), and its bound counts
+    the active experts' bytes; the dense bound is printed beside it."""
     from repro_torch.kernels import moe_gmm as gm
 
     dev = torch.device("cuda")
+    e = MOE_EXPERTS
     cases = []
-    for c, d, f in MOE_CASES:
-        xe = torch.randn(MOE_EXPERTS, c, d, generator=gen, device=dev).to(torch.bfloat16)
-        w = (torch.randn(MOE_EXPERTS, d, f, generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
-        got = gm.moe_gmm(xe, w)
+    routings = {}
+    # the routed cases draw from a generator of their own, so that the dense
+    # cases (and the cases after K5) draw the inputs they drew before
+    gen_routed = torch.Generator(device=dev).manual_seed(5)
+    for label, c, d, f, tokens in ([(f"dense C={c}", c, d, f, None) for c, d, f in MOE_CASES] +
+                                   [(label, None, d, f, tokens) for label, tokens, d, f in MOE_ROUTED]):
+        if tokens is None:
+            rows, active = torch.full((e,), c, dtype=torch.int32, device=dev), e
+        else:
+            if tokens not in routings:
+                routings[tokens] = moe_routing(torch, gen_routed, tokens)
+            rows, c, active = routings[tokens]
+        g_case = gen if tokens is None else gen_routed
+        keep = torch.arange(c, device=dev)[None, :] < rows[:, None]  # (E, C)
+        xe = torch.randn(e, c, d, generator=g_case, device=dev).to(torch.bfloat16).masked_fill(~keep[..., None], 0)
+        w = (torch.randn(e, d, f, generator=g_case, device=dev) * d ** -0.5).to(torch.bfloat16)
+        got = gm.moe_gmm(xe, w, rows, active)
         torch.cuda.synchronize()
-        err = max_err(torch, got, gm.plain(xe, w))
-        check(torch.equal(got, gm.moe_gmm(xe, w)), "moe_gmm is not deterministic")
-        nbytes = 2 * (xe.numel() + w.numel() + got.numel())
-        b_ms, b_by = bound(2 * MOE_EXPERTS * c * d * f, nbytes)
-        ms = time_ms(torch, lambda: gm.moe_gmm(xe, w))
+        err = max_err(torch, got, gm.plain(xe, w, rows))
+        check(bool((got.masked_select(~keep[..., None]) == 0).all()), f"moe_gmm {label}: a skipped row is not 0")
+        check(torch.equal(got, gm.moe_gmm(xe, w, rows, active)), f"moe_gmm {label} is not deterministic")
+        check(torch.equal(got, gm.moe_gmm(xe, w)), f"moe_gmm {label}: differs from the kernel without rows")
+        n_active = int((rows > 0).sum())
+        kept_rows = int(rows.sum())
+        nbytes = 2 * (kept_rows * d + n_active * d * f + e * c * f)
+        b_ms, b_by = bound(2 * kept_rows * d * f, nbytes)
+        dense_ms, _ = bound(2 * e * c * d * f, 2 * (e * c * d + e * d * f + e * c * f))
+        copies = min(16, -(-COLD_BYTES // (2 * n_active * d * f)))
+        ws = [w] + [w.clone() for _ in range(copies - 1)]
+        ms = time_ms(torch, rotating(lambda i: gm.moe_gmm(xe, ws[i], rows, active), copies))
         cases.append({
-            "shape": f"E={MOE_EXPERTS} C={c} d={d} f={f} bf16",
+            "shape": f"{label}: E={e} C={c} d={d} f={f} active={n_active} rows={kept_rows} bf16",
+            "copies": copies,
             "max_abs_err": err,
             "ms": ms,
-            "plain_ms": time_ms(torch, lambda: gm.plain(xe, w)),
-            "library_ms": time_ms(torch, lambda: torch.bmm(xe, w)),
-            "library": "torch.bmm",
+            "plain_ms": time_ms(torch, rotating(lambda i: gm.plain(xe, ws[i], rows), copies)),
+            "library_ms": time_ms(torch, rotating(lambda i: torch.bmm(xe, ws[i]), copies)),
+            "library": "torch.bmm on the full buffers",
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "bound_share": b_ms / ms,
+            "dense_bound_ms": dense_ms,
             "achieved_gb_s": nbytes / ms / 1e6,
         })
+        del ws, w
     return cases
 
 
@@ -468,21 +585,33 @@ def paged_kernel_cases(torch, F, gen) -> dict:
     from repro_torch.kernels.ref import gather_pages
 
     dev = torch.device("cuda")
+    # the cases added after the first three draw from a generator of their
+    # own, so that every other case draws the inputs it drew before
+    gen_added = torch.Generator(device=dev).manual_seed(16)
     out = {}
     cases = []
     # (label, B, n, page, P, H, KV, hd, cur_len): the serve shape (capacity
-    # 8, 32 pages of 16 per sequence, the arena of 321 pages), B = 1, MQA
+    # 8, 32 pages of 16 per sequence, the arena of 321 pages), B = 1, MQA;
+    # qwen3-moe-30b-a3b's paged shape (32/4 heads of 128); the groups of
+    # starcoder2-3b (24/2 heads of 128: G * hd = 1536) and granite-34b (48/1:
+    # 6144), wider than one head slice of the kernel (1024 outputs)
     for label, b, n, page, p, h, kv, hd, lens in (
         ("serve", 8, 32, 16, 321, 32, 8, 64, [0, 37, 129, 300, 406, 511, 150, 64]),
         ("B=1", 1, 32, 16, 321, 32, 8, 64, [406]),
-        ("MQA", 4, 32, 16, 321, 16, 1, 64, [37, 128, 300, 500]),  # G * hd = 1024, the kernel's most
+        ("MQA", 4, 32, 16, 321, 16, 1, 64, [37, 128, 300, 500]),
+        ("qwen3", 8, 32, 16, 321, 32, 4, 128, [0, 37, 129, 300, 406, 511, 150, 64]),
+        ("G*hd=1536", 4, 32, 16, 321, 24, 2, 128, [0, 37, 300, 512]),
+        ("G*hd=6144", 4, 32, 16, 321, 48, 1, 128, [1, 64, 300, 511]),
     ):
-        kp, vp, bt = _paged_inputs(torch, gen, b, n, page, p, kv, hd)
-        q = torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+        g_case = gen if label in ("serve", "B=1", "MQA") else gen_added
+        kp, vp, bt = _paged_inputs(torch, g_case, b, n, page, p, kv, hd)
+        q = torch.randn(b, h, hd, generator=g_case, device=dev).to(torch.bfloat16)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
         got = pa.paged_decode_attention(q, kp, vp, bt, cur)
         torch.cuda.synchronize()
         err = max_err(torch, got, pa.plain_decode(q, kp, vp, bt, cur))
+        check(torch.equal(got, pa.paged_decode_attention(q, kp, vp, bt, cur)),
+              f"paged_decode_attention {label} is not deterministic")
         for i, n_valid in enumerate(lens):
             if n_valid == 0:
                 check(bool((got[i] == 0).all()), "paged_decode_attention must give exact zeros at cur_len 0")
@@ -639,6 +768,19 @@ def record_replays(platform) -> list:
     return replays
 
 
+def footprints(platform) -> list:
+    """Each live instance's counted footprint (``resident_bytes``) and its
+    compiled entries' recorded workspace and output bytes (the largest of
+    each entry's sum is what is counted)."""
+    out = []
+    for inst in platform.registry.live_instances():
+        entries = inst.entry_bytes()
+        out.append({"instance": inst.instance_id, "resident_bytes": inst.resident_bytes(),
+                    "entries": len(entries), "workspace_bytes": [w for w, _ in entries],
+                    "output_bytes": [o for _, o in entries]})
+    return out
+
+
 def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 max_len=MAX_LEN, params=None) -> dict:
     """Drive the serving chain unfused and fused on ``dev`` (``params``:
@@ -692,6 +834,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 "p50_token_ms": statistics.median(lats[label]) * 1e3,
                 "tokens_per_s": len(lats[label]) / sum(lats[label]),
                 "ram_bytes": platform.ram_bytes(),
+                "footprints": footprints(platform),
                 "live_instances": len(platform.registry.live_instances()),
                 "merges": [(m.members, m.healthy) for m in platform.merger.merge_log],
                 "replayed": [n for m in platform.merger.merge_log for n in m.checked_members],
@@ -750,6 +893,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         "p50_token_ms": {k: r["p50_token_ms"] for k, r in results.items()},
         "tokens_per_s": {k: r["tokens_per_s"] for k, r in results.items()},
         "ram_bytes": {k: r["ram_bytes"] for k, r in results.items()},
+        "footprints": {k: r["footprints"] for k, r in results.items()},
         "live_instances": {k: r["live_instances"] for k, r in results.items()},
         "tokens_identical": True,
         "launches": {k: counts[k] for k in ("flash_attention", "decode_attention", "moe_gmm", "ssd_scan")},
@@ -860,6 +1004,7 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
         "cow_copies": arena.cow_copies - cow0,
         "live_instances": len(platform.registry.live_instances()),
         "ram_bytes": platform.ram_bytes(),
+        "footprints": footprints(platform),
         "counts": counts,
     }
 
@@ -1001,7 +1146,7 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     check(all(agree), f"fused and unfused tokens differ in {agree.count(False)} of {len(agree)} requests")
     keys = ("tokens_per_s", "itl_p50_ms", "itl_p95_ms", "mean_occupancy", "decode_steps",
             "prefill_chunks", "mean_pages_per_request", "mean_billed_pages_per_request",
-            "arena_gb_s", "shared_hits", "cow_copies", "live_instances", "ram_bytes", "elapsed_s")
+            "arena_gb_s", "shared_hits", "cow_copies", "live_instances", "ram_bytes", "footprints", "elapsed_s")
     return {
         "arch": cfg.name,
         "layers": cfg.num_layers,
@@ -1371,7 +1516,7 @@ def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict) -> d
                              "src/repro/kernels/decode_attention.py:59", 0),
         "paged_decode_attention": (paged, "src/repro/kernels/paged_attention.py:86", 0),
         "paged_chunk_attention": (paged, "src/repro/kernels/paged_attention.py:178", 2),
-        "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:39", 0),
+        "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:39", MOE_MAIN_CASE),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:63", 0),
     }
     entries = []
@@ -1443,7 +1588,7 @@ def moe_phases(torch, dev) -> dict:
     memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"moe_memory": memory}), flush=True)
     print(f"moe block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    return {"launches": serve["launches"]}
+    return {"launches": serve["launches"], "paged_launches": paged["launches"]["fused"]}
 
 
 def ssm_phases(torch, dev, arch: str, key: str) -> dict:
@@ -1502,6 +1647,7 @@ def main() -> int:
     cfg, dev = get_arch("llama3.2-1b"), torch.device("cuda")
     t0 = time.perf_counter()
     kern = kernel_phase(torch, F)
+    print(json.dumps({"grad_refusal": grad_refusal_check(torch)}), flush=True)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     serve = serve_phase(torch, dev, cfg)
@@ -1526,6 +1672,11 @@ def main() -> int:
     by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
                       "zamba2-7b": hybrid["launches"][name]} for name in ("flash_attention", "decode_attention")}
     by_path["ssd_scan"] = {"mamba2-370m": ssm["launches"]["ssd_scan"], "zamba2-7b": hybrid["launches"]["ssd_scan"]}
+    for kernel in ("paged_decode_attention", "paged_chunk_attention"):
+        by_path[kernel] = {"llama3.2-1b paged": paged["launches"]["fused"][kernel],
+                           "qwen3-moe-30b-a3b paged": moe["paged_launches"][kernel]}
+    by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
+                          "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
     print(json.dumps(kernels_line(kern, launches, by_path, captured)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -96,10 +96,83 @@ class InstanceState(enum.Enum):
 @dataclasses.dataclass
 class CompiledEntry:
     """A self-contained entry: ``run(params_by_member, *args)`` returns
-    ``(output, queued async calls)``."""
+    ``(output, queued async calls)``.
+
+    ``output_bytes`` and ``workspace_bytes`` are recorded at the entry's first
+    run (``measured``), the counterpart of the reference's memory analysis of
+    a compiled program: the bytes of the returned tree, and on a CUDA device
+    the run's peak allocation above what is still allocated when it returns
+    (its outputs, and what a library keeps once allocated, such as a cuBLAS
+    workspace): the memory the run needs beside its inputs and outputs. The
+    CPU has no allocator statistic, so there the workspace is 0."""
 
     run: Callable
     compile_s: float
+    output_bytes: int = 0
+    workspace_bytes: int = 0
+    measured: bool = False
+
+
+def _footprint_bytes(params, compiled: dict) -> int:
+    """One instance's live footprint: the runtime constant + weights + the
+    largest recorded workspace + output bytes of its compiled entries. Shared
+    by ``resident_bytes`` and ``retire``'s freed bytes, so that the RAM
+    reported freed is the RAM that was counted.
+
+    The reference adds every entry's bytes. Here one caching allocator serves
+    all of an instance's entries, which run one at a time and hand their
+    outputs to the caller, so an instance holds one entry's workspace and
+    outputs at a time: the largest. (A sum would count the whole cache tree
+    once more for every canary a merge replayed through the fused unit.)"""
+    return INSTANCE_RUNTIME_OVERHEAD_BYTES + tree_bytes(params) + max(
+        (ce.workspace_bytes + ce.output_bytes for ce in compiled.values()), default=0)
+
+
+class _RunningThreads:
+    """The threads inside an instance's run (a glue entry's nested calls run
+    on its own thread), so that a first run's device-wide memory peak is
+    recorded only when no other thread ran beside it: a merge replays its
+    canaries on a thread of its own while requests go on."""
+
+    GUARDED_FIELDS = {"_depth": "_lock", "_arrivals": "_lock"}
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth: dict[int, int] = {}
+        self._arrivals = 0  # threads that began a run, ever
+
+    def enter(self) -> None:
+        tid = threading.get_ident()
+        with self._lock:
+            if tid not in self._depth:
+                self._depth[tid] = 0
+                self._arrivals += 1
+            self._depth[tid] += 1
+
+    def exit(self) -> None:
+        tid = threading.get_ident()
+        with self._lock:
+            self._depth[tid] -= 1
+            if self._depth[tid] == 0:
+                del self._depth[tid]
+
+    def others(self) -> tuple[bool, int]:
+        """(another thread is in a run now, threads that began one so far)."""
+        tid = threading.get_ident()
+        with self._lock:
+            return any(t != tid for t in self._depth), self._arrivals
+
+
+_RUNNING = _RunningThreads()
+
+
+def _cuda_device(*trees):
+    """The first CUDA device a tensor leaf of ``trees`` lives on, or None."""
+    for t in trees:
+        for x in tree.leaves(t):
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                return x.device
+    return None
 
 
 class FunctionInstance:
@@ -167,12 +240,12 @@ class FunctionInstance:
             with self._lock:
                 if self._active == 0 or time.perf_counter() >= deadline:
                     self.state = InstanceState.RETIRED
-                    params = self.params
+                    params, compiled = self.params, self._compiled
                     self.params = {}
                     self._compiled = {}
                     break
             self._idle_event.wait(max(0.0, deadline - time.perf_counter()))
-        return INSTANCE_RUNTIME_OVERHEAD_BYTES + tree_bytes(params)
+        return _footprint_bytes(params, compiled)
 
     # ----------------------------------------------------------- compile
 
@@ -224,31 +297,68 @@ class FunctionInstance:
         """Run one request to completion (synchronous, device-synced)."""
         ce = self.get_compiled(entry, args)
         pending: list = []
-        with torch.no_grad():
-            if ce is None:  # interpreter glue: host-dispatched outbound calls
-                from repro_torch.core.context import EagerContext
+        _RUNNING.enter()
+        try:
+            with torch.no_grad():
+                if ce is None:  # interpreter glue: host-dispatched outbound calls
+                    from repro_torch.core.context import EagerContext
 
-                spec = self.members[entry]
-                ctx = EagerContext(self.platform, self, self.params, entry)
-                out = spec.fn(ctx, self.params[entry], *args)
-            else:
-                out, pending = ce.run(self.params, *args)
-        block_until_ready(out)
+                    spec = self.members[entry]
+                    ctx = EagerContext(self.platform, self, self.params, entry)
+                    out = spec.fn(ctx, self.params[entry], *args)
+                elif ce.measured:
+                    out, pending = ce.run(self.params, *args)
+                else:
+                    out, pending = self._first_run(ce, args)
+            block_until_ready(out)
+        finally:
+            _RUNNING.exit()
         for caller, callee, call_args in pending:
             self.platform.async_call(self, caller, callee, call_args)
         return out
+
+    def _first_run(self, ce: CompiledEntry, args: tuple):
+        """Run a compiled entry whose bytes are not recorded yet, and record
+        its output and workspace bytes on it. The peak is the device's, so a
+        run that another thread's run overlapped records nothing: a later
+        run of the entry records it."""
+        dev = _cuda_device(self.params, args)
+        if dev is None:
+            out, pending = ce.run(self.params, *args)
+            workspace = 0
+        else:
+            busy, arrivals = _RUNNING.others()
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, pending = ce.run(self.params, *args)
+            torch.cuda.synchronize(dev)
+            workspace = torch.cuda.max_memory_allocated(dev) - torch.cuda.memory_allocated(dev)
+            if busy or _RUNNING.others() != (False, arrivals):
+                return out, pending
+        with self._lock:
+            ce.output_bytes = tree_bytes(out)
+            ce.workspace_bytes = workspace
+            ce.measured = True
+        return out, pending
 
     # ----------------------------------------------------------- metrics
 
     def resident_bytes(self) -> int:
         """Live footprint of this execution unit: the container runtime
-        constant + weights (numel x element size). Workspace that a run
-        allocates (activations, caches it returns) is not counted."""
+        constant + weights (numel x element size) + the largest recorded
+        workspace + output bytes of its compiled entries (:func:`_footprint_bytes`).
+        Entries that cross an instance boundary (interpreter glue) record
+        nothing, as in the reference."""
         if self.state == InstanceState.RETIRED:
             return 0
         with self._lock:
-            params = self.params
-        return INSTANCE_RUNTIME_OVERHEAD_BYTES + tree_bytes(params)
+            return _footprint_bytes(self.params, self._compiled)
+
+    def entry_bytes(self) -> list[tuple[int, int]]:
+        """(workspace_bytes, output_bytes) of each compiled entry that has
+        run: what :meth:`resident_bytes` takes its largest from."""
+        with self._lock:
+            return [(ce.workspace_bytes, ce.output_bytes) for ce in self._compiled.values() if ce.measured]
 
     def __repr__(self):
         return f"<{self.instance_id} {self.state.value} members={sorted(self.members)}>"

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu", "ssd_scan.cu")
-HEADERS = ("async_copy.cuh",)  # included by sources; hashed with them, never compiled alone
+HEADERS = ("async_copy.cuh", "decode_split.cuh")  # included by sources; hashed with them, never compiled alone
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -40,8 +40,8 @@ SIGNATURES = {
     "repro_paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, start, out, B, C, P, page, n, H, KV, D, stream
     "repro_paged_chunk_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # xe, w, out, E, C, D, F, stream
-    "repro_moe_gmm_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # xe, w, rows (or null), out, E, C, D, F, active, stream
+    "repro_moe_gmm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, bm, cm, dt, a_log, d_skip, y, B, T, H, P, G, N, stream
     "repro_ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -127,6 +127,18 @@ def load() -> ctypes.CDLL:
             lib.repro_kernels_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise before a launch whose output would silently drop a gradient:
+    the kernels have no backward on the card yet, and an output filled
+    through ctypes carries no ``grad_fn``. Grad mode with an input that
+    requires grad is refused; ``torch.no_grad()`` (the serve paths) passes."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors if isinstance(t, torch.Tensor)):
+        raise RuntimeError(f"{what}: the kernel has no backward on the card yet, and an input requires "
+                           "grad; run it under torch.no_grad() or detach the inputs")
 
 
 def check(err: int, what: str) -> None:

@@ -1,13 +1,12 @@
-// Helpers shared by the hand-written kernels that stream K/V tiles through a
-// cp.async ring (flash_attention.cu, decode_attention.cu): the 16-byte
-// asynchronous copy with its commit / wait, and the host-side raise of a
-// kernel's dynamic shared-memory limit, once per device.
+// Helpers shared by the hand-written kernels that stream tiles through a
+// cp.async ring (flash_attention.cu, decode_split.cuh, moe_gmm.cu): the
+// 16-byte asynchronous copy with its commit / wait, and the host-side raise
+// of a kernel's dynamic shared-memory limit, once per device.
 //
 // Each .cu includes this header by its relative path and compiles to an
 // object of its own (kernels/build.py), so everything here has internal
 // linkage. kernels/build.py hashes this header with the sources, so a change
-// here rebuilds the library. moe_gmm.cu keeps its own copy of the cp.async
-// trio as it was measured; it moves to this header when K5 is next rebuilt.
+// here rebuilds the library.
 #pragma once
 
 #include <cuda_runtime.h>

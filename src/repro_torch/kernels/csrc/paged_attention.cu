@@ -12,14 +12,18 @@
 //   2*KV*D*2 bytes of K and V — 2*G = 8 flop per byte for llama3.2-1b, far
 //   below the ~295 flop/byte ridge. The least time is the rows below each
 //   cur_len over 3.35 TB/s.
-//   Design: K4's (decode_attention.cu). Grid (B, KV), 128 threads: a block
-//   serves the G query heads that share one kv head, so each K/V row is
-//   read once. The block loops over 64-row tiles of rows < cur_len only,
-//   reading cur_len and the block table on the device (no host sync; pages
-//   past cur_len are never loaded); each row's 16-byte chunks come from its
-//   own physical page. Scores, the per-head online softmax (fp32, -1e30
-//   sentinel) and the PV accumulators stay on chip. cur_len == 0 gives
-//   exact zeros (the TPU kernel's explicit-zero guard, :66-71).
+//   Design: K4's split-K across a thread-block cluster (decode_split.cuh),
+//   whose `Paged` policy reads logical row j of sequence b from slot
+//   j % page of page block_table[b, j / page]. Grid (splits, KV, B) with
+//   cluster (splits, 1, 1), splits = min(8, ceil(n * page / 64)) from the
+//   table's width, never from cur_len; a block serves the G query heads
+//   that share one kv head (any G, in slices of 1024 / D heads), so each
+//   K/V row is read once; cur_len and the table are read on the device (no
+//   host sync; tiles past cur_len are never loaded); the 2-stage cp.async
+//   ring fetches each row's 16-byte chunks from its own page; rank 0
+//   combines the splits through distributed shared memory in rank order.
+//   cur_len == 0 gives exact zeros (the TPU kernel's explicit-zero guard,
+//   :66-71).
 //
 // K2, paged chunked prefill (C query rows starting at absolute position
 // start[b]).
@@ -49,25 +53,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "decode_split.cuh"  // K1's split-K sweep and its launch
+
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;  // K2: 4 warps
 constexpr float kNegInf = -1e30f;
 
 // ----------------------------------------------------------------- helpers
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -99,159 +94,22 @@ __device__ __forceinline__ int64_t page_offset(const int* bt, int j, int page, i
 
 // ------------------------------------------------------------ K1: decode
 
-constexpr int kDecTile = 64;  // cached rows per tile
-constexpr int kKPad = 2;      // bf16 padding per K row: conflict-free score reads
-constexpr int kMaxOut = 8;    // (head, dim) outputs per thread: G * D <= 1024
-
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(decode_split::kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-                    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ block_table,
-                    const int* __restrict__ cur_len, __nv_bfloat16* __restrict__ out, int P,
-                    int page, int n, int H, int KV, float scale) {
-  constexpr int kKStride = D + kKPad;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per head row
-  const int G = H / KV;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kDecTile][kKStride]
-  __nv_bfloat16* Vs = Ks + kDecTile * kKStride;                     // [kDecTile][D]
-  float* qs = reinterpret_cast<float*>(Vs + kDecTile * D);          // [G][D]
-  float* ps = qs + G * D;                                           // [G][kDecTile]
-  float* ms = ps + G * kDecTile;                                    // [G] running max
-  float* ls = ms + G;                                               // [G] running sum
-  float* as = ls + G;                                               // [G] this tile's rescale
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int* bt = block_table + (int64_t)b * n;
-  const int64_t qo = ((int64_t)b * H + (int64_t)kvh * G) * D;  // G heads are contiguous
-
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = __bfloat162float(q[qo + i]);
-  for (int g = tid; g < G; g += kThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.f;
-  }
-  const int len = max(0, min(cur_len[b], n * page));
-
-  float acc[kMaxOut];
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += kDecTile) {
-    const int rows = min(kDecTile, len - t0);
-    // ---- stage K / V rows [t0, t0 + rows), each from its own page ----
-    for (int c = tid; c < kDecTile * kChunks; c += kThreads) {
-      const int r = c / kChunks;
-      const int col = (c - r * kChunks) * 8;
-      uint4 kval = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vval = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows) {
-        const int64_t off = page_offset<D>(bt, t0 + r, page, P, KV, kvh, col);
-        kval = *reinterpret_cast<const uint4*>(kp + off);
-        vval = *reinterpret_cast<const uint4*>(vp + off);
-      }
-      // K rows are padded (not 16-byte aligned): store as four 32-bit words
-      const uint32_t* kw = reinterpret_cast<const uint32_t*>(&kval);
-      uint32_t* kdst = reinterpret_cast<uint32_t*>(Ks + r * kKStride + col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) kdst[i] = kw[i];
-      *reinterpret_cast<uint4*>(Vs + r * D + col) = vval;
-    }
-    __syncthreads();
-
-    // ---- scores: one (head, row) pair per thread per step ----
-    for (int p = tid; p < G * kDecTile; p += kThreads) {
-      const int g = p / kDecTile;
-      const int j = p - g * kDecTile;
-      float s = kNegInf;
-      if (j < rows) {
-        const float* qg = qs + g * D;
-        const __nv_bfloat162* krow = reinterpret_cast<const __nv_bfloat162*>(Ks + j * kKStride);
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d2 = 0; d2 < D / 2; ++d2) {
-          const float2 kf = __bfloat1622float2(krow[d2]);
-          dot += qg[2 * d2] * kf.x + qg[2 * d2 + 1] * kf.y;
-        }
-        s = dot * scale;
-      }
-      ps[p] = s;
-    }
-    __syncthreads();
-
-    // ---- online softmax, one warp per head ----
-    for (int g = warp; g < G; g += kWarps) {
-      float* pg = ps + g * kDecTile;
-      const float s0 = pg[lane];
-      const float s1 = pg[lane + 32];
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = lane < rows ? __expf(s0 - m_new) : 0.f;
-      const float p1 = lane + 32 < rows ? __expf(s1 - m_new) : 0.f;
-      pg[lane] = p0;
-      pg[lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
-        as[g] = alpha;
-        ls[g] = ls[g] * alpha + sum;
-        ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc = acc * alpha + P V for this thread's (head, dim) outputs ----
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
-      const int o = tid + i * kThreads;
-      if (o < G * D) {
-        const int g = o / D;
-        const int d = o - g * D;
-        const float* pg = ps + g * kDecTile;
-        float a = acc[i] * as[g];
-        for (int j = 0; j < rows; ++j) a += pg[j] * __bfloat162float(Vs[j * D + d]);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();  // the next tile overwrites Ks / Vs / ps
-  }
-
-  // ---- finalize: l == 0 (cur_len == 0) -> exact zeros ----
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) {
-    const int o = tid + i * kThreads;
-    if (o < G * D) {
-      const float l = ls[o / D];
-      out[qo + o] = __float2bfloat16(acc[i] / (l == 0.f ? 1.f : l));
-    }
-  }
+                    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ cur_len,
+                    __nv_bfloat16* __restrict__ out, int H, int KV, float scale, decode_split::Paged rows) {
+  decode_split::sweep<D>(q, kp, vp, cur_len, out, H, KV, scale, rows);
 }
 
 template <int D>
 cudaError_t launch_decode(const void* q, const void* kp, const void* vp, const void* block_table,
                           const void* cur_len, void* out, int B, int P, int page, int n, int H,
                           int KV, cudaStream_t stream) {
-  const int G = H / KV;
-  if (G * D > kMaxOut * kThreads) return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * ((size_t)kDecTile * (D + kKPad) + (size_t)kDecTile * D) +
-      sizeof(float) * ((size_t)G * D + (size_t)G * kDecTile + 3 * (size_t)G);
-  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B, KV);
-  const float scale = 1.0f / sqrtf((float)D);
-  paged_decode_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(block_table),
-      static_cast<const int*>(cur_len), static_cast<__nv_bfloat16*>(out), P, page, n, H, KV, scale);
-  return cudaGetLastError();
+  static std::atomic<uint32_t> smem_set{0u};
+  const decode_split::Paged rows{static_cast<const int*>(block_table), n, page, P};
+  return decode_split::launch<D>(paged_decode_kernel<D>, smem_set, q, kp, vp, cur_len, out, B, H, KV, n * page,
+                                 rows, stream);
 }
 
 // ------------------------------------------------------ K2: chunked prefill
@@ -478,7 +336,7 @@ int repro_paged_decode_attention_fwd(const void* q, const void* k_pages, const v
                                      const void* block_table, const void* cur_len, void* out,
                                      int B, int P, int page, int n, int H, int KV, int D,
                                      void* stream) {
-  if (B <= 0 || P <= 0 || page <= 0 || n <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || P <= 0 || page <= 0 || n <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {

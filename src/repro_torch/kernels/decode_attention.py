@@ -1,13 +1,14 @@
 """K4: one-token GQA decode attention over a contiguous KV cache.
 
-The hand-written Hopper kernel is ``csrc/decode_attention.cu``: split-K in
-one launch. A thread-block cluster of ``min(8, ceil(S/64))`` blocks serves
-each (sequence, kv head), every block a contiguous run of 64-row tiles of the
-cache (so each K/V row is read once for its G query heads, and only rows
-below ``cur_len`` are read, on the device); rank 0 combines the blocks'
-partial softmax states through distributed shared memory in rank order. The
-split depends on S only, and nothing is summed with atomics, so two launches
-give equal bits. Its plain PyTorch version is
+The hand-written Hopper kernel is ``csrc/decode_attention.cu``, an
+instantiation of the split-K sweep of ``csrc/decode_split.cuh`` (shared with
+K1): split-K in one launch. A thread-block cluster of ``min(8, ceil(S/64))``
+blocks serves each (sequence, kv head), every block a contiguous run of
+64-row tiles of the cache (so each K/V row is read once for its G query
+heads, any G, and only rows below ``cur_len`` are read, on the device); rank
+0 combines the blocks' partial softmax states through distributed shared
+memory in rank order. The split depends on S only, and nothing is summed
+with atomics, so two launches give equal bits. Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.decode_attn_ref`, re-exported here as
 :data:`plain`. It replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention.py: decode_attention``.
@@ -20,7 +21,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attn_ref as plain
 
 HEAD_DIMS = (64, 112, 128)
-MAX_GROUP_WIDTH = 1024  # G * hd outputs per block (4 per thread x 256 threads)
 
 #: Kernel launches; the wrapper adds one where it launches, nowhere else.
 launches = 0
@@ -35,8 +35,6 @@ def _check(q, k, v, cur_len) -> None:
         raise ValueError(f"incompatible q {tuple(q.shape)} and k/v {tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel takes head dim {HEAD_DIMS}, got {hd}")
-    if (h // k.shape[2]) * hd > MAX_GROUP_WIDTH:
-        raise ValueError(f"decode_attention kernel takes G*hd <= {MAX_GROUP_WIDTH}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -62,6 +60,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    build.refuse_grad("decode_attention", q, k, v)
     _check(q, k, v, cur_len)
     b, h, hd = q.shape
     out = torch.empty_like(q)

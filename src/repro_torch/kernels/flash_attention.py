@@ -55,6 +55,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    build.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v)
     b, t, h, hd = q.shape
     out = torch.empty_like(q)

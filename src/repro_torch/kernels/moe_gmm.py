@@ -1,11 +1,16 @@
-"""K5: the per-expert grouped GEMM of the MoE layer, out[e] = xe[e] @ w[e].
+"""K5: the per-expert grouped GEMM of the MoE layer, out[e] = xe[e] @ w[e],
+over the routed experts only.
 
-The hand-written Hopper kernel is ``csrc/moe_gmm.cu`` (one block per
-(expert, C tile, f tile), a cp.async ring of bf16 tiles, mma.sync with fp32
-accumulators, any C and any d, f that are multiples of 8); its plain PyTorch
-version is :func:`repro_torch.kernels.ref.gmm_ref`, re-exported here as
-:data:`plain`. It replaces the Pallas TPU kernel
-``repro/kernels/moe_gmm.py: moe_gmm``.
+The hand-written Hopper kernel is ``csrc/moe_gmm.cu``: it reads the weights
+of the experts that received a token (``rows[e] > 0``) and no others, streams
+them with the Tensor Memory Accelerator through one mbarrier ring per block
+(the blocks that fit on the card at once, each walking its (expert, f tile)
+items),
+multiplies the kept rows on the tensor cores (mma.sync, fp32 accumulators)
+and writes exact zeros for every row at or past ``rows[e]``; any C, any d
+and f that are multiples of 8, at most 256 experts. Its plain PyTorch version is
+:func:`repro_torch.kernels.ref.gmm_ref`, re-exported here as :data:`plain`.
+It replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py: moe_gmm``.
 """
 from __future__ import annotations
 
@@ -14,19 +19,23 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import gmm_ref as plain
 
+MAX_EXPERTS = 256  # the kernel keeps its list of active experts in shared memory
+
 #: Kernel launches; the wrapper adds one where it launches, nowhere else.
 launches = 0
 
 
-def _check(xe, w) -> None:
+def _check(xe, w, rows=None, active: int = 1) -> None:
     if xe.dim() != 3 or w.dim() != 3 or w.shape[0] != xe.shape[0] or w.shape[1] != xe.shape[2]:
         raise ValueError(f"expected xe (E,C,d), w (E,d,f); got {tuple(xe.shape)}, {tuple(w.shape)}")
     e, _, d = xe.shape
     f = w.shape[2]
     if d % 8 or f % 8:
         raise ValueError(f"moe_gmm kernel takes d and f that are multiples of 8, got d={d}, f={f}")
-    if e > 65535:
-        raise ValueError(f"moe_gmm kernel takes at most 65535 experts, got {e}")
+    if e > MAX_EXPERTS:
+        raise ValueError(f"moe_gmm kernel takes at most {MAX_EXPERTS} experts, got {e}")
+    if active < 1:
+        raise ValueError(f"moe_gmm: the bound on active experts must be at least 1, got {active}")
     if w.device != xe.device:
         raise ValueError(f"w is on {w.device}, xe on {xe.device}")
     for name, x in (("xe", xe), ("w", w)):
@@ -34,28 +43,42 @@ def _check(xe, w) -> None:
             raise TypeError(f"moe_gmm kernel takes bfloat16, {name} is {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if rows is not None:
+        if rows.shape != (e,) or rows.dtype != torch.int32 or rows.device != xe.device or not rows.is_contiguous():
+            raise ValueError(f"rows must be contiguous int32 of shape ({e},) on {xe.device}")
 
 
-def moe_gmm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def moe_gmm(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None,
+            active: int | None = None) -> torch.Tensor:
     """xe: (E, C, d); w: (E, d, f) -> (E, C, f) in the dtype of ``xe``.
+
+    ``rows`` (E,) int32: the kept rows of each expert. Rows of ``xe[e]`` at or
+    past ``rows[e]`` are taken as zero and their outputs are exact zeros; an
+    expert with ``rows[e] == 0`` reads no weight. None keeps every row.
+    ``active``: an upper bound on the experts with ``rows[e] > 0``, known
+    from shapes (the MoE layer's ``min(E, N * k)``); it sizes the grid. Any
+    value is correct, a tight one is fast; None means E.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version; a meta tensor returns an empty output of the right shape."""
     if xe.device.type == "cpu":
-        return plain(xe, w)
+        return plain(xe, w, rows)
     if xe.device.type == "meta":
         return torch.empty(xe.shape[0], xe.shape[1], w.shape[2], dtype=xe.dtype, device="meta")
     if xe.device.type != "cuda":
         raise ValueError(f"moe_gmm: unsupported device {xe.device}")
-    _check(xe, w)
+    build.refuse_grad("moe_gmm", xe, w)
     e, c, d = xe.shape
-    out = torch.empty(e, c, w.shape[2], dtype=xe.dtype, device=xe.device)
+    active = e if active is None else max(1, min(active, e))
+    _check(xe, w, rows, active)
+    f = w.shape[2]
+    out = torch.empty(e, c, f, dtype=xe.dtype, device=xe.device)
     if out.numel() == 0:
         return out
     lib = build.load()
     err = lib.repro_moe_gmm_fwd(
-        xe.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, w.shape[2],
-        torch.cuda.current_stream(xe.device).cuda_stream,
+        xe.data_ptr(), w.data_ptr(), None if rows is None else rows.data_ptr(), out.data_ptr(),
+        e, c, d, f, active, torch.cuda.current_stream(xe.device).cuda_stream,
     )
     build.check(err, "moe_gmm launch")
     global launches

@@ -36,9 +36,10 @@ def paged_chunk_attention(q, k_pages, v_pages, block_table, start):
     return _paged.paged_chunk_attention(q, k_pages, v_pages, block_table, start)
 
 
-def gmm(xe, w):
-    """xe: (E,C,d); w: (E,d,f) -> (E,C,f)."""
-    return _gmm.moe_gmm(xe, w)
+def gmm(xe, w, rows=None, active=None):
+    """xe: (E,C,d); w: (E,d,f) -> (E,C,f); rows (E,): kept rows per expert
+    (None: all); active: a bound on the experts with rows > 0."""
+    return _gmm.moe_gmm(xe, w, rows, active)
 
 
 def ssd(x, bm, cm, dt, a_log, d_skip):

@@ -3,7 +3,9 @@
 K1 ``paged_decode_attention`` (one query token per sequence, every batched
 decode step of the continuous batcher) and K2 ``paged_chunk_attention`` (C
 prefill rows from absolute position ``start``, every chunked-prefill chunk)
-are hand-written Hopper kernels in ``csrc/paged_attention.cu``; their plain
+are hand-written Hopper kernels in ``csrc/paged_attention.cu`` (K1 is the
+split-K sweep of ``csrc/decode_split.cuh``, shared with K4, reading each
+row through the block table; any group of query heads); their plain
 PyTorch versions are :func:`repro_torch.kernels.ref.paged_decode_attn_ref`
 and :func:`repro_torch.kernels.ref.paged_chunk_attn_ref`, re-exported here
 as :data:`plain_decode` and :data:`plain_chunk`. They replace the Pallas TPU
@@ -20,7 +22,6 @@ from repro_torch.kernels.ref import paged_chunk_attn_ref as plain_chunk
 from repro_torch.kernels.ref import paged_decode_attn_ref as plain_decode
 
 HEAD_DIMS = (64, 128)
-MAX_GROUP_WIDTH = 1024  # K1: G * hd outputs per block (8 per thread x 128 threads)
 
 #: Kernel launches; each wrapper adds one where it launches, nowhere else.
 launches = {"paged_decode_attention": 0, "paged_chunk_attention": 0}
@@ -68,11 +69,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     if q.dim() != 3:
         raise ValueError(f"expected q (B,H,hd), got {tuple(q.shape)}")
+    build.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     _check_pages(q, k_pages, v_pages, block_table, cur_len, "paged_decode_attention", "cur_len")
     b, h, hd = q.shape
     p, page, kv, _ = k_pages.shape
-    if (h // kv) * hd > MAX_GROUP_WIDTH:
-        raise ValueError(f"paged_decode_attention kernel takes G*hd <= {MAX_GROUP_WIDTH}")
     out = torch.empty_like(q)
     err = build.load().repro_paged_decode_attention_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
@@ -100,6 +100,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
     if q.dim() != 4:
         raise ValueError(f"expected q (B,C,H,hd), got {tuple(q.shape)}")
+    build.refuse_grad("paged_chunk_attention", q, k_pages, v_pages)
     _check_pages(q, k_pages, v_pages, block_table, start, "paged_chunk_attention", "start")
     b, c, h, hd = q.shape
     p, page, kv, _ = k_pages.shape

@@ -108,10 +108,17 @@ def paged_chunk_attn_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
     return out.reshape(b, c, h, hd)
 
 
-def gmm_ref(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gmm_ref(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:
     """Per-expert GEMM. xe: (E, C, d); w: (E, d, f) -> (E, C, f), accumulated
-    in float32 and cast to the dtype of ``xe``."""
+    in float32 and cast to the dtype of ``xe``. ``rows`` (E,): the kept rows
+    of each expert; rows of ``xe[e]`` at or past ``rows[e]`` are masked to
+    zero first (None keeps every row). Where those rows are zero already, the
+    result equals the unmasked product bit for bit: each skipped product is
+    0 * w."""
     CALLS["gmm_ref"] += 1
+    if rows is not None:
+        keep = torch.arange(xe.shape[1], device=xe.device)[None, :] < rows.to(xe.device)[:, None]
+        xe = xe.masked_fill(~keep[:, :, None], 0)
     return torch.einsum("ecd,edf->ecf", xe.float(), w.float()).to(xe.dtype)
 
 

@@ -63,6 +63,7 @@ def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tens
         return torch.empty_like(x)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    build.refuse_grad("ssd_scan", x, bm, cm, dt, a_log, d_skip)
     _check(x, bm, cm, dt, a_log, d_skip)
     b, t, h, p = x.shape
     y = torch.empty_like(x)

@@ -46,21 +46,22 @@ def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torc
     states (n_groups, every, ...), 'attn': {'k','v'} (n_groups, B, S, KV,
     hd), 'tail': SSM states (tail, ...)}; else None."""
     n_groups, _, tail = split_layers(cfg)
-    ssm_caches, kvs = [], []
+    groups = attn = None
     for gi in range(n_groups):
         group = tree.map(lambda a: a[gi], params["groups"])
         x, ssm_cache = tfm.apply_stack_full(group, x, cfg, "ssm", positions, collect_cache=collect_cache)
         x, kv = tfm.apply_block_full(params["shared"], x, cfg, "dense", positions, causal=True,
                                      collect_cache=collect_cache)
-        ssm_caches.append(ssm_cache)
-        kvs.append(kv)
+        if collect_cache:
+            groups = tfm.stack_into(groups, gi, n_groups, ssm_cache)
+            attn = tfm.stack_into(attn, gi, n_groups, kv)
     tail_cache = None
     if tail:
         x, tail_cache = tfm.apply_stack_full(params["tail"], x, cfg, "ssm", positions,
                                              collect_cache=collect_cache)
     if not collect_cache:
         return x, None
-    caches = {"groups": tfm.stack_entries(ssm_caches), "attn": tfm.stack_entries(kvs)}
+    caches = {"groups": groups, "attn": attn}
     if tail:
         caches["tail"] = tail_cache
     return x, caches
@@ -71,16 +72,16 @@ def apply_hybrid_decode(params, x: torch.Tensor, caches: dict, cfg: ModelConfig,
     {'k','v'} (n_groups, B, S, KV, hd), 'tail': (tail, ...)}. Returns (x, new
     caches) — new tensors, the input caches are not written."""
     n_groups, _, tail = split_layers(cfg)
-    new_groups, new_attn = [], []
+    new_groups = new_attn = None
     for gi in range(n_groups):
         group = tree.map(lambda a: a[gi], params["groups"])
         x, new_ssm = tfm.apply_stack_decode(group, x, tree.map(lambda a: a[gi], caches["groups"]), cfg,
                                             "ssm", cur_len)
         x, attn = tfm.apply_block_decode(params["shared"], x, tree.map(lambda a: a[gi], caches["attn"]),
                                          cfg, "dense", cur_len)
-        new_groups.append(new_ssm)
-        new_attn.append(attn)
-    new_caches = {"groups": tfm.stack_entries(new_groups), "attn": tfm.stack_entries(new_attn)}
+        new_groups = tfm.stack_into(new_groups, gi, n_groups, new_ssm)
+        new_attn = tfm.stack_into(new_attn, gi, n_groups, attn)
+    new_caches = {"groups": new_groups, "attn": new_attn}
     if tail:
         x, new_caches["tail"] = tfm.apply_stack_decode(params["tail"], x, caches["tail"], cfg, "ssm", cur_len)
     return x, new_caches

@@ -97,11 +97,17 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, rules=None):
     buf = x.new_zeros(e * cap + 1, d)
     buf[torch.where(kept, slot, e * cap)] = x.reshape(n, d).repeat_interleave(k, dim=0)
     xe = buf[: e * cap].view(e, cap, d)
+    # each expert's kept rows, min(count, cap), on the device: K5 reads only
+    # the experts with rows > 0 (at most min(E, N k) of them) and only their
+    # kept rows; h = silu(gate) * up is 0 on every skipped row, so the same
+    # rows hold for wo
+    rows = torch.zeros(e, dtype=torch.int32, device=x.device).index_add_(0, e_flat, kept.int())
+    active = min(e, n * k)
 
-    gate = kops.gmm(xe, params["wi_gate"])
-    up = kops.gmm(xe, params["wi_up"])
+    gate = kops.gmm(xe, params["wi_gate"], rows, active)
+    up = kops.gmm(xe, params["wi_up"], rows, active)
     h = F.silu(gate.float()).to(xe.dtype) * up
-    ye = kops.gmm(h, params["wo"])  # wo: (E, f, d)
+    ye = kops.gmm(h, params["wo"], rows, active)  # wo: (E, f, d)
 
     yk = ye.reshape(e * cap, d).index_select(0, slot)
     yk = torch.where(kept[:, None], yk, torch.zeros((), dtype=yk.dtype, device=yk.device))

@@ -170,12 +170,20 @@ def _num_layers(stacked_params) -> int:
     return tree.leaves(stacked_params)[0].shape[0]
 
 
-def stack_entries(entries: list) -> dict:
-    """Per-layer cache entries ((k, v) tuples, or dicts of tensors nested to
-    any depth) stacked on a new leading axis, as a dict."""
-    if isinstance(entries[0], tuple):
-        entries = [{"k": k, "v": v} for k, v in entries]
-    return tree.map(lambda *xs: torch.stack(xs), *entries)
+def stack_into(stacked, i: int, n: int, entry, like=None) -> dict:
+    """Copy layer ``i``'s cache entry (a (k, v) tuple, or a dict of tensors
+    nested to any depth) into slot ``i`` of ``stacked``, the n layers' caches
+    on a new leading axis as a dict, made at the first entry (in the dtypes of
+    ``like``'s leaves when given); returns it. The caller drops each entry
+    once it is copied, so the layers are never held twice over, as a stack of
+    the whole list would hold them."""
+    if isinstance(entry, tuple):
+        entry = {"k": entry[0], "v": entry[1]}
+    if stacked is None:
+        stacked = tree.map(lambda x, d: x.new_empty((n, *x.shape), dtype=d.dtype), entry,
+                           entry if like is None else like)
+    tree.map(lambda o, x: o[i].copy_(x), stacked, entry)
+    return stacked
 
 
 def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -183,12 +191,14 @@ def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: st
     """Full-sequence pass through the stack. Returns (x, the cache stacked on
     a leading 'layers' axis — {'k','v'} for attention kinds, the SSM state
     dict for 'ssm' — or None)."""
-    entries = []
-    for i in range(_num_layers(stacked_params)):
+    n = _num_layers(stacked_params)
+    cache = None
+    for i in range(n):
         x, entry = apply_block_full(_layer(stacked_params, i), x, cfg, kind, positions, causal,
                                     collect_cache)
-        entries.append(entry)
-    return x, stack_entries(entries) if collect_cache else None
+        if collect_cache:
+            cache = stack_into(cache, i, n, entry)
+    return x, cache
 
 
 def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: ModelConfig, kind: str,
@@ -196,13 +206,13 @@ def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: Model
     """One decode step through the stack; caches have a leading 'layers' dim.
     Returns (x, new caches), each in the dtype of the cache it replaces (as
     the JAX package's carry keeps it)."""
-    entries = []
-    for i in range(_num_layers(stacked_params)):
+    n = _num_layers(stacked_params)
+    stacked = None
+    for i in range(n):
         x, new_cache = apply_block_decode(_layer(stacked_params, i), x, _layer(caches, i), cfg, kind,
                                           cur_len)
-        entries.append(new_cache)
-    stacked = stack_entries(entries)
-    return x, {name: stacked[name].to(caches[name].dtype) for name in stacked}
+        stacked = stack_into(stacked, i, n, new_cache, like=caches)
+    return x, stacked
 
 
 def apply_stack_decode_paged(stacked_params, x: torch.Tensor, arena: dict, block_table: torch.Tensor,

@@ -1,14 +1,18 @@
-"""K4's split-K arithmetic on the CPU (no GPU needed).
+"""The split-K arithmetic of K4 and K1 on the CPU (no GPU needed).
 
-``csrc/decode_attention.cu`` splits a sequence's cache into at most 8
-contiguous runs of 64-row tiles, one per block of a thread-block cluster;
-each block keeps a partial online softmax (m, l, acc) and rank 0 combines
-the partials in rank order. :func:`split_k_decode` does the same algorithm
-in PyTorch fp32 with the kernel's split boundaries, and is held against the
-port's plain version (``decode_attn_ref``) and the JAX Pallas kernel in
-interpret mode at the fp32 tolerance, 2e-5: the split changes only the
-order of the sums. The helper lives here, not in the package: the card runs
-the kernel, the CPU the plain version.
+``csrc/decode_split.cuh`` (instantiated by ``decode_attention.cu`` for K4
+and ``paged_attention.cu`` for K1) splits a sequence's cache — contiguous,
+or read through a block table — into at most 8 contiguous runs of 64-row
+tiles, one per block of a thread-block cluster, the split set by the cache's
+capacity (K4: S; K1: the table's n * page); each block takes the G query
+heads of its kv head in slices of at most 1024 / hd heads, keeps a partial
+online softmax (m, l, acc) per head, and rank 0 combines the partials in
+rank order. :func:`split_k_decode` and :func:`split_k_paged_decode` do the
+same algorithm in PyTorch fp32 with the kernel's split boundaries and head
+slices, and are held against the port's plain versions and the JAX Pallas
+kernels in interpret mode at the fp32 tolerance, 2e-5: the split changes
+only the order of the sums. The helpers live here, not in the package: the
+card runs the kernels, the CPU the plain versions.
 """
 import math
 import re
@@ -22,15 +26,20 @@ torch.set_num_threads(2)  # the suite runs several workers at once: leave them c
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as jax_decode  # noqa: E402
+from repro.kernels.paged_attention import paged_decode_attention as jax_paged_decode  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
-from repro_torch.kernels.ref import decode_attn_ref  # noqa: E402
+from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
+from repro_torch.kernels.ref import decode_attn_ref, paged_decode_attn_ref  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # fp32, tests/test_kernels.py
-TILE = 64        # csrc/decode_attention.cu: kTile
-MAX_SPLITS = 8   # csrc/decode_attention.cu: kMaxSplits (the portable cluster size)
+TILE = 64        # csrc/decode_split.cuh: kTile
+MAX_SPLITS = 8   # csrc/decode_split.cuh: kMaxSplits (the portable cluster size)
+SLICE_WIDTH = 1024  # csrc/decode_split.cuh: kSliceWidth, the outputs of one head slice
 NEG_INF = -1e30
-SOURCE = Path(tdec.__file__).resolve().parent / "csrc" / "decode_attention.cu"
+CSRC = Path(tdec.__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "decode_split.cuh"
 
 
 def split_tiles(s: int) -> list[tuple[int, int]]:
@@ -42,11 +51,19 @@ def split_tiles(s: int) -> list[tuple[int, int]]:
     return [(i * n // splits, (i + 1) * n // splits) for i in range(splits)]
 
 
+def slice_heads(g: int, hd: int) -> int:
+    """Heads per slice: as many as give at most SLICE_WIDTH outputs."""
+    return min(g, SLICE_WIDTH // hd)
+
+
 def split_partial(q, k, v, n: int, tiles: tuple[int, int], scale: float):
     """One split's online softmax over its tiles below cur_len = n, tile by
-    tile as the kernel sweeps them. q: (G, hd); k, v: (S, hd). Returns (m,
-    l, acc) of shapes (G,), (G,), (G, hd); an empty split is (-1e30, 0, 0)."""
+    tile as the kernel sweeps them, each tile serving the G heads slice by
+    slice. q: (G, hd); k, v: (S, hd) — the sequence's rows in logical order.
+    Returns (m, l, acc) of shapes (G,), (G,), (G, hd); an empty split is
+    (-1e30, 0, 0)."""
     g, hd = q.shape
+    gs = slice_heads(g, hd)
     m = torch.full((g,), NEG_INF)
     l = torch.zeros(g)
     acc = torch.zeros(g, hd)
@@ -54,13 +71,15 @@ def split_partial(q, k, v, n: int, tiles: tuple[int, int], scale: float):
         r0, r1 = t * TILE, min((t + 1) * TILE, n)
         if r0 >= r1:
             break
-        s = (q @ k[r0:r1].T) * scale                      # (G, rows)
-        m_new = torch.maximum(m, s.max(dim=1).values)
-        p = torch.exp(s - m_new[:, None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=1)
-        acc = acc * alpha[:, None] + p @ v[r0:r1]         # P stays fp32
-        m = m_new
+        for h0 in range(0, g, gs):
+            sl = slice(h0, min(h0 + gs, g))
+            s = (q[sl] @ k[r0:r1].T) * scale              # (heads, rows)
+            m_new = torch.maximum(m[sl], s.max(dim=1).values)
+            p = torch.exp(s - m_new[:, None])
+            alpha = torch.exp(m[sl] - m_new)
+            l[sl] = l[sl] * alpha + p.sum(dim=1)
+            acc[sl] = acc[sl] * alpha[:, None] + p @ v[r0:r1]  # P stays fp32
+            m[sl] = m_new
     return m, l, acc
 
 
@@ -97,6 +116,37 @@ def split_k_decode(q, k, v, cur_len):
     return out
 
 
+def paged_rows(block_table, b: int, page: int, p: int, capacity: int):
+    """The (page, slot) of each logical row j < capacity of sequence b, as
+    the kernel's ``Paged`` policy reads it: page block_table[b, j // page]
+    clamped into [0, P), slot j % page."""
+    j = torch.arange(capacity)
+    phys = block_table[b, j // page].long().clamp(0, p - 1)
+    return phys, j % page
+
+
+def split_k_paged_decode(q, k_pages, v_pages, block_table, cur_len):
+    """q: (B, H, hd); pages: (P, page, KV, hd); block_table: (B, n); cur_len:
+    (B,) -> (B, H, hd), in fp32, by K1's split-K: the splits from the
+    table's capacity n * page, each row read through the block table."""
+    b, h, hd = q.shape
+    p, page, kv, _ = k_pages.shape
+    cap = block_table.shape[1] * page
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.empty(b, h, hd)
+    for bi in range(b):
+        n = max(0, min(int(cur_len[bi]), cap))
+        phys, slot = paged_rows(block_table, bi, page, p, cap)
+        for j in range(kv):
+            qg = q[bi, j * g:(j + 1) * g].float()
+            k = k_pages[phys, slot, j].float()  # (capacity, hd) in logical order
+            v = v_pages[phys, slot, j].float()
+            parts = [split_partial(qg, k, v, n, tiles, scale) for tiles in split_tiles(cap)]
+            out[bi, j * g:(j + 1) * g] = combine(parts)
+    return out
+
+
 def inputs(seed, b, s, h, kv, hd):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, h, hd)).astype(np.float32),
@@ -108,8 +158,17 @@ def test_split_constants_match_the_kernel_source():
     src = SOURCE.read_text()
     assert re.search(r"constexpr int kTile = 64;", src)
     assert re.search(r"constexpr int kMaxSplits = 8;", src)
-    assert "std::min(kMaxSplits, (S + kTile - 1) / kTile)" in src  # splits from S only
+    assert re.search(r"constexpr int kThreads = 256;", src) and re.search(r"constexpr int kMaxPairs = 2;", src)
+    assert "constexpr int kSliceWidth = 2 * kMaxPairs * kThreads;" in src  # 1024 outputs per head slice
+    assert "std::min(kMaxSplits, (capacity + kTile - 1) / kTile)" in src  # splits from the capacity only
     assert "split * n_all / splits" in src and "(split + 1) * n_all / splits" in src
+    # K4 reads row b * S + j, K1 page block_table[b, j / page] (clamped) at slot j % page
+    assert "return (int64_t)b * S + j;" in src
+    assert "min(max(table[(int64_t)b * n + j / page], 0), P - 1)" in src and "phys * page + j % page" in src
+    for name, policy in (("decode_attention.cu", "Contiguous"), ("paged_attention.cu", "Paged")):
+        text = (CSRC / name).read_text()
+        assert '#include "decode_split.cuh"' in text and "decode_split::sweep<D>" in text
+        assert f"decode_split::{policy}" in text
 
 
 @pytest.mark.parametrize("s", [1, 64, 65, 300, 512, 513, 1024, 4096, 4100])
@@ -161,3 +220,71 @@ def test_split_combine_gives_exact_zeros_at_empty_cache(s):
     got = split_k_decode(q, k, v, cur)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     np.testing.assert_allclose(got.numpy(), decode_attn_ref(q, k, v, cur).numpy(), **TOL)
+
+
+# (B, n, page, P, H, KV, hd, cur_len): K1's split layout from the table's
+# width, rows through a scattered block table (one entry out of range:
+# clamped), and head slices where G * hd exceeds one slice (1536, 6144)
+PAGED_CASES = [
+    (2, 4, 16, 12, 8, 2, 32, [64, 17]),        # one tile per split
+    (2, 9, 16, 24, 4, 1, 32, [144, 65]),       # 3 splits: a split boundary mid-page
+    (2, 40, 16, 90, 4, 2, 16, [640, 300]),     # 10 tiles over 8 splits
+    (2, 3, 16, 8, 24, 2, 128, [48, 20]),       # starcoder2-3b's group: G * hd = 1536, 2 slices
+    (1, 2, 16, 4, 48, 1, 128, [29]),           # granite-34b's group: 6144, 6 slices
+]
+
+
+@pytest.mark.parametrize("b,n,page,p,h,kv,hd,lens", PAGED_CASES)
+def test_paged_split_combine_matches_plain_and_pallas(b, n, page, p, h, kv, hd, lens):
+    rng = np.random.default_rng(n * page + h)
+    kpn = rng.standard_normal((p, page, kv, hd)).astype(np.float32)
+    vpn = rng.standard_normal((p, page, kv, hd)).astype(np.float32)
+    qn = rng.standard_normal((b, h, hd)).astype(np.float32)
+    btn = rng.permutation(np.arange(1, p))[: b * n].reshape(b, n).astype(np.int32)
+    cur = np.asarray(lens, np.int32)
+    q, kp, vp = torch.from_numpy(qn), torch.from_numpy(kpn), torch.from_numpy(vpn)
+    bt, ct = torch.from_numpy(btn), torch.from_numpy(cur)
+    got = split_k_paged_decode(q, kp, vp, bt, ct)
+    np.testing.assert_allclose(got.numpy(), paged_decode_attn_ref(q, kp, vp, bt, ct).numpy(), **TOL)
+    pallas = jax_paged_decode(jnp.asarray(qn), jnp.asarray(kpn), jnp.asarray(vpn), jnp.asarray(btn),
+                              jnp.asarray(cur), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
+def test_paged_split_clamps_a_table_entry_out_of_range():
+    """An entry outside [0, P) reads the clamped page, as the kernel does,
+    never out of the arena: rows past cur_len are masked, so a padded table
+    row (page 0, the arena's scratch page) changes nothing."""
+    rng = np.random.default_rng(3)
+    kp = torch.from_numpy(rng.standard_normal((6, 16, 1, 32)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((1, 2, 32)).astype(np.float32))
+    bt = torch.tensor([[4, 99, 0]], dtype=torch.int32)  # 99 -> P - 1 = 5
+    cur = torch.tensor([40], dtype=torch.int32)
+    want = split_k_paged_decode(q, kp, kp, torch.tensor([[4, 5, 0]], dtype=torch.int32), cur)
+    assert torch.equal(split_k_paged_decode(q, kp, kp, bt, cur), want)
+
+
+@pytest.mark.parametrize("h,kv", [(24, 2), (48, 1)])
+def test_wrappers_take_any_group_on_the_cpu(h, kv):
+    """K4 and K1 take groups wider than one head slice (G * hd 1536 and 6144,
+    starcoder2-3b's and granite-34b's): their checks pass, and the CPU
+    wrappers (the plain versions) match the JAX package's reference."""
+    hd, s, page, n, p = 128, 96, 16, 6, 14
+    rng = np.random.default_rng(h)
+    qn = rng.standard_normal((2, h, hd)).astype(np.float32)
+    kn, vn = (rng.standard_normal((2, s, kv, hd)).astype(np.float32) for _ in range(2))
+    cur = np.asarray([96, 33], np.int32)
+    q, k, v, ct = (torch.from_numpy(x) for x in (qn, kn, vn, cur))
+    tdec._check(q.bfloat16(), k.bfloat16(), v.bfloat16(), ct)
+    want = np.asarray(jax_ref.decode_attn_ref(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(cur)))
+    np.testing.assert_allclose(tdec.decode_attention(q, k, v, ct).numpy(), want, **TOL)
+    # the same rows laid out as pages through a scattered table
+    btn = rng.permutation(np.arange(1, p))[: 2 * n].reshape(2, n).astype(np.int32)
+    kpn, vpn = (np.zeros((p, page, kv, hd), np.float32) for _ in range(2))
+    for b in range(2):
+        for j in range(s):
+            kpn[btn[b, j // page], j % page] = kn[b, j]
+            vpn[btn[b, j // page], j % page] = vn[b, j]
+    kp, vp, bt = torch.from_numpy(kpn), torch.from_numpy(vpn), torch.from_numpy(btn)
+    tpaged._check_pages(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), bt, ct, "paged_decode_attention", "cur_len")
+    np.testing.assert_allclose(tpaged.paged_decode_attention(q, kp, vp, bt, ct).numpy(), want, **TOL)

@@ -72,7 +72,10 @@ def test_flash_kernel_matches_plain(cuda, b, t, s, h, kv, hd, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,hd", [(1, 512, 32, 8, 64), (4, 512, 32, 8, 64), (3, 300, 8, 2, 128),
-                                          (1, 512, 32, 32, 112), (2, 300, 32, 32, 112)])  # zamba2-7b
+                                          (1, 512, 32, 32, 112), (2, 300, 32, 32, 112),  # zamba2-7b
+                                          # starcoder2-3b's and granite-34b's groups (G * hd 1536,
+                                          # 6144): wider than one head slice of the kernel
+                                          (2, 512, 24, 2, 128), (2, 300, 48, 1, 128)])
 def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd):
     qn, kn, vn = inputs(17, (b, h, hd), (b, s, kv, hd), (b, s, kv, hd))
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
@@ -83,6 +86,7 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd):
     torch.cuda.synchronize()
     assert tdec.launches == before + 1
     np.testing.assert_allclose(as_np(got), as_np(tdec.plain(q, k, v, cur)), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, tdec.decode_attention(q, k, v, cur))  # one fixed order, no atomics
     zeros = tdec.decode_attention(q, k, v, torch.zeros_like(cur))
     assert torch.equal(zeros, torch.zeros_like(zeros))
 
@@ -148,12 +152,13 @@ def test_attention_c_entries_reject_an_unsupported_launch(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib.repro_decode_attention_fwd(q.data_ptr(), x.data_ptr(), x.data_ptr(), cur.data_ptr(),
                                                    q.data_ptr(), 1, 64, 2, 2, 96, stream), "decode_attention launch")
-    # G * hd above what a block holds (G = 16 at hd 128)
-    q16 = torch.zeros(1, 32, 128, device=cuda, dtype=torch.bfloat16)
+    # a group whose q, scores and accumulators outgrow one block's shared
+    # memory (G = 256 at hd 128); every narrower group is taken
+    q256 = torch.zeros(1, 512, 128, device=cuda, dtype=torch.bfloat16)
     kv = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        build.check(lib.repro_decode_attention_fwd(q16.data_ptr(), kv.data_ptr(), kv.data_ptr(), cur.data_ptr(),
-                                                   q16.data_ptr(), 1, 64, 32, 2, 128, stream),
+        build.check(lib.repro_decode_attention_fwd(q256.data_ptr(), kv.data_ptr(), kv.data_ptr(), cur.data_ptr(),
+                                                   q256.data_ptr(), 1, 64, 512, 2, 128, stream),
                     "decode_attention launch")
 
 
@@ -219,6 +224,9 @@ def paged_inputs(seed, b, n, page, p, h, kv, hd, device):
     (1, 32, 16, 321, 32, 8, 64, [406]),
     (3, 8, 16, 40, 8, 1, 128, [5, 128, 77]),  # MQA, head dim 128
     (2, 4, 128, 9, 4, 2, 64, [300, 512]),     # page 128
+    (8, 32, 16, 321, 32, 4, 128, [0, 37, 129, 300, 406, 511, 1, 64]),  # qwen3-moe-30b-a3b's paged shape
+    (4, 32, 16, 321, 24, 2, 128, [0, 37, 300, 512]),  # starcoder2-3b's group: G * hd = 1536
+    (4, 32, 16, 321, 48, 1, 128, [1, 64, 300, 511]),  # granite-34b's group: 6144
 ])
 def test_paged_decode_kernel_matches_plain(cuda, b, n, page, p, h, kv, hd, lens):
     kp, vp, bt, rng = paged_inputs(21, b, n, page, p, h, kv, hd, cuda)
@@ -230,6 +238,7 @@ def test_paged_decode_kernel_matches_plain(cuda, b, n, page, p, h, kv, hd, lens)
     assert tpaged.launches["paged_decode_attention"] == before + 1
     np.testing.assert_allclose(as_np(got), as_np(tpaged.plain_decode(q, kp, vp, bt, cur)),
                                rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, tpaged.paged_decode_attention(q, kp, vp, bt, cur))  # one fixed order
     for i, n_valid in enumerate(lens):
         if n_valid == 0:  # a masked slot: exact zeros
             assert torch.equal(got[i], torch.zeros_like(got[i]))
@@ -323,6 +332,43 @@ def test_moe_gmm_kernel_matches_plain(cuda, e, c, d, f):
     assert got.shape == (e, c, f) and got.dtype == torch.bfloat16
     np.testing.assert_allclose(as_np(got), as_np(tgmm.plain(xe, w)), rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tgmm.moe_gmm(xe, w))  # deterministic: no split-K, no atomics
+
+
+def routed_rows(seed, e, tokens, cap, k=8):
+    """Each expert's kept rows from a top-k routing of ``tokens`` tokens
+    (random router scores), min(count, cap), as the MoE layer computes it."""
+    scores = np.random.default_rng(seed).standard_normal((tokens, e))
+    choices = np.argsort(-scores, axis=1)[:, :k]
+    return np.minimum(np.bincount(choices.ravel(), minlength=e), cap).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,c,d,f", [
+    (1, 8, 2048, 768),    # a decode step's gate/up (qwen3-moe-30b-a3b: 8 of 128 experts)
+    (1, 8, 768, 2048),    # its down projection
+    (8, 8, 2048, 768),    # a paged decode step of 8 sequences
+    (300, 24, 2048, 768),  # a 300-token prefill: nearly every expert, 8-24 rows
+    (40, 70, 136, 48),    # two C tiles: the second past most experts' rows
+])
+def test_moe_gmm_kernel_routed_rows(cuda, tokens, c, d, f):
+    """K5 with ``rows``: within tolerance of the plain version, skipped rows
+    exact zeros, equal bits on two launches, and the same bits as the kernel
+    without ``rows`` on the same (masked) input."""
+    e = 128
+    rows = torch.from_numpy(routed_rows(tokens, e, tokens, c)).to(cuda)
+    keep = torch.arange(c, device=cuda)[None, :] < rows[:, None]
+    xn, wn = inputs(31, (e, c, d), (e, d, f))
+    xe = torch.from_numpy(xn).to(cuda, torch.bfloat16).masked_fill(~keep[..., None], 0)
+    w = (torch.from_numpy(wn) * d ** -0.5).to(cuda, torch.bfloat16)
+    before = tgmm.launches
+    got = tgmm.moe_gmm(xe, w, rows, min(e, 8 * tokens))
+    torch.cuda.synchronize()
+    assert tgmm.launches == before + 1
+    np.testing.assert_allclose(as_np(got), as_np(tgmm.plain(xe, w, rows)), rtol=RTOL, atol=ATOL)
+    assert not got[~keep].any()
+    assert torch.equal(got, tgmm.moe_gmm(xe, w, rows, min(e, 8 * tokens)))
+    assert torch.equal(got, tgmm.moe_gmm(xe, w))
+    assert torch.equal(got, tgmm.moe_gmm(xe, w, rows, 1))  # any bound on the active experts is correct
 
 
 @pytest.mark.cuda
@@ -484,3 +530,37 @@ def test_ssm_and_hybrid_chains_on_the_card_go_through_the_kernels(cuda, arch):
     with torch.no_grad():
         want, _ = model.prefill_fn(tree.map(lambda x: x.cpu(), params), {"tokens": toks})
     assert (logits.cpu() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention", "paged_decode_attention",
+                                    "paged_chunk_attention", "moe_gmm", "ssd_scan"])
+def test_kernel_refuses_an_input_that_requires_grad(cuda, kernel):
+    """The kernels have no backward on the card yet: under grad mode, a CUDA
+    input that requires grad raises before the launch (an output filled by
+    the kernel would carry no gradient); under no_grad the kernel runs."""
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    pages = torch.zeros(3, 16, 2, 64, **bf)
+    table = torch.ones(1, 2, dtype=torch.int32, device=cuda)
+    x = torch.zeros(1, 8, 4, 64, **bf)
+    call = {
+        "flash_attention": lambda x: tflash.flash_attention(x, x[:, :, :2].contiguous(), x[:, :, :2].contiguous()),
+        "decode_attention": lambda x: tdec.decode_attention(x[:, 0].contiguous(), torch.zeros(1, 16, 2, 64, **bf),
+                                                            torch.zeros(1, 16, 2, 64, **bf), one),
+        "paged_decode_attention": lambda x: tpaged.paged_decode_attention(x[:, 0].contiguous(), pages, pages, table,
+                                                                          one),
+        "paged_chunk_attention": lambda x: tpaged.paged_chunk_attention(x, pages, pages, table, one),
+        "moe_gmm": lambda x: tgmm.moe_gmm(x.reshape(4, 8, 64), torch.zeros(4, 64, 32, **bf)),
+        "ssd_scan": lambda x: tssd.ssd_scan(x.reshape(1, 8, 2, 128)[..., :64].contiguous(),
+                                            torch.zeros(1, 8, 1, 64, **bf), torch.zeros(1, 8, 1, 64, **bf),
+                                            torch.ones(1, 8, 2, device=cuda), torch.zeros(2, device=cuda),
+                                            torch.ones(2, device=cuda)),
+    }[kernel]
+    with torch.enable_grad():
+        with pytest.raises(RuntimeError, match="no backward on the card"):
+            call(x.clone().requires_grad_())
+    with torch.no_grad():
+        out = call(x.clone().requires_grad_())
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()

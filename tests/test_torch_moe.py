@@ -100,6 +100,37 @@ def test_plain_gmm_matches_jax_pallas(e, c, d, f, dtype):
                                **tol(dtype))
 
 
+@pytest.mark.parametrize("e,c,d,f,rows", [
+    (4, 16, 64, 96, [16, 3, 0, 9]),   # a full expert, partial ones, an empty one
+    (3, 24, 96, 64, [1, 24, 7]),
+    (4, 8, 64, 32, [0, 0, 0, 0]),     # no expert received a token
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_gmm_with_rows_matches_jax_pallas(e, c, d, f, rows, dtype):
+    """K5's plain version with ``rows``: xe's rows past rows[e] are zero (as
+    the MoE layer's scatter leaves them), so the JAX kernel on the same
+    buffer computes the same function; skipped rows are exact zeros, and the
+    result equals the plain version without ``rows`` bit for bit (each
+    skipped product is 0 * w)."""
+    rng = np.random.default_rng(6)
+    keep = np.arange(c)[None, :] < np.asarray(rows)[:, None]
+    xn = (rng.standard_normal((e, c, d)) * keep[..., None]).astype(np.float32)
+    wn = (rng.standard_normal((e, d, f)) * 0.05).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    want = jax_moe_gmm(jnp.asarray(xn).astype(jdt), jnp.asarray(wn).astype(jdt),
+                       block_c=8, block_f=32, block_d=32, interpret=True)
+    xe, w = torch.from_numpy(xn).to(tdt), torch.from_numpy(wn).to(tdt)
+    rt = torch.tensor(rows, dtype=torch.int32)
+    got = tgmm.moe_gmm(xe, w, rt, active=2)
+    assert got.dtype == tdt and got.shape == (e, c, f)
+    np.testing.assert_allclose(as_np(got), as_np(want), **tol(dtype))
+    assert not got[torch.from_numpy(~keep)].any()
+    assert torch.equal(got, tgmm.moe_gmm(xe, w))
+    # rows that are not zero past rows[e] are masked: the kept rows' products only
+    noisy = xe + torch.from_numpy((~keep)[..., None] * np.ones(d, np.float32)).to(tdt)
+    assert torch.equal(tgmm.moe_gmm(noisy, w, rt), got)
+
+
 def test_gmm_cpu_tensors_take_the_plain_version_and_are_counted():
     ops.reset_counts()
     xe, w = torch.ones(2, 8, 16, dtype=torch.bfloat16), torch.ones(2, 16, 8, dtype=torch.bfloat16)
@@ -222,6 +253,10 @@ def test_apply_moe_matches_jax(monkeypatch, width, dtype):
     monkeypatch.undo()
     jpos = jax_slots(spy.xe, np.asarray(jx.astype(jnp.float32)).reshape(n, -1), jidx)
 
+    calls = []
+    gmm = moe.kops.gmm
+    monkeypatch.setattr(moe.kops, "gmm", lambda xe, w, rows=None, active=None: (
+        calls.append((rows, active)), gmm(xe, w, rows, active))[1])
     with torch.no_grad():
         _, e_flat, _, pos = moe.route(tp, tx, tcfg)
         ty, tm = moe.apply_moe(tp, tx, tcfg)
@@ -234,6 +269,12 @@ def test_apply_moe_matches_jax(monkeypatch, width, dtype):
     np.testing.assert_array_equal(np.where(kept, tpos, -1), jpos)
     if width == "routing_width":
         assert 0.2 < 1 - kept.mean() < 0.8  # this config drops tokens
+    # K5 got each expert's kept rows, the JAX dispatch's count, in all three products
+    jrows = np.bincount(jidx[jpos >= 0], minlength=tcfg.num_experts)
+    assert len(calls) == 3 and all(a == min(tcfg.num_experts, n * k) for _, a in calls)
+    for rows, _ in calls:
+        assert rows.dtype == torch.int32
+        np.testing.assert_array_equal(rows.numpy(), jrows)
     assert ty.dtype == tdt and ty.shape == (b, t, tcfg.d_model)
     np.testing.assert_allclose(as_np(ty), as_np(jy), **tol(dtype))
     for name in ("moe_aux", "moe_dropped"):
@@ -253,15 +294,24 @@ def test_capacity_and_groups_match_jax():
         moe.num_groups(8, 1, full_t, rules=object())
 
 
-def test_apply_moe_on_meta_tensors():
+def test_apply_moe_on_meta_tensors(monkeypatch):
     """The shape-only run of a fused unit: no value is read and no shape
     depends on the data."""
     cfg = reduced_config(get_arch(ARCH))
     defs = moe.moe_defs(cfg)
     params = tree.map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+    calls = []
+    gmm = moe.kops.gmm
+    monkeypatch.setattr(moe.kops, "gmm", lambda xe, w, rows=None, active=None: (
+        calls.append((rows, active)), gmm(xe, w, rows, active))[1])
     y, m = moe.apply_moe(params, torch.empty(3, 7, cfg.d_model, dtype=torch.bfloat16, device="meta"), cfg)
     assert y.device.type == "meta" and y.shape == (3, 7, cfg.d_model) and y.dtype == torch.bfloat16
     assert m["moe_aux"].shape == () and m["moe_dropped"].dtype == torch.float32
+    # the kept rows are a device tensor, the bound on active experts a shape
+    assert len(calls) == 3
+    for rows, active in calls:
+        assert rows.device.type == "meta" and rows.shape == (cfg.num_experts,) and rows.dtype == torch.int32
+        assert active == min(cfg.num_experts, 3 * 7 * cfg.num_experts_per_tok)
 
 
 # ------------------------------------------------- the MoE chain vs the JAX engine

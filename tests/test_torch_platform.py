@@ -210,3 +210,80 @@ def test_allclose_tree_compares_bfloat16_in_float32():
     assert _allclose_tree(a, {"x": a["x"] + 0.005, "n": torch.arange(3)}, 2e-2, 1e-2)
     assert not _allclose_tree(a, {"x": a["x"] + 1.0, "n": torch.arange(3)}, 2e-2, 1e-2)
     assert not _allclose_tree(a, {"x": a["x"], "n": torch.arange(3) + 1}, 2e-2, 1e-2)
+
+
+def test_resident_bytes_count_what_the_reference_counts():
+    """``resident_bytes`` counts the runtime constant, the weights and the
+    compiled entry's recorded workspace and output bytes, as the JAX
+    package's does, and ``retire`` frees what was counted. On the CPU there
+    is no allocator statistic, so the workspace is 0: after one request an
+    instance holds 32 MiB + weights + output bytes. The JAX instance after
+    the same request holds more than its constant plus weights: the compiled
+    program's bytes that the port used to leave out."""
+    import jax.numpy as jnp
+
+    from repro.core import FunctionSpec as JaxSpec
+    from repro.core import FusionPolicy as JaxPolicy
+    from repro.core import TinyJaxBackend
+    from repro_torch.core.function import INSTANCE_RUNTIME_OVERHEAD_BYTES
+
+    w = weights(0)
+    weight_bytes = w.numel() * w.element_size()
+    p = TinyTorchBackend(FusionPolicy(enabled=False))
+    try:
+        inst = p.deploy(FunctionSpec("f", lambda ctx, params, x: torch.tanh(x @ params), w))
+        assert inst.resident_bytes() == INSTANCE_RUNTIME_OVERHEAD_BYTES + weight_bytes  # nothing has run
+        out = p.invoke("f", torch.ones(4, 64))
+        output_bytes = out.numel() * out.element_size()
+        assert inst.entry_bytes() == [(0, output_bytes)]
+        counted = INSTANCE_RUNTIME_OVERHEAD_BYTES + weight_bytes + output_bytes
+        assert inst.resident_bytes() == counted and p.ram_bytes() == counted
+        p.invoke("f", torch.ones(4, 64))  # the same entry: recorded once
+        assert inst.resident_bytes() == counted
+        assert inst.retire() == counted and inst.resident_bytes() == 0
+    finally:
+        p.shutdown()
+
+    jp = TinyJaxBackend(JaxPolicy(enabled=False))
+    try:
+        jinst = jp.deploy(JaxSpec("f", lambda ctx, params, x: jnp.tanh(x @ params), jnp.asarray(w.numpy())))
+        jp.invoke("f", jnp.ones((4, 64)))
+        assert jinst.resident_bytes() > INSTANCE_RUNTIME_OVERHEAD_BYTES + weight_bytes
+    finally:
+        jp.shutdown()
+
+
+def test_largest_entry_is_counted_and_boundary_entries_record_nothing():
+    """An instance holds one entry's workspace and outputs at a time (one
+    allocator serves them all): the largest is counted, not their sum. An
+    entry that crosses an instance boundary (interpreter glue) records
+    nothing, as in the reference."""
+    from repro_torch.core.function import INSTANCE_RUNTIME_OVERHEAD_BYTES
+
+    p = TinyTorchBackend(FusionPolicy(enabled=False))
+    try:
+        wa, wb, wc = deploy_chain_app(p)
+        for rows in (4, 16, 8):
+            p.invoke("A", torch.ones(rows, 64))
+        inst_a, inst_c = p.registry.resolve("A"), p.registry.resolve("C")
+        assert inst_a.entry_bytes() == []  # A calls B synchronously: glue
+        assert sorted(o for _, o in inst_c.entry_bytes()) == [4 * 64 * 4, 8 * 64 * 4, 16 * 64 * 4]
+        assert inst_c.resident_bytes() == INSTANCE_RUNTIME_OVERHEAD_BYTES + wc.numel() * 4 + 16 * 64 * 4
+        assert inst_a.resident_bytes() == INSTANCE_RUNTIME_OVERHEAD_BYTES + wa.numel() * 4
+    finally:
+        p.shutdown()
+
+
+def test_kernel_wrappers_refuse_a_launch_that_would_drop_a_gradient():
+    """On the card, a kernel's output carries no gradient (the kernels have
+    no backward yet): each wrapper calls this check before its launch. It
+    raises in grad mode when an input requires grad, and passes under
+    no_grad (the serve paths) or for inputs that do not."""
+    from repro_torch.kernels import build
+
+    x = torch.ones(2, 3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward on the card"):
+        build.refuse_grad("moe_gmm", torch.ones(2), x)
+    with torch.no_grad():
+        build.refuse_grad("moe_gmm", x)
+    build.refuse_grad("moe_gmm", x.detach(), torch.ones(2), None)
