@@ -20,21 +20,22 @@ Phases (any failed check exits non-zero and prints no result):
    (24/2 heads of 128) and granite-34b (48/1), wider than one head slice of
    the kernel; K1 ``paged_decode_attention`` (the paged serve path's shape,
    B = 1, MQA, qwen3's 32/4 heads of 128 and the two wide groups) and K2
-   ``paged_chunk_attention`` at the paged serve path's; K5 ``moe_gmm`` at the
+   ``paged_chunk_attention`` at the paged serve paths' (llama's 32/8 heads of
+   64, qwen3's 32/4 of 128: the 512-row chunk); K5 ``moe_gmm`` at the
    MoE serve path's (E = 128): every row kept at C = 8, 24, 40, and ``rows``
    from a top-8 routing through the layer's own ``route`` (a decode step's
    gate/up and down, 8 paged sequences' gate/up: skipped rows exact zeros,
    equal to the kernel without ``rows``, timed over copies of w that exceed
    the L2, the bound counting the active experts' bytes; the dense bound
    beside it); K6 ``ssd_scan`` at the SSM and hybrid paths' (T = 300 for
-   each model, T = 37, T = 512, G = 2), each held against its plain PyTorch
-   version at rtol = atol = 2e-2 and timed with CUDA events (median of 21
-   samples of 10 back-to-back calls, after warm-up) beside its plain
-   version, one library call on the same inputs (a yardstick only; the port
-   never calls it: ``scaled_dot_product_attention`` — for K1 and K2 on the
-   pre-gathered contiguous cache, the gather timed apart — ``torch.bmm`` for
-   K5; none computes K6) and the least time the card could take
-   (``bound_ms``). K1, K3, K4, K5 and K6 must give equal bits on two
+   each model, T = 37, T = 512, G = 2; y and the final state), each held
+   against its plain PyTorch version at rtol = atol = 2e-2 and timed with
+   CUDA events (median of 21 samples of 10 back-to-back calls, after
+   warm-up) beside its plain version, one library call on the same inputs (a
+   yardstick only; the port never calls it: ``scaled_dot_product_attention``
+   — for K1 and K2 on the pre-gathered contiguous cache, the gather timed
+   apart — ``torch.bmm`` for K5; none computes K6) and the least time the
+   card could take (``bound_ms``). Every kernel must give equal bits on two
    launches. A ``ptxas`` line gives every kernel's registers and spills, per
    head dim for K3 and K4. A ``grad_refusal`` line: each of the six wrappers,
    given a CUDA input that requires grad under grad mode, raises before its
@@ -409,48 +410,58 @@ SSD_CHUNK = 64  # the kernel's own chunk (csrc/ssd_scan.cu: kQ)
 
 
 def ssd_bound(b, t, h, g, p, n) -> tuple[float, str]:
-    """K6's least time: x, B, C, dt, A_log, D read once and y written once;
-    per (b, h) the dual form's products over chunks of the kernel's
-    SSD_CHUNK rows, sum of 2Q^2 N + 2Q^2 P + 4QNP."""
+    """K6's least time: x, B, C, dt, A_log, D read once, y written once and
+    the final state (B, H, P, N) fp32 written once; per (b, h) the dual
+    form's products over chunks of the kernel's SSD_CHUNK rows, sum of
+    2Q^2 N + 2Q^2 P + 4QNP."""
     chunks = [min(SSD_CHUNK, t - c) for c in range(0, t, SSD_CHUNK)]
     flops = b * h * sum(2 * q * q * n + 2 * q * q * p + 4 * q * n * p for q in chunks)
-    nbytes = 2 * (2 * b * t * h * p + 2 * b * t * g * n) + 4 * (b * t * h + 2 * h)
+    nbytes = 2 * (2 * b * t * h * p + 2 * b * t * g * n) + 4 * (b * t * h + 2 * h) + 4 * b * h * p * n
     return bound(flops, nbytes)
 
 
 def ssd_case(torch, label, x, bm, cm, dt, a_log, d_skip, captured: bool = False) -> dict:
-    """K6 against its plain version on the same inputs, timed beside it (no
-    single PyTorch call computes the SSD scan: library "none"). A captured
-    case is held at 2e-2 of max |y| (its outputs reach ~1e6, where the two
-    summation orders differ by more than the elementwise atol near y = 0);
-    every other case elementwise at rtol = atol = 2e-2."""
+    """K6 against its plain version on the same inputs, y and the final
+    state, timed beside it (no single PyTorch call computes the SSD scan:
+    library "none"). A captured case is held at 2e-2 of max |y| and of max
+    |state| (its outputs reach ~1e6, where the two summation orders differ
+    by more than the elementwise atol near 0); every other case elementwise
+    at rtol = atol = 2e-2."""
     from repro_torch.kernels import ssd_scan as sd
 
     b, t, h, p = x.shape
     g, n = bm.shape[2], bm.shape[3]
-    got = sd.ssd_scan(x, bm, cm, dt, a_log, d_skip)
+    got, state = sd.ssd_scan(x, bm, cm, dt, a_log, d_skip, return_state=True)
     torch.cuda.synchronize()
-    want = sd.plain(x, bm, cm, dt, a_log, d_skip)[0]
-    check(bool(torch.isfinite(got).all()), f"ssd_scan {label}: non-finite output")
-    rel = rel_err(got, want)
+    want, want_state = sd.plain(x, bm, cm, dt, a_log, d_skip)
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(state).all()), f"ssd_scan {label}: non-finite output")
+    rel, rel_state = rel_err(got, want), rel_err(state, want_state)
     if captured:
         check(rel <= RTOL, f"ssd_scan {label}: {rel} of max |y| from its plain version")
+        check(rel_state <= RTOL, f"ssd_scan {label}: state {rel_state} of max |state| from its plain version")
         err = float((got.float() - want).abs().max())
+        state_err = float((state - want_state).abs().max())
     else:
         err = max_err(torch, got, want)
-    check(torch.equal(got, sd.ssd_scan(x, bm, cm, dt, a_log, d_skip)), f"ssd_scan {label} is not deterministic")
+        state_err = max_err(torch, state, want_state)
+    again, again_state = sd.ssd_scan(x, bm, cm, dt, a_log, d_skip, return_state=True)
+    check(torch.equal(got, again) and torch.equal(state, again_state), f"ssd_scan {label} is not deterministic")
     b_ms, b_by = ssd_bound(b, t, h, g, p, n)
+    ms = time_ms(torch, lambda: sd.ssd_scan(x, bm, cm, dt, a_log, d_skip, return_state=True))
     return {
         "shape": f"{label}: B={b} T={t} H={h} G={g} P={p} N={n} x/B/C bf16, dt fp32",
         "max_abs_err": err,
+        "state_max_abs_err": state_err,
         "rel_err_of_max": rel,
+        "state_rel_err_of_max": rel_state,
         "max_abs_y": float(want.abs().max()),
-        "ms": time_ms(torch, lambda: sd.ssd_scan(x, bm, cm, dt, a_log, d_skip)),
+        "ms": ms,
         "plain_ms": time_ms(torch, lambda: sd.plain(x, bm, cm, dt, a_log, d_skip)),
         "library_ms": None,
         "library": "none",
         "bound_ms": b_ms,
         "bound_by": b_by,
+        "bound_share": b_ms / ms,
     }
 
 
@@ -637,16 +648,25 @@ def paged_kernel_cases(torch, F, gen) -> dict:
     out["paged_decode_attention"] = cases
 
     cases = []
-    n, page, p, h, kv, hd = 32, 16, 321, 32, 8, 64
-    # (C, start, valid rows): a 37-token prompt padded to 64, a chunk from
-    # 192, a 300-token prompt padded to 512, a 5-row chunk from 37
-    for c, start, valid in ((64, 0, 37), (64, 192, 64), (512, 0, 300), (5, 37, 5)):
-        kp, vp, bt = _paged_inputs(torch, gen, 1, n, page, p, kv, hd)
-        q = torch.randn(1, c, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+    # qwen3-moe-30b-a3b's paged chunk (32/4 heads of 128) draws from a
+    # generator of its own, so that every other case draws what it drew before
+    gen_qwen3 = torch.Generator(device=dev).manual_seed(17)
+    # (C, start, valid rows, H, KV, hd, generator): a 37-token prompt padded
+    # to 64, a chunk from 192, a 300-token prompt padded to 512, a 5-row
+    # chunk from 37 (llama3.2-1b, 32/8 heads of 64); qwen3's 512-row chunk
+    for c, start, valid, h, kv, hd, g_case in (
+        (64, 0, 37, 32, 8, 64, gen), (64, 192, 64, 32, 8, 64, gen), (512, 0, 300, 32, 8, 64, gen),
+        (5, 37, 5, 32, 8, 64, gen), (512, 0, 300, 32, 4, 128, gen_qwen3),
+    ):
+        n, page, p = 32, 16, 321
+        kp, vp, bt = _paged_inputs(torch, g_case, 1, n, page, p, kv, hd)
+        q = torch.randn(1, c, h, hd, generator=g_case, device=dev).to(torch.bfloat16)
         st = torch.tensor([start], dtype=torch.int32, device=dev)
         got = pa.paged_chunk_attention(q, kp, vp, bt, st)
         torch.cuda.synchronize()
         err = max_err(torch, got, pa.plain_chunk(q, kp, vp, bt, st))
+        check(torch.equal(got, pa.paged_chunk_attention(q, kp, vp, bt, st)),
+              f"paged_chunk_attention C={c} start={start} H={h}/{kv} is not deterministic")
         g = h // kv
         qt = q.transpose(1, 2)
         kr = gather_pages(kp, bt).transpose(1, 2).repeat_interleave(g, dim=1)
@@ -656,16 +676,22 @@ def paged_kernel_cases(torch, F, gen) -> dict:
         pairs = c * start + c * (c + 1) // 2  # (row, visible column) pairs: all C rows are computed
         nbytes = 2 * (q.numel() + got.numel() + 2 * min(start + c, n * page) * kv * hd) + 4 * (n + 1)
         b_ms, b_by = bound(4 * h * hd * pairs, nbytes)
+        ms = time_ms(torch, lambda: pa.paged_chunk_attention(q, kp, vp, bt, st))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask))
+        gather_ms = time_ms(torch, lambda: (gather_pages(kp, bt), gather_pages(vp, bt)))
         cases.append({
             "shape": f"B=1 C={c} start={start} valid={valid} n={n} page={page} P={p} H={h} KV={kv} hd={hd} bf16",
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: pa.paged_chunk_attention(q, kp, vp, bt, st)),
+            "ms": ms,
             "plain_ms": time_ms(torch, lambda: pa.plain_chunk(q, kp, vp, bt, st)),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)),
+            "library_ms": library_ms,
             "library": "scaled_dot_product_attention on the pre-gathered contiguous cache",
-            "gather_ms": time_ms(torch, lambda: (gather_pages(kp, bt), gather_pages(vp, bt))),
+            "gather_ms": gather_ms,
+            "vs_library": ms / library_ms,
+            "vs_library_and_gather": ms / (library_ms + gather_ms),
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "bound_share": b_ms / ms,
         })
     out["paged_chunk_attention"] = cases
     return out

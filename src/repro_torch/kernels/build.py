@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu", "ssd_scan.cu")
-HEADERS = ("async_copy.cuh", "decode_split.cuh")  # included by sources; hashed with them, never compiled alone
+# included by sources; hashed with them, never compiled alone
+HEADERS = ("async_copy.cuh", "mma_bf16.cuh", "row_policy.cuh", "decode_split.cuh", "flash_sweep.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -42,8 +43,8 @@ SIGNATURES = {
     "repro_paged_chunk_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # xe, w, rows (or null), out, E, C, D, F, active, stream
     "repro_moe_gmm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, bm, cm, dt, a_log, d_skip, y, B, T, H, P, G, N, stream
-    "repro_ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, bm, cm, dt, a_log, d_skip, y, state, B, T, H, P, G, N, stream
+    "repro_ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 // Helpers shared by the hand-written kernels that stream tiles through a
-// cp.async ring (flash_attention.cu, decode_split.cuh, moe_gmm.cu): the
-// 16-byte asynchronous copy with its commit / wait, and the host-side raise
+// cp.async ring (flash_sweep.cuh, decode_split.cuh, moe_gmm.cu, ssd_scan.cu):
+// the 16- and 4-byte asynchronous copies with their commit / wait, and the host-side raise
 // of a kernel's dynamic shared-memory limit, once per device.
 //
 // Each .cu includes this header by its relative path and compiles to an
@@ -22,6 +22,22 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool v
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int src_bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+// 16 bytes global -> shared through L1 (for data that neighbouring blocks of
+// the SM read too); valid == false zero-fills without reading global memory.
+__device__ __forceinline__ void cp_async_16_ca(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared, asynchronously (through L1: only .ca copies 4
+// bytes); valid == false zero-fills without reading global memory.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -63,6 +63,7 @@
 #include <atomic>
 
 #include "async_copy.cuh"  // cp.async ring helpers, allow_smem_once
+#include "row_policy.cuh"  // Contiguous, Paged
 
 namespace {
 namespace decode_split {
@@ -81,26 +82,9 @@ constexpr int kStages = 2;       // K/V ring depth: tile k + 1 loads while tile 
 constexpr float kNegInf = -1e30f;
 constexpr size_t kMaxSmem = 232448;  // the dynamic shared memory one block may use on sm_90
 
-// K4: (B, S, KV, D), row j of sequence b is row b * S + j.
-struct Contiguous {
-  int S;
-  __device__ int capacity() const { return S; }
-  __device__ int64_t row(int b, int j) const { return (int64_t)b * S + j; }
-};
-
-// K1: pages (P, page, KV, D) and a block table (B, n); row j of sequence b
-// is slot j % page of page block_table[b, j / page], clamped into [0, P) so
-// that a bad table reads wrong rows but never faults (the arena never hands
-// one out).
-struct Paged {
-  const int* table;
-  int n, page, P;
-  __device__ int capacity() const { return n * page; }
-  __device__ int64_t row(int b, int j) const {
-    const int phys = min(max(table[(int64_t)b * n + j / page], 0), P - 1);
-    return (int64_t)phys * page + j % page;
-  }
-};
+// Row addresses: K4 reads a contiguous cache, K1 pages through a block table.
+using row_policy::Contiguous;
+using row_policy::Paged;
 
 // Heads per slice at group size G and head dim D.
 __host__ __device__ inline int slice_heads(int G, int D) { return G < kSliceWidth / D ? G : kSliceWidth / D; }

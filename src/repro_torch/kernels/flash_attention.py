@@ -1,7 +1,8 @@
 """K3: causal / non-causal GQA flash attention (forward).
 
-The hand-written Hopper kernel is ``csrc/flash_attention.cu``: one block of
-two warpgroups per 64 query rows of a head, the heaviest causal tiles issued
+The hand-written Hopper kernel is ``csrc/flash_attention.cu`` (its sweep,
+``csrc/flash_sweep.cuh``, is shared with K2): one block of two warpgroups
+per 64 query rows of a head, the heaviest causal tiles issued
 first; K/V tiles come through a 2-stage cp.async ring, the two warpgroups
 split each tile's columns with online-softmax states of their own (merged at
 the end), QK^T and PV are mma.sync bf16 tiles fed by ldmatrix (V by

@@ -42,9 +42,10 @@ def gmm(xe, w, rows=None, active=None):
     return _gmm.moe_gmm(xe, w, rows, active)
 
 
-def ssd(x, bm, cm, dt, a_log, d_skip):
-    """x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log/d_skip: (H,) -> y (B,T,H,P)."""
-    return _ssd.ssd_scan(x, bm, cm, dt, a_log, d_skip)
+def ssd(x, bm, cm, dt, a_log, d_skip, return_state: bool = False):
+    """x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log/d_skip: (H,) -> y (B,T,H,P);
+    with ``return_state``, (y, the final state (B,H,P,N) fp32)."""
+    return _ssd.ssd_scan(x, bm, cm, dt, a_log, d_skip, return_state)
 
 
 def counts() -> dict:

@@ -4,8 +4,9 @@ K1 ``paged_decode_attention`` (one query token per sequence, every batched
 decode step of the continuous batcher) and K2 ``paged_chunk_attention`` (C
 prefill rows from absolute position ``start``, every chunked-prefill chunk)
 are hand-written Hopper kernels in ``csrc/paged_attention.cu`` (K1 is the
-split-K sweep of ``csrc/decode_split.cuh``, shared with K4, reading each
-row through the block table; any group of query heads); their plain
+split-K sweep of ``csrc/decode_split.cuh``, shared with K4; K2 is the
+query-tile sweep of ``csrc/flash_sweep.cuh``, shared with K3; both read
+each row through the block table; any group of query heads); their plain
 PyTorch versions are :func:`repro_torch.kernels.ref.paged_decode_attn_ref`
 and :func:`repro_torch.kernels.ref.paged_chunk_attn_ref`, re-exported here
 as :data:`plain_decode` and :data:`plain_chunk`. They replace the Pallas TPU

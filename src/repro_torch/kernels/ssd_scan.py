@@ -1,13 +1,15 @@
-"""K6: the Mamba-2 SSD chunked scan (forward), y only.
+"""K6: the Mamba-2 SSD chunked scan (forward): y and the final state.
 
-The hand-written Hopper kernel is ``csrc/ssd_scan.cu`` (one block per
-(sequence, head, 32-row slice of the head dim) looping over chunks of 64
-rows with the fp32 state slice in shared memory; any T, state dim 64 or 128,
-head dim a multiple of 32, B and C grouped by ``h // (H / G)``); its plain
-PyTorch version is :func:`repro_torch.kernels.ref.ssd_ref`, re-exported here
-as :data:`plain` (it also returns the final state, which the kernel does
-not). It replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py:
-ssd_scan``.
+The hand-written Hopper kernel is ``csrc/ssd_scan.cu``: chunks of 64 rows,
+up to 8 ranks per sequence each computing a contiguous run of chunks in
+parallel (a rank re-walks the state recurrence over the chunks before its
+run), one head and a 64- or 32-wide slice of its head dim per block, the
+products on the tensor cores with the fp32 state in registers, and the last
+rank writing the final state; any T, state dim 64 or 128, head dim a
+multiple of 32, B and C grouped by ``h // (H / G)``. Its plain PyTorch
+version is :func:`repro_torch.kernels.ref.ssd_ref`, re-exported here as
+:data:`plain`. It replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py:
+ssd_scan`` (which returns y only).
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_ref as plain
 
-STATE_DIMS = (64, 128)
-HEAD_DIM_MULTIPLE = 32  # the head dim splits into 32-row state slices, one block each
+STATE_DIMS = (64, 128)  # csrc/ssd_scan.cu instantiates N = 64 and 128
+HEAD_DIM_MULTIPLE = 32  # a block takes a 64-wide slice of the head dim where P is a multiple of 64, else 32
 
 #: Kernel launches; the wrapper adds one where it launches, nowhere else.
 launches = 0
@@ -50,32 +52,38 @@ def _check(x, bm, cm, dt, a_log, d_skip) -> None:
 
 
 def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
-             a_log: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:
+             a_log: torch.Tensor, d_skip: torch.Tensor, return_state: bool = False):
     """x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log, d_skip: (H,)
-    fp32 -> y (B,T,H,P) in the dtype of ``x`` (fp32 accumulated).
+    fp32 -> y (B,T,H,P) in the dtype of ``x`` (fp32 accumulated); with
+    ``return_state``, (y, the final state (B,H,P,N) fp32).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape
+    plain version; a meta tensor returns empty outputs of the right shapes
     (the shape-only run of a fused unit)."""
-    if x.device.type == "cpu":
-        return plain(x, bm, cm, dt, a_log, d_skip)[0].to(x.dtype)
-    if x.device.type == "meta":
-        return torch.empty_like(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {x.device}")
-    build.refuse_grad("ssd_scan", x, bm, cm, dt, a_log, d_skip)
-    _check(x, bm, cm, dt, a_log, d_skip)
     b, t, h, p = x.shape
-    y = torch.empty_like(x)
-    if y.numel() == 0:
-        return y
-    lib = build.load()
-    err = lib.repro_ssd_scan_fwd(
-        x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
-        d_skip.data_ptr(), y.data_ptr(), b, t, h, p, bm.shape[2], bm.shape[3],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, "ssd_scan launch")
-    global launches
-    launches += 1
-    return y
+    n = bm.shape[-1]
+    if x.device.type == "cpu":
+        y, state = plain(x, bm, cm, dt, a_log, d_skip)
+        y = y.to(x.dtype)
+    elif x.device.type == "meta":
+        y = torch.empty_like(x)
+        state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+    elif x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    else:
+        build.refuse_grad("ssd_scan", x, bm, cm, dt, a_log, d_skip)
+        _check(x, bm, cm, dt, a_log, d_skip)
+        y = torch.empty_like(x)
+        state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+        if not y.numel():
+            state.zero_()  # no token: the zero state
+        else:
+            err = build.load().repro_ssd_scan_fwd(
+                x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
+                d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), b, t, h, p, bm.shape[2], n,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+            build.check(err, "ssd_scan launch")
+            global launches
+            launches += 1
+    return (y, state) if return_state else y

@@ -41,19 +41,31 @@ def hybrid_defs(cfg: ModelConfig):
 
 
 def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                      collect_cache: bool = False):
+                      collect_cache: bool = False, attn_into: dict | None = None):
     """Returns (x, caches). caches (collect_cache=True) = {'groups': SSM
     states (n_groups, every, ...), 'attn': {'k','v'} (n_groups, B, S, KV,
-    hd), 'tail': SSM states (tail, ...)}; else None."""
+    hd), 'tail': SSM states (tail, ...)}; else None. ``attn_into``: {'k',
+    'v'} (n_groups, B, S_max, KV, hd) tensors that each application's K/V
+    is written into, in its leading S slots (cast to their dtype), in place
+    of a new stacked cache; it is returned as 'attn'. Each group's states go
+    straight into their slots of 'groups' from the second group on, so no
+    group's copy is held beside them."""
     n_groups, _, tail = split_layers(cfg)
     groups = attn = None
     for gi in range(n_groups):
         group = tree.map(lambda a: a[gi], params["groups"])
-        x, ssm_cache = tfm.apply_stack_full(group, x, cfg, "ssm", positions, collect_cache=collect_cache)
+        into = None if groups is None else tree.map(lambda a: a[gi], groups)
+        x, ssm_cache = tfm.apply_stack_full(group, x, cfg, "ssm", positions, collect_cache=collect_cache,
+                                            into=into)
+        if collect_cache and groups is None:
+            groups = tfm.stack_into(groups, gi, n_groups, ssm_cache)
+        ssm_cache = None
         x, kv = tfm.apply_block_full(params["shared"], x, cfg, "dense", positions, causal=True,
                                      collect_cache=collect_cache)
-        if collect_cache:
-            groups = tfm.stack_into(groups, gi, n_groups, ssm_cache)
+        if collect_cache and attn_into is not None:
+            for name, part in zip("kv", kv):
+                attn_into[name][gi, :, : part.shape[1]] = part.to(attn_into[name].dtype)
+        elif collect_cache:
             attn = tfm.stack_into(attn, gi, n_groups, kv)
     tail_cache = None
     if tail:
@@ -61,7 +73,7 @@ def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torc
                                              collect_cache=collect_cache)
     if not collect_cache:
         return x, None
-    caches = {"groups": groups, "attn": attn}
+    caches = {"groups": groups, "attn": attn if attn_into is None else attn_into}
     if tail:
         caches["tail"] = tail_cache
     return x, caches

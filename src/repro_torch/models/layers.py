@@ -76,9 +76,10 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None):
 
 def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "wi_gate" in params:
-        g = x @ params["wi_gate"]
-        u = x @ params["wi_up"]
-        h = F.silu(g.float()).to(x.dtype) * u
+        # the gate's fp32 activation in place, each (T, d_ff) temporary freed
+        # as soon as the next is made: the same products, a third of the peak
+        h = F.silu((x @ params["wi_gate"]).float(), inplace=True).to(x.dtype)
+        h = h * (x @ params["wi_up"])
     else:
         h = F.gelu((x @ params["wi"]).float(), approximate="tanh").to(x.dtype)
     return h @ params["wo"]

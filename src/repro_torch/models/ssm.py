@@ -6,10 +6,11 @@ of O(T^2). Decode is the O(1) recurrent step: the state (B, H, P, N) is
 updated and read out.
 
 On the card the SSD scan of a prefill is the hand-written kernel K6
-(``repro_torch.kernels.ops.ssd``, any T) for y, and the final state is the
-closed form :func:`_final_state_only`, as the JAX package does on the TPU.
-On the CPU the chunked scan below runs, as the JAX package runs it off the
-TPU (its ``lax.scan`` over chunks is a Python loop here).
+(``repro_torch.kernels.ops.ssd``, any T), which returns y and the final
+state in one launch (the JAX package computes the state on the TPU by a
+second pass over x, B and dt, in closed form). On the CPU the
+chunked scan below runs, as the JAX package runs it off the TPU (its
+``lax.scan`` over chunks is a Python loop here).
 """
 from __future__ import annotations
 
@@ -75,23 +76,14 @@ def _project_inputs(params, u: torch.Tensor, cfg: ModelConfig):
 
 
 def _gated_out(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, eps: float = 1e-5):
-    """SiLU(z)-gated RMSNorm then output projection."""
-    yf = y.float() * F.silu(z.float())
+    """SiLU(z)-gated RMSNorm then output projection. The fp32 (B, T, d_inner)
+    intermediates are updated in place (the same products in the same order
+    as ``y.float() * silu(z.float())`` etc.), so a prefill holds one at a time
+    beside the square, not three."""
+    yf = F.silu(z.float(), inplace=True).mul_(y)
     ms = yf.square().mean(dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(ms + eps) * params["gate_norm"].float()
+    yf.mul_(torch.rsqrt(ms + eps)).mul_(params["gate_norm"].float())
     return torch.einsum("bte,ed->btd", yf.to(y.dtype), params["out"])
-
-
-def _final_state_only(x, bm, dt, a_log):
-    """Closed-form final SSD state (B,H,P,N) without the output sweep."""
-    h = x.shape[2]
-    grp = bm.shape[2]
-    a = -torch.exp(a_log.float())
-    cum = torch.cumsum(dt.float() * a, dim=1)  # (B,T,H)
-    w_j = torch.exp(cum[:, -1:, :] - cum) * dt.float()
-    bh = torch.repeat_interleave(bm, h // grp, dim=2).float()
-    state = torch.einsum("bthp,bthn->bhpn", x.float() * w_j[..., None], bh)
-    return None, state
 
 
 def ssd_chunked(x, bm, cm, dt, a_log, d_skip, chunk: int, init_state=None):
@@ -99,11 +91,9 @@ def ssd_chunked(x, bm, cm, dt, a_log, d_skip, chunk: int, init_state=None):
 
     Returns (y (B,T,H,P) in the dtype of x, final_state (B,H,P,N) fp32)."""
     if init_state is None and x.device.type in ("cuda", "meta"):
-        # K6 for y (any T), then the closed-form state — the JAX package's
-        # kernel path (repro/models/ssm.py:104-112)
-        y = kops.ssd(x.contiguous(), bm.contiguous(), cm.contiguous(), dt.contiguous(), a_log, d_skip)
-        _, state = _final_state_only(x, bm, dt, a_log)
-        return y, state
+        # K6: y and the final state in one launch (any T)
+        return kops.ssd(x.contiguous(), bm.contiguous(), cm.contiguous(), dt.contiguous(), a_log, d_skip,
+                        return_state=True)
     b, t, h, p = x.shape
     grp, n = bm.shape[2], bm.shape[3]
     q = min(chunk, t)
@@ -156,9 +146,9 @@ def ssd_inputs(params, u: torch.Tensor, cfg: ModelConfig):
     fp32) — the SSD scan's inputs and what the decode cache keeps."""
     b, t, _ = u.shape
     z, x0, bm0, cm0, dt = _project_inputs(params, u, cfg)
-    x = F.silu(_causal_conv(x0, params["conv_x"]).float()).to(x0.dtype)
-    bm = F.silu(_causal_conv(bm0, params["conv_B"]).float()).to(bm0.dtype)
-    cm = F.silu(_causal_conv(cm0, params["conv_C"]).float()).to(cm0.dtype)
+    x = F.silu(_causal_conv(x0, params["conv_x"]).float(), inplace=True).to(x0.dtype)
+    bm = F.silu(_causal_conv(bm0, params["conv_B"]).float(), inplace=True).to(bm0.dtype)
+    cm = F.silu(_causal_conv(cm0, params["conv_C"]).float(), inplace=True).to(cm0.dtype)
     xh = x.reshape(b, t, cfg.ssm_nheads, cfg.ssm_head_dim)
     return z, x0, bm0, cm0, xh, bm, cm, dt
 
@@ -170,17 +160,17 @@ def apply_ssm(params, u: torch.Tensor, cfg: ModelConfig, init_state=None, return
     (matches :func:`ssm_cache_shapes`)."""
     b, t, _ = u.shape
     z, x0, bm0, cm0, xh, bm, cm, dt = ssd_inputs(params, u, cfg)
+    km1 = cfg.conv_kernel - 1
+    # the conv histories the cache keeps, taken before the pre-conv inputs go:
+    # each (B, T, d_inner) input is dropped once nothing needs it
+    tails = {"conv_x": x0[:, -km1:].to(torch.bfloat16), "conv_B": bm0[:, -km1:].to(torch.bfloat16),
+             "conv_C": cm0[:, -km1:].to(torch.bfloat16)} if return_cache else None
+    del x0, bm0, cm0
     y, state = ssd_chunked(xh, bm, cm, dt, params["A_log"], params["D"], cfg.ssm_chunk, init_state)
+    del xh, bm, cm, dt
     out = _gated_out(params, y.reshape(b, t, -1), z, cfg)
     if return_cache:
-        km1 = cfg.conv_kernel - 1
-        cache = {
-            "ssd": state,
-            "conv_x": x0[:, -km1:].to(torch.bfloat16),
-            "conv_B": bm0[:, -km1:].to(torch.bfloat16),
-            "conv_C": cm0[:, -km1:].to(torch.bfloat16),
-        }
-        return out, cache
+        return out, {"ssd": state, **tails}
     return out
 
 

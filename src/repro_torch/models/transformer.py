@@ -187,12 +187,15 @@ def stack_into(stacked, i: int, n: int, entry, like=None) -> dict:
 
 
 def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                     positions: torch.Tensor, causal: bool = True, collect_cache: bool = False):
+                     positions: torch.Tensor, causal: bool = True, collect_cache: bool = False,
+                     into=None):
     """Full-sequence pass through the stack. Returns (x, the cache stacked on
     a leading 'layers' axis — {'k','v'} for attention kinds, the SSM state
-    dict for 'ssm' — or None)."""
+    dict for 'ssm' — or None). ``into``: a stacked cache of the right shapes
+    (e.g. a view of a larger one) that the layers' caches are copied into,
+    in place of a new one."""
     n = _num_layers(stacked_params)
-    cache = None
+    cache = into
     for i in range(n):
         x, entry = apply_block_full(_layer(stacked_params, i), x, cfg, kind, positions, causal,
                                     collect_cache)

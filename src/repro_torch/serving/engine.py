@@ -221,9 +221,11 @@ class ServingEngine:
                 h, new_caches = hy.apply_hybrid_decode(params, x, caches, cfg, cur_len)
             else:  # prefill
                 positions = torch.arange(x.shape[1], device=x.device)[None, :]
-                h, built = hy.apply_hybrid_full(params, x, cfg, positions, collect_cache=True)
-                attn = {name: _fill_prefix(full, built["attn"][name]) for name, full in caches["attn"].items()}
-                new_caches = {**caches, **built, "attn": attn}
+                # new max_len attention caches, each application's K/V written
+                # into them as it is made (no stacked copy held beside them)
+                attn = {name: full.clone() for name, full in caches["attn"].items()}
+                h, built = hy.apply_hybrid_full(params, x, cfg, positions, collect_cache=True, attn_into=attn)
+                new_caches = {**caches, **built}
             return ctx.call(head_name, h, cur_len, new_caches)
 
         def head_fn(ctx, params, x, cur_len, caches):

@@ -155,7 +155,7 @@ def inputs(seed, b, s, h, kv, hd):
 
 
 def test_split_constants_match_the_kernel_source():
-    src = SOURCE.read_text()
+    src = SOURCE.read_text() + (CSRC / "row_policy.cuh").read_text()  # the sweep and its row policies
     assert re.search(r"constexpr int kTile = 64;", src)
     assert re.search(r"constexpr int kMaxSplits = 8;", src)
     assert re.search(r"constexpr int kThreads = 256;", src) and re.search(r"constexpr int kMaxPairs = 2;", src)

@@ -117,20 +117,29 @@ def test_decode_kernel_edges(cuda, s, g, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention", "paged_chunk_attention", "ssd_scan"])
 def test_attention_kernels_give_equal_bits_on_two_launches(cuda, kernel):
     """The serve phases require identical greedy tokens fused, unfused and
-    without the platform: K3 and K4 must sum in one fixed order. At the serve
-    shapes, 20 launches on the same inputs give the same bits."""
+    without the platform: the kernels must sum in one fixed order. At the
+    serve shapes, 20 launches on the same inputs give the same bits (K6: y
+    and the final state)."""
     if kernel == "flash_attention":
         qn, kn, vn = inputs(37, (1, 300, 32, 64), (1, 300, 8, 64), (1, 300, 8, 64))
         q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
         run = lambda: tflash.flash_attention(q, k, v, causal=True)  # noqa: E731
-    else:
+    elif kernel == "decode_attention":
         qn, kn, vn = inputs(37, (1, 32, 64), (1, 512, 8, 64), (1, 512, 8, 64))
         q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
         cur = torch.tensor([406], dtype=torch.int32, device=cuda)
         run = lambda: tdec.decode_attention(q, k, v, cur)  # noqa: E731
+    elif kernel == "paged_chunk_attention":  # the paged serve path's 512-row chunk
+        kp, vp, bt, rng = paged_inputs(37, 1, 32, 16, 321, 32, 8, 64, cuda)
+        q = torch.from_numpy(rng.standard_normal((1, 512, 32, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+        st = torch.zeros(1, dtype=torch.int32, device=cuda)
+        run = lambda: tpaged.paged_chunk_attention(q, kp, vp, bt, st)  # noqa: E731
+    else:  # mamba2-370m's prompt of 300
+        args = ssd_inputs(37, 1, 300, 32, 1, 64, 128, cuda)
+        run = lambda: torch.cat([t.flatten().float() for t in tssd.ssd_scan(*args, return_state=True)])  # noqa: E731
     first = run()
     assert all(torch.equal(first, run()) for _ in range(20))
 
@@ -245,9 +254,16 @@ def test_paged_decode_kernel_matches_plain(cuda, b, n, page, p, h, kv, hd, lens)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,start,valid", [(64, 0, 64), (64, 192, 64), (512, 0, 300), (5, 37, 5)])
-def test_paged_chunk_kernel_matches_plain(cuda, c, start, valid):
-    n, page, p, h, kv, hd = 32, 16, 321, 32, 8, 64
+@pytest.mark.parametrize("c,start,valid,n,h,kv,hd", [
+    (64, 0, 64, 32, 32, 8, 64), (64, 192, 64, 32, 32, 8, 64), (512, 0, 300, 32, 32, 8, 64), (5, 37, 5, 32, 32, 8, 64),
+    # qwen3-moe-30b-a3b's paged shape: 32/4 heads of 128
+    (512, 0, 300, 32, 32, 4, 128), (64, 192, 64, 32, 32, 4, 128),
+    # a table of 13 pages (208 rows) ends inside its fourth 64-row tile; the
+    # chunk's later rows reach past it
+    (64, 160, 64, 13, 32, 8, 64), (100, 130, 100, 13, 8, 2, 128),
+])
+def test_paged_chunk_kernel_matches_plain(cuda, c, start, valid, n, h, kv, hd):
+    page, p = 16, 321
     kp, vp, bt, rng = paged_inputs(23, 1, n, page, p, h, kv, hd, cuda)
     q = torch.from_numpy(rng.standard_normal((1, c, h, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
     st = torch.tensor([start], dtype=torch.int32, device=cuda)
@@ -450,11 +466,14 @@ def ssd_inputs(seed, b, t, h, g, p, n, device):
 def test_ssd_kernel_matches_plain(cuda, b, t, h, g, p, n):
     args = ssd_inputs(31, b, t, h, g, p, n, cuda)
     before = tssd.launches
-    got = tssd.ssd_scan(*args)
+    got, state = tssd.ssd_scan(*args, return_state=True)
     torch.cuda.synchronize()
     assert tssd.launches == before + 1
     assert got.shape == (b, t, h, p) and got.dtype == torch.bfloat16
-    np.testing.assert_allclose(as_np(got), as_np(tssd.plain(*args)[0]), rtol=RTOL, atol=ATOL)
+    assert state.shape == (b, h, p, n) and state.dtype == torch.float32
+    want, want_state = tssd.plain(*args)
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(as_np(state), as_np(want_state), rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tssd.ssd_scan(*args))  # deterministic: one fixed summation order
 
 

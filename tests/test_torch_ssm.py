@@ -201,7 +201,7 @@ def test_ssd_chunked_matches_jax(t, chunk, with_state):
 
 def test_ssd_chunked_on_meta_tensors_takes_the_kernel_route():
     """The shape-only run of a fused unit reaches K6's wrapper (no launch,
-    no plain call) and the closed-form state."""
+    no plain call), which gives y and the final state."""
     ops.reset_counts()
     arrays = [torch.from_numpy(a).to("meta") for a in ssd_inputs(7, 1, 300, 4, 1, 64, 128)]
     arrays[:3] = [a.to(torch.bfloat16) for a in arrays[:3]]
