@@ -55,7 +55,13 @@ Phases (any failed check exits non-zero and prints no result):
    (``footprints`` lists each instance's entries); fused must stay below
    unfused. (A unit's first run resets the device's peak-memory counter to
    measure its workspace, so a phase's ``peak_allocated_gb`` is the peak
-   since the last such run.)
+   since the last such run.) Every compiled entry is captured as a CUDA
+   graph at its second run and replayed from then on: ``graphs`` lists each
+   live instance's captured entries, and every decode entry that ran twice
+   must have been captured and one replayed (every serve and paged phase
+   checks it); the launch counts stay exact, ``launch_parts`` giving the
+   eager and the replayed part (a capture records its launches, each replay
+   adds them once). Per-token p50 fused / unfused is reported.
 4. Paged serve phase: full-width ``llama3.2-1b`` served from the paged KV
    arena (321 pages of 16 tokens) by the continuous batcher at capacity 8:
    24 requests of 37, 128 and 300 prompt tokens (8 sharing a 128-token
@@ -74,7 +80,22 @@ Phases (any failed check exits non-zero and prints no result):
    far bf16 rounding alone carries the end-to-end logits is reported.
 6. Profile phase: where a fused decode step's time goes — the host's wall
    clock against the device's kernel time (``torch.profiler``) — its ten
-   costliest kernels and the device time of each hand-written kernel.
+   costliest kernels and the device time of each hand-written kernel; the
+   step is a replay of the fused unit's captured CUDA graph.
+6b. Batched phase: ``load_bench``'s closed-loop main path driven against the
+   port on full-width ``llama3.2-1b``: 8 client threads, each prefilled
+   once with a random 8-token prompt and its own max_len caches, feeding a
+   constant token; one fused platform with ``max_batch`` 8 and
+   ``max_delay_ms`` 2; 8 warm-up then 48 timed decode steps per client,
+   first ``fused-serial`` (``invoke``), then ``fused-batched``
+   (``decode_step_async`` -> ``invoke_async`` -> the scheduler -> one
+   vmapped program per power-of-two bucket, captured at its second run).
+   Checks: a batch of 2 or more formed, no request of the decode entry fell
+   back to per-request execution, K4 launched exactly once per layer of each
+   program run, a bucket program was captured, and one batched step's lanes
+   against the same requests' ``invoke`` (logits and caches within 2e-2 of
+   max |value|; K4 under vmap at the lanes' own caches equal in bits to K4
+   per lane). Prints requests/s and p50/p95/p99 of both modes.
 7. MoE serve phase: the llama tensors freed, full-width
    ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
    random bf16 weights from seed 0, about 61 GB) as the eight-function
@@ -106,8 +127,9 @@ Phases (any failed check exits non-zero and prints no result):
    prefill, K4 once per application of each decode step, K6 as above.
 
 Standard output opens with the device line and the ``ptxas`` line; its
-last lines are the ``serve``, ``paged_serve``, ``reference``, ``profile``, ``moe_serve``,
-``moe_paged_serve``, ``moe_block``, ``moe_profile``, ``moe_memory``,
+last lines are the ``serve``, ``paged_serve``, ``reference``, ``profile``,
+``batched``, ``moe_serve``, ``moe_paged_serve``, ``moe_block``,
+``moe_profile``, ``moe_memory``,
 ``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
 ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
 and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
@@ -795,16 +817,36 @@ def record_replays(platform) -> list:
 
 
 def footprints(platform) -> list:
-    """Each live instance's counted footprint (``resident_bytes``) and its
+    """Each live instance's counted footprint (``resident_bytes``), its eager
     compiled entries' recorded workspace and output bytes (the largest of
-    each entry's sum is what is counted)."""
+    each entry's sum is what is counted) and its graphs' shared pool (the
+    graphs' static bytes are in ``graphs``)."""
     out = []
     for inst in platform.registry.live_instances():
         entries = inst.entry_bytes()
         out.append({"instance": inst.instance_id, "resident_bytes": inst.resident_bytes(),
                     "entries": len(entries), "workspace_bytes": [w for w, _ in entries],
-                    "output_bytes": [o for _, o in entries]})
+                    "output_bytes": [o for _, o in entries], "graph_pool_bytes": inst.graph_pool_bytes()})
     return out
+
+
+def graph_summary(platform, label: str) -> dict:
+    """The live instances' compiled entries (``FunctionInstance.graph_stats``),
+    checked: a decode entry (its first argument holds one token per
+    sequence: (B, 1, ...)) that ran twice is captured, and at least one is
+    replayed. A key seen once (a prompt length, a frozen prefix-hit step)
+    stays eager: it is captured at its second run."""
+    entries = [dict(g, instance=inst.instance_id) for inst in platform.registry.live_instances()
+               for g in inst.graph_stats()]
+    decode = [g for g in entries if g["bucket"] is None and len(g["arg_shape"]) >= 2 and g["arg_shape"][1] == 1]
+    eager = [g for g in decode if g["runs"] >= 2 and not g["captured"]]
+    check(not eager, f"{label}: decode entries that ran twice and were not captured: {eager}")
+    check(any(g["replays"] for g in decode), f"{label}: no decode entry was replayed from a graph: {decode}")
+    captured = [g for g in entries if g["captured"]]
+    return {"entries": len(entries), "captured": len(captured),
+            "decode_replays": sum(g["replays"] for g in decode),
+            "captured_entries": [{k: g[k] for k in ("entry", "bucket", "arg_shape", "replays", "static_bytes",
+                                                   "pool_bytes", "launches_per_replay")} for g in captured]}
 
 
 def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
@@ -816,7 +858,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     make it (:func:`expected_launches`; K5 three times per MoE layer
     applied); on the CPU the plain attention versions stand in."""
     from repro_torch.core import FusionPolicy, TinyTorchBackend
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ServingEngine
 
@@ -864,13 +906,14 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 "live_instances": len(platform.registry.live_instances()),
                 "merges": [(m.members, m.healthy) for m in platform.merger.merge_log],
                 "replayed": [n for m in platform.merger.merge_log for n in m.checked_members],
+                "graphs": graph_summary(platform, label) if dev.type == "cuda" else None,
             }
             check([n for n, _ in replays[label]] == results[label]["replayed"],
                   f"{label}: replayed canaries {replays[label]} against the merge log's {results[label]['replayed']}")
     finally:
         for platform in platforms.values():
             platform.shutdown()
-    counts = ops.counts()
+    counts, parts = ops.counts(), build.LAUNCHES.parts()
 
     chain = set(engines["fused"].chain_names())  # embed, g0..g{G-1}, head
     check(results["unfused"]["live_instances"] == len(chain),
@@ -880,7 +923,9 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     check(any(ok and set(m) == chain for m, ok in results["fused"]["merges"]),
           "no healthy merge of the whole chain in merge_log")
     check(results["fused"]["ram_bytes"] < results["unfused"]["ram_bytes"],
-          "fused ram_bytes is not below unfused")
+          f"fused ram_bytes is not below unfused: {results['fused']['ram_bytes']} vs "
+          f"{results['unfused']['ram_bytes']}; fused {results['fused']['footprints']}, "
+          f"{results['fused']['graphs']}; unfused {results['unfused']['footprints']}, {results['unfused']['graphs']}")
     invocations = len(prompt_lens) * new_tokens  # per platform: a prefill and new_tokens - 1 steps
     moe_runs = sum(moe_layer_runs(cfg, engines[label], invocations, results[label]["replayed"])
                    for label in platforms)
@@ -923,7 +968,11 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         "live_instances": {k: r["live_instances"] for k, r in results.items()},
         "tokens_identical": True,
         "launches": {k: counts[k] for k in ("flash_attention", "decode_attention", "moe_gmm", "ssd_scan")},
+        "launch_parts": {part: {k: n[k] for k in ("flash_attention", "decode_attention", "moe_gmm", "ssd_scan")}
+                         for part, n in parts.items()},
         "expected_launches": expected,
+        "graphs": {k: r["graphs"] for k, r in results.items()},
+        "p50_fused_over_unfused": results["fused"]["p50_token_ms"] / results["unfused"]["p50_token_ms"],
         "plain_calls": {k: counts[k] for k in PLAIN},
         "moe_layers_applied": moe_runs,
         "canary_replays": {label: len(r["replayed"]) for label, r in results.items()},
@@ -982,7 +1031,7 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
     (one request per prompt shape and one whole-prompt repeat), then the
     measured requests, all submitted at once. The kernel counts are set to
     0 just before the measured requests and read just after them."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.scheduler.metrics import percentiles_ms
     from repro_torch.serving.continuous import ContinuousBatcher
 
@@ -1002,7 +1051,7 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
         futs = [cb.submit({"tokens": p}, g) for p, g in zip(prompts, gens)]
         results = [f.result(timeout=600) for f in futs]
         elapsed = time.perf_counter() - t0
-        counts = ops.counts()
+        counts, parts = ops.counts(), build.LAUNCHES.parts()
         stats = cb.stats()
     finally:
         cb.shutdown()
@@ -1032,6 +1081,8 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
         "ram_bytes": platform.ram_bytes(),
         "footprints": footprints(platform),
         "counts": counts,
+        "launch_parts": parts,
+        "graphs": graph_summary(platform, "paged") if engine.device.type == "cuda" else None,
     }
 
 
@@ -1137,7 +1188,9 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     check(fused["live_instances"] == 1, f"fused chain should hold 1 instance, has {fused['live_instances']}")
     check(any(ok and set(m) == fused["chain"] for m, ok in fused["merges"]),
           "no healthy merge of the whole chain in merge_log")
-    check(fused["ram_bytes"] < unfused["ram_bytes"], "fused ram_bytes is not below unfused")
+    check(fused["ram_bytes"] < unfused["ram_bytes"],
+          f"paged: fused ram_bytes is not below unfused: {fused['ram_bytes']} vs {unfused['ram_bytes']}; "
+          f"fused {fused['footprints']}, {fused['graphs']}; unfused {unfused['footprints']}, {unfused['graphs']}")
     check(fused["shared_hits"] > 0, "no request hit the shared-prefix cache")
     check(max(block_errs) <= BLOCK_TOL,
           f"a block's paged decode step differs from its dense one beyond {BLOCK_TOL}: {block_errs}")
@@ -1172,7 +1225,8 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     check(all(agree), f"fused and unfused tokens differ in {agree.count(False)} of {len(agree)} requests")
     keys = ("tokens_per_s", "itl_p50_ms", "itl_p95_ms", "mean_occupancy", "decode_steps",
             "prefill_chunks", "mean_pages_per_request", "mean_billed_pages_per_request",
-            "arena_gb_s", "shared_hits", "cow_copies", "live_instances", "ram_bytes", "footprints", "elapsed_s")
+            "arena_gb_s", "shared_hits", "cow_copies", "live_instances", "ram_bytes", "footprints", "elapsed_s",
+            "graphs")
     return {
         "arch": cfg.name,
         "layers": cfg.num_layers,
@@ -1186,11 +1240,196 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
         "kv_pages": kv_pages,
         **{k: {label: run[k] for label, run in runs.items()} for k in keys},
         "launches": {label: {k: run["counts"][k] for k in kernels} for label, run in runs.items()},
+        "launch_parts": {label: {part: {k: n[k] for k in kernels} for part, n in run["launch_parts"].items()}
+                         for label, run in runs.items()},
         "plain_calls": {label: {k: run["counts"][k] for k in PLAIN} for label, run in runs.items()},
         "block_rel_err": block_errs,
         "small_model_tokens_identical": True,
         "fused_vs_unfused_identical_requests": sum(agree),
     }
+
+
+# ------------------------------------------------------------- batched phase
+
+BATCH_CLIENTS = 8  # load_bench's closed loop (benchmarks/load_bench.py:1497-1504)
+BATCH_PROMPT = 8
+BATCH_WARMUP = 8
+BATCH_STEPS = 48
+BATCH_MAX = 8
+BATCH_DELAY_MS = 2.0
+LANE_TOL = 2e-2  # a lane's logits and caches vs the same request's invoke, over max |value|
+
+
+def closed_loop(torch, engine, clients, batched: bool, warmup: int, steps: int) -> dict:
+    """load_bench's closed loop: one thread per client, each taking
+    ``warmup`` then ``steps`` decode steps (``decode_step_async`` and the
+    future's result when ``batched``, else ``decode_step``) with a constant
+    fed token; returns requests/s and the timed steps' percentiles."""
+    import threading
+
+    from repro_torch.scheduler.metrics import percentiles_ms
+
+    lats = [[] for _ in clients]
+
+    def drive(i: int, n: int, barrier, timed: bool) -> None:
+        c = clients[i]
+        barrier.wait()
+        for _ in range(n):
+            t0 = time.perf_counter()
+            if batched:
+                _, c["caches"] = engine.decode_step_async(c["token"], c["cur_len"], c["caches"]).result()
+            else:
+                _, c["caches"] = engine.decode_step(c["token"], c["cur_len"], c["caches"])
+            if timed:
+                lats[i].append(time.perf_counter() - t0)
+            c["cur_len"] = c["cur_len"] + 1
+
+    elapsed = 0.0
+    for n, timed in ((warmup, False), (steps, True)):
+        barrier = threading.Barrier(len(clients))
+        threads = [threading.Thread(target=drive, args=(i, n, barrier, timed)) for i in range(len(clients))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        elapsed = time.perf_counter() - t0
+    flat = [x for lat in lats for x in lat]
+    check(len(flat) == steps * len(clients), f"{len(flat)} timed steps of {steps * len(clients)}")
+    return {"requests": len(flat), "elapsed_s": elapsed, "requests_per_s": len(flat) / elapsed,
+            **percentiles_ms(flat)}
+
+
+def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMPT, warmup=BATCH_WARMUP,
+                  steps=BATCH_STEPS, max_len=MAX_LEN, params=None) -> dict:
+    """The main path's two modes on one fused platform (``max_batch`` 8,
+    ``max_delay_ms`` 2): ``clients`` closed-loop clients, each prefilled
+    once with a random prompt and its own max_len caches, feeding a constant
+    token; first ``fused-serial`` (``invoke``), then ``fused-batched``
+    (``invoke_async`` -> the scheduler -> one vmapped program per
+    power-of-two bucket, captured at its second run). Checks: batches of 2
+    or more formed, the decode entry never fell back to per-request
+    execution, K4 launched exactly once per layer of each program run, K4
+    at the lanes' own caches under vmap equal in bits to K4 per lane, and
+    each lane of a batched step that the captured bucket programs served
+    against the same request's ``invoke`` (:func:`lane_check`)."""
+    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    from repro_torch.core.function import _capture_device
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import decode_attention as k4
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine, _greedy_token
+
+    model = build_model(cfg)
+    if params is None:
+        params = model.init(0, device=dev)
+    captures = _capture_device(params) is not None  # the card captures; the CPU runs every program eagerly
+    gen = torch.Generator(device=dev).manual_seed(13)
+    platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0), max_batch=BATCH_MAX,
+                                max_delay_ms=BATCH_DELAY_MS)
+    try:
+        engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
+        warm = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev, dtype=torch.int32)
+        engine.generate({"tokens": warm}, steps=6)  # observe, fuse, warm up (load_bench's warm())
+        platform.merger.wait_idle()
+        check(len(platform.registry.live_instances()) == 1, "batched: the chain did not fuse")
+        state = []
+        for _ in range(clients):
+            prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            logits, caches, cur = engine.prefill({"tokens": prompt})
+            state.append({"token": _greedy_token(logits), "cur_len": cur, "caches": caches})
+
+        # K4 under vmap at the main path's shape and layout: layer 0 of the
+        # lanes' stacked layer-first caches (lanes, L, B, S, KV, hd), read in place
+        k, v = (torch.stack([c["caches"]["g0"][n] for c in state]) for n in ("k", "v"))
+        q = torch.randn(clients, 1, cfg.num_heads, cfg.head_dim, generator=gen, device=dev).to(k.dtype)
+        cur = torch.stack([c["cur_len"] for c in state]) + 1
+        with torch.no_grad():
+            lanes = torch.func.vmap(lambda q, k, v, c: k4.decode_attention(q, k[0], v[0], c))(q, k, v, cur)
+            loop = torch.stack([k4.decode_attention(q[i], k[i, 0], v[i, 0], cur[i]) for i in range(clients)])
+        check(torch.equal(lanes, loop), "K4 under vmap differs in bits from K4 per lane")
+
+        batches0 = platform.scheduler.stats()["batches"]
+        ops.reset_counts()
+        serial = closed_loop(torch, engine, state, False, warmup, steps)
+        batched = closed_loop(torch, engine, state, True, warmup, steps)
+        counts, parts = ops.counts(), build.LAUNCHES.parts()
+        sched = platform.scheduler.stats()
+        fallbacks = platform.batching_stats()
+        lane_err, lane_replays = lane_check(torch, engine, platform, state, captures)
+        graphs = graph_summary(platform, "batched") if captures else None
+    finally:
+        platform.shutdown()
+    runs = clients * (warmup + steps) + sched["batches"] - batches0  # decode program runs
+    check(sched["max_batch_seen"] >= 2, f"batched: no batch of 2 or more formed ({sched})")
+    check(all(not f["fallback_requests"] for f in fallbacks.values()),
+          f"batched: requests fell back to per-request execution: {fallbacks}")
+    k4_name = "decode_attention" if dev.type == "cuda" else STAND_INS["decode_attention"]
+    check(counts[k4_name] == cfg.num_layers * runs,
+          f"{k4_name} ran {counts[k4_name]} times, {runs} decode program runs make {cfg.num_layers * runs}")
+    buckets = None
+    if captures:
+        buckets = sorted({g["bucket"] for g in graphs["captured_entries"] if g["bucket"] is not None})
+        check(buckets, "batched: no bucket program was captured")
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "clients": clients, "prompt_len": prompt_len,
+        "warmup_steps": warmup, "steps": steps, "max_batch": BATCH_MAX, "max_delay_ms": BATCH_DELAY_MS,
+        "fused_serial": serial, "fused_batched": batched,
+        "batched_over_serial_requests_per_s": batched["requests_per_s"] / serial["requests_per_s"],
+        "max_batch_seen": sched["max_batch_seen"], "mean_batch": sched["mean_batch"],
+        "batches": sched["batches"] - batches0, "buckets_captured": buckets,
+        "decode_program_runs": runs, "decode_attention_launches": counts[k4_name],
+        "launch_parts": {part: n["decode_attention"] for part, n in parts.items()},
+        "lane_rel_err": lane_err, "lane_check_bucket_replays": lane_replays, "k4_vmap_bits_equal": True,
+        "batch_fallbacks": fallbacks,
+        "graphs": graphs,
+    }
+
+
+def lane_check(torch, engine, platform, state, captures: bool, attempts: int = 4):
+    """Each lane of one batched decode step against the same request's
+    ``invoke``: logits and caches within LANE_TOL of max |value| (the
+    batched einsums may choose other cuBLAS algorithms). Where programs are
+    captured, the lanes are taken from a step whose every batch was a
+    replay of a captured bucket program (a bucket's first run is eager and
+    its second captures it; the timed loop has run both), so the replayed
+    graph itself is held against ``invoke``: its stacked static inputs, the
+    caches donated under vmap, the split of its pool into lanes. Returns
+    (each lane's error, the bucket replays of the checked step)."""
+    import threading
+
+    from repro_torch import tree
+
+    (unit,) = platform.registry.live_instances()
+
+    def bucket_replays() -> int:
+        return sum(g["replays"] for g in unit.graph_stats() if g["bucket"] is not None)
+
+    want = [engine.decode_step(c["token"], c["cur_len"], c["caches"]) for c in state]
+    for _ in range(attempts):
+        batches0, replays0 = platform.scheduler.stats()["batches"], bucket_replays()
+        barrier = threading.Barrier(len(state))
+        got = [None] * len(state)
+
+        def one(i):
+            barrier.wait()
+            got[i] = engine.decode_step_async(state[i]["token"], state[i]["cur_len"], state[i]["caches"]).result()
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(state))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batches, replays = platform.scheduler.stats()["batches"] - batches0, bucket_replays() - replays0
+        if not captures or replays == batches:
+            break
+    check(not captures or replays == batches > 0,
+          f"batched: no step in {attempts} was served by captured bucket programs alone "
+          f"(last: {batches} batches, {replays} bucket replays)")
+    lane_err = [max(rel_err(a, b) for a, b in zip(tree.leaves(g), tree.leaves(w))) for g, w in zip(got, want)]
+    check(max(lane_err) <= LANE_TOL, f"batched lanes differ from invoke beyond {LANE_TOL}: {lane_err}")
+    return lane_err, replays
 
 
 def rel_err(a, b) -> float:
@@ -1528,9 +1767,10 @@ def ssd_captured_case(torch, dev, cfg, params, prompt_len: int = 300) -> dict:
                         layer["ssm"]["D"], captured=True)
 
 
-def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict) -> dict:
+def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, parts: dict) -> dict:
     """One entry per kernel: its source, the TPU kernel it replaces, its
-    launches on the main path that runs it (and on every path of the run,
+    launches on the main path that runs it (``launch_parts``: made by eager
+    runs and replayed from captured graphs; on every path of the run,
     ``launches_by_path``), and the kernel phase's figures at that path's
     shape (``main_case``: the serve shape of each); ``captured``: cases on
     a model's own inputs, held relative to max |y| (K6)."""
@@ -1551,7 +1791,7 @@ def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict) -> d
         main = cases[main_case]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "launches_by_path": by_path.get(name, {}),
+            "launches": launches[name], "launch_parts": parts[name], "launches_by_path": by_path.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1614,7 +1854,8 @@ def moe_phases(torch, dev) -> dict:
     memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"moe_memory": memory}), flush=True)
     print(f"moe block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    return {"launches": serve["launches"], "paged_launches": paged["launches"]["fused"]}
+    return {"launches": serve["launches"], "paged_launches": paged["launches"]["fused"],
+            "parts": serve["launch_parts"]}
 
 
 def ssm_phases(torch, dev, arch: str, key: str) -> dict:
@@ -1642,7 +1883,7 @@ def ssm_phases(torch, dev, arch: str, key: str) -> dict:
     memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({f"{key}_memory": memory}), flush=True)
     print(f"{key} block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    return {"launches": serve["launches"], "captured": captured}
+    return {"launches": serve["launches"], "captured": captured, "parts": serve["launch_parts"]}
 
 
 def main() -> int:
@@ -1689,6 +1930,10 @@ def main() -> int:
     t0 = time.perf_counter()
     print(json.dumps({"profile": profile_phase(torch, dev, cfg)}), flush=True)
     print(f"profile phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    batched = batched_phase(torch, dev, cfg)
+    print(json.dumps({"batched": batched}), flush=True)
+    print(f"batched phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
     moe = moe_phases(torch, dev)
     ssm = ssm_phases(torch, dev, "mamba2-370m", "ssm")
@@ -1704,7 +1949,13 @@ def main() -> int:
     by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
                           "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
-    print(json.dumps(kernels_line(kern, launches, by_path, captured)), flush=True)
+    part_src = {"flash_attention": serve["launch_parts"], "decode_attention": serve["launch_parts"],
+                "paged_decode_attention": paged["launch_parts"]["fused"],
+                "paged_chunk_attention": paged["launch_parts"]["fused"], "moe_gmm": moe["parts"]}
+    parts = {k: {p: src[p][k] for p in ("eager", "replayed")} for k, src in part_src.items()}
+    parts["ssd_scan"] = {p: ssm["parts"][p]["ssd_scan"] + hybrid["parts"][p]["ssd_scan"]
+                         for p in ("eager", "replayed")}
+    print(json.dumps(kernels_line(kern, launches, by_path, captured, parts)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0

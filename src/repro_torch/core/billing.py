@@ -56,6 +56,11 @@ class InvocationRecord:
     t_end: float
     resident_bytes: int
     blocked_s: float = 0.0
+    # Requests co-batched into this execution. Each request in a micro-batch
+    # gets its own record, but the instance was held ONCE for the batch
+    # duration — so billed GB-s splits evenly across the co-batched requests
+    # (summing the batch's records reproduces the instance's true cost).
+    batch_size: int = 1
 
     @property
     def duration_s(self) -> float:
@@ -63,7 +68,7 @@ class InvocationRecord:
 
     @property
     def gb_seconds(self) -> float:
-        return self.duration_s * self.resident_bytes / 1e9
+        return self.duration_s * self.resident_bytes / 1e9 / max(1, self.batch_size)
 
 
 class BillingMeter:

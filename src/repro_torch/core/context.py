@@ -35,19 +35,23 @@ class BoundaryCall(Exception):
 class TraceContext:
     """Context of a compiled unit: co-located calls inline.
 
-    ``pending`` is None during the shape-only run; during a real run it
-    collects ``(caller, callee, args)`` of async calls, which the instance
-    dispatches after the unit finished."""
+    ``pending`` collects ``(caller, callee, args)`` of async calls: during a
+    real run the instance dispatches them after the unit finished; during
+    the shape-only run (``shape_only``) they only show that the entry has
+    effects (such an entry is never captured or batched)."""
 
-    def __init__(self, platform, instance, params_by_member, member: str, pending: list | None = None):
+    def __init__(self, platform, instance, params_by_member, member: str, pending: list,
+                 shape_only: bool = False):
         self._platform = platform
         self._instance = instance
         self._params = params_by_member
         self.member = member
         self.pending = pending
+        self.shape_only = shape_only
 
     def _child(self, member: str) -> "TraceContext":
-        return TraceContext(self._platform, self._instance, self._params, member, self.pending)
+        return TraceContext(self._platform, self._instance, self._params, member, self.pending,
+                            self.shape_only)
 
     def call(self, name: str, *args):
         if name in self._instance.members:  # co-located: inline (FUSION)
@@ -57,10 +61,8 @@ class TraceContext:
 
     def call_async(self, name: str, *args):
         """Fire-and-forget: queued, dispatched on the host after the run."""
-        if self.pending is None:
-            return torch.zeros((), dtype=torch.int32, device="meta")
         self.pending.append((self.member, name, args))
-        return torch.zeros((), dtype=torch.int32)
+        return torch.zeros((), dtype=torch.int32, device="meta" if self.shape_only else "cpu")
 
 
 class EagerContext:

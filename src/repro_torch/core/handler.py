@@ -66,6 +66,7 @@ class _ActiveInvocation:
     t_start: float
     resident_bytes: int
     blocked_s: float = 0.0
+    batch_size: int = 1
 
 
 class FunctionHandler:
@@ -89,23 +90,31 @@ class FunctionHandler:
             self._tls.stack = []
         return self._tls.stack
 
-    def enter(self, function: str, instance) -> None:
+    def enter(self, function: str, instance, batch_size: int = 1) -> None:
+        """``batch_size > 1`` marks a micro-batched execution: k co-batched
+        requests holding the instance once. `exit` then emits one record PER
+        request (each carrying batch_size, so billed GB-s splits k ways and
+        per-function call counts still count client requests)."""
         self._stack().append(_ActiveInvocation(
             function, instance.instance_id, self.clock.now(), instance.resident_bytes(),
+            batch_size=max(1, batch_size),
         ))
 
     def exit(self, function: str) -> None:
         inv = self._stack().pop()
-        self.meter.record(
-            InvocationRecord(
-                function=inv.function,
-                instance=inv.instance_id,
-                t_start=inv.t_start,
-                t_end=self.clock.now(),
-                resident_bytes=inv.resident_bytes,
-                blocked_s=inv.blocked_s,
+        t_end = self.clock.now()
+        for _ in range(inv.batch_size):
+            self.meter.record(
+                InvocationRecord(
+                    function=inv.function,
+                    instance=inv.instance_id,
+                    t_start=inv.t_start,
+                    t_end=t_end,
+                    resident_bytes=inv.resident_bytes,
+                    blocked_s=inv.blocked_s / inv.batch_size,
+                    batch_size=inv.batch_size,
+                )
             )
-        )
 
     def abort(self, function: str) -> None:
         """Pop the invocation WITHOUT billing — used when an attempt fails

@@ -1,5 +1,13 @@
 """Provuse platform: deploy / invoke / observe / fuse.
 
+Two external invocation paths, as in the JAX package:
+
+* ``invoke`` — the paper's serial path: one request executed to completion
+  in (or via) the calling thread.
+* ``invoke_async`` — returns a Future; the request scheduler coalesces
+  concurrent compatible requests into micro-batches that run as one
+  batched program (``FunctionInstance.execute_batch``).
+
 :class:`TinyTorchBackend` is the tinyFaaS analogue and the counterpart of
 the JAX package's ``TinyJaxBackend``: a minimal in-process dispatcher.
 Invocations execute in the calling thread; routing is a dict lookup; async
@@ -9,7 +17,7 @@ control plane and billing meter are backend-agnostic, as the paper shows.
 from __future__ import annotations
 
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any
 
 import torch
@@ -24,18 +32,23 @@ from repro_torch.core.merger import Merger
 from repro_torch.core.policy import FusionPolicy
 from repro_torch.core.registry import RoutingTable
 from repro_torch.scheduler.clock import SYSTEM_CLOCK
+from repro_torch.scheduler.scheduler import RequestScheduler
+from repro_torch.scheduler.slo import SLOClass
 
 
 class ProvusePlatform:
-    """Base platform. ``invoke`` is the paper's serial path: one request,
-    executed to completion in (or via) the calling thread."""
+    """Base platform: ``invoke`` (serial) and ``invoke_async`` (scheduled,
+    micro-batched)."""
 
     backend_name = "base"
 
     GUARDED_FIELDS = {"_pending_candidates": "_pending_lock"}
 
     def __init__(self, policy: FusionPolicy | None = None, *, async_build: bool = False,
-                 health_rtol: float = 2e-2, health_atol: float = 1e-2, clock=None):
+                 health_rtol: float = 2e-2, health_atol: float = 1e-2,
+                 max_batch: int = 8, max_delay_ms: float = 2.0,
+                 adaptive: bool = False, adaptive_config=None,
+                 be_shed_depth: int | None = None, clock=None):
         self.clock = clock or SYSTEM_CLOCK
         self.registry = RoutingTable()
         self.meter = BillingMeter(clock=self.clock)
@@ -47,6 +60,13 @@ class ProvusePlatform:
         self.lifecycle = ControlPlane(self, self.registry, clock=self.clock)
         self.merger = Merger(self, self.policy, async_build=async_build,
                              health_rtol=health_rtol, health_atol=health_atol)
+        self.scheduler = RequestScheduler(
+            self._dispatch_batch, max_batch=max_batch, max_delay_ms=max_delay_ms,
+            adaptive=adaptive, adaptive_config=adaptive_config,
+            be_shed_depth=be_shed_depth,
+            on_request_done=lambda name, lat_s, k: self.meter.observe_latency(name, lat_s),
+            clock=self.clock,
+        )
         self._specs: dict[str, FunctionSpec] = {}
         self._shape_cache: dict[tuple, Any] = {}
         self._shape_stack: list[str] = []
@@ -147,6 +167,20 @@ class ProvusePlatform:
         finally:
             instance.end_request()
 
+    def _run_batch(self, instance: FunctionInstance, entry: str, args_list: list[tuple]) -> list:
+        instance.begin_request()
+        self.handler.enter(entry, instance, batch_size=len(args_list))
+        try:
+            out = instance.execute_batch(entry, args_list, max_bucket=self.scheduler.max_batch)
+        except BaseException:
+            self.handler.abort(entry)
+            raise
+        else:
+            self.handler.exit(entry)
+            return out
+        finally:
+            instance.end_request()
+
     def _invoke_with_retry(self, name: str, args: tuple):
         """Serial dispatch with swap-race recovery. Also the Merger's canary
         replay path — no latency observation here, so control-plane traffic
@@ -175,6 +209,33 @@ class ProvusePlatform:
         out = self._invoke_with_retry(name, args)
         self.meter.observe_latency(name, self.clock.now() - t0)
         return out
+
+    def invoke_async(self, name: str, *args, priority: int = 0,
+                     slo: SLOClass | None = None) -> Future:
+        """External invocation through the request scheduler. Returns a
+        Future; compatible concurrent requests may execute as one batch.
+        ``slo=SLOClass(name, target_p95_ms)`` admits the request into its
+        class's own lane (single-class batches, window from the class's
+        target slack); ``priority=PRIORITY_HIGH`` is the two-level shim —
+        it maps to the zero-target class, jumps queued normal traffic, and
+        closes an open batching window early (SLO admission)."""
+        self.handler.record_canary(name, args)
+        self.handler.note_demand(name)
+        return self.scheduler.submit(name, args, priority=priority, slo=slo)
+
+    def _dispatch_batch(self, name: str, args_list: list[tuple]) -> list:
+        """Scheduler callback: execute one coalesced batch."""
+        try:
+            try:
+                return self._dispatch_batch_impl(name, args_list)
+            except InvocationError:
+                try:  # routing may have swapped mid-flight (see invoke)
+                    return self._dispatch_batch_impl(name, args_list)
+                except InvocationError:
+                    self._redeploy(name)
+                    return self._dispatch_batch_impl(name, args_list)
+        finally:
+            self._drain_candidates()
 
     def _redeploy(self, name: str) -> None:
         spec = self.spec_of(name)
@@ -226,7 +287,14 @@ class ProvusePlatform:
             "lifecycle": self.lifecycle.stats(),
             "billing": meter_snap["billing"],
             "latency": meter_snap["latency"],
+            "scheduler": self.scheduler.stats(),
+            "batching": self.batching_stats(),
         }
+
+    def batching_stats(self) -> dict:
+        """Per live instance: the requests that ran per request because
+        their entry cannot be one batched program, and why."""
+        return {inst.instance_id: inst.batch_stats() for inst in self.registry.live_instances()}
 
     # ------------------------------------------------------------- backend API
 
@@ -236,8 +304,12 @@ class ProvusePlatform:
     def _dispatch_async(self, name: str, args: tuple) -> None:
         raise NotImplementedError
 
+    def _dispatch_batch_impl(self, name: str, args_list: list[tuple]) -> list:
+        raise NotImplementedError
+
     def shutdown(self) -> None:
         self.merger.wait_idle()
+        self.scheduler.shutdown()
 
 
 class TinyTorchBackend(ProvusePlatform):
@@ -252,6 +324,10 @@ class TinyTorchBackend(ProvusePlatform):
     def _dispatch_sync(self, name: str, args: tuple):
         instance = self.registry.resolve(name)
         return self._run_request(instance, name, args)
+
+    def _dispatch_batch_impl(self, name: str, args_list: list[tuple]) -> list:
+        instance = self.registry.resolve(name)
+        return self._run_batch(instance, name, args_list)
 
     def _dispatch_async(self, name: str, args: tuple) -> None:
         self._async_pool.submit(self._safe_async, name, args)

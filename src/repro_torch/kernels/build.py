@@ -7,10 +7,12 @@ plain C interface, loaded with ``ctypes``. The library lands in
 keyed by a hash of the sources, the headers they include and the flags, so the first call after a source
 change rebuilds and every later call reuses it. Nothing here runs at import
 time: the CPU tests import every module, and only a CUDA tensor reaches
-:func:`load`.
+:func:`load`. Also here: the launch counters every wrapper bumps, and the
+helpers of the wrappers' vmap rules.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +21,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu", "ssd_scan.cu")
@@ -31,12 +35,14 @@ COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures (every pointer and the stream as c_void_p, every int as c_int)
+_L = ctypes.c_longlong
+# C signatures (every pointer and the stream as c_void_p, every int as c_int,
+# a row stride as c_longlong)
 SIGNATURES = {
     # q, k, v, out, B, T, S, H, KV, D, causal, stream
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, cur_len, out, B, S, H, KV, D, stream
-    "repro_decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, cur_len, out, B, S, batch (rows between sequences of k/v), H, KV, D, stream
+    "repro_decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, cur_len, out, B, P, page, n, H, KV, D, stream
     "repro_paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, start, out, B, C, P, page, n, H, KV, D, stream
@@ -49,6 +55,75 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+#: The kernels whose launches are counted (one name per wrapper).
+KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_chunk_attention",
+           "moe_gmm", "ssd_scan")
+
+
+class LaunchCounts:
+    """Kernel launches, exact under threads and graph replays.
+
+    A wrapper calls :func:`count_launch` where it launches its kernel. On a
+    thread that is recording (a CUDA-graph capture: the launch is recorded,
+    not run) the launch goes to that recording instead; a replay of the graph
+    adds the recording once (:func:`add_replayed`). ``eager`` and
+    ``replayed`` are kept apart so that a run can show both parts."""
+
+    GUARDED_FIELDS = {"_eager": "_lock", "_replayed": "_lock"}
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._eager = dict.fromkeys(KERNELS, 0)
+        self._replayed = dict.fromkeys(KERNELS, 0)
+        self._tls = threading.local()
+
+    def count(self, name: str) -> None:
+        recording = getattr(self._tls, "recording", None)
+        if recording is not None:
+            recording[name] = recording.get(name, 0) + 1
+            return
+        with self._lock:
+            self._eager[name] += 1
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Launches made on this thread inside the block are collected in
+        the yielded dict, not counted."""
+        rec: dict[str, int] = {}
+        prev = getattr(self._tls, "recording", None)
+        self._tls.recording = rec
+        try:
+            yield rec
+        finally:
+            self._tls.recording = prev
+
+    def add_replayed(self, rec: dict) -> None:
+        with self._lock:
+            for name, n in rec.items():
+                self._replayed[name] += n
+
+    def total(self) -> dict[str, int]:
+        with self._lock:
+            return {k: self._eager[k] + self._replayed[k] for k in KERNELS}
+
+    def parts(self) -> dict[str, dict[str, int]]:
+        with self._lock:
+            return {"eager": dict(self._eager), "replayed": dict(self._replayed)}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._eager = dict.fromkeys(KERNELS, 0)
+            self._replayed = dict.fromkeys(KERNELS, 0)
+
+
+LAUNCHES = LaunchCounts()
+count_launch = LAUNCHES.count
+
+
+def launches(name: str) -> int:
+    """Launches of one kernel since the last reset (eager + replayed)."""
+    return LAUNCHES.total()[name]
 
 
 def nvcc_path() -> str:
@@ -135,8 +210,6 @@ def refuse_grad(what: str, *tensors) -> None:
     the kernels have no backward on the card yet, and an output filled
     through ctypes carries no ``grad_fn``. Grad mode with an input that
     requires grad is refused; ``torch.no_grad()`` (the serve paths) passes."""
-    import torch
-
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors if isinstance(t, torch.Tensor)):
         raise RuntimeError(f"{what}: the kernel has no backward on the card yet, and an input requires "
                            "grad; run it under torch.no_grad() or detach the inputs")
@@ -148,3 +221,41 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().repro_kernels_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# ------------------------------------------------------------- vmap rules
+#
+# Each kernel wrapper is a ``torch.library.custom_op`` whose vmap rule hands
+# the kernel the mapped axis as part of its own batch axis, so k requests
+# run as ONE launch (``torch.func.vmap`` over a fused unit, the batched
+# execute). The kernels compute every row of their batch axis alone, so a
+# folded launch gives each lane the bits a launch of that lane alone gives.
+
+
+def fold_lanes(info, in_dims, *xs, contiguous: bool = True):
+    """Each ``x`` with its mapped axis moved first (an unmapped ``x``
+    expanded to the lanes) and merged into its own leading axis:
+    (lanes, B, ...) -> (lanes * B, ...), contiguous, or with ``contiguous``
+    False a view where the strides allow one (a copy where they do not)."""
+    n = info.batch_size
+    out = []
+    for x, d in zip(xs, in_dims):
+        x = x.movedim(d, 0) if d is not None else x.expand(n, *x.shape)
+        x = x.reshape(n * x.shape[1], *x.shape[2:])
+        out.append(x.contiguous() if contiguous else x)
+    return out
+
+
+def unfold_lanes(info, x):
+    """(lanes * B, ...) -> (lanes, B, ...)."""
+    return x.reshape(info.batch_size, x.shape[0] // info.batch_size, *x.shape[1:])
+
+
+def per_lane(info, in_dims, op, *args):
+    """The op once per lane, stacked on a new leading axis: the vmap rule of
+    a kernel whose operands cannot fold into one batch axis."""
+    outs = [op(*(a.select(d, i) if d is not None else a for a, d in zip(args, in_dims)))
+            for i in range(info.batch_size)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+    return torch.stack(outs), 0

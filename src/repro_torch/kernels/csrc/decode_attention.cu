@@ -16,7 +16,7 @@
 // What the design does about it: split-K across a thread-block cluster,
 // combined through distributed shared memory, in ONE launch — the sweep of
 // decode_split.cuh, whose `Contiguous` policy reads row j of sequence b at
-// row b * S + j of the (B, S, KV, hd) cache; splits = min(8, ceil(S/64)),
+// row b * batch + j of the (B, S, KV, hd) cache (batch = S when contiguous); splits = min(8, ceil(S/64)),
 // from S, never from cur_len. Any group G (heads in slices of 1024 / hd);
 // cur_len == 0 gives exact zeros (the paged kernel's contract; the TPU kernel
 // returns the mean of V there).
@@ -47,30 +47,33 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* cur_len, void* out, int B, int S,
-                   int H, int KV, cudaStream_t stream) {
+                   int64_t batch, int H, int KV, cudaStream_t stream) {
   static std::atomic<uint32_t> smem_set{0u};
   return decode_split::launch<D>(decode_attention_kernel<D>, smem_set, q, k, v, cur_len, out, B, H, KV, S,
-                                 decode_split::Contiguous{S}, stream);
+                                 decode_split::Contiguous{S, batch}, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, out: (B, H, D); k, v: (B, S, KV, D); all bf16, contiguous, 16-byte
-// aligned; cur_len: (B,) int32 on the device. Returns a cudaError_t.
+// q, out: (B, H, D), contiguous; k, v: (B, S, KV, D) with each sequence's
+// (S, KV, D) contiguous and sequences `batch` rows of KV * D apart (batch >=
+// S: a batched step's lanes read one layer of their stacked caches in
+// place); all bf16, 16-byte aligned; cur_len: (B,) int32 on the device.
+// Returns a cudaError_t.
 int repro_decode_attention_fwd(const void* q, const void* k, const void* v, const void* cur_len,
-                               void* out, int B, int S, int H, int KV, int D, void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || KV > 65535)
+                               void* out, int B, int S, long long batch, int H, int KV, int D, void* stream) {
+  if (B <= 0 || S <= 0 || batch < S || KV <= 0 || H % KV != 0 || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch<64>(q, k, v, cur_len, out, B, S, H, KV, st);
+      return (int)launch<64>(q, k, v, cur_len, out, B, S, batch, H, KV, st);
     case 112:  // zamba2-7b's shared attention block
-      return (int)launch<112>(q, k, v, cur_len, out, B, S, H, KV, st);
+      return (int)launch<112>(q, k, v, cur_len, out, B, S, batch, H, KV, st);
     case 128:
-      return (int)launch<128>(q, k, v, cur_len, out, B, S, H, KV, st);
+      return (int)launch<128>(q, k, v, cur_len, out, B, S, batch, H, KV, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

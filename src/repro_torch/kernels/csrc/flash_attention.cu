@@ -64,7 +64,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
                    int H, int KV, int causal, cudaStream_t stream) {
   static std::atomic<uint32_t> smem_set{0u};
   return flash_sweep::launch<D>(flash_attention_kernel<D>, smem_set, q, k, v, out, nullptr, B, T, H, KV, causal,
-                                row_policy::Contiguous{S}, stream);
+                                row_policy::Contiguous{S, S}, stream);
 }
 
 }  // namespace

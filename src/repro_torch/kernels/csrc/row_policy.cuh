@@ -13,11 +13,15 @@
 namespace {
 namespace row_policy {
 
-// K4 and K3: (B, S, KV, D), row j of sequence b is row b * S + j.
+// K4 and K3: (B, S, KV, D) whose sequences lie `batch` rows apart (S when
+// the array is contiguous; more when it is one slice of a larger cache, such
+// as one layer of k requests' stacked caches), row j of sequence b is row
+// b * batch + j.
 struct Contiguous {
   int S;
+  int64_t batch;
   __device__ int capacity() const { return S; }
-  __device__ int64_t row(int b, int j) const { return (int64_t)b * S + j; }
+  __device__ int64_t row(int b, int j) const { return (int64_t)b * batch + j; }
 };
 
 // K1 and K2: pages (P, page, KV, D) and a block table (B, n); row j of

@@ -22,9 +22,6 @@ from repro_torch.kernels.ref import decode_attn_ref as plain
 
 HEAD_DIMS = (64, 112, 128)
 
-#: Kernel launches; the wrapper adds one where it launches, nowhere else.
-launches = 0
-
 
 def _check(q, k, v, cur_len) -> None:
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
@@ -40,12 +37,71 @@ def _check(q, k, v, cur_len) -> None:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"decode_attention kernel takes bfloat16, {name} is {x.dtype}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    rows = _batch_rows(k)
+    if rows is None or rows != _batch_rows(v):
+        raise ValueError(f"each sequence of k and v must be contiguous, the sequences whole rows apart, at least "
+                         f"S rows and equally in both; got strides {k.stride()}, {v.stride()}")
     if cur_len.shape != (b,) or cur_len.dtype != torch.int32 or cur_len.device != q.device:
         raise ValueError(f"cur_len must be int32 of shape ({b},) on {q.device}")
     if not cur_len.is_contiguous():
         raise ValueError("cur_len must be contiguous")
+
+
+def _batch_rows(k) -> int | None:
+    """Rows of KV * hd between one sequence of ``k`` and the next, or None
+    for a layout the kernel cannot read. Each sequence's (S, KV, hd) must be
+    contiguous; the sequences may lie further apart than S rows (one layer
+    of k requests' stacked caches, read in place)."""
+    b, s, kv, hd = k.shape
+    if any(n > 1 and st != want for n, st, want in zip(k.shape[1:], k.stride()[1:], (kv * hd, hd, 1))):
+        return None
+    if b == 1:
+        return s
+    if k.stride(0) % (kv * hd) or k.stride(0) < s * kv * hd:
+        return None
+    return k.stride(0) // (kv * hd)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return plain(q, k, v, cur_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    _check(q, k, v, cur_len)
+    b, h, hd = q.shape
+    out = torch.empty_like(q)
+    lib = build.load()
+    err = lib.repro_decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_len.data_ptr(), out.data_ptr(),
+        b, k.shape[1], _batch_rows(k), h, k.shape[2], hd,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "decode_attention launch")
+    build.count_launch("decode_attention")
+    return out
+
+
+@_op.register_fake
+def _(q, k, v, cur_len):
+    return torch.empty_like(q)
+
+
+@_op.register_vmap
+def _(info, in_dims, q, k, v, cur_len):
+    """The mapped axis folds into B: one launch for every lane (the split
+    depends on S only, so each lane gets the bits of its own launch). K and
+    V fold as views where they can: one layer of the lanes' stacked caches
+    is read in place, not copied."""
+    q, cur_len = build.fold_lanes(info, (in_dims[0], in_dims[3]), q, cur_len)
+    k, v = build.fold_lanes(info, in_dims[1:3], k, v, contiguous=False)
+    if _batch_rows(k) is None or _batch_rows(k) != _batch_rows(v):  # e.g. K/V shared by the lanes
+        k, v = k.contiguous(), v.contiguous()
+    return build.unfold_lanes(info, _op(q, k, v, cur_len)), 0
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,24 +109,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, hd); k, v: (B, S, KV, hd); cur_len: (B,) int32 -> (B, H, hd).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape."""
-    if q.device.type == "cpu":
-        return plain(q, k, v, cur_len)
-    if q.device.type == "meta":
-        return torch.empty_like(q)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
-    build.refuse_grad("decode_attention", q, k, v)
-    _check(q, k, v, cur_len)
-    b, h, hd = q.shape
-    out = torch.empty_like(q)
-    lib = build.load()
-    err = lib.repro_decode_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_len.data_ptr(), out.data_ptr(),
-        b, k.shape[1], h, k.shape[2], hd,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(err, "decode_attention launch")
-    global launches
-    launches += 1
-    return out
+    plain version; a meta tensor returns an empty output of the right shape.
+    Under ``torch.func.vmap`` the lanes fold into B."""
+    if q.device.type == "cuda":
+        build.refuse_grad("decode_attention", q, k, v)
+    return _op(q, k, v, cur_len)

@@ -21,9 +21,6 @@ from repro_torch.kernels.ref import mha_ref as plain
 
 HEAD_DIMS = (64, 112, 128)
 
-#: Kernel launches; the wrapper adds one where it launches, nowhere else.
-launches = 0
-
 
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -43,20 +40,12 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, T, H, hd); k, v: (B, S, KV, hd) -> (B, T, H, hd).
-
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape
-    (the shape-only run of a fused unit)."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal)
-    if q.device.type == "meta":
-        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    build.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v)
     b, t, h, hd = q.shape
     out = torch.empty_like(q)
@@ -69,6 +58,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention launch")
-    global launches
-    launches += 1
+    build.count_launch("flash_attention")
     return out
+
+
+@_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@_op.register_vmap
+def _(info, in_dims, q, k, v, causal):
+    """The mapped axis folds into B: one launch for every lane."""
+    q, k, v = build.fold_lanes(info, in_dims[:3], q, k, v)
+    return build.unfold_lanes(info, _op(q, k, v, causal)), 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, T, H, hd); k, v: (B, S, KV, hd) -> (B, T, H, hd).
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+    plain version; a meta tensor returns an empty output of the right shape
+    (the shape-only run of a fused unit). Under ``torch.func.vmap`` the
+    lanes fold into B."""
+    if q.device.type == "cuda":
+        build.refuse_grad("flash_attention", q, k, v)
+    return _op(q, k, v, causal)

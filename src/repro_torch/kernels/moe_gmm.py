@@ -21,9 +21,6 @@ from repro_torch.kernels.ref import gmm_ref as plain
 
 MAX_EXPERTS = 256  # the kernel keeps its list of active experts in shared memory
 
-#: Kernel launches; the wrapper adds one where it launches, nowhere else.
-launches = 0
-
 
 def _check(xe, w, rows=None, active: int = 1) -> None:
     if xe.dim() != 3 or w.dim() != 3 or w.shape[0] != xe.shape[0] or w.shape[1] != xe.shape[2]:
@@ -48,6 +45,39 @@ def _check(xe, w, rows=None, active: int = 1) -> None:
             raise ValueError(f"rows must be contiguous int32 of shape ({e},) on {xe.device}")
 
 
+@torch.library.custom_op("repro_torch::moe_gmm", mutates_args=())
+def _op(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None, active: int) -> torch.Tensor:
+    if xe.device.type == "cpu":
+        return plain(xe, w, rows)
+    if xe.device.type != "cuda":
+        raise ValueError(f"moe_gmm: unsupported device {xe.device}")
+    e, c, d = xe.shape
+    _check(xe, w, rows, active)
+    f = w.shape[2]
+    out = torch.empty(e, c, f, dtype=xe.dtype, device=xe.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    err = lib.repro_moe_gmm_fwd(
+        xe.data_ptr(), w.data_ptr(), None if rows is None else rows.data_ptr(), out.data_ptr(),
+        e, c, d, f, active, torch.cuda.current_stream(xe.device).cuda_stream,
+    )
+    build.check(err, "moe_gmm launch")
+    build.count_launch("moe_gmm")
+    return out
+
+
+@_op.register_fake
+def _(xe, w, rows, active):
+    return xe.new_empty(xe.shape[0], xe.shape[1], w.shape[2])
+
+
+@_op.register_vmap
+def _(info, in_dims, xe, w, rows, active):
+    """One launch per lane: each lane routes its own rows to the experts."""
+    return build.per_lane(info, in_dims, _op, xe, w, rows, active)
+
+
 def moe_gmm(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None,
             active: int | None = None) -> torch.Tensor:
     """xe: (E, C, d); w: (E, d, f) -> (E, C, f) in the dtype of ``xe``.
@@ -61,26 +91,8 @@ def moe_gmm(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None,
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version; a meta tensor returns an empty output of the right shape."""
-    if xe.device.type == "cpu":
-        return plain(xe, w, rows)
-    if xe.device.type == "meta":
-        return torch.empty(xe.shape[0], xe.shape[1], w.shape[2], dtype=xe.dtype, device="meta")
-    if xe.device.type != "cuda":
-        raise ValueError(f"moe_gmm: unsupported device {xe.device}")
-    build.refuse_grad("moe_gmm", xe, w)
-    e, c, d = xe.shape
+    e = xe.shape[0]
     active = e if active is None else max(1, min(active, e))
-    _check(xe, w, rows, active)
-    f = w.shape[2]
-    out = torch.empty(e, c, f, dtype=xe.dtype, device=xe.device)
-    if out.numel() == 0:
-        return out
-    lib = build.load()
-    err = lib.repro_moe_gmm_fwd(
-        xe.data_ptr(), w.data_ptr(), None if rows is None else rows.data_ptr(), out.data_ptr(),
-        e, c, d, f, active, torch.cuda.current_stream(xe.device).cuda_stream,
-    )
-    build.check(err, "moe_gmm launch")
-    global launches
-    launches += 1
-    return out
+    if xe.device.type == "cuda":
+        build.refuse_grad("moe_gmm", xe, w)
+    return _op(xe, w, rows, active)

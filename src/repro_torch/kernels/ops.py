@@ -8,6 +8,7 @@ forces the plain version on the card.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
@@ -49,23 +50,12 @@ def ssd(x, bm, cm, dt, a_log, d_skip, return_state: bool = False):
 
 
 def counts() -> dict:
-    """Kernel launches and plain-version calls since the last reset."""
-    return {
-        "flash_attention": _flash.launches,
-        "decode_attention": _decode.launches,
-        **_paged.launches,
-        "moe_gmm": _gmm.launches,
-        "ssd_scan": _ssd.launches,
-        **ref.CALLS,
-    }
+    """Kernel launches (eager and replayed from captured graphs) and
+    plain-version calls since the last reset."""
+    return {**build.LAUNCHES.total(), **ref.CALLS}
 
 
 def reset_counts() -> None:
-    _flash.launches = 0
-    _decode.launches = 0
-    _gmm.launches = 0
-    _ssd.launches = 0
-    for name in _paged.launches:
-        _paged.launches[name] = 0
+    build.LAUNCHES.reset()
     for name in ref.CALLS:
         ref.CALLS[name] = 0

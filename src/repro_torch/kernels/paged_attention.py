@@ -24,9 +24,6 @@ from repro_torch.kernels.ref import paged_decode_attn_ref as plain_decode
 
 HEAD_DIMS = (64, 128)
 
-#: Kernel launches; each wrapper adds one where it launches, nowhere else.
-launches = {"paged_decode_attention": 0, "paged_chunk_attention": 0}
-
 
 def _check_pages(q, k_pages, v_pages, block_table, lengths, name: str, len_name: str) -> None:
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -54,23 +51,15 @@ def _check_pages(q, k_pages, v_pages, block_table, lengths, name: str, len_name:
         raise ValueError(f"{len_name} must have shape ({b},), got {tuple(lengths.shape)}")
 
 
-def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                           block_table: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
-    """K1. q: (B, H, hd); pages: (P, page, KV, hd); block_table: (B, n)
-    int32; cur_len: (B,) int32 -> (B, H, hd). Columns >= cur_len are masked;
-    cur_len == 0 gives exact zeros.
-
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape."""
+@torch.library.custom_op("repro_torch::paged_decode_attention", mutates_args=())
+def _decode_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+               block_table: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return plain_decode(q, k_pages, v_pages, block_table, cur_len)
-    if q.device.type == "meta":
-        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     if q.dim() != 3:
         raise ValueError(f"expected q (B,H,hd), got {tuple(q.shape)}")
-    build.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     _check_pages(q, k_pages, v_pages, block_table, cur_len, "paged_decode_attention", "cur_len")
     b, h, hd = q.shape
     p, page, kv, _ = k_pages.shape
@@ -81,27 +70,48 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "paged_decode_attention launch")
-    launches["paged_decode_attention"] += 1
+    build.count_launch("paged_decode_attention")
     return out
 
 
-def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                          block_table: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
-    """K2. q: (B, C, H, hd) — C prefill rows whose absolute positions begin
-    at ``start`` (B,) int32; pages: (P, page, KV, hd); block_table: (B, n)
-    int32 -> (B, C, H, hd). Row i attends the columns <= start + i.
+@_decode_op.register_fake
+def _(q, k_pages, v_pages, block_table, cur_len):
+    return torch.empty_like(q)
+
+
+@_decode_op.register_vmap
+def _(info, in_dims, q, k_pages, v_pages, block_table, cur_len):
+    """Lanes over one shared arena fold into B (one launch); lanes with
+    arenas of their own launch once each."""
+    if in_dims[1] is not None or in_dims[2] is not None:
+        return build.per_lane(info, in_dims, _decode_op, q, k_pages, v_pages, block_table, cur_len)
+    q, block_table, cur_len = build.fold_lanes(info, (in_dims[0], in_dims[3], in_dims[4]),
+                                               q, block_table, cur_len)
+    return build.unfold_lanes(info, _decode_op(q, k_pages, v_pages, block_table, cur_len)), 0
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           block_table: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
+    """K1. q: (B, H, hd); pages: (P, page, KV, hd); block_table: (B, n)
+    int32; cur_len: (B,) int32 -> (B, H, hd). Columns >= cur_len are masked;
+    cur_len == 0 gives exact zeros.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version; a meta tensor returns an empty output of the right shape."""
+    if q.device.type == "cuda":
+        build.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
+    return _decode_op(q, k_pages, v_pages, block_table, cur_len)
+
+
+@torch.library.custom_op("repro_torch::paged_chunk_attention", mutates_args=())
+def _chunk_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              block_table: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return plain_chunk(q, k_pages, v_pages, block_table, start)
-    if q.device.type == "meta":
-        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
     if q.dim() != 4:
         raise ValueError(f"expected q (B,C,H,hd), got {tuple(q.shape)}")
-    build.refuse_grad("paged_chunk_attention", q, k_pages, v_pages)
     _check_pages(q, k_pages, v_pages, block_table, start, "paged_chunk_attention", "start")
     b, c, h, hd = q.shape
     p, page, kv, _ = k_pages.shape
@@ -114,5 +124,33 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "paged_chunk_attention launch")
-    launches["paged_chunk_attention"] += 1
+    build.count_launch("paged_chunk_attention")
     return out
+
+
+@_chunk_op.register_fake
+def _(q, k_pages, v_pages, block_table, start):
+    return torch.empty_like(q)
+
+
+@_chunk_op.register_vmap
+def _(info, in_dims, q, k_pages, v_pages, block_table, start):
+    """As K1's rule: lanes over one shared arena fold into B."""
+    if in_dims[1] is not None or in_dims[2] is not None:
+        return build.per_lane(info, in_dims, _chunk_op, q, k_pages, v_pages, block_table, start)
+    q, block_table, start = build.fold_lanes(info, (in_dims[0], in_dims[3], in_dims[4]),
+                                             q, block_table, start)
+    return build.unfold_lanes(info, _chunk_op(q, k_pages, v_pages, block_table, start)), 0
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                          block_table: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """K2. q: (B, C, H, hd) — C prefill rows whose absolute positions begin
+    at ``start`` (B,) int32; pages: (P, page, KV, hd); block_table: (B, n)
+    int32 -> (B, C, H, hd). Row i attends the columns <= start + i.
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+    plain version; a meta tensor returns an empty output of the right shape."""
+    if q.device.type == "cuda":
+        build.refuse_grad("paged_chunk_attention", q, k_pages, v_pages)
+    return _chunk_op(q, k_pages, v_pages, block_table, start)

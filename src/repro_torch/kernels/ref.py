@@ -3,16 +3,25 @@
 Each is the mathematically transparent dense formulation of what its kernel
 computes — slow and memory-hungry by design. The kernel wrappers run these
 for CPU tensors; the tests and ``chip_smoke.py`` hold the kernels against
-them. Every call adds one to ``CALLS`` so a run can show which path it took.
+them. Every call adds one to ``CALLS`` (under a lock: the scheduler's
+dispatchers and the merger's canary thread run them concurrently) so a run
+can show which path it took.
 """
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
 CALLS = {"mha_ref": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0, "paged_chunk_attn_ref": 0,
          "gmm_ref": 0, "ssd_ref": 0}
+_CALLS_LOCK = threading.Lock()
+
+
+def _called(name: str) -> None:
+    with _CALLS_LOCK:
+        CALLS[name] += 1
 
 
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -32,7 +41,7 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
     """q: (B, T, H, hd); k, v: (B, S, KV, hd) with H % KV == 0 -> (B, T, H, hd).
     Query head h reads kv head h // (H // KV). Scores in fp32; P is cast to
     the V dtype before PV."""
-    CALLS["mha_ref"] += 1
+    _called("mha_ref")
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, t, kv, h // kv, hd)
@@ -50,7 +59,7 @@ def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cur_len: torch.Tensor) -> torch.Tensor:
     """q: (B, H, hd); k, v: (B, S, KV, hd); cur_len: (B,) -> (B, H, hd).
     Columns >= cur_len are masked; cur_len == 0 gives exact zeros."""
-    CALLS["decode_attn_ref"] += 1
+    _called("decode_attn_ref")
     return _decode_attn(q, k, v, cur_len)
 
 
@@ -80,7 +89,7 @@ def paged_decode_attn_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     """q: (B, H, hd); pages: (P, page, KV, hd); block_table: (B, n) int32;
     cur_len: (B,) -> (B, H, hd). The gather, then :func:`decode_attn_ref`:
     columns >= cur_len are masked, cur_len == 0 gives exact zeros."""
-    CALLS["paged_decode_attn_ref"] += 1
+    _called("paged_decode_attn_ref")
     k = gather_pages(k_pages, block_table)
     v = gather_pages(v_pages, block_table)
     return _decode_attn(q, k, v, cur_len)
@@ -94,7 +103,7 @@ def paged_chunk_attn_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
     query offset: row i sees the columns <= start + i, as
     ``full_attention(..., q_offset=start)`` computes it in the JAX package.
     ``start`` is read as a tensor, never on the host."""
-    CALLS["paged_chunk_attn_ref"] += 1
+    _called("paged_chunk_attn_ref")
     b, c, h, hd = q.shape
     k = gather_pages(k_pages, block_table)
     v = gather_pages(v_pages, block_table)
@@ -115,7 +124,7 @@ def gmm_ref(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None)
     zero first (None keeps every row). Where those rows are zero already, the
     result equals the unmasked product bit for bit: each skipped product is
     0 * w."""
-    CALLS["gmm_ref"] += 1
+    _called("gmm_ref")
     if rows is not None:
         keep = torch.arange(xe.shape[1], device=xe.device)[None, :] < rows.to(xe.device)[:, None]
         xe = xe.masked_fill(~keep[:, :, None], 0)
@@ -129,7 +138,7 @@ def ssd_ref(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tenso
     x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log, d_skip: (H,)
     -> y (B,T,H,P) fp32 and the final state (B,H,P,N) fp32. Head h reads
     group h // (H // G). Decay factors are computed only where i >= j."""
-    CALLS["ssd_ref"] += 1
+    _called("ssd_ref")
     b, t, h, p = x.shape
     hpg = h // bm.shape[2]
     a = -torch.exp(a_log.float())

@@ -21,9 +21,6 @@ from repro_torch.kernels.ref import ssd_ref as plain
 STATE_DIMS = (64, 128)  # csrc/ssd_scan.cu instantiates N = 64 and 128
 HEAD_DIM_MULTIPLE = 32  # a block takes a 64-wide slice of the head dim where P is a multiple of 64, else 32
 
-#: Kernel launches; the wrapper adds one where it launches, nowhere else.
-launches = 0
-
 
 def _check(x, bm, cm, dt, a_log, d_skip) -> None:
     if x.dim() != 4 or bm.dim() != 4 or cm.shape != bm.shape:
@@ -51,6 +48,49 @@ def _check(x, bm, cm, dt, a_log, d_skip) -> None:
             raise ValueError(f"{name} must be contiguous and aligned")
 
 
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _op(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+        d_skip: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        y, state = plain(x, bm, cm, dt, a_log, d_skip)
+        return y.to(x.dtype), state
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    _check(x, bm, cm, dt, a_log, d_skip)
+    b, t, h, p = x.shape
+    n = bm.shape[-1]
+    y = torch.empty_like(x)
+    state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+    if not y.numel():
+        state.zero_()  # no token: the zero state
+        return y, state
+    err = build.load().repro_ssd_scan_fwd(
+        x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
+        d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), b, t, h, p, bm.shape[2], n,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "ssd_scan launch")
+    build.count_launch("ssd_scan")
+    return y, state
+
+
+@_op.register_fake
+def _(x, bm, cm, dt, a_log, d_skip):
+    b, t, h, p = x.shape
+    return torch.empty_like(x), x.new_empty(b, h, p, bm.shape[-1], dtype=torch.float32)
+
+
+@_op.register_vmap
+def _(info, in_dims, x, bm, cm, dt, a_log, d_skip):
+    """The mapped axis folds into B (one launch) when the per-head
+    parameters are shared by the lanes; else one launch per lane."""
+    if in_dims[4] is not None or in_dims[5] is not None:
+        return build.per_lane(info, in_dims, _op, x, bm, cm, dt, a_log, d_skip)
+    x, bm, cm, dt = build.fold_lanes(info, in_dims[:4], x, bm, cm, dt)
+    y, state = _op(x, bm, cm, dt, a_log, d_skip)
+    return (build.unfold_lanes(info, y), build.unfold_lanes(info, state)), (0, 0)
+
+
 def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
              a_log: torch.Tensor, d_skip: torch.Tensor, return_state: bool = False):
     """x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log, d_skip: (H,)
@@ -60,30 +100,7 @@ def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tens
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version; a meta tensor returns empty outputs of the right shapes
     (the shape-only run of a fused unit)."""
-    b, t, h, p = x.shape
-    n = bm.shape[-1]
-    if x.device.type == "cpu":
-        y, state = plain(x, bm, cm, dt, a_log, d_skip)
-        y = y.to(x.dtype)
-    elif x.device.type == "meta":
-        y = torch.empty_like(x)
-        state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
-    elif x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {x.device}")
-    else:
+    if x.device.type == "cuda":
         build.refuse_grad("ssd_scan", x, bm, cm, dt, a_log, d_skip)
-        _check(x, bm, cm, dt, a_log, d_skip)
-        y = torch.empty_like(x)
-        state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
-        if not y.numel():
-            state.zero_()  # no token: the zero state
-        else:
-            err = build.load().repro_ssd_scan_fwd(
-                x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
-                d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), b, t, h, p, bm.shape[2], n,
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
-            build.check(err, "ssd_scan launch")
-            global launches
-            launches += 1
+    y, state = _op(x, bm, cm, dt, a_log, d_skip)
     return (y, state) if return_state else y

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import donate
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_norm_1d
@@ -79,8 +80,14 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.T
     """Scatter new K/V rows (B, T_new, KV, hd) into caches at ``positions``
     (B, T_new). Returns NEW cache tensors and leaves the inputs untouched,
     as the JAX version does: a canary replay of the same request must see
-    the cache it saw the first time."""
+    the cache it saw the first time. When the inputs are donated (a captured
+    graph's own static inputs, :mod:`repro_torch.donate`), the rows go into
+    the given caches in place and those are returned."""
     b, t_new, kv, hd = k_new.shape
+    if donate.donated():  # index_put_ has a vmap rule (scatter_ would loop over the lanes)
+        rows = (torch.arange(b, device=k_new.device)[:, None].expand(b, t_new), positions.long())
+        return (k_cache.index_put_(rows, k_new.to(k_cache.dtype)),
+                v_cache.index_put_(rows, v_new.to(v_cache.dtype)))
     idx = positions.long()[:, :, None, None].expand(b, t_new, kv, hd)
     k_cache = k_cache.scatter(1, idx, k_new.to(k_cache.dtype))
     v_cache = v_cache.scatter(1, idx, v_new.to(v_cache.dtype))

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import tree
+from repro_torch import donate, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import stack_defs
@@ -82,17 +82,22 @@ def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torc
 def apply_hybrid_decode(params, x: torch.Tensor, caches: dict, cfg: ModelConfig, cur_len: torch.Tensor):
     """caches: {'groups': SSM states stacked (n_groups, every, ...), 'attn':
     {'k','v'} (n_groups, B, S, KV, hd), 'tail': (tail, ...)}. Returns (x, new
-    caches) — new tensors, the input caches are not written."""
+    caches) — new tensors, the input caches are not written, unless they are
+    donated (:func:`repro_torch.donate.donated`): then every new cache goes
+    into its slot of ``caches`` (through ``apply_stack_decode`` and
+    ``update_kv_cache``) and ``caches`` is returned."""
     n_groups, _, tail = split_layers(cfg)
-    new_groups = new_attn = None
+    donated = donate.donated()
+    new_groups, new_attn = (caches["groups"], caches["attn"]) if donated else (None, None)
     for gi in range(n_groups):
         group = tree.map(lambda a: a[gi], params["groups"])
         x, new_ssm = tfm.apply_stack_decode(group, x, tree.map(lambda a: a[gi], caches["groups"]), cfg,
                                             "ssm", cur_len)
         x, attn = tfm.apply_block_decode(params["shared"], x, tree.map(lambda a: a[gi], caches["attn"]),
                                          cfg, "dense", cur_len)
-        new_groups = tfm.stack_into(new_groups, gi, n_groups, new_ssm)
-        new_attn = tfm.stack_into(new_attn, gi, n_groups, attn)
+        if not donated:
+            new_groups = tfm.stack_into(new_groups, gi, n_groups, new_ssm)
+            new_attn = tfm.stack_into(new_attn, gi, n_groups, attn)
     new_caches = {"groups": new_groups, "attn": new_attn}
     if tail:
         x, new_caches["tail"] = tfm.apply_stack_decode(params["tail"], x, caches["tail"], cfg, "ssm", cur_len)

@@ -75,7 +75,7 @@ def route(params, x: torch.Tensor, cfg: ModelConfig):
     is_start = torch.ones_like(sorted_e, dtype=torch.bool)
     is_start[1:] = sorted_e[1:] != sorted_e[:-1]
     run_start = torch.cummax(torch.where(is_start, pos_in_row, 0), dim=0).values
-    pos = torch.empty_like(pos_in_row).scatter_(0, order, pos_in_row - run_start)
+    pos = torch.zeros_like(order).scatter(0, order, pos_in_row - run_start)
     return probs, e_flat, w.reshape(-1, k), pos
 
 
@@ -94,14 +94,16 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, rules=None):
     # one writes the spare last row, which is cut off (the reference's
     # scatter with mode="drop" and gather with mode="fill")
     slot = e_flat * cap + torch.where(kept, pos, 0)
-    buf = x.new_zeros(e * cap + 1, d)
-    buf[torch.where(kept, slot, e * cap)] = x.reshape(n, d).repeat_interleave(k, dim=0)
+    # out-of-place scatters into new zero buffers, so that under
+    # torch.func.vmap the buffers take each lane's mapped axis
+    buf = x.new_zeros(e * cap + 1, d).index_put(
+        (torch.where(kept, slot, e * cap),), x.reshape(n, d).repeat_interleave(k, dim=0))
     xe = buf[: e * cap].view(e, cap, d)
     # each expert's kept rows, min(count, cap), on the device: K5 reads only
     # the experts with rows > 0 (at most min(E, N k) of them) and only their
     # kept rows; h = silu(gate) * up is 0 on every skipped row, so the same
     # rows hold for wo
-    rows = torch.zeros(e, dtype=torch.int32, device=x.device).index_add_(0, e_flat, kept.int())
+    rows = torch.zeros(e, dtype=torch.int32, device=x.device).index_add(0, e_flat, kept.int())
     active = min(e, n * k)
 
     gate = kops.gmm(xe, params["wi_gate"], rows, active)
@@ -114,7 +116,7 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, rules=None):
     y = (yk.reshape(n, k, d) * w[:, :, None].to(ye.dtype)).sum(dim=1).reshape(b, t, d)
 
     # Switch load-balance aux: E * sum_e f_e * P_e
-    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add(
         0, e_flat, torch.ones(n * k, dtype=torch.float32, device=x.device))
     aux = e * torch.sum(counts / n / k * probs.mean(dim=(0, 1)))
     dropped = 1.0 - kept.float().mean()

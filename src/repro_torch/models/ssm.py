@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import donate
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import ParamDef
@@ -174,11 +175,29 @@ def apply_ssm(params, u: torch.Tensor, cfg: ModelConfig, init_state=None, return
     return out
 
 
+# The caching allocator serves a request of at most 1 MiB from 2 MiB
+# segments, a larger one from a 20 MiB segment; inside a captured graph such a
+# segment stays in the graph's pool for as long as the graph lives.
+_SMALL_ALLOC_BYTES = 2**20
+
+
+def _donated_head_slices(state: torch.Tensor) -> list[slice]:
+    """Head slices of a (B, H, P, N) state whose update products take at most
+    ``_SMALL_ALLOC_BYTES`` each (zamba2-7b's 1.8 MB state: two slices)."""
+    b, h, p, n = state.shape
+    step = max(1, _SMALL_ALLOC_BYTES // (b * p * n * state.element_size()))
+    return [slice(i, min(i + step, h)) for i in range(0, h, step)]
+
+
 def ssm_decode_step(params, u: torch.Tensor, cache: dict, cfg: ModelConfig):
     """One-token recurrent step. u: (B, 1, d); cache per ssm_cache_shapes.
 
     Returns (out (B, 1, d), new_cache) — new tensors, the input cache is not
-    written."""
+    written, unless it is donated (:func:`repro_torch.donate.donated`): then
+    the SSD state is decayed and updated in place (the same operations, in
+    the same order, a slice of heads at a time, so that no product takes a
+    large allocator segment into a captured graph's pool) and returned as it
+    is."""
     b = u.shape[0]
     h, p = cfg.ssm_nheads, cfg.ssm_head_dim
     grp = cfg.ssm_groups
@@ -207,7 +226,13 @@ def ssm_decode_step(params, u: torch.Tensor, cache: dict, cfg: ModelConfig):
     heads_per_group = h // grp
     bh = torch.repeat_interleave(b1, heads_per_group, dim=1)  # (B, H, N)
     ch = torch.repeat_interleave(c1, heads_per_group, dim=1)
-    state = cache["ssd"] * da[..., None, None] + torch.einsum("bhp,bhn->bhpn", xh * dt1[..., None], bh)
+    xdt = xh * dt1[..., None]
+    if donate.donated():  # the graph's own state: decay and update it in place
+        state = cache["ssd"]
+        for hs in _donated_head_slices(state):
+            state[:, hs].mul_(da[:, hs, None, None]).add_(torch.einsum("bhp,bhn->bhpn", xdt[:, hs], bh[:, hs]))
+    else:
+        state = cache["ssd"] * da[..., None, None] + torch.einsum("bhp,bhn->bhpn", xdt, bh)
     y = torch.einsum("bhpn,bhn->bhp", state, ch) + xh * params["D"].float()[None, :, None]
     out = _gated_out(params, y.reshape(b, 1, -1).to(u.dtype), z, cfg)
     new_cache = {"ssd": state, "conv_x": conv_x, "conv_B": conv_b, "conv_C": conv_c}

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import tree
+from repro_torch import donate, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -176,11 +176,13 @@ def stack_into(stacked, i: int, n: int, entry, like=None) -> dict:
     on a new leading axis as a dict, made at the first entry (in the dtypes of
     ``like``'s leaves when given); returns it. The caller drops each entry
     once it is copied, so the layers are never held twice over, as a stack of
-    the whole list would hold them."""
+    the whole list would hold them. The new buffer is made ``empty_like`` an
+    entry (not ``new_empty``), so that under ``torch.func.vmap`` it carries
+    the entry's mapped axis and the batched copies land in it."""
     if isinstance(entry, tuple):
         entry = {"k": entry[0], "v": entry[1]}
     if stacked is None:
-        stacked = tree.map(lambda x, d: x.new_empty((n, *x.shape), dtype=d.dtype), entry,
+        stacked = tree.map(lambda x, d: torch.empty_like(x.expand(n, *x.shape), dtype=d.dtype), entry,
                            entry if like is None else like)
     tree.map(lambda o, x: o[i].copy_(x), stacked, entry)
     return stacked
@@ -208,13 +210,22 @@ def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: Model
                        cur_len: torch.Tensor):
     """One decode step through the stack; caches have a leading 'layers' dim.
     Returns (x, new caches), each in the dtype of the cache it replaces (as
-    the JAX package's carry keeps it)."""
+    the JAX package's carry keeps it). When the inputs are donated
+    (:func:`repro_torch.donate.donated`), each layer's new cache is written
+    into its slot of ``caches`` and ``caches`` is returned: a layer that
+    wrote its slot in place (an attention layer's new rows, an SSM layer's
+    state) returns it as it is, and the rest (an SSM layer's new conv
+    histories) is copied in after the layer read the old values."""
     n = _num_layers(stacked_params)
-    stacked = None
+    donated = donate.donated()
+    stacked = caches if donated else None
     for i in range(n):
-        x, new_cache = apply_block_decode(_layer(stacked_params, i), x, _layer(caches, i), cfg, kind,
-                                          cur_len)
-        stacked = stack_into(stacked, i, n, new_cache, like=caches)
+        old = _layer(caches, i)
+        x, new_cache = apply_block_decode(_layer(stacked_params, i), x, old, cfg, kind, cur_len)
+        if donated:
+            tree.map(lambda slot, prev, new: prev is new or slot[i].copy_(new), caches, old, new_cache)
+        else:
+            stacked = stack_into(stacked, i, n, new_cache, like=caches)
     return x, stacked
 
 

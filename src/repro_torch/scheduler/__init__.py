@@ -1,3 +1,10 @@
-"""Scheduler pieces the port has so far: the clock, latency windows, the
-signals type the fusion policy reads, the shared service-time estimate, SLO
-class lanes and the shed error the continuous batcher uses."""
+"""Concurrent request scheduling: admission queues + micro-batched dispatch.
+
+A copy of the JAX package's scheduler (with the tracer's hooks left out
+until tracing is ported): per-(function, shape, SLO-class) admission lanes
+whose coalescers hand micro-batches to the platform's batched dispatch
+(``ProvusePlatform.invoke_async``), windows set by the queueing model, an
+injectable clock that makes every timing behavior testable on a
+deterministic virtual clock, the shared service-time estimate and SLO class
+lanes the continuous batcher uses.
+"""

@@ -428,6 +428,12 @@ class ServingEngine:
     def decode_step(self, tokens, cur_len, caches):
         return self.platform.invoke(self.entry, {"tokens": tokens}, cur_len, caches)
 
+    def decode_step_async(self, tokens, cur_len, caches):
+        """Scheduled decode step: returns a Future of (logits, caches).
+        Concurrent clients decoding with the same shapes coalesce into one
+        micro-batched execution on the (possibly fused) chain."""
+        return self.platform.invoke_async(self.entry, {"tokens": tokens}, cur_len, caches)
+
     def generate(self, inputs: dict, steps: int):
         """Greedy generation; returns (tokens (B, steps), per-token seconds)."""
         logits, caches, cur_len = self.prefill(inputs)

@@ -42,3 +42,22 @@ def map(fn: Callable, tree, *rest):  # noqa: A001 - mirrors jax.tree.map
         out = [map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree)]
         return type(tree)(out)
     return fn(tree, *rest)
+
+
+def unflatten(structure, leaves) -> Any:
+    """The tree :func:`flatten` described by ``structure``, with ``leaves``
+    (in flatten order) in its leaf slots."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if node == "*":
+            return next(it)
+        kind, children = node
+        if kind == "dict":
+            return {k: build(sub) for k, sub in children}
+        out = [build(sub) for sub in children]
+        return tuple(out) if kind == "tuple" else out
+
+    return build(structure)

@@ -162,8 +162,12 @@ def test_split_constants_match_the_kernel_source():
     assert "constexpr int kSliceWidth = 2 * kMaxPairs * kThreads;" in src  # 1024 outputs per head slice
     assert "std::min(kMaxSplits, (capacity + kTile - 1) / kTile)" in src  # splits from the capacity only
     assert "split * n_all / splits" in src and "(split + 1) * n_all / splits" in src
-    # K4 reads row b * S + j, K1 page block_table[b, j / page] (clamped) at slot j % page
-    assert "return (int64_t)b * S + j;" in src
+    # K4 reads row b * batch + j (batch = S for a contiguous cache; more for
+    # one layer of stacked caches, read in place), K1 page block_table[b, j /
+    # page] (clamped) at slot j % page
+    assert "return (int64_t)b * batch + j;" in src
+    assert "decode_split::Contiguous{S, batch}" in (CSRC / "decode_attention.cu").read_text()
+    assert "row_policy::Contiguous{S, S}" in (CSRC / "flash_attention.cu").read_text()  # K3: contiguous
     assert "min(max(table[(int64_t)b * n + j / page], 0), P - 1)" in src and "phys * page + j % page" in src
     for name, policy in (("decode_attention.cu", "Contiguous"), ("paged_attention.cu", "Paged")):
         text = (CSRC / name).read_text()

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
@@ -61,10 +62,10 @@ def cuda():
 def test_flash_kernel_matches_plain(cuda, b, t, s, h, kv, hd, causal):
     qn, kn, vn = inputs(13, (b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd))
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
-    before = tflash.launches
+    before = build.launches("flash_attention")
     got = tflash.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert tflash.launches == before + 1
+    assert build.launches("flash_attention") == before + 1
     want = tflash.plain(q, k, v, causal=causal)
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tflash.flash_attention(q, k, v, causal=causal))  # one fixed order
@@ -81,10 +82,10 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd):
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
     cur = torch.from_numpy(np.random.default_rng(4).integers(1, s + 1, size=(b,)).astype(np.int32)).to(cuda)
     cur[0] = 1
-    before = tdec.launches
+    before = build.launches("decode_attention")
     got = tdec.decode_attention(q, k, v, cur)
     torch.cuda.synchronize()
-    assert tdec.launches == before + 1
+    assert build.launches("decode_attention") == before + 1
     np.testing.assert_allclose(as_np(got), as_np(tdec.plain(q, k, v, cur)), rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tdec.decode_attention(q, k, v, cur))  # one fixed order, no atomics
     zeros = tdec.decode_attention(q, k, v, torch.zeros_like(cur))
@@ -106,10 +107,10 @@ def test_decode_kernel_edges(cuda, s, g, hd):
     qn, kn, vn = inputs(19, (b, g * kv, hd), (b, s, kv, hd), (b, s, kv, hd))
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
     cur = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    before = tdec.launches
+    before = build.launches("decode_attention")
     got = tdec.decode_attention(q, k, v, cur)
     torch.cuda.synchronize()
-    assert tdec.launches == before + 1
+    assert build.launches("decode_attention") == before + 1
     np.testing.assert_allclose(as_np(got), as_np(tdec.plain(q, k, v, cur)), rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tdec.decode_attention(q, k, v, cur))  # one fixed order, no atomics
     zeros = tdec.decode_attention(q, k, v, torch.tensor([0, 5, 0, 64, 0], dtype=torch.int32, device=cuda))
@@ -160,14 +161,14 @@ def test_attention_c_entries_reject_an_unsupported_launch(cuda):
                                                   1, 64, 64, 2, 2, 96, 1, stream), "flash_attention launch")
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib.repro_decode_attention_fwd(q.data_ptr(), x.data_ptr(), x.data_ptr(), cur.data_ptr(),
-                                                   q.data_ptr(), 1, 64, 2, 2, 96, stream), "decode_attention launch")
+                                                   q.data_ptr(), 1, 64, 64, 2, 2, 96, stream), "decode_attention launch")
     # a group whose q, scores and accumulators outgrow one block's shared
     # memory (G = 256 at hd 128); every narrower group is taken
     q256 = torch.zeros(1, 512, 128, device=cuda, dtype=torch.bfloat16)
     kv = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib.repro_decode_attention_fwd(q256.data_ptr(), kv.data_ptr(), kv.data_ptr(), cur.data_ptr(),
-                                                   q256.data_ptr(), 1, 64, 512, 2, 128, stream),
+                                                   q256.data_ptr(), 1, 64, 64, 512, 2, 128, stream),
                     "decode_attention launch")
 
 
@@ -241,10 +242,10 @@ def test_paged_decode_kernel_matches_plain(cuda, b, n, page, p, h, kv, hd, lens)
     kp, vp, bt, rng = paged_inputs(21, b, n, page, p, h, kv, hd, cuda)
     q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
     cur = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    before = tpaged.launches["paged_decode_attention"]
+    before = build.launches("paged_decode_attention")
     got = tpaged.paged_decode_attention(q, kp, vp, bt, cur)
     torch.cuda.synchronize()
-    assert tpaged.launches["paged_decode_attention"] == before + 1
+    assert build.launches("paged_decode_attention") == before + 1
     np.testing.assert_allclose(as_np(got), as_np(tpaged.plain_decode(q, kp, vp, bt, cur)),
                                rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tpaged.paged_decode_attention(q, kp, vp, bt, cur))  # one fixed order
@@ -267,10 +268,10 @@ def test_paged_chunk_kernel_matches_plain(cuda, c, start, valid, n, h, kv, hd):
     kp, vp, bt, rng = paged_inputs(23, 1, n, page, p, h, kv, hd, cuda)
     q = torch.from_numpy(rng.standard_normal((1, c, h, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
     st = torch.tensor([start], dtype=torch.int32, device=cuda)
-    before = tpaged.launches["paged_chunk_attention"]
+    before = build.launches("paged_chunk_attention")
     got = tpaged.paged_chunk_attention(q, kp, vp, bt, st)
     torch.cuda.synchronize()
-    assert tpaged.launches["paged_chunk_attention"] == before + 1
+    assert build.launches("paged_chunk_attention") == before + 1
     want = tpaged.plain_chunk(q, kp, vp, bt, st)
     # rows past `valid` are padding the head discards, but computed all the same
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=RTOL, atol=ATOL)
@@ -341,10 +342,10 @@ def test_moe_gmm_kernel_matches_plain(cuda, e, c, d, f):
     xn, wn = inputs(29, (e, c, d), (e, d, f))
     xe = torch.from_numpy(xn).to(cuda, torch.bfloat16)
     w = (torch.from_numpy(wn) * d ** -0.5).to(cuda, torch.bfloat16)
-    before = tgmm.launches
+    before = build.launches("moe_gmm")
     got = tgmm.moe_gmm(xe, w)
     torch.cuda.synchronize()
-    assert tgmm.launches == before + 1
+    assert build.launches("moe_gmm") == before + 1
     assert got.shape == (e, c, f) and got.dtype == torch.bfloat16
     np.testing.assert_allclose(as_np(got), as_np(tgmm.plain(xe, w)), rtol=RTOL, atol=ATOL)
     assert torch.equal(got, tgmm.moe_gmm(xe, w))  # deterministic: no split-K, no atomics
@@ -376,10 +377,10 @@ def test_moe_gmm_kernel_routed_rows(cuda, tokens, c, d, f):
     xn, wn = inputs(31, (e, c, d), (e, d, f))
     xe = torch.from_numpy(xn).to(cuda, torch.bfloat16).masked_fill(~keep[..., None], 0)
     w = (torch.from_numpy(wn) * d ** -0.5).to(cuda, torch.bfloat16)
-    before = tgmm.launches
+    before = build.launches("moe_gmm")
     got = tgmm.moe_gmm(xe, w, rows, min(e, 8 * tokens))
     torch.cuda.synchronize()
-    assert tgmm.launches == before + 1
+    assert build.launches("moe_gmm") == before + 1
     np.testing.assert_allclose(as_np(got), as_np(tgmm.plain(xe, w, rows)), rtol=RTOL, atol=ATOL)
     assert not got[~keep].any()
     assert torch.equal(got, tgmm.moe_gmm(xe, w, rows, min(e, 8 * tokens)))
@@ -465,10 +466,10 @@ def ssd_inputs(seed, b, t, h, g, p, n, device):
 ])
 def test_ssd_kernel_matches_plain(cuda, b, t, h, g, p, n):
     args = ssd_inputs(31, b, t, h, g, p, n, cuda)
-    before = tssd.launches
+    before = build.launches("ssd_scan")
     got, state = tssd.ssd_scan(*args, return_state=True)
     torch.cuda.synchronize()
-    assert tssd.launches == before + 1
+    assert build.launches("ssd_scan") == before + 1
     assert got.shape == (b, t, h, p) and got.dtype == torch.bfloat16
     assert state.shape == (b, h, p, n) and state.dtype == torch.float32
     want, want_state = tssd.plain(*args)
@@ -583,3 +584,137 @@ def test_kernel_refuses_an_input_that_requires_grad(cuda, kernel):
         out = call(x.clone().requires_grad_())
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
+
+
+def kernel_case(kernel, cuda, seed=0):
+    """(call, args, mapped): one small call of ``kernel`` on the card; under
+    vmap the ``mapped`` args take a leading lane axis and the others are
+    shared by the lanes (the paged arena, the expert weights, the per-head
+    SSM parameters)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def bf(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=cuda, dtype=torch.int32)
+
+    if kernel == "flash_attention":
+        return (lambda q, k, v: tflash.flash_attention(q, k, v, causal=True),
+                (bf(2, 37, 8, 64), bf(2, 37, 2, 64), bf(2, 37, 2, 64)), (True, True, True))
+    if kernel == "decode_attention":
+        return tdec.decode_attention, (bf(2, 8, 64), bf(2, 300, 2, 64), bf(2, 300, 2, 64), ints(1, 301, 2)), \
+            (True, True, True, True)
+    if kernel == "paged_decode_attention":
+        return tpaged.paged_decode_attention, (bf(2, 8, 64), bf(6, 16, 2, 64), bf(6, 16, 2, 64),
+                                               ints(1, 6, 2, 3), ints(1, 49, 2)), (True, False, False, True, True)
+    if kernel == "paged_chunk_attention":
+        return tpaged.paged_chunk_attention, (bf(1, 16, 8, 64), bf(6, 16, 2, 64), bf(6, 16, 2, 64),
+                                              ints(1, 6, 1, 3), ints(0, 33, 1)), (True, False, False, True, True)
+    if kernel == "moe_gmm":
+        return (lambda xe, w, rows: tgmm.moe_gmm(xe, w, rows, 4),
+                (bf(4, 8, 64), bf(4, 64, 32), ints(0, 9, 4)), (True, False, True))
+    assert kernel == "ssd_scan"
+    dt = (torch.rand(1, 70, 2, generator=gen, device=cuda) * 0.1).contiguous()
+    return (lambda x, bm, cm, dt, a, d: tssd.ssd_scan(x, bm, cm, dt, a, d, return_state=True),
+            (bf(1, 70, 2, 64), bf(1, 70, 1, 64), bf(1, 70, 1, 64), dt,
+             torch.randn(2, generator=gen, device=cuda), torch.randn(2, generator=gen, device=cuda)),
+            (True, True, True, True, False, False))
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+KERNELS = ["flash_attention", "decode_attention", "paged_decode_attention", "paged_chunk_attention",
+           "moe_gmm", "ssd_scan"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_captured_kernel_replays_the_eager_bits_and_counts_each_replay(cuda, kernel):
+    """A kernel captured in a CUDA graph (as a fused unit's second run
+    captures it) gives an eager launch's bits at every replay, also on new
+    values copied into its static inputs; the launch it made while captured
+    is recorded, not counted, and each replay counts it once."""
+    call, args, _ = kernel_case(kernel, cuda)
+    with torch.no_grad():
+        eager = as_tuple(call(*args))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call(*args)  # the warm-up a capture needs
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with build.LAUNCHES.recording() as rec:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = as_tuple(call(*args))
+        assert rec == {kernel: 1}
+        before = build.launches(kernel)
+        for _ in range(3):
+            graph.replay()
+            build.LAUNCHES.add_replayed(rec)
+        torch.cuda.synchronize()
+        assert build.launches(kernel) == before + 3
+        assert all(torch.equal(a, b) for a, b in zip(static_out, eager))
+        _, fresh, _ = kernel_case(kernel, cuda, seed=1)
+        for a, b in zip(args, fresh):
+            a.copy_(b)
+        graph.replay()
+        want = as_tuple(call(*fresh))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static_out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_vmap_rule_on_the_card_equals_the_loop_over_lanes(cuda, kernel):
+    """Under torch.func.vmap each kernel gives every lane the bits of a call
+    on that lane alone: K1-K4 and K6 fold the lanes into their batch axis
+    (one launch), K5 launches once per lane."""
+    lanes = 3
+    call, args, mapped = kernel_case(kernel, cuda)
+    cases = [kernel_case(kernel, cuda, seed=s)[1] for s in range(lanes)]
+    stacked = [torch.stack([c[i] for c in cases]) if m else a for i, (a, m) in enumerate(zip(args, mapped))]
+    with torch.no_grad():
+        before = build.launches(kernel)
+        got = as_tuple(torch.func.vmap(call, in_dims=tuple(0 if m else None for m in mapped))(*stacked))
+        torch.cuda.synchronize()
+        assert build.launches(kernel) - before == (lanes if kernel == "moe_gmm" else 1)
+        loop = [as_tuple(call(*[c[i] if m else a for i, (a, m) in enumerate(zip(args, mapped))])) for c in cases]
+    for j, g in enumerate(got):
+        assert torch.equal(g, torch.stack([out[j] for out in loop]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+def test_decode_kernel_reads_one_layer_of_stacked_caches_in_place(cuda, b):
+    """A batched decode step stacks its lanes' layer-first caches, (lanes,
+    L, B, S, KV, hd), and K4 reads one layer of them under vmap: the lanes
+    fold into K4's batch axis as a view (sequences L * S rows apart when B
+    is 1), with no copy of the cache, and give each lane the bits of K4 on
+    a contiguous copy of its own layer. A layout whose sequences are not
+    whole rows apart is refused."""
+    lanes, layers, s, h, kv, hd = 3, 4, 300, 8, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    k, v = (torch.randn(lanes, layers, b, s, kv, hd, generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    q = torch.randn(lanes, b, h, hd, generator=gen, device=cuda).to(torch.bfloat16)
+    cur = torch.randint(1, s + 1, (lanes, b), generator=gen, device=cuda, dtype=torch.int32)
+    layer = 2
+    with torch.no_grad():
+        before = build.launches("decode_attention")
+        got = torch.func.vmap(lambda q, k, v, c: tdec.decode_attention(q, k[layer], v[layer], c))(q, k, v, cur)
+        torch.cuda.synchronize()
+        assert build.launches("decode_attention") - before == 1
+        loop = torch.stack([tdec.decode_attention(q[i], k[i, layer].contiguous(), v[i, layer].contiguous(), cur[i])
+                            for i in range(lanes)])
+        assert torch.equal(got, loop)
+        if b == 1:  # one launch on the stacked caches' own storage
+            strided = k[:, layer].reshape(lanes, s, kv, hd)
+            assert strided.data_ptr() == k[:, layer].data_ptr() and not strided.is_contiguous()
+            direct = tdec.decode_attention(q[:, 0], strided, v[:, layer].reshape(lanes, s, kv, hd), cur[:, 0])
+            assert torch.equal(direct, loop[:, 0])
+        heads_first = k[0, layer].transpose(1, 2).contiguous().transpose(1, 2)  # (b, s, kv, hd), rows strided
+        with pytest.raises(ValueError, match="contiguous"):
+            tdec.decode_attention(q[0], heads_first, heads_first, cur[0])

@@ -38,7 +38,7 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_arch, reduced_config  # noqa: E402
 from repro_torch.core import FusionPolicy, TinyTorchBackend  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -93,7 +93,7 @@ def test_plain_ssd_matches_jax_pallas_and_oracle(b, t, h, grp, p, n, chunk):
     want_ref, want_state = jax_ref.ssd_ref(*map(jnp.asarray, arrays))
     ref.CALLS["ssd_ref"] = 0
     got = tssd.ssd_scan(*map(torch.from_numpy, arrays))
-    assert ref.CALLS["ssd_ref"] == 1 and tssd.launches == 0
+    assert ref.CALLS["ssd_ref"] == 1 and build.launches("ssd_scan") == 0
     assert got.dtype == torch.float32 and got.shape == (b, t, h, p)
     np.testing.assert_allclose(as_np(got), as_np(want), **SSD_TOL)
     np.testing.assert_allclose(as_np(got), as_np(want_ref), **SSD_TOL)
