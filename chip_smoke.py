@@ -61,7 +61,17 @@ Phases (any failed check exits non-zero and prints no result):
    must have been captured and one replayed (every serve and paged phase
    checks it); the launch counts stay exact, ``launch_parts`` giving the
    eager and the replayed part (a capture records its launches, each replay
-   adds them once). Per-token p50 fused / unfused is reported.
+   adds them once). Per-token p50 fused / unfused is reported. Every
+   platform traces (``repro_torch.obs``); a ``trace_serve`` line checks
+   that every trace conserves (its phases sum to its wall time within
+   1e-9 s), that each unfused ``invoke`` trace holds the chain's 5
+   ``cross-function-sync`` spans and each fused one after the merge none,
+   and that the control timeline holds the fused unit's ``fused-inline:``
+   events and one ``merge:`` span per healthy merge whose seconds are its
+   ``build_s``; it gives the decode steps' phase shares. The fused
+   platforms of the serve, paged and profile phases turn the reference's
+   promotion of a cold edge off (``SERVE_POLICY``: their traffic is serial
+   ``invoke``, which gives the scheduler no tail).
 4. Paged serve phase: full-width ``llama3.2-1b`` served from the paged KV
    arena (321 pages of 16 tokens) by the continuous batcher at capacity 8:
    24 requests of 37, 128 and 300 prompt tokens (8 sharing a 128-token
@@ -71,7 +81,8 @@ Phases (any failed check exits non-zero and prints no result):
    consistent and empty afterwards, 1 live instance fused with a healthy
    merge and less ``ram_bytes``, one batched paged decode step against the
    dense one block by block within 5e-2, and a small model served by the
-   batcher gives per-request generate's tokens.
+   batcher gives per-request generate's tokens; every ``serve`` trace
+   conserves (chunked prefill and copy-on-write included).
 5. Reference phase: the card against the host's CPU (plain versions, the
    same bf16 weights). A small input — llama3.2-1b cut to 2 layers of width
    256 (head dim 64, which the kernels take) — must give the same prefill
@@ -81,7 +92,11 @@ Phases (any failed check exits non-zero and prints no result):
 6. Profile phase: where a fused decode step's time goes — the host's wall
    clock against the device's kernel time (``torch.profiler``) — its ten
    costliest kernels and the device time of each hand-written kernel; the
-   step is a replay of the fused unit's captured CUDA graph.
+   step is a replay of the fused unit's captured CUDA graph. ``step_gap``
+   (here and in the MoE profile) splits a step's wall time beyond its
+   kernels into the copy-in, the host's replay call, the gaps between the
+   graph's nodes and the copy-out (host clocks and CUDA events around each;
+   the graph's kernels from ``torch.profiler`` over bare replays).
 6b. Batched phase: ``load_bench``'s closed-loop main path driven against the
    port on full-width ``llama3.2-1b``: 8 client threads, each prefilled
    once with a random 8-token prompt and its own max_len caches, feeding a
@@ -95,7 +110,20 @@ Phases (any failed check exits non-zero and prints no result):
    program run, a bucket program was captured, and one batched step's lanes
    against the same requests' ``invoke`` (logits and caches within 2e-2 of
    max |value|; K4 under vmap at the lanes' own caches equal in bits to K4
-   per lane). Prints requests/s and p50/p95/p99 of both modes.
+   per lane). Prints requests/s and p50/p95/p99 of both modes. A
+   ``trace_batched`` line: every ``invoke_async`` trace tiles its wall time
+   exactly (residual 0.0), its members reference exactly the batch traces,
+   and the tracing-overhead gate of ``load_bench``: requests/s of
+   ``fused-batched`` with tracing on over off at least 0.97, in 8
+   interleaved rounds on the warm platform, one retry.
+6c. Dispatch and export: a ``dispatch`` line — the dispatch tracer armed
+   over the steady state of the serve phase (the first prompt served a
+   third time on each platform), the paged serve phase (its requests a
+   third time, fused) and the batched phase (24 more batched steps): no
+   new program (entry, capture or bucket), host fetches within decode steps
+   + 2 x requests + capacity, and the sync-debug count beside them; a
+   ``chrome_trace`` line — the llama phases' traces written to
+   ``chiprun_out/trace_llama.json`` (Chrome ``trace_event``) and parsed back.
 7. MoE serve phase: the llama tensors freed, full-width
    ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
    random bf16 weights from seed 0, about 61 GB) as the eight-function
@@ -127,8 +155,9 @@ Phases (any failed check exits non-zero and prints no result):
    prefill, K4 once per application of each decode step, K6 as above.
 
 Standard output opens with the device line and the ``ptxas`` line; its
-last lines are the ``serve``, ``paged_serve``, ``reference``, ``profile``,
-``batched``, ``moe_serve``, ``moe_paged_serve``, ``moe_block``,
+last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
+``reference``, ``profile``, ``batched``, ``trace_batched``, ``dispatch``,
+``chrome_trace``, ``moe_serve``, ``moe_paged_serve``, ``moe_block``,
 ``moe_profile``, ``moe_memory``,
 ``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
 ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
@@ -724,6 +753,18 @@ def paged_kernel_cases(torch, F, gen) -> dict:
 PROMPT_LENS = (37, 128, 300)
 NEW_TOKENS = 16
 MAX_LEN = 512
+# The fused platforms of the phases whose traffic is serial ``invoke`` (the
+# dense and paged serve phases, the profile phases). Such traffic gives the
+# scheduler no tail (its p95 reads 0), and an edge's first sync wait there
+# holds the callee's cold first run on the card, so the reference's default
+# promotion (``promote_wait_s`` 50 ms) would merge edges at their first
+# observation, before the leaf edge has been seen twice, and the measured
+# merge costs then outgrow what the leaf edge's short waits save: the chain
+# stops short (qwen3-moe-30b-a3b at 2 instances). Promotion is turned off
+# here; the batched phase keeps load_bench's knobs.
+SERVE_POLICY = {"min_observations": 2, "merge_cost_s": 0.0, "promote_wait_s": float("inf")}
+TRACE_TOL = 1e-9  # |residual| of a conserved trace, seconds
+OVERHEAD_MIN = 0.97  # tracing on / off requests/s of fused-batched (load_bench.py:1464-1478)
 
 
 def pad_caches(torch, cache: dict, pad: int) -> dict:
@@ -850,16 +891,20 @@ def graph_summary(platform, label: str) -> dict:
 
 
 def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
-                max_len=MAX_LEN, params=None) -> dict:
+                max_len=MAX_LEN, params=None, dispatch_window: bool = False) -> dict:
     """Drive the serving chain unfused and fused on ``dev`` (``params``:
     the model's weights, made from seed 0 when not given). On the card it
     also checks that the kernels, and never their plain versions, ran, each
     exactly as often as the run's prefills, decode steps and canary replays
     make it (:func:`expected_launches`; K5 three times per MoE layer
-    applied); on the CPU the plain attention versions stand in."""
+    applied); on the CPU the plain attention versions stand in. Every
+    platform traces (:func:`serve_traces`); with ``dispatch_window`` each
+    platform then serves the first prompt twice more and a third time with
+    the dispatch tracer armed (:func:`dispatch_window`)."""
     from repro_torch.core import FusionPolicy, TinyTorchBackend
     from repro_torch.kernels import build, ops
     from repro_torch.models.model import build_model
+    from repro_torch.obs import prometheus_text
     from repro_torch.serving.engine import ServingEngine
 
     model = build_model(cfg)
@@ -875,7 +920,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
 
     platforms = {
         "unfused": TinyTorchBackend(FusionPolicy(enabled=False)),
-        "fused": TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0)),
+        "fused": TinyTorchBackend(FusionPolicy(**SERVE_POLICY)),
     }
     results = {}
     replays = {label: record_replays(p) for label, p in platforms.items()}
@@ -910,10 +955,17 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
             }
             check([n for n, _ in replays[label]] == results[label]["replayed"],
                   f"{label}: replayed canaries {replays[label]} against the merge log's {results[label]['replayed']}")
+        counts, parts = ops.counts(), build.LAUNCHES.parts()
+        dispatch = None
+        if dispatch_window:
+            dispatch = {label: serve_dispatch(torch, engines[label], prompts[0], new_tokens)
+                        for label in platforms}
+        traces = {label: serve_traces(p, label, len(engines[label].chain_names()), new_tokens)
+                  for label, p in platforms.items()}
+        traces["prometheus_lines"] = len(prometheus_text(platforms["fused"]).splitlines())
     finally:
         for platform in platforms.values():
             platform.shutdown()
-    counts, parts = ops.counts(), build.LAUNCHES.parts()
 
     chain = set(engines["fused"].chain_names())  # embed, g0..g{G-1}, head
     check(results["unfused"]["live_instances"] == len(chain),
@@ -986,7 +1038,93 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         },
         "first_tokens": results["fused"]["tokens"][0][0, :8].tolist(),
         "distinct_tokens": len(set(torch.cat(results["fused"]["tokens"], dim=1).flatten().tolist())),
+        "trace": traces,
+        "dispatch": dispatch,
     }
+
+
+def serve_traces(platform, label: str, chain_len: int, new_tokens: int) -> dict:
+    """The serve phase's traces on one platform, checked: the recorder
+    dropped nothing and every finished trace conserves (|residual| <=
+    TRACE_TOL); every unfused ``invoke`` trace holds the chain's
+    ``chain_len - 1`` cross-function-sync spans, every fused one that began
+    after the last healthy merge none; the control timeline holds the
+    fused-inline events of the fused unit's programs and one merge span per
+    healthy merge, its seconds its ``MergeEvent.build_s``. Returns the
+    counts and the decode steps' phase shares (``execute``,
+    ``cross-function-sync``, ``unattributed``; a generate is a prefill and
+    ``new_tokens - 1`` decode steps)."""
+    from repro_torch.obs import CONTROL_TRACE_ID, attribute, build_trees, summarize
+
+    recorder = platform.tracer.recorder
+    records = recorder.snapshot()
+    check(recorder.dropped() == 0, f"{label}: the flight recorder dropped {recorder.dropped()} records")
+    results = attribute(records)
+    bad = [r for r in results if not r["conserved"] or abs(r["residual_s"]) > TRACE_TOL]
+    check(not bad, f"{label}: {len(bad)} traces do not conserve: {bad[:2]}")
+    trees = build_trees(records)
+    invokes = [r for r in results if r["kind"] == "invoke"]
+    merges = [m for m in platform.merger.merge_log if m.healthy]
+    after = merges[-1].t_completed if merges else float("inf")
+    hops = [sum(1 for s in trees[r["trace_id"]].values() if s.cat == "cross-function-sync") for r in invokes]
+    fused_after = [h for r, h in zip(invokes, hops) if trees[r["trace_id"]][1].t0 > after]
+    if label == "unfused":
+        check(set(hops) == {chain_len - 1}, f"unfused traces hold {set(hops)} sync spans, not {chain_len - 1}")
+    else:
+        check(fused_after and set(fused_after) == {0},
+              f"fused traces after the merge hold {set(fused_after)} sync spans ({len(fused_after)} traces)")
+    control = [r for r in records if r.trace_id == CONTROL_TRACE_ID]
+    spans = [r for r in control if r.ph == "X" and r.name.startswith("merge:")]
+    inline = sum(1 for r in control if r.name.startswith("fused-inline:"))
+    check(len(spans) == len(merges), f"{label}: {len(spans)} merge spans for {len(merges)} healthy merges")
+    check(all(r.args["seconds"] == m.build_s and abs(r.dur_s - m.build_s) <= TRACE_TOL
+              for r, m in zip(spans, merges)), f"{label}: merge spans differ from build_s")
+    check(label == "unfused" or inline > 0, f"{label}: no fused-inline event on the control timeline")
+    steps = [r for i, r in enumerate(invokes) if i % new_tokens
+             and (label == "unfused" or trees[r["trace_id"]][1].t0 > after)]
+    shares = summarize(steps)["phase_share"]
+    return {"traces": len(results), "invokes": len(invokes), "conserved": True,
+            "max_abs_residual_s": max((abs(r["residual_s"]) for r in results), default=0.0),
+            "sync_spans_per_invoke": sorted(set(hops)), "fused_invokes_after_merge": len(fused_after),
+            "merge_spans_s": [r.args["seconds"] for r in spans], "fused_inline_events": inline,
+            "decode_steps": len(steps),
+            "decode_phase_share": {k: shares.get(k, 0.0) for k in ("execute", "cross-function-sync",
+                                                                    "unattributed")}}
+
+
+def dispatch_window(torch, run, requests: int, capacity: int) -> dict:
+    """``run()`` with the dispatch tracer armed, checked as the reference's
+    serve gate (load_bench.py:1194-1208): no new program (compiled entry,
+    graph capture or batched bucket), and host syncs within one batched
+    fetch per decode step plus seating and finishing per request plus the
+    batch's capacity. ``cuda_syncs`` counts every synchronizing CUDA call
+    (``torch.cuda.set_sync_debug_mode``), the syncs that end each execution
+    included; reported beside the budget."""
+    from repro_torch.analysis.dispatch import TRACER
+
+    base = TRACER.snapshot()
+    TRACER.arm()
+    try:
+        run()
+    finally:
+        TRACER.disarm()
+    d = TRACER.delta(base)
+    budget = d.decode_steps + 2 * requests + capacity
+    check(d.decode_steps > 0, "dispatch: the window took no decode step")
+    check(d.compiles == 0, f"dispatch: the steady state made new programs: {d}")
+    check(d.host_syncs <= budget, f"dispatch: {d.host_syncs} host syncs over the budget {budget}: {d}")
+    return {"decode_steps": d.decode_steps, "requests": requests, "capacity": capacity,
+            "host_syncs": d.host_syncs, "budget": budget, "entries": d.entries, "captures": d.captures,
+            "buckets": d.buckets, "cuda_syncs": d.cuda_syncs, "eager_kernel_calls": d.kernel_calls}
+
+
+def serve_dispatch(torch, engine, prompt, new_tokens: int) -> dict:
+    """The serve phase's steady state: the prompt served twice more (every
+    entry of the window has then run twice: its graph is captured), then a
+    third time with the dispatch tracer armed."""
+    for _ in range(2):
+        engine.generate({"tokens": prompt}, steps=new_tokens)
+    return dispatch_window(torch, lambda: engine.generate({"tokens": prompt}, steps=new_tokens), 1, 1)
 
 
 # ---------------------------------------------------------- paged serve phase
@@ -1055,6 +1193,7 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
         stats = cb.stats()
     finally:
         cb.shutdown()
+    traces = conserved_traces(platform, "paged")
     for r, g in zip(results, gens):
         check(r["tokens"].shape == (1, g), f"a request returned {r['tokens'].shape[1]} of {g} tokens")
     arena.check_consistency()
@@ -1083,7 +1222,45 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
         "counts": counts,
         "launch_parts": parts,
         "graphs": graph_summary(platform, "paged") if engine.device.type == "cuda" else None,
+        "traces": traces,
     }
+
+
+def conserved_traces(platform, label: str) -> dict:
+    """Every finished trace of the platform conserves (the batcher's
+    ``serve`` traces through chunked prefill and copy-on-write included) and
+    the recorder dropped nothing; returns the traces by kind."""
+    from repro_torch.obs import attribute
+
+    recorder = platform.tracer.recorder
+    check(recorder.dropped() == 0, f"{label}: the flight recorder dropped {recorder.dropped()} records")
+    results = attribute(recorder.snapshot())
+    bad = [r for r in results if not r["conserved"] or abs(r["residual_s"]) > TRACE_TOL]
+    check(not bad, f"{label}: {len(bad)} traces do not conserve: {bad[:2]}")
+    kinds: dict[str, int] = {}
+    for r in results:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    return kinds
+
+
+def paged_dispatch(torch, engine, prompts, gens, capacity: int) -> dict:
+    """The paged serve path's steady state: the measured requests served
+    once more by a new batcher (every entry of the window has then run
+    twice: its graph is captured), then again with the dispatch tracer
+    armed."""
+    from repro_torch.serving.continuous import ContinuousBatcher
+
+    cb = ContinuousBatcher(engine, capacity=capacity)
+
+    def serve():
+        for f in [cb.submit({"tokens": p}, g) for p, g in zip(prompts, gens)]:
+            f.result(timeout=600)
+
+    try:
+        serve()
+        return dispatch_window(torch, serve, len(prompts), capacity)
+    finally:
+        cb.shutdown()
 
 
 def paged_block_check(torch, engine, lens, seed=3) -> list:
@@ -1137,7 +1314,8 @@ def paged_block_check(torch, engine, lens, seed=3) -> list:
 
 def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED_REQUESTS,
                       steps=PAGED_STEPS, max_len=MAX_LEN, page=PAGE, capacity=CAPACITY,
-                      prefix_len=SHARED_PREFIX, small_cfg=None, params=None) -> dict:
+                      prefix_len=SHARED_PREFIX, small_cfg=None, params=None,
+                      dispatch: bool = False) -> dict:
     """The paged continuous-batching serve path: ``ServingEngine(...,
     kv_pages=(capacity + 2) * max_len / page + 1)`` (load_bench's arena
     size) and ``ContinuousBatcher(engine, capacity)`` with the default chunk
@@ -1147,7 +1325,8 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     Then one batched paged decode step against the dense one, block by
     block, and a small model (``small_cfg``) served by the batcher against
     per-request generate. ``params``: the model's weights, made from seed 0
-    when not given."""
+    when not given. With ``dispatch``, the fused run ends with the dispatch
+    tracer armed over its steady state (:func:`paged_dispatch`)."""
     import numpy as np
 
     from repro_torch.core import FusionPolicy, TinyTorchBackend
@@ -1163,7 +1342,7 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     warm = [warm_rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32) for t in prompt_lens]
     kv_pages = (capacity + 2) * (max_len // page) + 1
     runs, block_errs = {}, None
-    for label, policy in (("fused", FusionPolicy(min_observations=2, merge_cost_s=0.0)),
+    for label, policy in (("fused", FusionPolicy(**SERVE_POLICY)),
                           ("unfused", FusionPolicy(enabled=False))):
         platform = TinyTorchBackend(policy)
         try:
@@ -1176,6 +1355,8 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
             run["merges"] = [(m.members, m.healthy) for m in platform.merger.merge_log]
             run["chain"] = set(engine.chain_names())
             runs[label] = run
+            if label == "fused" and dispatch:
+                run["dispatch"] = paged_dispatch(torch, engine, prompts, gens, capacity)
             if label == "fused":
                 block_errs = paged_block_check(torch, engine, [t + 5 * i for i, t in
                                                                 enumerate(prompt_lens * 3)][:capacity])
@@ -1226,7 +1407,7 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     keys = ("tokens_per_s", "itl_p50_ms", "itl_p95_ms", "mean_occupancy", "decode_steps",
             "prefill_chunks", "mean_pages_per_request", "mean_billed_pages_per_request",
             "arena_gb_s", "shared_hits", "cow_copies", "live_instances", "ram_bytes", "footprints", "elapsed_s",
-            "graphs")
+            "graphs", "traces")
     return {
         "arch": cfg.name,
         "layers": cfg.num_layers,
@@ -1246,6 +1427,7 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
         "block_rel_err": block_errs,
         "small_model_tokens_identical": True,
         "fused_vs_unfused_identical_requests": sum(agree),
+        "dispatch": fused.get("dispatch"),
     }
 
 
@@ -1257,6 +1439,8 @@ BATCH_WARMUP = 8
 BATCH_STEPS = 48
 BATCH_MAX = 8
 BATCH_DELAY_MS = 2.0
+GATE_ROUNDS = 8  # interleaved tracing on / off rounds of the overhead gate (on, off, off, on, ...)
+GATE_STEPS = 24  # decode steps per client and round
 LANE_TOL = 2e-2  # a lane's logits and caches vs the same request's invoke, over max |value|
 
 
@@ -1318,6 +1502,7 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as k4
     from repro_torch.models.model import build_model
+    from repro_torch.obs import prometheus_text
     from repro_torch.serving.engine import ServingEngine, _greedy_token
 
     model = build_model(cfg)
@@ -1350,6 +1535,17 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
             loop = torch.stack([k4.decode_attention(q[i], k[i, 0], v[i, 0], cur[i]) for i in range(clients)])
         check(torch.equal(lanes, loop), "K4 under vmap differs in bits from K4 per lane")
 
+        start = [c["cur_len"] for c in state]
+
+        def window(n: int) -> dict:
+            """``n`` more batched steps per client from the prefilled length
+            (the caches' rows there are rewritten), so that the extra windows
+            stay inside max_len and each does the same work."""
+            for c, cur in zip(state, start):
+                c["cur_len"] = cur
+            return closed_loop(torch, engine, state, True, 0, n)
+
+
         batches0 = platform.scheduler.stats()["batches"]
         ops.reset_counts()
         serial = closed_loop(torch, engine, state, False, warmup, steps)
@@ -1357,6 +1553,11 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
         counts, parts = ops.counts(), build.LAUNCHES.parts()
         sched = platform.scheduler.stats()
         fallbacks = platform.batching_stats()
+        traces = batched_traces(platform, clients * (warmup + steps))
+        gate_steps = min(GATE_STEPS, steps)
+        dispatch = dispatch_window(torch, lambda: window(gate_steps), clients * gate_steps, BATCH_MAX)
+        traces["overhead"] = overhead_gate(platform, window, gate_steps, dev.type == "cuda")
+        traces["prometheus_lines"] = len(prometheus_text(platform).splitlines())
         lane_err, lane_replays = lane_check(torch, engine, platform, state, captures)
         graphs = graph_summary(platform, "batched") if captures else None
     finally:
@@ -1384,7 +1585,66 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
         "lane_rel_err": lane_err, "lane_check_bucket_replays": lane_replays, "k4_vmap_bits_equal": True,
         "batch_fallbacks": fallbacks,
         "graphs": graphs,
+        "trace": traces,
+        "dispatch": dispatch,
     }
+
+
+def batched_traces(platform, requests: int) -> dict:
+    """The batched mode's traces, checked: the recorder dropped nothing;
+    each of the ``requests`` ``invoke_async`` traces tiles its wall time
+    exactly (queue-wait, window-wait, batch-compute: residual 0.0); the
+    batch traces its members reference are exactly the batch traces."""
+    from repro_torch.obs import attribute, summarize
+
+    recorder = platform.tracer.recorder
+    records = recorder.snapshot()
+    check(recorder.dropped() == 0, f"batched: the flight recorder dropped {recorder.dropped()} records")
+    results = attribute(records)
+    reqs = [r for r in results if r["kind"] == "invoke_async"]
+    check(len(reqs) == requests, f"batched: {len(reqs)} invoke_async traces for {requests} requests")
+    bad = [r for r in reqs if not r["conserved"] or r["residual_s"] != 0.0]
+    check(not bad, f"batched: {len(bad)} invoke_async traces do not tile their wall time: {bad[:2]}")
+    batches = {r["trace_id"] for r in results if r["kind"] == "batch"}
+    refs = {r.args["batch_trace"] for r in records
+            if r.cat == "batch-compute" and r.args and "batch_trace" in r.args}
+    check(batches and refs == batches, f"batched: {len(refs)} referenced batch traces, {len(batches)} minted")
+    return {"invoke_async_traces": len(reqs), "batch_traces": len(batches), "residual_s": 0.0,
+            "phase_share": summarize(reqs)["phase_share"]}
+
+
+def overhead_gate(platform, window, steps: int, gate: bool, rounds: int = GATE_ROUNDS) -> dict:
+    """load_bench's tracing-overhead gate (load_bench.py:1464-1478) on the
+    batched mode: requests/s with tracing on over requests/s with it off
+    (``Tracer.enabled``, which ``tracing=False`` sets) must be at least
+    OVERHEAD_MIN. Interleaved rounds on one warm platform (on, off, off,
+    on, ...), ``window(steps)`` each; one retry, as the reference has it.
+    Checked where ``gate`` (on the card); the CPU reports the ratio only."""
+    order = [True, False, False, True] * (rounds // 4)
+    formed = {True: [0, 0], False: [0, 0]}  # requests and batches per mode, all attempts
+
+    def attempt() -> float:
+        done = {True: [0, 0.0], False: [0, 0.0]}
+        try:
+            for on in order:
+                platform.tracer.enabled = on
+                b0 = platform.scheduler.stats()["batches"]
+                r = window(steps)
+                formed[on][0] += r["requests"]
+                formed[on][1] += platform.scheduler.stats()["batches"] - b0
+                done[on][0] += r["requests"]
+                done[on][1] += r["elapsed_s"]
+        finally:
+            platform.tracer.enabled = True
+        return (done[True][0] / done[True][1]) / (done[False][0] / done[False][1])
+
+    ratios = [attempt()]
+    if ratios[0] < OVERHEAD_MIN:
+        ratios.append(attempt())
+    if gate:
+        check(ratios[-1] >= OVERHEAD_MIN, f"batched: tracing on / off requests/s {ratios} < {OVERHEAD_MIN}")
+    return {"on_over_off_requests_per_s": ratios, "rounds": rounds, "steps_per_round": steps,
+            "mean_batch": {"on": formed[True][0] / formed[True][1], "off": formed[False][0] / formed[False][1]}}
 
 
 def lane_check(torch, engine, platform, state, captures: bool, attempts: int = 4):
@@ -1584,11 +1844,13 @@ def device_profile(torch, run, steps: int) -> dict:
 
 
 def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
-                  max_len: int = MAX_LEN, params=None, prefill: bool = False) -> dict:
+                  max_len: int = MAX_LEN, params=None, prefill: bool = False, gap: bool = False) -> dict:
     """Where a fused decode step's time goes (:func:`device_profile` over
     ``steps`` decode steps) and, with ``prefill``, a fused prefill's (over
-    ``steps`` prefills of the prompt, under "prefill"). ``params``: the
-    model's weights, made from seed 0 when not given."""
+    ``steps`` prefills of the prompt, under "prefill"); with ``gap``, the
+    split of a step's wall time beyond its kernels (:func:`step_gap`, under
+    "step_gap"). ``params``: the model's weights, made from seed 0 when not
+    given."""
     from repro_torch.core import FusionPolicy, TinyTorchBackend
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ServingEngine, _greedy_token
@@ -1599,7 +1861,7 @@ def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
     gen = torch.Generator(device=dev).manual_seed(11)
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev,
                            dtype=torch.int32)
-    platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0))
+    platform = TinyTorchBackend(FusionPolicy(**SERVE_POLICY))
     try:
         engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
         engine.generate({"tokens": prompt}, steps=6)  # observe, fuse, warm up
@@ -1630,9 +1892,111 @@ def profile_phase(torch, dev, cfg, prompt_len: int = 128, steps: int = 8,
         out = {"prompt_len": prompt_len, **device_profile(torch, run_steps, steps)}
         if prefill:
             out["prefill"] = device_profile(torch, run_prefills, steps)
+        if gap:
+            def step() -> None:
+                nonlocal logits, caches, cur, tok
+                logits, caches = engine.decode_step(tok, cur, caches)
+                cur = cur + 1
+                tok = _greedy_token(logits)
+
+            out["step_gap"] = step_gap(torch, platform, step, 4 * steps)
     finally:
         platform.shutdown()
     return out
+
+
+def step_gap(torch, platform, step, steps: int) -> dict:
+    """Split a captured fused decode step's wall time beyond its kernel time
+    (PERF.md's open question) into the copy-in of the arguments, the host's
+    replay call, the gaps between the graph's nodes and the copy-out of the
+    returned tree, and what is left (the platform's host code around the
+    replay and the wait for the device). The decode entry's graph (the
+    fused unit's most replayed one) is instrumented for ``steps`` calls of
+    ``step()``: host clocks and CUDA events around the copy-in, the replay
+    call and the copy-out. Its kernels (count and time per replay, from
+    ``torch.profiler``) and its device time (``steps`` replays back to back,
+    CUDA events, so the host's launch is hidden) come from bare replays of
+    the graph, which touch only the graph's own static inputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import function as fn_mod
+
+    (unit,) = platform.registry.live_instances()
+    graphs = [ce.graph for ce in list(unit._compiled.values()) if ce.graph is not None]
+    cg = max(graphs, key=lambda g: g.replays)
+    real, orig_sync, marks = cg.graph, fn_mod._synchronize, []
+
+    def mark(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1][name] = (time.perf_counter(), ev)
+
+    class TimedGraph:  # stands in for the torch.cuda.CUDAGraph while measured
+        def replay(self):
+            mark("graph")
+            real.replay()
+            mark("copy_out")
+
+    def replay(leaves, lanes=None):
+        marks.append({})
+        mark("copy_in")
+        out = fn_mod.CapturedGraph.replay(cg, leaves, lanes)
+        marks[-1]["done"] = (time.perf_counter(), None)
+        return out
+
+    def synchronize(dev) -> None:
+        mark("sync")
+        orig_sync(dev)
+
+    walls = []
+    cg.replay, cg.graph, fn_mod._synchronize = replay, TimedGraph(), synchronize
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        del cg.replay
+        cg.graph, fn_mod._synchronize = real, orig_sync
+    check(len(marks) == steps, f"step_gap: {len(marks)} replays of the decode graph in {steps} steps")
+
+    def ms(a: str, b: str, device: bool) -> float:
+        return statistics.median(m[a][1].elapsed_time(m[b][1]) if device else (m[b][0] - m[a][0]) * 1e3
+                                 for m in marks)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            real.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(steps):
+        real.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    graph_ms = e0.elapsed_time(e1) / steps
+    wall = statistics.median(walls)
+    parts = {
+        "copy_in_ms": ms("copy_in", "graph", True),
+        "replay_call_ms": ms("graph", "copy_out", False),
+        "node_gaps_ms": graph_ms - kernel_ms if kernels else None,
+        "copy_out_ms": ms("copy_out", "sync", True),
+    }
+    beyond = wall - kernel_ms
+    return {
+        "steps": steps, "wall_ms": wall, "kernel_ms": kernel_ms if kernels else None,
+        "graph_nodes": len(kernels) / steps, "graph_device_ms": graph_ms, "beyond_kernels_ms": beyond,
+        **parts,
+        "rest_ms": beyond - sum(v for v in parts.values() if v is not None),
+        "copy_in_host_ms": ms("copy_in", "graph", False), "copy_out_host_ms": ms("copy_out", "sync", False),
+        "graph_in_step_device_ms": ms("graph", "copy_out", True), "sync_wait_ms": ms("sync", "done", False),
+        "outside_replay_ms": wall - ms("copy_in", "done", False),
+    }
 
 
 MOE_AGREE = 0.99  # share of tokens whose top-k expert sets must agree, card vs host
@@ -1850,7 +2214,7 @@ def moe_phases(torch, dev) -> dict:
 
     t0 = time.perf_counter()
     print(json.dumps({"moe_block": moe_block_phase(torch, dev, cfg, params)}), flush=True)
-    print(json.dumps({"moe_profile": profile_phase(torch, dev, cfg, params=params)}), flush=True)
+    print(json.dumps({"moe_profile": profile_phase(torch, dev, cfg, params=params, gap=True)}), flush=True)
     memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"moe_memory": memory}), flush=True)
     print(f"moe block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
@@ -1886,6 +2250,22 @@ def ssm_phases(torch, dev, arch: str, key: str) -> dict:
     return {"launches": serve["launches"], "captured": captured, "parts": serve["launch_parts"]}
 
 
+def chrome_export(path: Path) -> dict:
+    """Every live tracer's records (the llama phases') as one Chrome
+    ``trace_event`` file at ``path``, parsed back."""
+    from repro_torch.obs import export_all_chrome
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    written = export_all_chrome(str(path))
+    doc = json.loads(path.read_text())
+    events = doc["traceEvents"]
+    check(len(events) == written and all(ev["ph"] in ("X", "i", "M") for ev in events),
+          f"chrome trace: {len(events)} events parsed back of {written} written")
+    return {"path": str(path.relative_to(ROOT)), "events": len(events), "bytes": path.stat().st_size,
+            "tracers": len({ev["pid"] for ev in events}),
+            "spans": sum(1 for ev in events if ev["ph"] == "X")}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SmokeFailure(f"{SRC / 'repro_torch'} is missing: run from a checkout of the repository")
@@ -1911,29 +2291,40 @@ def main() -> int:
 
     from repro_torch.configs import get_arch
 
+    from repro_torch.obs import retain_tracers
+
     cfg, dev = get_arch("llama3.2-1b"), torch.device("cuda")
     t0 = time.perf_counter()
     kern = kernel_phase(torch, F)
     print(json.dumps({"grad_refusal": grad_refusal_check(torch)}), flush=True)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    retain_tracers(True)  # the llama phases' traces outlive their platforms, for the export
     t0 = time.perf_counter()
-    serve = serve_phase(torch, dev, cfg)
+    serve = serve_phase(torch, dev, cfg, dispatch_window=True)
+    trace_serve, dispatch = serve.pop("trace"), {"serve": serve.pop("dispatch")}
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"trace_serve": trace_serve}), flush=True)
     print(f"serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
-    paged = paged_serve_phase(torch, dev, cfg, small_cfg=small_config(cfg))
+    paged = paged_serve_phase(torch, dev, cfg, small_cfg=small_config(cfg), dispatch=True)
+    dispatch["paged_serve"] = paged.pop("dispatch")
     print(json.dumps({"paged_serve": paged}), flush=True)
     print(f"paged serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     print(json.dumps({"reference": reference_phase(torch, dev, cfg)}), flush=True)
     print(f"reference phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
-    print(json.dumps({"profile": profile_phase(torch, dev, cfg)}), flush=True)
+    print(json.dumps({"profile": profile_phase(torch, dev, cfg, gap=True)}), flush=True)
     print(f"profile phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     batched = batched_phase(torch, dev, cfg)
+    trace_batched, dispatch["batched"] = batched.pop("trace"), batched.pop("dispatch")
     print(json.dumps({"batched": batched}), flush=True)
+    print(json.dumps({"trace_batched": trace_batched}), flush=True)
+    print(json.dumps({"dispatch": dispatch}), flush=True)
     print(f"batched phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(json.dumps({"chrome_trace": chrome_export(ROOT / "chiprun_out" / "trace_llama.json")}), flush=True)
+    retain_tracers(False)
 
     moe = moe_phases(torch, dev)
     ssm = ssm_phases(torch, dev, "mamba2-370m", "ssm")

@@ -49,6 +49,26 @@ class ArenaLease:
 
 
 @dataclasses.dataclass
+class ProvisioningRecord:
+    """One provisioning transition's bill. Restore/resurrect time IS billed
+    (the function is being readied on a customer's invoke path); time spent
+    idle as a snapshot is not billed at all — scale-to-zero's whole point —
+    so parks and platform-initiated merges/splits carry ``billed=False`` and
+    appear in the summary only as counts."""
+
+    kind: str  # "resurrect" | "park" | "merge" | "split"
+    functions: tuple[str, ...]
+    seconds: float
+    resident_bytes: int
+    warm: bool
+    billed: bool = False
+
+    @property
+    def gb_seconds(self) -> float:
+        return self.seconds * self.resident_bytes / 1e9
+
+
+@dataclasses.dataclass
 class InvocationRecord:
     function: str
     instance: str
@@ -72,14 +92,21 @@ class InvocationRecord:
 
 
 class BillingMeter:
-    GUARDED_FIELDS = {"records": "_lock", "arena_leases": "_lock"}
+    GUARDED_FIELDS = {
+        "records": "_lock",
+        "arena_leases": "_lock",
+        "provisioning": "_lock",
+    }
 
     def __init__(self, clock=None):
         self._lock = threading.Lock()
         self.records: list[InvocationRecord] = []
         self.arena_leases: list[ArenaLease] = []
-        # the platform's time source stamps each completion to compute
-        # sustained throughput alongside the tail percentiles
+        self.provisioning: list[ProvisioningRecord] = []
+        # the platform's time source: latency durations arrive already
+        # measured, but the window stamps each completion to compute
+        # sustained throughput — mixing a virtual duration with a wall-clock
+        # stamp would put the two on different axes
         self._latency = LatencyWindow(clock=clock)
 
     def record(self, rec: InvocationRecord) -> None:
@@ -87,19 +114,27 @@ class BillingMeter:
             self.records.append(rec)
 
     def record_arena(self, lease: ArenaLease) -> None:
+        """One request left the paged KV arena; bill its page residency."""
         with self._lock:
             self.arena_leases.append(lease)
 
+    def record_provisioning(self, rec: ProvisioningRecord) -> None:
+        with self._lock:
+            self.provisioning.append(rec)
+
     def observe_latency(self, function: str, seconds: float) -> None:
-        """One *external* request completed end-to-end after ``seconds``.
-        Only client traffic reports here — the Merger's canary replays bypass
-        this — so percentiles cover exactly the external request stream."""
+        """One *external* request completed end-to-end (admission/arrival ->
+        response ready) after ``seconds``. Serial `invoke` and the scheduler's
+        batched path both report here — and only client traffic does; the
+        Merger's canary replays bypass this — so percentiles cover exactly
+        the external request stream regardless of dispatch mode."""
         self._latency.observe(seconds)
 
     def reset(self) -> None:
         with self._lock:
             self.records = []
             self.arena_leases = []
+            self.provisioning = []
         self._latency.reset()
 
     def arena_summary(self) -> dict:
@@ -127,12 +162,30 @@ class BillingMeter:
         with self._lock:
             return sum(r.blocked_s * r.resident_bytes / 1e9 for r in self.records)
 
+    @staticmethod
+    def _by_instance(records: list[InvocationRecord]) -> dict[str, dict]:
+        """Billing split by the execution unit that served each request:
+        each client request lands in exactly one instance's bucket, and
+        micro-batched requests already split their shared GB-s by batch."""
+        out: dict[str, dict] = {}
+        for r in records:
+            d = out.setdefault(r.instance, {"calls": 0, "gb_s": 0.0})
+            d["calls"] += 1
+            d["gb_s"] += r.gb_seconds
+        return out
+
     def snapshot(self) -> dict:
-        """One coherent view of the meter: the records are copied under a
-        single lock acquisition, then every derived view is computed from
-        that one copy."""
+        """One COHERENT view of the meter: records, leases, and provisioning
+        are copied under a single lock acquisition, then every derived view
+        (summary, per-instance split, arena, latency) is computed from that
+        one copy. ``platform.stats()`` assembles from this, so its totals
+        are conserved even while invokes land concurrently — summing the
+        per-instance calls always equals summing the per-function calls
+        (regression-tested in test_obs.py)."""
         with self._lock:
             records = list(self.records)
+            leases = list(self.arena_leases)
+            prov = list(self.provisioning)
         by_fn: dict[str, dict] = {}
         for r in records:
             d = by_fn.setdefault(r.function, {"calls": 0, "gb_s": 0.0, "blocked_gb_s": 0.0})
@@ -144,7 +197,31 @@ class BillingMeter:
             "blocked_gb_s": sum(d["blocked_gb_s"] for d in by_fn.values()),
             "by_function": by_fn,
         }
-        return {"billing": billing, "latency": self._latency.snapshot()}
+        if leases:
+            billing["arena"] = {
+                "requests": len(leases),
+                "gb_s": sum(l.gb_seconds for l in leases),
+                "mean_pages": sum(l.pages for l in leases) / len(leases),
+                "max_pages": max(l.pages for l in leases),
+                "mean_billed_pages": sum(l.billed_pages for l in leases) / len(leases),
+                "mean_residency_s": sum(l.duration_s for l in leases) / len(leases),
+            }
+        if prov:
+            # a SEPARATE line item, not folded into total_gb_s: invocation
+            # GB-s is the paper's double-billing comparison and must not
+            # shift when provisioning accounting is enabled
+            billing["provisioning"] = {
+                "events": len(prov),
+                "billed_gb_s": sum(p.gb_seconds for p in prov if p.billed),
+                "billed_s": sum(p.seconds for p in prov if p.billed),
+                "warm": sum(1 for p in prov if p.warm),
+                "cold": sum(1 for p in prov if not p.warm),
+            }
+        return {
+            "billing": billing,
+            "by_instance": self._by_instance(records),
+            "latency": self._latency.snapshot(),
+        }
 
     def summary(self) -> dict:
         return self.snapshot()["billing"]

@@ -55,6 +55,15 @@ class TraceContext:
 
     def call(self, name: str, *args):
         if name in self._instance.members:  # co-located: inline (FUSION)
+            if self.shape_only:
+                # recorded ONCE per program, at its shape-only run: a
+                # fused-inline edge makes no runtime dispatch (and a replay
+                # runs no Python), which is exactly the point — the trace
+                # timeline shows the edge folding into the compiled unit
+                self._platform.tracer.control_event(
+                    f"fused-inline:{self.member}->{name}",
+                    args={"caller": self.member, "callee": name,
+                          "instance": self._instance.instance_id})
             spec = self._instance.members[name]
             return spec.fn(self._child(name), self._params[name], *args)
         raise BoundaryCall(self.member, name)
@@ -79,8 +88,22 @@ class EagerContext:
 
     def call(self, name: str, *args):
         if name in self._instance.members:  # co-located member: run its code here
+            # fused-inline: a distinct span kind from the boundary hop, so a
+            # trace shows WHICH calls fusion already absorbed
+            platform = self._platform
+            cur = platform.tracer.current()
             spec = self._instance.members[name]
-            return spec.fn(self._child(name), self._params[name], *args)
+            if cur is None:
+                return spec.fn(self._child(name), self._params[name], *args)
+            ctx, parent = cur
+            sid = ctx.alloc_id()
+            t0 = platform.clock.now()
+            with platform.tracer.activate(ctx, sid):
+                out = spec.fn(self._child(name), self._params[name], *args)
+            ctx.emit(f"{self.member}->{name}", "call-inline", t0,
+                     platform.clock.now(), parent_id=parent, span_id=sid,
+                     args={"caller": self.member, "callee": name})
+            return out
         # real blocking dispatch through the platform (observed sync edge)
         return self._platform.remote_call(self._instance, self.member, name, args)
 

@@ -45,6 +45,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import donate, tree
+from repro_torch.analysis.dispatch import TRACER
 from repro_torch.core.errors import InvocationError
 from repro_torch.kernels import build
 from repro_torch.scheduler.batching import next_batch_bucket, split_results, stack_requests
@@ -310,7 +311,9 @@ def _capture_graph(warmup: Callable, fn: Callable, dev, pool):
     the memory pool ``pool`` (a new one when None), both on the device's
     capture stream (a capture needs a stream of its own, and a warm-up on it
     first). Returns (warm-up result, graph, ``fn``'s output as captured, the
-    pool, bytes of the pool's segments)."""
+    pool, bytes of the pool's segments). A pool lives as long as a graph
+    captured into it: the allocators refuse a capture into a pool whose
+    graphs are all gone (``FunctionInstance._drop_graph``)."""
     with _CAPTURE_LOCK:
         stream = _CAPTURE_STREAMS.get(dev)
         if stream is None:
@@ -474,6 +477,7 @@ class FunctionInstance:
                                   effectful=bool(effects), mutated=mutated, handed_on=handed_on)
         with self._lock:
             self._compiled[key] = entry_obj
+        TRACER.note_compile("entries")
         return entry_obj
 
     # ----------------------------------------------------------- execute
@@ -519,10 +523,7 @@ class FunctionInstance:
             # one now: capture again with a copy there at the next run
             moved = frozenset(i for i in graph.bound - ce.mutated if not graph._same(i, leaves[i]))
             if moved:
-                with ce.lock:
-                    ce.unbindable |= moved
-                    if ce.graph is graph:
-                        ce.graph = None
+                self._drop_graph(ce, graph, moved)
         if ce.measured:
             out, pending = ce.run(self.params, *args)
         else:
@@ -533,6 +534,22 @@ class FunctionInstance:
                                  for x in tree.leaves(args)]
             ce.runs += 1
         return out, pending
+
+    def _drop_graph(self, ce: CompiledEntry, graph: CapturedGraph, moved: frozenset) -> None:
+        """Drop ``graph`` (a replay refused it: its bound inputs ``moved``);
+        the entry is captured again at its next run, with copies there. When
+        the instance then holds no graph, its pool is forgotten and the next
+        capture makes a new one: a pool dies with the last graph captured
+        into it, and a capture into it afterwards fails (the device and host
+        caching allocators assert its use count)."""
+        with ce.lock:
+            ce.unbindable |= moved
+            if ce.graph is graph:
+                ce.graph = None
+        with self._graph_lock, self._lock:
+            if not any(e.graph is not None for e in (*self._compiled.values(), *self._batched.values())):
+                self._graph_pool = None
+                self._pool_bytes = 0
 
     def _first_run(self, ce: CompiledEntry, args: tuple):
         """Run a compiled entry whose bytes are not recorded yet, and record
@@ -600,6 +617,7 @@ class FunctionInstance:
         ce.graph = CapturedGraph(graph, dev, static, frozenset(bound), out_leaves, out_structure, passthrough,
                                  launches, static_bytes, grown, self._graph_lock)
         ce.runs += 1
+        TRACER.note_compile("captures")
         return out, pending
 
     # ----------------------------------------------------------- batched execute
@@ -650,6 +668,7 @@ class FunctionInstance:
         entry_obj = CompiledEntry(batched_run, time.perf_counter() - t0)
         with self._lock:
             self._batched[key] = entry_obj
+        TRACER.note_compile("buckets")
         return entry_obj
 
     def execute_batch(self, entry: str, args_list: list[tuple], max_bucket: int | None = None) -> list:

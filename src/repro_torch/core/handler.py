@@ -67,15 +67,22 @@ class _ActiveInvocation:
     resident_bytes: int
     blocked_s: float = 0.0
     batch_size: int = 1
+    # (SpanContext, outer parent id, this execute span's id) when a trace
+    # was active at enter — exit/abort close the span and pop the activation
+    span: tuple | None = None
 
 
 class FunctionHandler:
     GUARDED_FIELDS = {"edges": "_lock", "canaries": "_lock", "_recent_calls": "_lock"}
 
     def __init__(self, meter: BillingMeter, on_fusion_candidate: Callable[[str, str], None] | None = None,
-                 clock=None):
+                 clock=None, tracer=None):
         self.meter = meter
         self.clock = clock or SYSTEM_CLOCK
+        # obs.Tracer: enter/exit bracket every execution, so the handler is
+        # where per-execution "execute" spans (with the serving instance id)
+        # enter the active request's trace.
+        self._tracer = tracer
         self.on_fusion_candidate = on_fusion_candidate
         self.edges: dict[tuple[str, str], EdgeStats] = {}
         self.canaries: dict[str, tuple] = {}
@@ -95,14 +102,25 @@ class FunctionHandler:
         requests holding the instance once. `exit` then emits one record PER
         request (each carrying batch_size, so billed GB-s splits k ways and
         per-function call counts still count client requests)."""
-        self._stack().append(_ActiveInvocation(
+        inv = _ActiveInvocation(
             function, instance.instance_id, self.clock.now(), instance.resident_bytes(),
             batch_size=max(1, batch_size),
-        ))
+        )
+        if self._tracer is not None:
+            cur = self._tracer.current()
+            if cur is not None:
+                ctx, parent = cur
+                sid = ctx.alloc_id()
+                # activate so nested cross-function hops parent under this
+                # execute span (exit/abort pops)
+                self._tracer.push(ctx, sid)
+                inv.span = (ctx, parent, sid)
+        self._stack().append(inv)
 
     def exit(self, function: str) -> None:
         inv = self._stack().pop()
         t_end = self.clock.now()
+        self._close_span(inv, t_end)
         for _ in range(inv.batch_size):
             self.meter.record(
                 InvocationRecord(
@@ -119,8 +137,22 @@ class FunctionHandler:
     def abort(self, function: str) -> None:
         """Pop the invocation WITHOUT billing — used when an attempt fails
         and will be retried (billing the failed attempt would double-count
-        the request once the retry lands)."""
-        self._stack().pop()
+        the request once the retry lands). The aborted attempt still closes
+        its trace span (flagged) — the retry emits its own."""
+        inv = self._stack().pop()
+        self._close_span(inv, self.clock.now(), aborted=True)
+
+    def _close_span(self, inv: _ActiveInvocation, t_end: float,
+                    aborted: bool = False) -> None:
+        if inv.span is None:
+            return
+        ctx, parent, sid = inv.span
+        self._tracer.pop()
+        args = {"instance": inv.instance_id, "batch": inv.batch_size}
+        if aborted:
+            args["aborted"] = True
+        ctx.emit(f"execute:{inv.function}", "execute", inv.t_start, t_end,
+                 parent_id=parent, span_id=sid, args=args)
 
     def attribute_blocked(self, seconds: float) -> None:
         stack = self._stack()

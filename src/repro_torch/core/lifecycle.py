@@ -90,8 +90,18 @@ class ControlPlane:
             retired=tuple(i.instance_id for i in doomed), freed_bytes=freed,
             t_completed=self.clock.now(),
         )
+        return self._record(event)
+
+    def _record(self, event: EpochEvent) -> EpochEvent:
+        """Append to the epoch log and stamp the transition as an instant on
+        the control-plane trace timeline — epoch swaps become visible next
+        to the request traffic that triggered them."""
         with self._events_lock:
             self.events.append(event)
+        self.platform.tracer.control_event(
+            f"epoch:{event.kind}", t=event.t_completed,
+            args={"epoch": event.epoch, "names": list(event.names),
+                  "reason": event.reason})
         return event
 
     def stats(self) -> dict:

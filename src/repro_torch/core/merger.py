@@ -67,6 +67,16 @@ class Merger:
         "_threads": "_lock",
     }
 
+    def _trace_outcome(self, kind: str, event) -> None:
+        """Stamp the merge transaction's outcome on the control-plane trace
+        timeline — policy decisions land next to the traffic that caused
+        them (successful builds also get a duration span via
+        ``note_provisioning``; this instant carries the verdict)."""
+        self.platform.tracer.control_event(
+            f"{kind}:{'+'.join(event.members)}", t=event.t_completed,
+            args={"members": list(event.members),
+                  "healthy": event.healthy, "reason": event.reason})
+
     def __init__(self, platform, policy, *, health_rtol: float = 2e-2, health_atol: float = 1e-2,
                  async_build: bool = False):
         self.platform = platform
@@ -99,7 +109,14 @@ class Merger:
                 return
         spec_a = self.platform.spec_of(caller)
         spec_b = self.platform.spec_of(callee)
-        decision = self.policy.decide(caller, callee, stats, spec_a.trust_domain, spec_b.trust_domain)
+        # Live scheduler feedback (queue depth, occupancy, tail latency)
+        # modulates the decision: saturated chains wait, cold slow ones jump.
+        # Passed lazily — decide only snapshots it past its cheap early-outs.
+        # (The replicate arm's inputs wait for the port's autoscaler.)
+        signals_fn = getattr(self.platform, "scheduler_signals", None)
+        signals = (lambda: signals_fn((caller, callee))) if signals_fn is not None else None
+        decision = self.policy.decide(caller, callee, stats, spec_a.trust_domain, spec_b.trust_domain,
+                                      signals=signals)
         if not decision.fuse:
             return
         with self._lock:
@@ -159,8 +176,10 @@ class Merger:
                     with self._lock:
                         self._quarantined.add((caller, callee))
                         self._failed_groups.add(frozenset(group))
-                self.merge_log.append(MergeEvent(self._clock.now(), tuple(sorted(group)), 0,
-                                                 self._clock.now() - t0, False, reason, tuple(checked)))
+                event = MergeEvent(self._clock.now(), tuple(sorted(group)), 0,
+                                   self._clock.now() - t0, False, reason, tuple(checked))
+                self.merge_log.append(event)
+                self._trace_outcome("merge", event)
                 return
 
             merged.mark_ready()
@@ -173,9 +192,14 @@ class Merger:
             self.policy.commit(caller, callee)
             build_s = self._clock.now() - t0
             self.policy.feedback_merge_cost(build_s)
-            self.merge_log.append(MergeEvent(
+            # always cold: the port has no executable index yet
+            platform.note_provisioning("merge", build_s, warm=False, functions=tuple(sorted(group)),
+                                       resident_bytes=merged.resident_bytes())
+            merge_event = MergeEvent(
                 self._clock.now(), tuple(sorted(group)), event.freed_bytes, build_s, True,
-                checked_members=tuple(checked), epoch=event.epoch))
+                checked_members=tuple(checked), epoch=event.epoch)
+            self.merge_log.append(merge_event)
+            self._trace_outcome("merge", merge_event)
         finally:
             with self._lock:
                 self._inflight.discard((caller, callee))

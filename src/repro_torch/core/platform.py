@@ -16,13 +16,14 @@ control plane and billing meter are backend-agnostic, as the paper shows.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any
 
 import torch
 
-from repro_torch.core.billing import BillingMeter
+from repro_torch.core.billing import BillingMeter, ProvisioningRecord
 from repro_torch.core.context import AbstractContext
 from repro_torch.core.errors import DeploymentError, InvocationError, UnknownFunctionError
 from repro_torch.core.function import FunctionInstance, FunctionSpec, _struct_key, _structs_of
@@ -31,6 +32,8 @@ from repro_torch.core.lifecycle import ControlPlane
 from repro_torch.core.merger import Merger
 from repro_torch.core.policy import FusionPolicy
 from repro_torch.core.registry import RoutingTable
+from repro_torch.obs.critical_path import EdgeCostModel
+from repro_torch.obs.trace import Tracer
 from repro_torch.scheduler.clock import SYSTEM_CLOCK
 from repro_torch.scheduler.scheduler import RequestScheduler
 from repro_torch.scheduler.slo import SLOClass
@@ -48,13 +51,22 @@ class ProvusePlatform:
                  health_rtol: float = 2e-2, health_atol: float = 1e-2,
                  max_batch: int = 8, max_delay_ms: float = 2.0,
                  adaptive: bool = False, adaptive_config=None,
-                 be_shed_depth: int | None = None, clock=None):
+                 be_shed_depth: int | None = None, clock=None, tracing: bool = True):
         self.clock = clock or SYSTEM_CLOCK
+        # Always-on causal tracing: every entry point mints a SpanContext,
+        # every phase lands in the tracer's flight recorder, and the
+        # EdgeCostModel turns measured sync waits / merge stalls into the
+        # policy's cost inputs. ``tracing=False`` disables span minting
+        # (the overhead-gate baseline) without touching any call site.
+        self.tracer = Tracer(clock=self.clock, enabled=tracing)
+        self.edge_costs = EdgeCostModel()
         self.registry = RoutingTable()
         self.meter = BillingMeter(clock=self.clock)
         self.policy = policy or FusionPolicy()
+        if self.policy.cost_model is None:
+            self.policy.cost_model = self.edge_costs
         self.handler = FunctionHandler(self.meter, on_fusion_candidate=self._on_candidate,
-                                       clock=self.clock)
+                                       clock=self.clock, tracer=self.tracer)
         # Control plane: every deploy/merge/redeploy is an epoch transition
         # published through here.
         self.lifecycle = ControlPlane(self, self.registry, clock=self.clock)
@@ -66,6 +78,7 @@ class ProvusePlatform:
             be_shed_depth=be_shed_depth,
             on_request_done=lambda name, lat_s, k: self.meter.observe_latency(name, lat_s),
             clock=self.clock,
+            tracer=self.tracer,
         )
         self._specs: dict[str, FunctionSpec] = {}
         self._shape_cache: dict[tuple, Any] = {}
@@ -129,12 +142,16 @@ class ProvusePlatform:
         if not self._draining.acquire(blocking=False):
             return  # a merge in progress is already invoking health checks
         try:
-            while True:
-                with self._pending_lock:
-                    if not self._pending_candidates:
-                        return
-                    caller, callee = self._pending_candidates.pop(0)
-                self.merger.submit(caller, callee)
+            # a merge's canary replays are control-plane traffic: they run
+            # outside the trace of the request that happened to trigger it
+            # (the merge shows on the control timeline instead)
+            with _outside_traces(self.tracer):
+                while True:
+                    with self._pending_lock:
+                        if not self._pending_candidates:
+                            return
+                        caller, callee = self._pending_candidates.pop(0)
+                    self.merger.submit(caller, callee)
         finally:
             self._draining.release()
 
@@ -202,12 +219,24 @@ class ProvusePlatform:
             self._drain_candidates()
 
     def invoke(self, name: str, *args):
-        """External (client) invocation — serial path."""
+        """External (client) invocation — serial path. Mints the request's
+        trace and activates it so every phase below (execute, cross-function
+        hops) nests under this root."""
         self.handler.record_canary(name, args)
         self.handler.note_demand(name)
         t0 = self.clock.now()
-        out = self._invoke_with_retry(name, args)
-        self.meter.observe_latency(name, self.clock.now() - t0)
+        ctx = self.tracer.begin_request(name, "invoke", t0=t0)
+        try:
+            with self.tracer.activate(ctx):
+                out = self._invoke_with_retry(name, args)
+        except BaseException as exc:
+            if ctx is not None:
+                ctx.finish(args={"error": type(exc).__name__})
+            raise
+        t1 = self.clock.now()
+        if ctx is not None:
+            ctx.finish(t1)
+        self.meter.observe_latency(name, t1 - t0)
         return out
 
     def invoke_async(self, name: str, *args, priority: int = 0,
@@ -222,6 +251,10 @@ class ProvusePlatform:
         self.handler.record_canary(name, args)
         self.handler.note_demand(name)
         return self.scheduler.submit(name, args, priority=priority, slo=slo)
+
+    def scheduler_signals(self, names):
+        """Live scheduler feedback for the fusion policy (Merger.submit)."""
+        return self.scheduler.signals_for(names)
 
     def _dispatch_batch(self, name: str, args_list: list[tuple]) -> list:
         """Scheduler callback: execute one coalesced batch."""
@@ -250,11 +283,23 @@ class ProvusePlatform:
         """Blocking function-to-function dispatch from eager glue: the caller
         is parked until this returns, and the wait is the observed sync edge."""
         self.handler.record_canary(callee, args)
+        # Boundary hop: the wait is a distinct "cross-function-sync" span in
+        # the caller's trace (a fused-inline call records no hop — see
+        # EagerContext.call), and the measured wait feeds the edge-cost EWMA
+        # the fusion policy weighs instead of its static knobs.
+        cur = self.tracer.current()
+        sid = cur[0].alloc_id() if cur is not None else None
         t0 = self.clock.now()
-        out = self._dispatch_sync(callee, args)
+        with self.tracer.activate(cur[0] if cur else None, sid or 1):
+            out = self._dispatch_sync(callee, args)
         wait = self.clock.now() - t0
+        if cur is not None:
+            cur[0].emit(f"{caller_fn}->{callee}", "cross-function-sync",
+                        t0, t0 + wait, parent_id=cur[1], span_id=sid,
+                        args={"caller": caller_fn, "callee": callee})
         self.handler.attribute_blocked(wait)
         self.handler.observe_edge(caller_fn, callee, sync=True, wait_s=wait)
+        self.edge_costs.observe_sync_edge(caller_fn, callee, wait)
         return out
 
     def async_call(self, caller_instance: FunctionInstance, caller_fn: str, callee: str, args: tuple) -> None:
@@ -262,6 +307,28 @@ class ProvusePlatform:
         self._dispatch_async(callee, args)
 
     # ------------------------------------------------------------- metrics
+
+    def note_provisioning(self, kind: str, seconds: float, *, warm: bool,
+                          functions=(), resident_bytes: int = 0) -> None:
+        """Record one provisioning transition (here: a merge) with its
+        warm-vs-cold classification on the billing meter, as a span ending
+        now on the control-plane timeline, and — for a merge — as a sample
+        of the measured merge stall the policy's cost model weighs."""
+        rec = ProvisioningRecord(
+            kind=kind, functions=tuple(functions), seconds=float(seconds),
+            resident_bytes=int(resident_bytes), warm=bool(warm),
+        )
+        self.meter.record_provisioning(rec)
+        t1 = self.clock.now()
+        self.tracer.control_span(
+            f"{kind}:{'+'.join(rec.functions) or '?'}", t1 - rec.seconds, t1,
+            args={"kind": kind, "warm": rec.warm, "billed": rec.billed,
+                  "seconds": rec.seconds})
+        if kind == "merge":
+            # the queue depth the stall was inflicted on rides along: the
+            # measured replacement for the static saturation_penalty
+            depth = self.scheduler.signals_for(rec.functions).queue_depth
+            self.edge_costs.observe_merge_stall(rec.seconds, depth)
 
     def ram_bytes(self) -> int:
         return sum(inst.resident_bytes() for inst in self.registry.live_instances())
@@ -289,6 +356,7 @@ class ProvusePlatform:
             "latency": meter_snap["latency"],
             "scheduler": self.scheduler.stats(),
             "batching": self.batching_stats(),
+            "edge_costs": self.edge_costs.stats(),
         }
 
     def batching_stats(self) -> dict:
@@ -341,3 +409,18 @@ class TinyTorchBackend(ProvusePlatform):
     def shutdown(self) -> None:
         super().shutdown()
         self._async_pool.shutdown(wait=True)
+
+
+@contextlib.contextmanager
+def _outside_traces(tracer):
+    """Run the block with no trace active on this thread, then restore the
+    thread's activations as they were."""
+    held = []
+    while (cur := tracer.current()) is not None:
+        held.append(cur)
+        tracer.pop()
+    try:
+        yield
+    finally:
+        for ctx, parent in reversed(held):
+            tracer.push(ctx, parent)

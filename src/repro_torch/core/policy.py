@@ -88,6 +88,13 @@ class FusionPolicy:
     promote_discount: float = 0.5
     clock: Any = None
 
+    # provlint: un-annotated — not a dataclass field. The platform assigns
+    # its obs.EdgeCostModel here at construction (write-once, before
+    # traffic); when present, `decide` weighs MEASURED sync-edge waits and
+    # merge stalls instead of the static mean_wait_s / saturation_penalty
+    # knobs. The model has its own lock; reading the attribute is safe.
+    cost_model = None
+
     def __post_init__(self):
         if self.clock is None:
             self.clock = SYSTEM_CLOCK
@@ -127,6 +134,13 @@ class FusionPolicy:
             min_obs = self.min_observations
             required_cost = self.merge_cost_s
             note = ""
+            # Measured costs (obs.EdgeCostModel, fed by the tracing layer)
+            # displace the static knobs when samples exist: the edge's OWN
+            # observed sync-wait EWMA prices the saving, and the measured
+            # merge stall prices the saturation cost below.
+            cm = self.cost_model
+            measured_edge_s = cm.sync_edge_ewma(caller, callee) if cm is not None else None
+            measured_stall_s = cm.merge_stall_ewma() if cm is not None else None
             if callable(signals):
                 signals = signals()
             if signals is not None:
@@ -147,8 +161,21 @@ class FusionPolicy:
                     and edge_wait_s > 0.0
                 )
                 if saturated:
-                    required_cost *= self.saturation_penalty
-                    note = " [deprioritized: chain saturated]"
+                    if measured_stall_s is not None:
+                        # merging NOW serializes the measured build stall in
+                        # front of every queued request, so that — not a
+                        # fixed 4x — is what the saving must beat
+                        required_cost = (
+                            self.merge_cost_s
+                            + measured_stall_s * max(1, signals.queue_depth)
+                        )
+                        note = (
+                            f" [saturated: measured stall ~{measured_stall_s:.3f}s"
+                            f" x depth {signals.queue_depth}]"
+                        )
+                    else:
+                        required_cost *= self.saturation_penalty
+                        note = " [deprioritized: chain saturated]"
                 elif slo_fixable:
                     required_cost *= self.promote_discount
                     min_obs = max(1, min_obs // 2)
@@ -162,7 +189,8 @@ class FusionPolicy:
                     note = " [promoted: cold chain, long sync waits]"
             if stats.sync_count < min_obs:
                 return FusionDecision(False, f"only {stats.sync_count} observations{note}")
-            projected_saving = stats.mean_wait_s * self.amortization_horizon
+            edge_mean_s = stats.mean_wait_s if measured_edge_s is None else measured_edge_s
+            projected_saving = edge_mean_s * self.amortization_horizon
             if projected_saving < required_cost:
                 return FusionDecision(
                     False,

@@ -35,6 +35,7 @@ request raced in) and exits — shape-diverse workloads don't leak threads.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 from concurrent.futures import Future
@@ -54,6 +55,10 @@ class PendingRequest:
     # window length, and cross-lane preemption (the old integer priority
     # field became write-only after the class-lane redesign and was removed)
     slo: SLOClass = BEST_EFFORT
+    # per-request trace handle (obs.SpanContext) — None when tracing is off
+    # or the caller predates the tracing layer; duck-typed so the scheduler
+    # layer stays import-free of obs
+    span: object = None
 
 
 class AdmissionQueue:
@@ -82,10 +87,15 @@ class AdmissionQueue:
         on_batch_done: Callable[[str, list[PendingRequest], float], None] | None = None,
         on_idle: Callable[["AdmissionQueue"], bool] | None = None,
         clock: SystemClock | None = None,
+        tracer=None,
     ):
         self.name = name
         self.key = key
         self.slo = slo
+        self._tracer = tracer
+        # window-open timestamp of the batch being collected; written and
+        # read only by the single dispatcher thread
+        self._t_open = 0.0
         self._dispatch = dispatch
         self.max_batch = max(1, int(max_batch))
         self.max_delay_s = max(0.0, float(max_delay_s))
@@ -151,7 +161,8 @@ class AdmissionQueue:
         class arrived on this function+shape)."""
         clock = self.clock
         batch = [first]
-        deadline = clock.now() + self.max_delay_s
+        self._t_open = clock.now()
+        deadline = self._t_open + self.max_delay_s
         stopped = False
         with self._cv:
             self._window_open = True
@@ -226,8 +237,29 @@ class AdmissionQueue:
     def _run_batch(self, batch: list[PendingRequest]) -> None:
         clock = self.clock
         t_exec = clock.now()
+        # The batched dispatch gets its OWN trace (activated for the
+        # duration so spans minted during execution — handler enters,
+        # cross-function hops — nest under it); each member request's trace
+        # gets exact [enqueue, window-open, dispatch, done] phase tiles
+        # referencing the batch trace, so per-request attribution never
+        # double-counts the shared execution.
+        tracer = self._tracer
+        bctx = None
+        if tracer is not None and any(r.span is not None for r in batch):
+            bctx = tracer.begin_request(
+                f"batch:{self.name}", "batch", t0=t_exec,
+                attrs={
+                    "lane": self.name,
+                    "size": len(batch),
+                    "slo": self.slo.name,
+                    "members": [r.span.trace_id for r in batch if r.span is not None],
+                },
+            )
+        activation = (tracer.activate(bctx) if tracer is not None
+                      else contextlib.nullcontext())
         try:
-            results = self._dispatch(self.name, [r.args for r in batch])
+            with activation:
+                results = self._dispatch(self.name, [r.args for r in batch])
             if len(results) != len(batch):
                 raise RuntimeError(
                     f"batched dispatch for {self.name!r} returned {len(results)} "
@@ -236,7 +268,9 @@ class AdmissionQueue:
         except BaseException as exc:  # noqa: BLE001 — every caller must hear about it
             for r in batch:
                 _resolve(r.future, exc=exc)
-            service_s = clock.now() - t_exec
+            t_fail = clock.now()
+            service_s = t_fail - t_exec
+            self._emit_phases(batch, t_exec, t_fail, bctx, error=type(exc).__name__)
         else:
             t_done = clock.now()
             service_s = t_done - t_exec
@@ -249,6 +283,7 @@ class AdmissionQueue:
                     self._on_batch_done(self.name, batch, t_done)
                 except Exception:  # noqa: BLE001 — observability is best-effort
                     pass
+            self._emit_phases(batch, t_exec, t_done, bctx)
         if self.adaptive is not None:
             # fed AFTER dispatch so the controller's service EWMA sees the
             # measured batch wall time (the queueing model's S)
@@ -257,6 +292,31 @@ class AdmissionQueue:
                 len(batch) >= self.max_batch,
                 service_s=service_s,
             )
+
+    def _emit_phases(self, batch: list[PendingRequest], t_exec: float,
+                     t_done: float, bctx, error: str | None = None) -> None:
+        """Tile each traced member's wall interval exactly: queue-wait
+        [enqueue, window-open], window-wait [open, dispatch], batch-compute
+        [dispatch, done] — their sum IS the request's end-to-end latency
+        (the conservation invariant the obs tests pin)."""
+        t_open = self._t_open
+        err_args = {"error": error} if error else None
+        for r in batch:
+            span = r.span
+            if span is None:
+                continue
+            open_r = min(max(t_open, r.t_enqueue), t_exec)
+            span.emit("queue-wait", "queue-wait", r.t_enqueue, open_r)
+            span.emit("window-wait", "window-wait", open_r, t_exec)
+            cargs = {"size": len(batch)}
+            if bctx is not None:
+                cargs["batch_trace"] = bctx.trace_id
+            if error:
+                cargs["error"] = error
+            span.emit("batch-compute", "batch-compute", t_exec, t_done, args=cargs)
+            span.finish(t_done, args=err_args)
+        if bctx is not None:
+            bctx.finish(t_done, args=err_args)
 
 
 def _resolve(future: Future, *, result=None, exc=None) -> None:

@@ -121,9 +121,13 @@ class RequestScheduler:
         on_request_done: Callable[[str, float, int], None] | None = None,
         be_shed_depth: int | None = None,
         clock=None,
+        tracer=None,
     ):
         self._dispatch = dispatch_batch
         self.clock = clock or SYSTEM_CLOCK
+        # obs.Tracer (duck-typed; scheduler stays import-free of obs): when
+        # present, every submit mints a trace rooted at its enqueue time
+        self._tracer = tracer
         # clamp to the largest power of two <= max_batch: the coalescer then
         # never forms a batch the pow2 bucket set can't serve in one
         # execution (a batch of 6 against buckets {1,2,4} would dispatch
@@ -213,6 +217,9 @@ class RequestScheduler:
         elif priority > 0 and slo.best_effort:
             slo = slo_for_priority(priority)
         req = PendingRequest(args, Future(), self.clock.now(), slo=slo)
+        if self._tracer is not None:
+            req.span = self._tracer.begin_request(
+                name, "invoke_async", t0=req.t_enqueue, attrs={"slo": slo.name})
         key = request_key(name, args, slo.name)
         with self._lock:
             if self._closed:
@@ -240,6 +247,8 @@ class RequestScheduler:
                         f"{name}: predicted rho >= 1 with {be_depth} best-effort "
                         f"queued (bound {self.be_shed_depth})"
                     ))
+                    if req.span is not None:
+                        req.span.finish(args={"error": "shed"})
                     return req.future
             if not slo.best_effort:
                 self._last_strict_submit_t = req.t_enqueue
@@ -320,6 +329,7 @@ class RequestScheduler:
             on_batch_done=self._record_batch,
             on_idle=self._retire_queue,
             clock=self.clock,
+            tracer=self._tracer,
         )
 
     def _tracked_dispatch(self, name: str, args_list: list[tuple]) -> list:

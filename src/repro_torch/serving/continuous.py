@@ -162,10 +162,9 @@ class ContinuousBatcher:
         self.completed = 0
         self.shed = 0
         self._occupancy_sum = 0
-        # a tracer (duck-typed; the port's platform has none yet, so this
-        # stays None): every submit mints a "serve" trace whose queue-wait /
-        # prefill-stall (+ chunk children) / batch-compute phases tile
-        # [t_submit, t_done] exactly
+        # obs.Tracer (duck-typed): every submit mints a "serve" trace whose
+        # queue-wait / prefill-stall (+ chunk children) / batch-compute
+        # phases tile [t_submit, t_done] exactly
         self._tracer = getattr(engine.platform, "tracer", None)
         self._thread = threading.Thread(target=self._loop, daemon=True, name="continuous-batcher")
         self._thread.start()
@@ -336,7 +335,7 @@ class ContinuousBatcher:
                           req.t_admit, span_id=req.psid)
         req.last_emit = req.t_admit  # first token emitted at admission
         req.remaining = req.max_new_tokens
-        first = int(_greedy_token(logits)[0, 0])  # the one fetch per seated request
+        first = _greedy_token(logits)[0, 0].item()  # the one fetch per seated request
         req.tokens.append(first)
         req.remaining -= 1
         req.next_token = first

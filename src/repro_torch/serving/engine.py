@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.analysis.dispatch import TRACER
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.function import FunctionSpec
 from repro_torch.core.platform import ProvusePlatform
@@ -401,6 +402,7 @@ class ServingEngine:
         ``write_kv=False`` runs the FROZEN variant (shared-prefix whole-hit
         admission): the step reads pages and writes nothing. The marker
         rides in the caches tree, so the frozen step is its own unit."""
+        TRACER.note_decode_step()
         caches = self.paged_caches(block_table)
         if not write_kv:
             caches["__frozen__"] = ()
@@ -426,12 +428,14 @@ class ServingEngine:
         return logits, caches, cur_len
 
     def decode_step(self, tokens, cur_len, caches):
+        TRACER.note_decode_step()
         return self.platform.invoke(self.entry, {"tokens": tokens}, cur_len, caches)
 
     def decode_step_async(self, tokens, cur_len, caches):
         """Scheduled decode step: returns a Future of (logits, caches).
         Concurrent clients decoding with the same shapes coalesce into one
         micro-batched execution on the (possibly fused) chain."""
+        TRACER.note_decode_step()
         return self.platform.invoke_async(self.entry, {"tokens": tokens}, cur_len, caches)
 
     def generate(self, inputs: dict, steps: int):

@@ -12,19 +12,21 @@ from typing import Any, Callable
 def flatten(tree) -> tuple[list, Any]:
     """(leaves, structure); the structure is a hashable description."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return ("dict", tuple((k, walk(node[k])) for k in sorted(node)))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, tuple(walk(x) for x in node))
-        leaves.append(node)
-        return "*"
 
-    structure = walk(tree)
-    return leaves, structure
+def _walk(node, leaves: list):
+    # module-level, not a closure: a nested function that recurses through
+    # its own cell is a reference cycle, which would keep the leaves (whole
+    # cache trees) alive until the cyclic garbage collector runs
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return ("dict", tuple((k, _walk(node[k], leaves)) for k in sorted(node)))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, tuple(_walk(x, leaves) for x in node))
+    leaves.append(node)
+    return "*"
 
 
 def leaves(tree) -> list:
@@ -47,17 +49,16 @@ def map(fn: Callable, tree, *rest):  # noqa: A001 - mirrors jax.tree.map
 def unflatten(structure, leaves) -> Any:
     """The tree :func:`flatten` described by ``structure``, with ``leaves``
     (in flatten order) in its leaf slots."""
-    it = iter(leaves)
+    return _build(structure, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if node == "*":
-            return next(it)
-        kind, children = node
-        if kind == "dict":
-            return {k: build(sub) for k, sub in children}
-        out = [build(sub) for sub in children]
-        return tuple(out) if kind == "tuple" else out
 
-    return build(structure)
+def _build(node, it):
+    if node is None:
+        return None
+    if node == "*":
+        return next(it)
+    kind, children = node
+    if kind == "dict":
+        return {k: _build(sub, it) for k, sub in children}
+    out = [_build(sub, it) for sub in children]
+    return tuple(out) if kind == "tuple" else out

@@ -317,6 +317,43 @@ def test_a_moved_handed_on_input_is_captured_again_with_a_copy(captured):
         p.shutdown()
 
 
+def test_a_dropped_last_graph_takes_the_pool_with_it(monkeypatch):
+    """A pool dies with the last graph captured into it, and a capture into
+    it afterwards fails on the card. So when a refused replay drops an
+    instance's only graph, the next capture is handed no pool (it makes a
+    new one); while another graph of the instance lives, the instance's
+    pool is handed on."""
+    handed, pools = [], iter(range(1, 10))
+
+    def capture_graph(warmup, fn, dev, pool):
+        handed.append(pool)
+        result, out = warmup(), fn()
+        return result, EmulatedGraph(fn, out[0]), out, pool or ("pool", next(pools)), 1000
+
+    monkeypatch.setattr(fn_mod, "_capture_graph", capture_graph)
+    monkeypatch.setattr(fn_mod, "_capture_device", lambda *trees: CPU)
+    monkeypatch.setattr(fn_mod, "_synchronize", lambda dev: None)
+    p = TinyTorchBackend(FusionPolicy(enabled=False))
+    try:
+        p.deploy(FunctionSpec("f", lambda ctx, params, x, keep: (x * 2, keep), None))
+        keep, other = torch.ones(3), torch.zeros(3)
+        for v in (1.0, 2.0):
+            p.invoke("f", torch.full((3,), v), keep)  # first run, capture into a new pool
+        p.invoke("f", torch.full((3,), 3.0), other)  # refused: the only graph dropped
+        unit = p.registry.resolve("f")
+        assert unit.graph_pool_bytes() == 0
+        p.invoke("f", torch.full((3,), 4.0), other)  # captured again: a new pool
+        keep2, other2 = torch.ones(2), torch.zeros(2)
+        for v in (1.0, 2.0):
+            p.invoke("f", torch.full((2,), v), keep2)  # a second entry, into that pool
+        p.invoke("f", torch.full((2,), 5.0), other2)  # refused: one graph dropped, one lives
+        p.invoke("f", torch.full((2,), 6.0), other2)  # captured again into the live pool
+        assert handed == [None, None, ("pool", 2), ("pool", 2)]
+        assert unit.graph_pool_bytes() == 1000
+    finally:
+        p.shutdown()
+
+
 def load_chip_smoke():
     import importlib.util
     from pathlib import Path

@@ -257,7 +257,11 @@ def test_merge_during_paged_serving_replays_only_dense_canaries():
     model = build_model(cfg)
     params = model.init(0, device=CPU)
     ref_platform = TinyTorchBackend(FusionPolicy(enabled=False))
-    platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0))
+    # serial traffic gives the scheduler's signals no tail, so a first sync
+    # wait that reaches promote_wait_s (a cold run on a loaded host) would
+    # promote the merge to the dense prefill; this test places it later
+    platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0,
+                                             promote_wait_s=float("inf")))
     prompts = [prompt((np.arange(1, 8 + 5 * i) * 3) % 97) for i in range(3)]
     try:
         ref_engine = ServingEngine(model, ref_platform, max_len=32, params=params, device=CPU)

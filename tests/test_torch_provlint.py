@@ -78,3 +78,29 @@ def test_delocking_the_launch_counters_is_caught():
     assert bad != src
     got = lockcheck.check_source(bad, path)
     assert got and all(f.pass_name == "lock-discipline" and "_eager" in f.message for f in got)
+
+
+@pytest.mark.parametrize("path,locked,unlocked,field", [
+    ("src/repro_torch/obs/trace.py",
+     "        with self._lock:\n            self._next_trace += 1\n            tid = self._next_trace\n",
+     "        self._next_trace += 1\n        tid = self._next_trace\n", "_next_trace"),
+    ("src/repro_torch/obs/critical_path.py",
+     "        with self._lock:\n            self._edges[key] = self._ewma(self._edges.get(key), float(wait_s))\n",
+     "        self._edges[key] = self._ewma(self._edges.get(key), float(wait_s))\n", "_edges"),
+    ("src/repro_torch/analysis/dispatch.py",
+     "            with self._mu:\n                self.decode_steps += 1\n",
+     "            self.decode_steps += 1\n", "decode_steps"),
+])
+def test_delocking_the_tracing_modules_is_caught(path, locked, unlocked, field):
+    """The tracing modules' GUARDED_FIELDS are checked: each is clean, and
+    stripping the lock around one of its guarded fields is flagged."""
+    from repro_torch.analysis import lint
+
+    assert path in {str(p.relative_to(REPO)) for p in (REPO / "src" / "repro_torch").rglob("*.py")
+                    if not lint._skip(p)}
+    src = (REPO / path).read_text(encoding="utf-8")
+    assert not lockcheck.check_source(src, path)
+    bad = src.replace(locked, unlocked)
+    assert bad != src
+    got = lockcheck.check_source(bad, path)
+    assert got and all(f.pass_name == "lock-discipline" and field in f.message for f in got)

@@ -183,3 +183,34 @@ def test_chip_smoke_serve_phase_rehearsal_on_cpu():
     ref = smoke.reference_phase(torch, CPU, cfg, prompt_len=9)  # both sides on the host here
     assert ref["small"]["rel_err"] == [0.0, 0.0]
     assert ref["full_width_blocks_rel_err"] == [0.0] * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-7b"])
+def test_serving_leaves_no_tensor_in_a_reference_cycle(arch):
+    """Every step's caches are freed by reference counting, not only when
+    the cyclic collector runs: a tensor held in a cycle (a recursive
+    closure over a leaves list did this in every ``tree.flatten``) lingers
+    for an unknown time, and a collection that frees it during an entry's
+    first run on the card inflates the workspace measured there."""
+    import gc
+
+    cfg = reduced_config(get_arch(arch))
+    for policy in (FusionPolicy(enabled=False),
+                   FusionPolicy(min_observations=2, merge_cost_s=0.0, promote_wait_s=float("inf"))):
+        platform = TinyTorchBackend(policy)
+        try:
+            engine = ServingEngine(build_model(cfg), platform, max_len=MAX_LEN, device=CPU)
+            toks = torch.from_numpy(np.arange(1, 10, dtype=np.int32)[None, :])
+            engine.generate({"tokens": toks}, steps=4)  # merges, first runs
+            gc.collect()
+            gc.set_debug(gc.DEBUG_SAVEALL)
+            try:
+                engine.generate({"tokens": toks}, steps=4)
+                gc.collect()
+                held = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+            finally:
+                gc.set_debug(0)
+                gc.garbage.clear()
+            assert held == []
+        finally:
+            platform.shutdown()
