@@ -114,8 +114,9 @@ Phases (any failed check exits non-zero and prints no result):
    ``trace_batched`` line: every ``invoke_async`` trace tiles its wall time
    exactly (residual 0.0), its members reference exactly the batch traces,
    and the tracing-overhead gate of ``load_bench``: requests/s of
-   ``fused-batched`` with tracing on over off at least 0.97, in 8
-   interleaved rounds on the warm platform, one retry.
+   ``fused-batched`` with tracing on over off at least 0.97, in 32
+   interleaved rounds of 48 timed steps per client (after 4 untimed ones)
+   on the warm platform, one retry.
 6c. Dispatch and export: a ``dispatch`` line — the dispatch tracer armed
    over the steady state of the serve phase (the first prompt served a
    third time on each platform), the paged serve phase (its requests a
@@ -124,6 +125,28 @@ Phases (any failed check exits non-zero and prints no result):
    + 2 x requests + capacity, and the sync-debug count beside them; a
    ``chrome_trace`` line — the llama phases' traces written to
    ``chiprun_out/trace_llama.json`` (Chrome ``trace_event``) and parsed back.
+6d. Cold-start phase (``coldstart``): scale-to-zero of the full-width
+   ``llama3.2-1b`` chain on one engine, snapshots in a temporary directory.
+   The serve phase's prompts with ``SERVE_POLICY`` until the chain is one
+   instance (the cold start: deploy plus the first token, the executable
+   index emptied first; beside it the same start with the weights' copy
+   from host memory to the card timed before it); then two cycles of ``engine.scale_to_zero()`` and
+   the prompts again. Checks at each park: all 6 functions parked and
+   resolving nowhere, ``ram_bytes`` 0, the allocated device memory down by at
+   least 99 % of the weights' bytes (the tied table once). After each: the
+   same tokens bit for bit, 6 billed and warm resurrects, the chain fused
+   to one instance again, launches exactly as the prefills, decode steps,
+   merge canaries (twice) and resurrect health checks (once) make them; in
+   the second cycle no new entry or bucket (the dispatch tracer) and every
+   merge warm (the first re-fusion merges at its first request, on prefill
+   canaries, so it may build entries once). Reported: the park's seconds,
+   puts, dedup hits and bytes on disk; each resurrect's seconds (read,
+   verify hash, copy to the device, health check, publish); the time to
+   first token after a park against the cold start; captures; per-token
+   p50 re-fused; the allocated memory after the resurrect. Then the paged
+   route: the first 8 paged requests (K1, K2) through the continuous
+   batcher over a fresh arena before and after a third park give the same
+   tokens. The ``chrome_trace`` line follows it.
 7. MoE serve phase: the llama tensors freed, full-width
    ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
    random bf16 weights from seed 0, about 61 GB) as the eight-function
@@ -148,6 +171,12 @@ Phases (any failed check exits non-zero and prints no result):
    2e-2 of max |y|); the first block card vs host, every block's prefill +
    one decode step against its longer prefill, a small model card vs host;
    a profiled fused decode step and prefill.
+11b. SSM cold-start phase (``ssm_coldstart``): full-width ``mamba2-370m``
+   on a fusing platform with ``idle_park_s`` 1.0 on the real clock: the
+   prompts served, the reconciler thread itself parks the idle chain
+   (within 10 s), and the prompts again give the same tokens with K6
+   launched exactly as the prefills, merge canaries and resurrect health
+   checks make it.
 12. Hybrid phases: the same for full-width ``zamba2-7b`` (81 layers: 13
    groups of 6 Mamba layers each followed by the shared attention block,
    and a tail of 3; 13.5 GB) as the three-function chain
@@ -157,10 +186,10 @@ Phases (any failed check exits non-zero and prints no result):
 Standard output opens with the device line and the ``ptxas`` line; its
 last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
 ``reference``, ``profile``, ``batched``, ``trace_batched``, ``dispatch``,
-``chrome_trace``, ``moe_serve``, ``moe_paged_serve``, ``moe_block``,
-``moe_profile``, ``moe_memory``,
+``coldstart``, ``chrome_trace``, ``moe_serve``, ``moe_paged_serve``,
+``moe_block``, ``moe_profile``, ``moe_memory``,
 ``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
-``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
+``ssm_coldstart``, ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
 and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -171,6 +200,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -753,15 +783,17 @@ def paged_kernel_cases(torch, F, gen) -> dict:
 PROMPT_LENS = (37, 128, 300)
 NEW_TOKENS = 16
 MAX_LEN = 512
-# The fused platforms of the phases whose traffic is serial ``invoke`` (the
-# dense and paged serve phases, the profile phases). Such traffic gives the
-# scheduler no tail (its p95 reads 0), and an edge's first sync wait there
-# holds the callee's cold first run on the card, so the reference's default
-# promotion (``promote_wait_s`` 50 ms) would merge edges at their first
-# observation, before the leaf edge has been seen twice, and the measured
-# merge costs then outgrow what the leaf edge's short waits save: the chain
-# stops short (qwen3-moe-30b-a3b at 2 instances). Promotion is turned off
-# here; the batched phase keeps load_bench's knobs.
+# The fused platforms of the phases whose chain fuses on serial ``invoke``
+# traffic (the dense and paged serve phases, the profile phases, the batched
+# phase's warm-up, the cold-start phases). Such traffic gives the scheduler
+# no tail (its p95 reads 0), and an edge's first sync wait there holds the
+# callee's cold first run on the card, so the reference's default promotion
+# (``promote_wait_s`` 50 ms) would merge edges at their first observation,
+# before the leaf edge has been seen twice, and the measured merge costs then
+# outgrow what the leaf edge's short waits save: the chain stops short
+# (qwen3-moe-30b-a3b at 2 instances; llama3.2-1b's batched warm-up, once,
+# its leaf edge's saving at the margin of the merge cost). Promotion is
+# turned off here, beside load_bench's knobs.
 SERVE_POLICY = {"min_observations": 2, "merge_cost_s": 0.0, "promote_wait_s": float("inf")}
 TRACE_TOL = 1e-9  # |residual| of a conserved trace, seconds
 OVERHEAD_MIN = 0.97  # tracing on / off requests/s of fused-batched (load_bench.py:1464-1478)
@@ -824,36 +856,51 @@ def expected_launches(cfg, engine, prefills: int, decodes: int, replays) -> dict
     layer and K6 once per SSM layer of each prefill, K4 once per attention
     layer of each decode step (an SSM decode step is the recurrent form, no
     kernel); ``prefills`` and ``decodes`` client invocations run the whole
-    chain, and each replayed canary ``(member, is_prefill)`` runs it from its
-    member down twice (the live path and the new unit)."""
+    chain, and each replayed canary ``(member, is_prefill, runs)`` runs it
+    from its member down ``runs`` times (:func:`record_replays`)."""
     below = layers_below(cfg, engine)
     entry = below[engine.entry]
     exp = {"flash_attention": prefills * entry["attn"], "decode_attention": decodes * entry["attn"],
            "ssd_scan": prefills * entry["ssm"]}
-    for member, is_prefill in replays:
+    for member, is_prefill, runs in replays:
         layers = below[member]
         if is_prefill:
-            exp["flash_attention"] += 2 * layers["attn"]
-            exp["ssd_scan"] += 2 * layers["ssm"]
+            exp["flash_attention"] += runs * layers["attn"]
+            exp["ssd_scan"] += runs * layers["ssm"]
         else:
-            exp["decode_attention"] += 2 * layers["attn"]
+            exp["decode_attention"] += runs * layers["attn"]
     return exp
 
 
 def record_replays(platform) -> list:
-    """Record, for every canary a merge's health check fetches to replay,
-    its member and whether it was a prefill (T > 1) or a decode step."""
+    """Record every canary the platform fetches to replay: its member,
+    whether it was a prefill (T > 1) or a decode step, and how often the
+    replay runs the chain from that member down — twice for a merge's
+    health check (the live path and the new unit), once for a resurrect's
+    (the restored instance, before it is routed; an unfused member's glue
+    dispatches the members below it, whose own resurrects are recorded
+    apart)."""
     replays = []
     fetch = platform.handler.canary
+    resurrect = platform._resurrect_impl
+    restoring = threading.local()  # the member whose resurrect fetches next
+
+    def resurrect_impl(name, t0):
+        restoring.name = name
+        return resurrect(name, t0)
 
     def canary(name):
         args = fetch(name)
+        runs = 2
+        if getattr(restoring, "name", None) == name:
+            restoring.name, runs = None, 1
         if args is not None:
             x = args[0]["tokens"] if isinstance(args[0], dict) else args[0]
-            replays.append((name, x.shape[1] > 1))
+            replays.append((name, x.shape[1] > 1, runs))
         return args
 
     platform.handler.canary = canary
+    platform._resurrect_impl = resurrect_impl
     return replays
 
 
@@ -953,7 +1000,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 "replayed": [n for m in platform.merger.merge_log for n in m.checked_members],
                 "graphs": graph_summary(platform, label) if dev.type == "cuda" else None,
             }
-            check([n for n, _ in replays[label]] == results[label]["replayed"],
+            check([n for n, _, runs in replays[label] if runs == 2] == results[label]["replayed"],
                   f"{label}: replayed canaries {replays[label]} against the merge log's {results[label]['replayed']}")
         counts, parts = ops.counts(), build.LAUNCHES.parts()
         dispatch = None
@@ -1028,7 +1075,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         "plain_calls": {k: counts[k] for k in PLAIN},
         "moe_layers_applied": moe_runs,
         "canary_replays": {label: len(r["replayed"]) for label, r in results.items()},
-        "prefill_replays": {label: sum(p for _, p in replays[label]) for label in platforms},
+        "prefill_replays": {label: sum(p for _, p, _ in replays[label]) for label in platforms},
         "prefills": prefills,
         "decode_steps": decode_steps,
         "launches_per_request": {
@@ -1439,8 +1486,14 @@ BATCH_WARMUP = 8
 BATCH_STEPS = 48
 BATCH_MAX = 8
 BATCH_DELAY_MS = 2.0
-GATE_ROUNDS = 8  # interleaved tracing on / off rounds of the overhead gate (on, off, off, on, ...)
-GATE_STEPS = 24  # decode steps per client and round
+# The overhead gate's rounds (on, off, off, on, ...) and steps per client
+# and round: enough to resolve the gate's 3 %. A round's requests/s spreads
+# widely on the card's host (the client threads share its cores); 8 rounds
+# of 24 steps read 1.005 in one run of the same tree and 0.933 and 0.949 in
+# the next.
+GATE_ROUNDS = 32
+GATE_STEPS = 48
+GATE_WARMUP = 4  # untimed steps per client opening each round, as load_bench's closed loop has
 LANE_TOL = 2e-2  # a lane's logits and caches vs the same request's invoke, over max |value|
 
 
@@ -1510,8 +1563,7 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
         params = model.init(0, device=dev)
     captures = _capture_device(params) is not None  # the card captures; the CPU runs every program eagerly
     gen = torch.Generator(device=dev).manual_seed(13)
-    platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0), max_batch=BATCH_MAX,
-                                max_delay_ms=BATCH_DELAY_MS)
+    platform = TinyTorchBackend(FusionPolicy(**SERVE_POLICY), max_batch=BATCH_MAX, max_delay_ms=BATCH_DELAY_MS)
     try:
         engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
         warm = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev, dtype=torch.int32)
@@ -1537,13 +1589,14 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
 
         start = [c["cur_len"] for c in state]
 
-        def window(n: int) -> dict:
-            """``n`` more batched steps per client from the prefilled length
-            (the caches' rows there are rewritten), so that the extra windows
-            stay inside max_len and each does the same work."""
+        def window(n: int, warmup: int = 0) -> dict:
+            """``n`` more batched steps per client (after ``warmup`` untimed
+            ones) from the prefilled length (the caches' rows there are
+            rewritten), so that the extra windows stay inside max_len and
+            each does the same work."""
             for c, cur in zip(state, start):
                 c["cur_len"] = cur
-            return closed_loop(torch, engine, state, True, 0, n)
+            return closed_loop(torch, engine, state, True, warmup, n)
 
 
         batches0 = platform.scheduler.stats()["batches"]
@@ -1629,8 +1682,8 @@ def overhead_gate(platform, window, steps: int, gate: bool, rounds: int = GATE_R
             for on in order:
                 platform.tracer.enabled = on
                 b0 = platform.scheduler.stats()["batches"]
-                r = window(steps)
-                formed[on][0] += r["requests"]
+                r = window(steps, GATE_WARMUP)
+                formed[on][0] += r["requests"] * (steps + GATE_WARMUP) // steps  # the warm-up's batches formed too
                 formed[on][1] += platform.scheduler.stats()["batches"] - b0
                 done[on][0] += r["requests"]
                 done[on][1] += r["elapsed_s"]
@@ -2131,6 +2184,345 @@ def ssd_captured_case(torch, dev, cfg, params, prompt_len: int = 300) -> dict:
                         layer["ssm"]["D"], captured=True)
 
 
+# ------------------------------------------------------------ cold-start phases
+
+PARK_WAIT_S = 10.0  # the reconciler must park an idle chain within this
+MEMORY_FREED_MIN = 0.99  # of the weights' bytes, at a park
+
+
+def timed_generate(torch, engine, prompt, steps: int):
+    """``engine.generate``'s greedy loop, timed: (tokens (B, steps), seconds
+    to the first token, per-token seconds of the decode steps)."""
+    from repro_torch.serving.engine import _greedy_token
+
+    t0 = time.perf_counter()
+    logits, caches, cur = engine.prefill({"tokens": prompt})
+    tokens = _greedy_token(logits)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    out, lat = [tokens], []
+    for _ in range(steps - 1):
+        t1 = time.perf_counter()
+        logits, caches = engine.decode_step(tokens, cur, caches)
+        lat.append(time.perf_counter() - t1)
+        cur = cur + 1
+        tokens = _greedy_token(logits)
+        out.append(tokens)
+    return torch.cat(out, dim=1), ttft, lat
+
+
+def serve_prompts(torch, engine, prompts, new_tokens: int) -> dict:
+    """The serve phase's prompts through ``engine`` one after another, the
+    merges waited for after the first (as the serve phase does): tokens,
+    the first request's time to first token, the later requests' per-token
+    latencies."""
+    tokens, lats, ttft = [], [], None
+    for i, prompt in enumerate(prompts):
+        toks, first, lat = timed_generate(torch, engine, prompt, new_tokens)
+        if i == 0:
+            ttft = first
+            engine.platform.merger.wait_idle()
+        else:
+            lats.extend(lat)
+        tokens.append(toks)
+    return {"tokens": tokens, "ttft_s": ttft, "lat": lats}
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def park_engine(torch, engine, weight_bytes: int) -> dict:
+    """``engine.scale_to_zero()``, checked: every chain function parked and
+    resolving nowhere, ``ram_bytes`` 0, and on the card the allocated memory
+    down by at least ``MEMORY_FREED_MIN`` of the weights' bytes."""
+    platform, cuda = engine.platform, engine.device.type == "cuda"
+    names = engine.chain_names()
+    if cuda:
+        torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    parked = engine.scale_to_zero()
+    park_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated() if cuda else 0
+    check(sorted(parked) == sorted(names), f"parked {parked}, not the chain {names}")
+    check(platform.provisioning_stats()["parked"] == sorted(names), "a chain function is not parked")
+    check(all(platform.registry.get(n) is None for n in names), "a parked function still resolves")
+    check(platform.ram_bytes() == 0, f"ram_bytes {platform.ram_bytes()} with the chain parked")
+    if cuda:
+        check(before - after >= MEMORY_FREED_MIN * weight_bytes,
+              f"the park freed {before - after} B of device memory, under {MEMORY_FREED_MIN} of the "
+              f"weights' {weight_bytes} B")
+    snaps = platform.snapshots.stats()
+    return {"parked": len(parked), "park_s": park_s, "allocated_before_gb": before / 1e9,
+            "allocated_after_gb": after / 1e9, "freed_bytes": before - after, "weight_bytes": weight_bytes,
+            "puts": snaps["puts"], "dedup_hits": snaps["dedup_hits"], "put_s": snaps["put_s"],
+            "bytes_on_disk": dir_bytes(platform.snapshots.directory)}
+
+
+def resurrect_cycle(torch, engine, replays, prompts, new_tokens: int, want_tokens, weight_bytes: int) -> dict:
+    """Park the chain, serve the prompts again and check: the same tokens
+    bit for bit, one billed resurrect per chain function, all warm, the
+    chain fused to one instance again, and (on the card) each kernel
+    launched exactly as the run's prefills, decode steps, merge canaries and
+    resurrect health checks make it. The counts are set to 0 just before
+    the serving and read just after it."""
+    from repro_torch.analysis.dispatch import TRACER
+    from repro_torch.kernels import build, ops
+
+    platform, cfg, cuda = engine.platform, engine.cfg, engine.device.type == "cuda"
+    names = engine.chain_names()
+    park = park_engine(torch, engine, weight_bytes)
+    n_prov, n_merges, n_rez = (len(platform.meter.provisioning), len(platform.merger.merge_log),
+                               len(platform.provisioning_stats()["resurrects"]))
+    replays.clear()
+    base = TRACER.snapshot()
+    TRACER.arm()
+    try:
+        ops.reset_counts()
+        run = serve_prompts(torch, engine, prompts, new_tokens)
+        counts, parts = ops.counts(), build.LAUNCHES.parts()
+    finally:
+        TRACER.disarm()
+    d = TRACER.delta(base)
+    allocated = torch.cuda.memory_allocated() if cuda else 0
+    for i, (a, b) in enumerate(zip(want_tokens, run["tokens"])):
+        check(torch.equal(a, b), f"prompt {i}: tokens after the park differ from those before it")
+    records = [r for r in platform.meter.provisioning[n_prov:] if r.kind == "resurrect"]
+    check(sorted(f for r in records for f in r.functions) == sorted(names),
+          f"resurrects {[r.functions for r in records]} against the chain {names}")
+    check(all(r.warm and r.billed for r in records), f"a resurrect is not warm and billed: {records}")
+    check(len(platform.registry.live_instances()) == 1, "the chain did not re-fuse to one instance")
+    merges = [m for m in platform.merger.merge_log[n_merges:] if m.healthy]
+    check(merges and set(merges[-1].members) == set(names), "no healthy merge of the whole chain after the park")
+    expected = expected_launches(cfg, engine, len(prompts), len(prompts) * (new_tokens - 1), replays)
+    for k, want in expected.items():
+        if cuda:
+            check(counts[k] == want, f"coldstart: {k} launched {counts[k]} times, the run makes {want} ({counts})")
+        elif k in STAND_INS:
+            check(counts[STAND_INS[k]] == want, f"coldstart: {STAND_INS[k]} ran {counts[STAND_INS[k]]} times for {want}")
+    if cuda:
+        check(all(counts[k] == 0 for k in PLAIN), f"coldstart: a plain version ran on the card: {counts}")
+    rez = platform.provisioning_stats()["resurrects"][n_rez:]
+    kernels = ("flash_attention", "decode_attention", "ssd_scan")
+    return {
+        **park,
+        "ttft_s": run["ttft_s"],
+        "p50_token_ms": statistics.median(run["lat"]) * 1e3,
+        "resurrects": [{k: r[k] for k in ("function", "wall_s", "restore_s", "read_s", "verify_s", "copy_s",
+                                          "health_s", "publish_s")} for r in rez],
+        "resurrects_warm": all(r.warm for r in records),
+        "merges": [{"members": len(m.members), "warm": m.warm, "build_s": m.build_s} for m in merges],
+        "last_merge_warm": merges[-1].warm,
+        "new_entries": d.entries, "new_buckets": d.buckets, "captures": d.captures,
+        "launches": {k: counts[k] for k in kernels}, "expected_launches": expected,
+        "launch_parts": {part: {k: n[k] for k in kernels} for part, n in parts.items()},
+        "health_check_replays": sum(1 for _, _, r in replays if r == 1),
+        "merge_canary_replays": sum(1 for _, _, r in replays if r == 2),
+        "allocated_after_resurrect_gb": allocated / 1e9,
+        "allocated_over_before_park_gb": (allocated - park["allocated_before_gb"] * 1e9) / 1e9,
+    }
+
+
+def paged_run(torch, engine, prompts, gens, capacity: int, page: int, kv_pages: int) -> dict:
+    """The requests through the continuous batcher over a fresh arena (so a
+    run after a park meets the arena a run before it met): tokens and
+    launches (set to 0 just before the requests, read just after)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.continuous import ContinuousBatcher
+
+    engine.enable_paging(kv_pages, page)
+    cb = ContinuousBatcher(engine, capacity=capacity)
+    try:
+        ops.reset_counts()
+        results = [f.result(timeout=600) for f in [cb.submit({"tokens": p}, g) for p, g in zip(prompts, gens)]]
+        counts = ops.counts()
+    finally:
+        cb.shutdown()
+    engine.arena.check_consistency()
+    return {"tokens": [r["tokens"] for r in results], "counts": counts}
+
+
+def coldstart_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS, max_len=MAX_LEN,
+                    n_paged: int = 8, capacity: int = CAPACITY, page: int = PAGE) -> dict:
+    """Scale-to-zero of the serving chain (``cfg`` at full width and depth,
+    random bf16 weights from seed 0; one engine with a KV arena, snapshots
+    in a temporary directory removed at the end). The serve phase's prompts
+    with ``SERVE_POLICY`` until the chain is one instance (the cold start:
+    deploy plus the first request's first token, the kernels built and the
+    executable index emptied first, as ``load_bench``'s coldstart mode
+    does; the loaded cold start adds the copy of every weight from host
+    memory to the device before the deploy, as a start that loads its
+    weights makes it); then
+    two park cycles (:func:`resurrect_cycle`): the first re-fusion merges at
+    the chain's first request, on prefill canaries (the edges' observations
+    outlive a park, as in the JAX package:
+    ``tests/test_torch_coldstart.py``), so it may build entries the chain
+    never built; the second must build none and merge warm
+    throughout. Then the paged route: the first ``n_paged`` paged requests
+    (K1, K2) before and after a third park give identical tokens."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    from repro_torch.core.function import tree_bytes
+    from repro_torch.launch.compile_cache import EXECUTABLE_INDEX
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    EXECUTABLE_INDEX.clear()  # the earlier phases served this chain's entries
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)
+               for t in prompt_lens]
+    paged_prompts, gens = paged_requests(cfg, prompt_lens, n_paged, steps=min(PAGED_STEPS, max_len // 4),
+                                         prefix_len=min(SHARED_PREFIX, max_len // 4))
+    kv_pages = (capacity + 2) * (max_len // page) + 1
+    snap_dir = tempfile.mkdtemp(prefix="coldstart-")
+    platform = TinyTorchBackend(FusionPolicy(**SERVE_POLICY), snapshot_dir=snap_dir)
+    replays = record_replays(platform)
+    try:
+        params = model.init(0, device=dev)
+        weight_bytes = tree_bytes(params)  # the tied table once
+        host = tree.map(lambda t: t.cpu(), params)  # the weights as a loader holds them, in host memory
+        del params
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tree.map(lambda t: t.to(dev), host)  # the load: one copy of every weight to the device
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del host
+        t0 = time.perf_counter()
+        engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
+        deploy_s = time.perf_counter() - t0
+        del params  # the engine and its stages hold the weights now
+        cold = serve_prompts(torch, engine, prompts, new_tokens)
+        check(len(platform.registry.live_instances()) == 1, "the chain did not fuse to one instance")
+        cycles = [resurrect_cycle(torch, engine, replays, prompts, new_tokens, cold["tokens"], weight_bytes)
+                  for _ in range(2)]
+        check(cycles[1]["new_entries"] == 0 and cycles[1]["new_buckets"] == 0,
+              f"the second cycle after a park built new entries: {cycles[1]['new_entries']}")
+        check(all(m["warm"] for m in cycles[1]["merges"]), f"a merge of the second cycle is cold: "
+              f"{cycles[1]['merges']}")
+        before = paged_run(torch, engine, paged_prompts, gens, capacity, page, kv_pages)
+        paged_park = park_engine(torch, engine, weight_bytes)
+        after = paged_run(torch, engine, paged_prompts, gens, capacity, page, kv_pages)
+        stats = platform.provisioning_stats()
+        traces = conserved_traces(platform, "coldstart")
+        spans = [r for r in platform.tracer.recorder.snapshot() if r.cat == "cold-provision"]
+        # the dense cycles' resurrects run inside an invoke's trace; the
+        # batcher's (after the third park) inside none
+        check(len(spans) == 2 * len(engine.chain_names()),
+              f"coldstart: {len(spans)} cold-provision spans for 2 cycles of {len(engine.chain_names())} resurrects")
+    finally:
+        platform.shutdown()
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(before["tokens"], after["tokens"])):
+        check(np.array_equal(a, b), f"paged request {i}: tokens after the park differ from those before it")
+    paged_kernels = ("paged_decode_attention", "paged_chunk_attention")
+    if dev.type == "cuda":
+        for label, run in (("before", before), ("after", after)):
+            c = run["counts"]
+            check(all(c[k] > 0 for k in paged_kernels), f"coldstart paged {label}: K1/K2 not launched: {c}")
+            check(all(c[k] == 0 for k in PLAIN), f"coldstart paged {label}: a plain version ran: {c}")
+    cold_start_s = deploy_s + cold["ttft_s"]
+    loaded_cold_start_s = load_s + cold_start_s
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "chain": engine.chain_names(), "prompts": list(prompt_lens), "new_tokens": new_tokens,
+        "weight_bytes": weight_bytes,
+        "cold_start_s": cold_start_s, "deploy_s": deploy_s, "cold_ttft_s": cold["ttft_s"],
+        "load_s": load_s, "loaded_cold_start_s": loaded_cold_start_s,
+        "cold_p50_token_ms": statistics.median(cold["lat"]) * 1e3,
+        "cycles": cycles,
+        "ttft_after_park_over_cold_start": [c["ttft_s"] / cold_start_s for c in cycles],
+        "ttft_after_park_over_loaded_cold_start": [c["ttft_s"] / loaded_cold_start_s for c in cycles],
+        "tokens_identical": True,
+        "parked": cycles[-1]["parked"], "ram_bytes_parked": 0,
+        "resurrects": len(cycles[-1]["resurrects"]), "resurrects_warm": cycles[-1]["resurrects_warm"],
+        "last_merge_warm": cycles[-1]["last_merge_warm"],
+        "new_entries_after_park": cycles[-1]["new_entries"],
+        "captures_after_park": [c["captures"] for c in cycles],
+        "launches": cycles[-1]["launches"],
+        "paged_requests": n_paged, "paged_tokens_identical": True, "paged_park": paged_park,
+        "paged_launches": {label: {k: run["counts"][k] for k in paged_kernels}
+                           for label, run in (("before", before), ("after", after))},
+        "executable_index": stats["executable_index"], "compile_cache": stats["compile_cache"],
+        "snapshots": stats["snapshots"],
+        "traces": traces, "cold_provision_spans": len(spans),
+        "cold_provision_span_s": [r.t1 - r.t0 for r in spans],
+    }
+
+
+def ssm_coldstart_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS, max_len=MAX_LEN,
+                        idle_park_s: float = 1.0, params=None) -> dict:
+    """Scale-to-zero on the reconciler's path (``cfg`` at full width and
+    depth, an SSM chain): a fusing platform with ``idle_park_s`` on the real
+    clock serves the prompts, the reconciler thread itself parks the idle
+    chain (within ``PARK_WAIT_S``), and the prompts served again give the
+    same tokens, with K6 launched exactly as the prefills, the merges'
+    canaries and the resurrects' health checks make it."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)
+               for t in prompt_lens]
+    snap_dir = tempfile.mkdtemp(prefix="ssm-coldstart-")
+    platform = TinyTorchBackend(FusionPolicy(**SERVE_POLICY), snapshot_dir=snap_dir, idle_park_s=idle_park_s)
+    replays = record_replays(platform)
+    try:
+        engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
+        names = sorted(engine.chain_names())
+        first = serve_prompts(torch, engine, prompts, new_tokens)
+        t0 = time.perf_counter()
+        while platform.provisioning_stats()["parked"] != names and time.perf_counter() - t0 < PARK_WAIT_S:
+            time.sleep(0.01)
+        waited_s = time.perf_counter() - t0
+        parked = platform.provisioning_stats()["parked"]
+        check(parked == names, f"the reconciler parked {parked} of {names} within {PARK_WAIT_S} s")
+        replays.clear()
+        ops.reset_counts()
+        again = serve_prompts(torch, engine, prompts, new_tokens)
+        counts = ops.counts()
+        stats = platform.provisioning_stats()
+    finally:
+        platform.shutdown()
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    for i, (a, b) in enumerate(zip(first["tokens"], again["tokens"])):
+        check(torch.equal(a, b), f"prompt {i}: tokens after the reconciler's park differ")
+    want = expected_launches(cfg, engine, len(prompts), len(prompts) * (new_tokens - 1), replays)["ssd_scan"]
+    if dev.type == "cuda":
+        check(counts["ssd_scan"] == want, f"ssm coldstart: K6 launched {counts['ssd_scan']} times for {want}")
+        check(all(counts[k] == 0 for k in PLAIN), f"ssm coldstart: a plain version ran on the card: {counts}")
+    parks = [e for e in stats["events"] if e["kind"] == "park"]
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "idle_park_s": idle_park_s,
+        "parked_by_reconciler": True, "park_wait_s": waited_s, "parks": len(parks),
+        "park_s": [e["seconds"] for e in parks], "tokens_identical": True,
+        "ttft_s": {"before": first["ttft_s"], "after_park": again["ttft_s"]},
+        "resurrects": [{k: r[k] for k in ("function", "wall_s", "read_s", "verify_s", "copy_s", "health_s")}
+                       for r in stats["resurrects"]],
+        "launches": {"ssd_scan": counts["ssd_scan"]}, "expected_launches": {"ssd_scan": want},
+        "health_check_replays": sum(1 for _, _, r in replays if r == 1),
+        "merge_canary_replays": sum(1 for _, _, r in replays if r == 2),
+    }
+
+
 def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, parts: dict) -> dict:
     """One entry per kernel: its source, the TPU kernel it replaces, its
     launches on the main path that runs it (``launch_parts``: made by eager
@@ -2323,20 +2715,34 @@ def main() -> int:
     print(json.dumps({"trace_batched": trace_batched}), flush=True)
     print(json.dumps({"dispatch": dispatch}), flush=True)
     print(f"batched phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    coldstart = coldstart_phase(torch, dev, cfg)
+    print(json.dumps({"coldstart": coldstart}), flush=True)
+    print(f"coldstart phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"chrome_trace": chrome_export(ROOT / "chiprun_out" / "trace_llama.json")}), flush=True)
     retain_tracers(False)
 
     moe = moe_phases(torch, dev)
     ssm = ssm_phases(torch, dev, "mamba2-370m", "ssm")
+    t0 = time.perf_counter()
+    ssm_cfg, ssm_params, _ = fresh_model(torch, dev, "mamba2-370m")
+    ssm_cold = ssm_coldstart_phase(torch, dev, ssm_cfg, params=ssm_params)
+    del ssm_params
+    print(json.dumps({"ssm_coldstart": ssm_cold}), flush=True)
+    print(f"ssm coldstart phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     hybrid = ssm_phases(torch, dev, "zamba2-7b", "hybrid")
     launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["launches"]["moe_gmm"],
                 "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"]}
     by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
-                      "zamba2-7b": hybrid["launches"][name]} for name in ("flash_attention", "decode_attention")}
-    by_path["ssd_scan"] = {"mamba2-370m": ssm["launches"]["ssd_scan"], "zamba2-7b": hybrid["launches"]["ssd_scan"]}
+                      "zamba2-7b": hybrid["launches"][name],
+                      "llama3.2-1b coldstart": coldstart["launches"][name]}
+               for name in ("flash_attention", "decode_attention")}
+    by_path["ssd_scan"] = {"mamba2-370m": ssm["launches"]["ssd_scan"], "zamba2-7b": hybrid["launches"]["ssd_scan"],
+                           "mamba2-370m coldstart": ssm_cold["launches"]["ssd_scan"]}
     for kernel in ("paged_decode_attention", "paged_chunk_attention"):
         by_path[kernel] = {"llama3.2-1b paged": paged["launches"]["fused"][kernel],
-                           "qwen3-moe-30b-a3b paged": moe["paged_launches"][kernel]}
+                           "qwen3-moe-30b-a3b paged": moe["paged_launches"][kernel],
+                           "llama3.2-1b coldstart paged": coldstart["paged_launches"]["after"][kernel]}
     by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
                           "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}

@@ -27,6 +27,14 @@ the instance replays one graph at a time. An entry whose run queues
 ``call_async`` is never captured (its arguments would live in the graph's
 pool); on the CPU nothing is captured.
 
+An instance asks the process-wide executable index
+(:mod:`repro_torch.launch.compile_cache`) before an entry's shape-only run:
+a rebuilt unit (a merge, a resurrect) whose members, param structure and
+argument structure were seen before reuses the record of what that run
+found and what the entry's first run measured, and skips the shape-only
+run. Its ``run`` and its graphs stay its own: a graph binds the addresses
+of the instance's params.
+
 ``execute_batch`` runs k compatible requests as one program per
 power-of-two bucket: the requests stack on a new leading axis and the entry
 runs under ``torch.func.vmap`` (the kernels fold that axis into their own
@@ -223,6 +231,7 @@ class CompiledEntry:
     runs: int = 0
     first_args: list | None = None
     graph: CapturedGraph | None = None
+    index_key: tuple | None = None  # the executable index's key (None: not indexed)
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock, repr=False)
 
 
@@ -347,7 +356,8 @@ class FunctionInstance:
 
     GUARDED_FIELDS = {"_compiled": "_lock", "_eager_entries": "_lock", "_active": "_lock",
                       "_batched": "_lock", "_batch_unsupported": "_lock", "_batch_fallbacks": "_lock",
-                      "_pool_bytes": "_lock", "_graph_pool": "_graph_lock"}
+                      "_pool_bytes": "_lock", "_graph_pool": "_graph_lock", "cache_hits": "_lock",
+                      "cache_misses": "_lock", "compile_wall_s": "_lock"}
 
     def __init__(self, specs: dict[str, FunctionSpec], platform):
         with FunctionInstance._counter_lock:
@@ -373,6 +383,22 @@ class FunctionInstance:
         self._active = 0
         self._idle_event = threading.Event()
         self._idle_event.set()
+        # provisioning profile: executable-index hits vs shape-only runs
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.compile_wall_s = 0.0
+        # Content digest of every member's behavior (TraceContext.call inlines
+        # co-located members, so a unit depends on ALL of them) plus the
+        # param-tree structure. None disables the index for this instance —
+        # indexing is an optimization, never a requirement.
+        try:
+            from repro_torch.launch.compile_cache import members_digest
+
+            self._members_digest = members_digest(self.members)
+            self._params_skey = _struct_key(self.params)
+        except Exception:  # pragma: no cover - undigestable spec
+            self._members_digest = None
+            self._params_skey = None
 
     # ----------------------------------------------------------- lifecycle
 
@@ -422,6 +448,11 @@ class FunctionInstance:
                     self._batched = {}
                     break
             self._idle_event.wait(max(0.0, deadline - time.perf_counter()))
+        # the graphs are gone with the entries: forget their pool, as
+        # _drop_graph does, so that nothing here keeps it reserved
+        with self._graph_lock, self._lock:
+            self._graph_pool = None
+            self._pool_bytes = 0
         return _footprint_bytes(params, compiled, pool_bytes)
 
     # ----------------------------------------------------------- compile
@@ -438,13 +469,52 @@ class FunctionInstance:
 
         return run
 
+    def _executable_key(self, kind: str, entry: str, skey: tuple, bucket: int | None = None):
+        """Process-wide executable-index key, or None when indexing is off."""
+        if self._members_digest is None:
+            return None
+        from repro_torch.launch.compile_cache import environment_key
+
+        return (kind, entry, self._members_digest, self._params_skey, skey,
+                bucket, environment_key())
+
+    def _from_index(self, xkey, run: Callable, t0: float) -> CompiledEntry | None:
+        """A compiled entry built from the index's record under ``xkey`` (its
+        ``run`` is this instance's own), or None on a miss."""
+        from repro_torch.launch.compile_cache import EXECUTABLE_INDEX
+
+        rec = EXECUTABLE_INDEX.lookup(xkey)
+        if rec is None:
+            return None
+        entry_obj = CompiledEntry(run, time.perf_counter() - t0, effectful=rec.effectful,
+                                  mutated=rec.mutated, handed_on=rec.handed_on, output_bytes=rec.output_bytes,
+                                  workspace_bytes=rec.workspace_bytes, measured=rec.measured,
+                                  index_key=xkey)
+        with self._lock:
+            self.cache_hits += 1
+        self.platform.note_compile(hit=True, seconds=entry_obj.compile_s, saved_s=rec.compile_s)
+        return entry_obj
+
+    def _to_index(self, ce: CompiledEntry) -> None:
+        """Insert (or, once measured, update) ``ce``'s record in the index;
+        an effectful entry never enters it (its run queues async calls on
+        this platform)."""
+        if ce.effectful or ce.index_key is None:
+            return
+        from repro_torch.launch.compile_cache import EXECUTABLE_INDEX, EntryRecord
+
+        EXECUTABLE_INDEX.insert(ce.index_key, EntryRecord(
+            ce.compile_s, ce.effectful, ce.mutated, ce.handed_on, ce.output_bytes, ce.workspace_bytes,
+            ce.measured))
+
     def get_compiled(self, entry: str, args: tuple) -> CompiledEntry | None:
         """The entry as one unit, or None when it crosses an instance boundary
         synchronously (-> interpreter-glue execution). Decided once per
         argument structure by a shape-only run on meta tensors; that run reads
         no values, so an entry that calls ``.item()`` cannot be a unit. It
         also records the entry's effects (queued async calls) and the
-        arguments it writes in place."""
+        arguments it writes in place. The executable index is asked first:
+        a hit skips the shape-only run."""
         key = (entry, _struct_key(args))
         with self._lock:
             if key in self._eager_entries:
@@ -455,6 +525,13 @@ class FunctionInstance:
         from repro_torch.core.context import BoundaryCall, TraceContext
 
         t0 = time.perf_counter()
+        run = self._entry_callable(entry)
+        xkey = self._executable_key("single", entry, key[1])
+        cached = self._from_index(xkey, run, t0)
+        if cached is not None:
+            with self._lock:
+                self._compiled[key] = cached
+            return cached
         spec = self.members[entry]
         meta_params = _structs_of(self.params)
         meta_args = _structs_of(args)
@@ -473,10 +550,14 @@ class FunctionInstance:
                             if v is not None and x._version != v)
         index = {id(x): i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)}
         handed_on = frozenset(index[id(o)] for o in tree.leaves(out) if id(o) in index)
-        entry_obj = CompiledEntry(self._entry_callable(entry), time.perf_counter() - t0,
-                                  effectful=bool(effects), mutated=mutated, handed_on=handed_on)
+        entry_obj = CompiledEntry(run, time.perf_counter() - t0, effectful=bool(effects),
+                                  mutated=mutated, handed_on=handed_on, index_key=xkey)
         with self._lock:
             self._compiled[key] = entry_obj
+            self.cache_misses += 1
+            self.compile_wall_s += entry_obj.compile_s
+        self._to_index(entry_obj)
+        self.platform.note_compile(hit=False, seconds=entry_obj.compile_s)
         TRACER.note_compile("entries")
         return entry_obj
 
@@ -573,6 +654,7 @@ class FunctionInstance:
             ce.output_bytes = tree_bytes(out)
             ce.workspace_bytes = workspace
             ce.measured = True
+        self._to_index(ce)
         return out, pending
 
     def _capture(self, ce: CompiledEntry, args: tuple):
@@ -655,6 +737,12 @@ class FunctionInstance:
                 out = torch.func.vmap(lambda p, *a: run(p, *a)[0], in_dims=in_dims)(params, *stacked)
                 return out, []
 
+            xkey = self._executable_key("batch", entry, skey, bucket)
+            cached = self._from_index(xkey, batched_run, t0)
+            if cached is not None:
+                with self._lock:
+                    self._batched[key] = cached
+                return cached
             try:  # the port's trace: vmap over meta tensors runs no kernel
                 with torch.no_grad():
                     batched_run(_structs_of(self.params), *_structs_of(stack_requests([args] * bucket)))
@@ -665,9 +753,13 @@ class FunctionInstance:
             with self._lock:
                 self._batch_unsupported[key] = reason
             return None
-        entry_obj = CompiledEntry(batched_run, time.perf_counter() - t0)
+        entry_obj = CompiledEntry(batched_run, time.perf_counter() - t0, index_key=xkey)
         with self._lock:
             self._batched[key] = entry_obj
+            self.cache_misses += 1
+            self.compile_wall_s += entry_obj.compile_s
+        self._to_index(entry_obj)
+        self.platform.note_compile(hit=False, seconds=entry_obj.compile_s)
         TRACER.note_compile("buckets")
         return entry_obj
 
@@ -718,6 +810,18 @@ class FunctionInstance:
         return outs[:k]
 
     # ----------------------------------------------------------- metrics
+
+    def provision_profile(self) -> dict:
+        """How this instance's entries came to exist: executable-index hits
+        vs shape-only runs (and their wall seconds). A fully warm build has
+        ``cache_misses == 0`` — the signal the provisioning stats use to
+        classify a merge or resurrect as warm."""
+        with self._lock:
+            return {
+                "cache_hits": self.cache_hits,
+                "cache_misses": self.cache_misses,
+                "compile_wall_s": round(self.compile_wall_s, 4),
+            }
 
     def resident_bytes(self) -> int:
         """Live footprint of this execution unit: the container runtime

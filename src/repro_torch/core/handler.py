@@ -29,7 +29,7 @@ from repro_torch.core.billing import BillingMeter, InvocationRecord
 from repro_torch.scheduler.clock import SYSTEM_CLOCK
 
 _RECENT_WAITS = 64  # bounded per-edge wait history for the tail estimate
-_RECENT_TS = 256  # bounded per-function timestamp history of direct demand
+_RECENT_TS = 256  # bounded per-function / per-edge timestamp history
 
 
 @dataclasses.dataclass
@@ -39,9 +39,10 @@ class EdgeStats:
     total_wait_s: float = 0.0
 
     def __post_init__(self):
-        # Deliberately NOT a dataclass field: asdict()/replace() snapshots
+        # Deliberately NOT dataclass fields: asdict()/replace() snapshots
         # stay plain scalars (JSON-serializable stats, cheap copies).
         self.recent_waits: list[float] = []
+        self.recent_ts: collections.deque[float] = collections.deque(maxlen=_RECENT_TS)
 
     @property
     def mean_wait_s(self) -> float:
@@ -208,6 +209,7 @@ class FunctionHandler:
                 st.sync_count += 1
                 st.total_wait_s += wait_s
                 st.recent_waits.append(wait_s)
+                st.recent_ts.append(self.clock.now())
                 if len(st.recent_waits) > _RECENT_WAITS:
                     del st.recent_waits[0]
                 notify = True
@@ -215,6 +217,22 @@ class FunctionHandler:
                 st.async_count += 1
         if notify and self.on_fusion_candidate is not None:
             self.on_fusion_candidate(caller, callee)
+
+    def last_activity(self, function: str) -> float | None:
+        """Most recent timestamp this function saw ANY traffic: direct
+        external demand or an inbound synchronous dispatch. None if it has
+        never been called — the idle-park tick treats never-invoked functions
+        by their deploy time instead."""
+        with self._lock:
+            last: float | None = None
+            recent = self._recent_calls.get(function)
+            if recent:
+                last = recent[-1]
+            for (caller, callee), st in self.edges.items():
+                if callee == function and st.recent_ts:
+                    t = st.recent_ts[-1]
+                    last = t if last is None else max(last, t)
+            return last
 
     def stats(self) -> dict:
         with self._lock:

@@ -36,6 +36,22 @@ class MergeEvent:
     # the billing meter, so tests can account for merge traffic exactly.
     checked_members: tuple[str, ...] = ()
     epoch: int = 0  # routing epoch this merge published (0: never swapped)
+    # True when every entry the merged unit's health check built came from
+    # the executable index (no shape-only run) — the restore-not-rebuild
+    # signal. None: unknown (unhealthy merges abort before the profile is read).
+    warm: bool | None = None
+
+
+@dataclasses.dataclass
+class GroupRecord:
+    """Control-plane memory of one committed fusion group: the instance
+    serving it, so that a park of that instance can dissolve the group."""
+
+    members: frozenset[str]
+    instance: FunctionInstance
+    committed_t: float
+    epoch: int
+    warm: bool = False
 
 
 def _allclose_tree(a, b, rtol: float, atol: float) -> bool:
@@ -61,6 +77,7 @@ class Merger:
     # provlint: merge_log is an append-only observability list read after
     # quiesce; the operational state below is lock-guarded.
     GUARDED_FIELDS = {
+        "_groups": "_lock",
         "_inflight": "_lock",
         "_quarantined": "_lock",
         "_failed_groups": "_lock",
@@ -86,6 +103,7 @@ class Merger:
         self.health_atol = health_atol
         self.async_build = async_build
         self.merge_log: list[MergeEvent] = []
+        self._groups: dict[frozenset[str], GroupRecord] = {}
         self._inflight: set[tuple[str, str]] = set()
         # Edges/groups whose merged unit FAILED its health check. The merged
         # unit is a pure function of the specs, so retrying without a code
@@ -192,14 +210,40 @@ class Merger:
             self.policy.commit(caller, callee)
             build_s = self._clock.now() - t0
             self.policy.feedback_merge_cost(build_s)
-            # always cold: the port has no executable index yet
-            platform.note_provisioning("merge", build_s, warm=False, functions=tuple(sorted(group)),
+            # Warm iff the canary warm-up above ran NO shape-only run — every
+            # entry came out of the executable index. A re-merge of a
+            # previously-seen group reads warm; the first merge of this
+            # shape reads cold.
+            profile = merged.provision_profile()
+            warm = profile["cache_misses"] == 0 and profile["cache_hits"] > 0
+            with self._lock:
+                # the new group subsumes any committed subgroup's record (its
+                # instance was displaced by this very publish)
+                for members in [k for k in self._groups if k <= frozenset(group)]:
+                    del self._groups[members]
+                self._groups[frozenset(group)] = GroupRecord(
+                    members=frozenset(group), instance=merged,
+                    committed_t=self._clock.now(), epoch=event.epoch, warm=warm)
+            platform.note_provisioning("merge", build_s, warm=warm, functions=tuple(sorted(group)),
                                        resident_bytes=merged.resident_bytes())
             merge_event = MergeEvent(
                 self._clock.now(), tuple(sorted(group)), event.freed_bytes, build_s, True,
-                checked_members=tuple(checked), epoch=event.epoch)
+                checked_members=tuple(checked), epoch=event.epoch, warm=warm)
             self.merge_log.append(merge_event)
             self._trace_outcome("merge", merge_event)
         finally:
             with self._lock:
                 self._inflight.discard((caller, callee))
+
+    def forget_instance(self, instance: FunctionInstance) -> None:
+        """Drop the committed-group record backing ``instance`` (a
+        scale-to-zero park retired it). Members resurrect as SINGLETON units,
+        so the policy's group state must dissolve too, and the first hot
+        edge after resurrect is free to re-fuse at once."""
+        members = frozenset(instance.members)
+        with self._lock:
+            rec = self._groups.get(members)
+            if rec is not None and rec.instance is instance:
+                del self._groups[members]
+        if len(members) >= 2:
+            self.policy.dissolve([frozenset([m]) for m in members])

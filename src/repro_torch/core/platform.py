@@ -8,6 +8,15 @@ Two external invocation paths, as in the JAX package:
   concurrent compatible requests into micro-batches that run as one
   batched program (``FunctionInstance.execute_batch``).
 
+With ``enable_snapshots`` (or ``snapshot_dir=``) the platform gains
+scale-to-zero: ``scale_to_zero(name)`` snapshots an instance's weights into
+the content-addressed :class:`~repro_torch.checkpointing.SnapshotStore` and
+unroutes it (a "park" epoch); the next invoke resurrects it — restore from
+the snapshot to each leaf's own device, health check on the captured canary,
+publish — and its entries come from the executable index when they were
+seen before. ``idle_park_s > 0`` parks instances from the reconciler tick
+once every member has been idle that long.
+
 :class:`TinyTorchBackend` is the tinyFaaS analogue and the counterpart of
 the JAX package's ``TinyJaxBackend``: a minimal in-process dispatcher.
 Invocations execute in the calling thread; routing is a dict lookup; async
@@ -16,13 +25,17 @@ control plane and billing meter are backend-agnostic, as the paper shows.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core.billing import BillingMeter, ProvisioningRecord
 from repro_torch.core.context import AbstractContext
 from repro_torch.core.errors import DeploymentError, InvocationError, UnknownFunctionError
@@ -39,19 +52,46 @@ from repro_torch.scheduler.scheduler import RequestScheduler
 from repro_torch.scheduler.slo import SLOClass
 
 
+@dataclasses.dataclass
+class _ParkedFunction:
+    """Scale-to-zero residue of one function: a params-free spec stub plus
+    the snapshot address to resurrect from. While parked the function holds
+    NO live weights or programs — and generates no billing records.
+    ``devices``: each leaf's device (a meta tensor has none), so that a leaf
+    that lived on the card is restored there and nowhere else."""
+
+    spec: FunctionSpec        # params=None stub (behavior only)
+    digest: str               # SnapshotStore content address of the params
+    like: Any                 # meta-tensor tree for restore()
+    devices: Any              # the same tree of device names
+    parked_t: float
+
+
 class ProvusePlatform:
     """Base platform: ``invoke`` (serial) and ``invoke_async`` (scheduled,
-    micro-batched)."""
+    micro-batched); with snapshots, ``scale_to_zero`` and resurrect."""
 
     backend_name = "base"
 
-    GUARDED_FIELDS = {"_pending_candidates": "_pending_lock"}
+    GUARDED_FIELDS = {
+        "_pending_candidates": "_pending_lock",
+        "_parked": "_parked_lock",
+        "_resurrecting": "_parked_lock",
+        "_deployed_at": "_parked_lock",
+        "_prov_records": "_prov_lock",
+        "_resurrect_parts": "_prov_lock",
+        "_compile_hits": "_prov_lock",
+        "_compile_misses": "_prov_lock",
+        "_compile_saved_s": "_prov_lock",
+        "_compile_spent_s": "_prov_lock",
+    }
 
     def __init__(self, policy: FusionPolicy | None = None, *, async_build: bool = False,
                  health_rtol: float = 2e-2, health_atol: float = 1e-2,
                  max_batch: int = 8, max_delay_ms: float = 2.0,
                  adaptive: bool = False, adaptive_config=None,
-                 be_shed_depth: int | None = None, clock=None, tracing: bool = True):
+                 be_shed_depth: int | None = None, snapshot_dir: str | None = None,
+                 idle_park_s: float = 0.0, clock=None, tracing: bool = True):
         self.clock = clock or SYSTEM_CLOCK
         # Always-on causal tracing: every entry point mints a SpanContext,
         # every phase lands in the tracer's flight recorder, and the
@@ -67,8 +107,9 @@ class ProvusePlatform:
             self.policy.cost_model = self.edge_costs
         self.handler = FunctionHandler(self.meter, on_fusion_candidate=self._on_candidate,
                                        clock=self.clock, tracer=self.tracer)
-        # Control plane: every deploy/merge/redeploy is an epoch transition
-        # published through here.
+        # Control plane: every deploy/merge/redeploy/park/resurrect is an
+        # epoch transition published through here; the reconciler thread
+        # (started lazily) runs the idle-park tick.
         self.lifecycle = ControlPlane(self, self.registry, clock=self.clock)
         self.merger = Merger(self, self.policy, async_build=async_build,
                              health_rtol=health_rtol, health_atol=health_atol)
@@ -90,6 +131,22 @@ class ProvusePlatform:
         self._pending_candidates: list[tuple[str, str]] = []
         self._pending_lock = threading.Lock()
         self._draining = threading.Lock()
+        # --- warm provisioning / scale-to-zero state ---
+        self.snapshots = None  # SnapshotStore once enable_snapshots() runs
+        self._idle_park_s = 0.0
+        self._parked: dict[str, _ParkedFunction] = {}
+        self._resurrecting: dict[str, tuple[threading.Thread, threading.Event]] = {}
+        self._deployed_at: dict[str, float] = {}
+        self._parked_lock = threading.Lock()
+        self._prov_records: list = []
+        self._resurrect_parts: collections.deque[dict] = collections.deque(maxlen=32)
+        self._compile_hits = 0
+        self._compile_misses = 0
+        self._compile_saved_s = 0.0
+        self._compile_spent_s = 0.0
+        self._prov_lock = threading.Lock()
+        if snapshot_dir is not None:
+            self.enable_snapshots(snapshot_dir, idle_park_s=idle_park_s)
 
     # ------------------------------------------------------------- deploy
 
@@ -101,6 +158,8 @@ class ProvusePlatform:
         self.attach_instance(instance)
         instance.mark_ready()
         self.lifecycle.publish({spec.name: instance}, kind="deploy", reason="deploy")
+        with self._parked_lock:
+            self._deployed_at[spec.name] = self.clock.now()
         return instance
 
     def spec_of(self, name: str) -> FunctionSpec:
@@ -109,12 +168,286 @@ class ProvusePlatform:
         except KeyError:
             raise UnknownFunctionError(name) from None
 
+    # ------------------------------------- scale-to-zero / warm provisioning
+
+    def enable_snapshots(self, directory: str, *, idle_park_s: float = 0.0,
+                         retain: int = 0):
+        """Turn on instance snapshots (warm-provisioning level 2) backed by a
+        :class:`SnapshotStore` at ``directory``. ``idle_park_s > 0`` also
+        registers a reconciler tick hook that parks instances whose members
+        have ALL been idle at least that long (scale-to-zero)."""
+        from repro_torch.checkpointing import SnapshotStore
+
+        self.snapshots = SnapshotStore(directory, retain=retain, clock=self.clock)
+        self._idle_park_s = float(idle_park_s)
+        if self._idle_park_s > 0:
+            self.lifecycle.add_tick_hook(self._idle_park_tick)
+        return self.snapshots
+
+    def scale_to_zero(self, name: str, *, idle_since: float | None = None) -> tuple[str, ...]:
+        """Park the instance serving ``name``: snapshot every member's
+        weights (content-addressed — identical weights store once), release
+        the live spec params, and unroute via a "park" epoch. The functions
+        stop resolving and stop billing; the next invoke resurrects them.
+        Returns the parked names (empty if nothing was routed here).
+
+        ``idle_since`` (the idle tick's judgement time): the park is dropped
+        if a member saw traffic after it, checked once the snapshots are
+        written, which takes seconds on the card (a port-only check; the
+        written snapshots stay, and the next park of the same weights is a
+        dedup)."""
+        if self.snapshots is None:
+            raise RuntimeError("scale_to_zero requires enable_snapshots(...)")
+        inst = self.registry.get(name)
+        if inst is None:
+            return ()
+        t0 = self.clock.now()
+        members = tuple(sorted(
+            m for m in inst.members if self.registry.get(m) is inst
+        ))
+        if not members:
+            return ()
+        recs: dict[str, _ParkedFunction] = {}
+        live_specs: dict[str, FunctionSpec] = {}
+        for m in members:
+            spec = self.spec_of(m)
+            recs[m] = _ParkedFunction(
+                spec=dataclasses.replace(spec, params=None),
+                digest=self.snapshots.put(spec.params),
+                like=_structs_of(spec.params),
+                devices=tree.map(lambda x: str(x.device), spec.params),
+                parked_t=t0,
+            )
+            live_specs[m] = spec
+        if idle_since is not None and any(
+                (t := self.handler.last_activity(m)) is not None and t > idle_since for m in members):
+            return ()
+        with self._parked_lock:
+            if any(m in self._parked for m in members):
+                # a concurrent park of this instance won (e.g. the idle tick
+                # racing an explicit scale_to_zero) — claiming is atomic with
+                # this check, so exactly one caller installs the park state
+                return ()
+            for m in members:
+                self._parked[m] = recs[m]
+                # drop the live param references: the snapshot is now the
+                # only copy, so the weights' memory actually frees when the
+                # instance retires below
+                self._specs[m] = recs[m].spec
+        event = self.lifecycle.park(inst, reason=f"scale-to-zero {'+'.join(members)}")
+        if event is None:
+            # a publish raced the park (redeploy/merge rerouted the names):
+            # the functions are still live — undo the bookkeeping
+            with self._parked_lock:
+                for m in members:
+                    self._parked.pop(m, None)
+                    self._specs[m] = live_specs[m]
+            return ()
+        # a parked fused group must not leave "committed" policy edges
+        # behind, or the resurrected singletons could never re-merge
+        self.merger.forget_instance(inst)
+        self.note_provisioning("park", self.clock.now() - t0, warm=True,
+                               functions=members)
+        return members
+
+    def _ensure_live(self, name: str) -> None:
+        """Data-path gate: if ``name`` is parked, resurrect it (one thread
+        does the work, the rest wait on its event). No-op for live names —
+        one dict lookup under a short lock."""
+        if self.snapshots is None:
+            return
+        while True:
+            with self._parked_lock:
+                rec = self._parked.get(name)
+                waiter = self._resurrecting.get(name)
+                if waiter is not None and waiter[0] is threading.current_thread():
+                    # re-entrant: the resurrect's own canary health check
+                    # dispatches through the data path
+                    return
+                if rec is None and waiter is None:
+                    return  # live
+                if rec is not None and waiter is None:
+                    ev = threading.Event()
+                    self._resurrecting[name] = (threading.current_thread(), ev)
+                    break  # we own the resurrect
+                ev = waiter[1]
+            ev.wait(60.0)  # owner finished (or failed) -> re-check
+        try:
+            self._resurrect(name)
+        finally:
+            with self._parked_lock:
+                self._resurrecting.pop(name, None)
+            ev.set()
+
+    def _resurrect(self, name: str) -> None:
+        """PROVISIONING fast path: restore(snapshot) -> health-check on the
+        captured canary -> publish. The restored params are digest-verified
+        bit-exact, and the entries normally come from the executable index.
+
+        When a request trace is active (the data-path gate resurrecting on
+        the invoke path), the whole restore is a "cold-provision" span in
+        that trace — the canary execute nests under it, not beside it."""
+        t0 = self.clock.now()
+        cur = self.tracer.current()
+        if cur is None:
+            self._resurrect_impl(name, t0)
+            return
+        ctx, parent = cur
+        sid = ctx.alloc_id()
+        try:
+            with self.tracer.activate(ctx, sid):
+                self._resurrect_impl(name, t0)
+        finally:
+            ctx.emit(f"resurrect:{name}", "cold-provision", t0,
+                     self.clock.now(), parent_id=parent, span_id=sid,
+                     args={"function": name})
+
+    def _resurrect_impl(self, name: str, t0: float) -> None:
+        """Restore, health check, publish, and a billed ``resurrect`` record.
+        An integrity error or a failing health check propagates: the
+        function stays parked. Its seconds by part (host wall clock: the
+        restore with the instance's construction, and within it reading,
+        hashing and copying the snapshot to the device; the health check;
+        the publish) land in ``provisioning_stats()["resurrects"]``; an
+        unfused chain's health check runs the chain below it, so it holds
+        the resurrects of the members below."""
+        with self._parked_lock:
+            rec = self._parked[name]
+        parts: dict = {}
+        w0 = time.perf_counter()
+        params = self.snapshots.restore(rec.digest, rec.like, devices=rec.devices, parts=parts)
+        spec = dataclasses.replace(rec.spec, params=params)
+        inst = FunctionInstance({name: spec}, self)
+        self.attach_instance(inst)
+        w1 = time.perf_counter()
+        canary = self.handler.canary(name)
+        if canary is not None:
+            inst.execute(name, canary)  # health check before routing
+        w2 = time.perf_counter()
+        inst.mark_ready()
+        self._specs[name] = spec
+        self.lifecycle.publish({name: inst}, kind="resurrect",
+                               reason=f"resurrect {name}")
+        with self._parked_lock:
+            self._parked.pop(name, None)
+            self._deployed_at[name] = self.clock.now()
+        w3 = time.perf_counter()
+        profile = inst.provision_profile()
+        warm = profile["cache_misses"] == 0
+        with self._prov_lock:
+            self._resurrect_parts.append({
+                "function": name, "warm": warm, "wall_s": w3 - w0, "restore_s": w1 - w0, **parts,
+                "health_s": w2 - w1, "publish_s": w3 - w2})
+        self.note_provisioning(
+            "resurrect", self.clock.now() - t0, warm=warm,
+            functions=(name,), resident_bytes=inst.resident_bytes(),
+            billed=True,  # restore time IS billed; parked idle time was not
+        )
+
+    def _idle_park_tick(self) -> None:
+        """Reconciler tick hook: scale-to-zero instances whose members have
+        all been idle >= idle_park_s. A member ages from its last activity or
+        from its last deploy or resurrect, whichever is later (the JAX
+        package reads the deploy time only for never-invoked members, so a
+        resurrected member whose last request came before its park is parked
+        again by the next tick, before the request that resurrected it
+        reaches it). The tick takes the platform's merge lock: it skips a
+        tick while fusion candidates are being merged (a park then would
+        take a spec from under the merge building it), and no merge starts
+        while it parks."""
+        if self.snapshots is None or self._idle_park_s <= 0:
+            return
+        if not self._draining.acquire(blocking=False):
+            return
+        try:
+            now = self.clock.now()
+            for inst in self.registry.live_instances():
+                members = sorted(inst.members)
+                idle = True
+                for m in members:
+                    last = self.handler.last_activity(m)
+                    with self._parked_lock:
+                        deployed = self._deployed_at.get(m, now)
+                    if last is None or last < deployed:
+                        last = deployed
+                    if now - last < self._idle_park_s:
+                        idle = False
+                        break
+                if idle:
+                    try:
+                        self.scale_to_zero(members[0], idle_since=now)
+                    except Exception:  # noqa: BLE001 — a failed park must not
+                        pass  # kill the reconciler; the instance stays live
+        finally:
+            self._draining.release()
+
+    def note_compile(self, *, hit: bool, seconds: float, saved_s: float = 0.0) -> None:
+        """FunctionInstance callback: one compiled entry came into being (an
+        executable-index hit or a shape-only run). Feeds
+        ``stats()["provisioning"]``."""
+        with self._prov_lock:
+            if hit:
+                self._compile_hits += 1
+                self._compile_saved_s += saved_s
+            else:
+                self._compile_misses += 1
+                self._compile_spent_s += seconds
+
+    def provisioning_stats(self) -> dict:
+        """Warm/cold provisioning latency aggregates + executable-index and
+        snapshot-store counters — ``stats()["provisioning"]``."""
+        from repro_torch.launch.compile_cache import EXECUTABLE_INDEX
+
+        with self._prov_lock:
+            records = list(self._prov_records)
+            resurrects = list(self._resurrect_parts)
+            compile_cache = {
+                "hits": self._compile_hits,
+                "misses": self._compile_misses,
+                "saved_s": round(self._compile_saved_s, 4),
+                "spent_s": round(self._compile_spent_s, 4),
+            }
+        builds = [r for r in records if r.kind != "park"]
+        warm = [r for r in builds if r.warm]
+        cold = [r for r in builds if not r.warm]
+        warm_mean = sum(r.seconds for r in warm) / len(warm) if warm else 0.0
+        cold_mean = sum(r.seconds for r in cold) / len(cold) if cold else 0.0
+        counts: dict[str, int] = {}
+        for r in records:
+            counts[r.kind] = counts.get(r.kind, 0) + 1
+        with self._parked_lock:
+            parked = sorted(self._parked)
+        out = {
+            "counts": counts,
+            "warm": len(warm),
+            "cold": len(cold),
+            "warm_mean_s": round(warm_mean, 4),
+            "cold_mean_s": round(cold_mean, 4),
+            "warm_speedup": (
+                round(cold_mean / warm_mean, 2) if warm and cold and warm_mean > 0
+                else None
+            ),
+            "compile_cache": compile_cache,
+            "executable_index": EXECUTABLE_INDEX.stats(),
+            "parked": parked,
+            "events": [
+                {"kind": r.kind, "functions": list(r.functions),
+                 "seconds": round(r.seconds, 4), "warm": r.warm, "billed": r.billed}
+                for r in records[-32:]
+            ],
+            "resurrects": resurrects,
+        }
+        if self.snapshots is not None:
+            out["snapshots"] = self.snapshots.stats()
+        return out
+
     # ------------------------------------------------------------- shapes
 
     def output_structs(self, name: str, args: tuple):
         """Output signature (meta tensors) of ``name`` called with ``args``'s
         shapes and dtypes — computed by running the function on meta
         tensors, nested calls resolved recursively; nothing is executed."""
+        self._ensure_live(name)  # a parked spec is a params-free stub
         key = (name, _struct_key(args))
         with self._shape_lock:
             if key in self._shape_cache:
@@ -202,8 +535,15 @@ class ProvusePlatform:
         """Serial dispatch with swap-race recovery. Also the Merger's canary
         replay path — no latency observation here, so control-plane traffic
         never pollutes the external latency percentiles."""
+        self._ensure_live(name)
         try:
             try:
+                return self._dispatch_sync(name, args)
+            except UnknownFunctionError:
+                # raced a scale-to-zero park: the route vanished between
+                # _ensure_live and resolve — resurrect and retry (a truly
+                # unknown name stays unknown and re-raises)
+                self._ensure_live(name)
                 return self._dispatch_sync(name, args)
             except InvocationError:
                 # A request can race a merge swap: it resolved the old
@@ -258,8 +598,12 @@ class ProvusePlatform:
 
     def _dispatch_batch(self, name: str, args_list: list[tuple]) -> list:
         """Scheduler callback: execute one coalesced batch."""
+        self._ensure_live(name)
         try:
             try:
+                return self._dispatch_batch_impl(name, args_list)
+            except UnknownFunctionError:
+                self._ensure_live(name)  # raced a park — resurrect and retry
                 return self._dispatch_batch_impl(name, args_list)
             except InvocationError:
                 try:  # routing may have swapped mid-flight (see invoke)
@@ -271,6 +615,14 @@ class ProvusePlatform:
             self._drain_candidates()
 
     def _redeploy(self, name: str) -> None:
+        if self.snapshots is not None:
+            with self._parked_lock:
+                parked = name in self._parked
+            if parked:
+                # a parked spec is a params-free stub — resurrect instead of
+                # rebuilding from it
+                self._ensure_live(name)
+                return
         spec = self.spec_of(name)
         fresh = FunctionInstance({name: spec}, self)
         self.attach_instance(fresh)
@@ -289,9 +641,14 @@ class ProvusePlatform:
         # the fusion policy weighs instead of its static knobs.
         cur = self.tracer.current()
         sid = cur[0].alloc_id() if cur is not None else None
+        self._ensure_live(callee)
         t0 = self.clock.now()
         with self.tracer.activate(cur[0] if cur else None, sid or 1):
-            out = self._dispatch_sync(callee, args)
+            try:
+                out = self._dispatch_sync(callee, args)
+            except UnknownFunctionError:
+                self._ensure_live(callee)  # raced a park — resurrect and retry
+                out = self._dispatch_sync(callee, args)
         wait = self.clock.now() - t0
         if cur is not None:
             cur[0].emit(f"{caller_fn}->{callee}", "cross-function-sync",
@@ -309,15 +666,20 @@ class ProvusePlatform:
     # ------------------------------------------------------------- metrics
 
     def note_provisioning(self, kind: str, seconds: float, *, warm: bool,
-                          functions=(), resident_bytes: int = 0) -> None:
-        """Record one provisioning transition (here: a merge) with its
-        warm-vs-cold classification on the billing meter, as a span ending
-        now on the control-plane timeline, and — for a merge — as a sample
-        of the measured merge stall the policy's cost model weighs."""
+                          functions=(), resident_bytes: int = 0,
+                          billed: bool = False) -> None:
+        """Record one provisioning transition (merge/park/resurrect) with its
+        warm-vs-cold classification on the billing meter (billed records —
+        a resurrect's restore time — are billed; a park's idle time is not),
+        as a span ending now on the control-plane timeline, and — for a
+        merge — as a sample of the measured merge stall the policy's cost
+        model weighs."""
         rec = ProvisioningRecord(
             kind=kind, functions=tuple(functions), seconds=float(seconds),
-            resident_bytes=int(resident_bytes), warm=bool(warm),
+            resident_bytes=int(resident_bytes), warm=bool(warm), billed=bool(billed),
         )
+        with self._prov_lock:
+            self._prov_records.append(rec)
         self.meter.record_provisioning(rec)
         t1 = self.clock.now()
         self.tracer.control_span(
@@ -348,10 +710,12 @@ class ProvusePlatform:
                     "healthy": e.healthy,
                     "epoch": e.epoch,
                     "reason": e.reason,
+                    "warm": e.warm,
                 }
                 for e in self.merger.merge_log
             ],
             "lifecycle": self.lifecycle.stats(),
+            "provisioning": self.provisioning_stats(),
             "billing": meter_snap["billing"],
             "latency": meter_snap["latency"],
             "scheduler": self.scheduler.stats(),
@@ -377,6 +741,7 @@ class ProvusePlatform:
 
     def shutdown(self) -> None:
         self.merger.wait_idle()
+        self.lifecycle.shutdown()
         self.scheduler.shutdown()
 
 

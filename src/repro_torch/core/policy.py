@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 from repro_torch.scheduler.adaptive import SchedulerSignals
 from repro_torch.scheduler.clock import SYSTEM_CLOCK
@@ -44,6 +44,16 @@ class UnionFind:
     def group(self, x: str) -> frozenset[str]:
         root = self.find(x)
         return frozenset(m for m in self._parent if self.find(m) == root)
+
+    def split_cells(self, cells: Iterable[frozenset[str]]) -> None:
+        """Dissolve one group into the given partition cells: members of a
+        cell stay unioned with each other and disconnected from every other
+        cell. Only valid when the cells' union is a complete group (no
+        outside member roots through it)."""
+        for cell in cells:
+            root = min(cell)
+            for member in cell:
+                self._parent[member] = root
 
 
 @dataclasses.dataclass
@@ -205,3 +215,19 @@ class FusionPolicy:
             self._fused_edges.add((caller, callee))
             self.groups.union(caller, callee)
             return self.groups.group(caller)
+
+    def dissolve(self, cells: Iterable[frozenset[str]]) -> None:
+        """Un-commit a fused group along the given partition: fused edges
+        crossing cells are forgotten and the union-find group dissolves into
+        the cells. The reference's re-merge backoff (fission hysteresis)
+        waits for fission, its only caller with a non-zero window; a park
+        dissolves with none."""
+        cells = [frozenset(c) for c in cells]
+        cell_of = {m: i for i, cell in enumerate(cells) for m in cell}
+        with self._lock:
+            self._fused_edges = {
+                (a, b)
+                for (a, b) in self._fused_edges
+                if not (a in cell_of and b in cell_of and cell_of[a] != cell_of[b])
+            }
+            self.groups.split_cells(cells)

@@ -15,7 +15,7 @@ the same critical section that removed its last route.
 from __future__ import annotations
 
 import threading
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Iterable
 
 from repro_torch.core.errors import UnknownFunctionError
 
@@ -55,6 +55,28 @@ class RoutingTable:
             if changed:
                 self.version += 1
             return old
+
+    def unpublish(self, names: Iterable[str]) -> dict[str, tuple["FunctionInstance", ...]]:
+        """Atomically remove routes (scale-to-zero park): the names simply
+        stop resolving. Returns the removed replica tuples; ``version`` bumps
+        once iff something was actually routed."""
+        with self._lock:
+            removed: dict[str, tuple["FunctionInstance", ...]] = {}
+            for name in names:
+                replicas = self._routes.pop(name, ())
+                if replicas:
+                    removed[name] = replicas
+            if removed:
+                self.version += 1
+            return removed
+
+    def get(self, name: str) -> "FunctionInstance | None":
+        """The instance routed for ``name``, or None. This is the identity
+        the control plane's park and the platform's scale-to-zero compare
+        against."""
+        with self._lock:
+            replicas = self._routes.get(name)
+            return replicas[0] if replicas else None
 
     def resolve(self, name: str) -> "FunctionInstance":
         with self._lock:

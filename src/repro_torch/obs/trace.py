@@ -20,13 +20,17 @@ record depends on wall time, thread identity, or object ids, so a same-seed
 
 Hot-path cost: recording a span is one append to the *calling thread's*
 bounded ring buffer behind that buffer's own (uncontended) lock; overflow
-drops the oldest record and bumps a drop counter.  The recorder never
-blocks the request path on a reader — ``snapshot()`` copies buffers one at
-a time.
+drops the oldest record and bumps a drop counter.  The contexts append a
+record's fields as a plain tuple, and ``snapshot()`` builds the
+:class:`SpanRecord` objects: building a frozen dataclass costs several
+times an append, and most records are overwritten before anyone reads
+them.  The recorder never blocks the request path on a reader —
+``snapshot()`` copies buffers one at a time.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 from contextlib import contextmanager
 
@@ -83,12 +87,12 @@ class _ThreadBuffer:
     def __init__(self, capacity: int):
         self._lock = threading.Lock()
         self.capacity = capacity
-        self.items: list[SpanRecord] = []
+        self.items: list = []  # SpanRecords, or their fields as tuples
         self.dropped = 0
         #: ring cursor: index of the oldest record once the buffer wrapped
         self._head = 0
 
-    def append(self, rec: SpanRecord) -> None:
+    def append(self, rec) -> None:
         with self._lock:
             if len(self.items) < self.capacity:
                 self.items.append(rec)
@@ -100,7 +104,8 @@ class _ThreadBuffer:
     def snapshot(self) -> tuple[list[SpanRecord], int]:
         with self._lock:
             ordered = self.items[self._head:] + self.items[: self._head]
-            return ordered, self.dropped
+            dropped = self.dropped
+        return [SpanRecord(*r) if type(r) is tuple else r for r in ordered], dropped
 
     def clear(self) -> None:
         with self._lock:
@@ -125,7 +130,9 @@ class FlightRecorder:
         self._buffers: list[_ThreadBuffer] = []
         self._tls = threading.local()
 
-    def append(self, rec: SpanRecord) -> None:
+    def append(self, rec) -> None:
+        """Record ``rec``: a :class:`SpanRecord`, or its fields as a tuple
+        (built into one when read)."""
         buf = getattr(self._tls, "buf", None)
         if buf is None:
             buf = _ThreadBuffer(self.capacity_per_thread)
@@ -188,10 +195,10 @@ class SpanContext:
     thread never collides.
     """
 
-    GUARDED_FIELDS = {"_next_id": "_lock", "_finished": "_lock"}
+    GUARDED_FIELDS = {"_finished": "_lock"}
 
     __slots__ = ("tracer", "trace_id", "name", "kind", "t0", "attrs",
-                 "_lock", "_next_id", "_finished")
+                 "_lock", "_ids", "_finished")
 
     def __init__(self, tracer: "Tracer", trace_id: int, name: str,
                  kind: str, t0: float, attrs: dict | None = None):
@@ -202,13 +209,13 @@ class SpanContext:
         self.t0 = t0
         self.attrs = attrs
         self._lock = threading.Lock()
-        self._next_id = _ROOT_SPAN_ID
+        # span ids: one C-level counter, whose next() cannot be interleaved
+        # under the interpreter lock (no lock of ours to contend for)
+        self._ids = itertools.count(_ROOT_SPAN_ID + 1)
         self._finished = False
 
     def alloc_id(self) -> int:
-        with self._lock:
-            self._next_id += 1
-            return self._next_id
+        return next(self._ids)
 
     def emit(self, name: str, cat: str, t0: float, t1: float, *,
              parent_id: int = _ROOT_SPAN_ID, span_id: int | None = None,
@@ -217,7 +224,7 @@ class SpanContext:
         Pass a pre-allocated ``span_id`` (from :meth:`alloc_id`) when
         children were minted under it while it was still open."""
         sid = self.alloc_id() if span_id is None else span_id
-        self.tracer.recorder.append(SpanRecord(
+        self.tracer.recorder.append((
             self.trace_id, sid, parent_id, name, cat,
             float(t0), float(max(t0, t1)), "X", args))
         return sid
@@ -227,7 +234,7 @@ class SpanContext:
         """Instant (zero-duration) marker; ignored by attribution."""
         if t is None:
             t = self.tracer.clock.now()
-        self.tracer.recorder.append(SpanRecord(
+        self.tracer.recorder.append((
             self.trace_id, self.alloc_id(), parent_id, name, "event",
             float(t), float(t), "i", args))
 
@@ -244,7 +251,7 @@ class SpanContext:
         merged = dict(self.attrs or {})
         if args:
             merged.update(args)
-        self.tracer.recorder.append(SpanRecord(
+        self.tracer.recorder.append((
             self.trace_id, _ROOT_SPAN_ID, 0, self.name, self.kind,
             float(self.t0), float(max(self.t0, t1)), "X", merged or None))
 
@@ -304,15 +311,15 @@ class Tracer:
     span context per thread so nested instrumentation (handler enters,
     remote calls, resurrects) parents itself correctly."""
 
-    GUARDED_FIELDS = {"_next_trace": "_lock"}
 
     def __init__(self, clock=None, *, capacity_per_thread: int = 8192,
                  enabled: bool = True):
         self.clock = clock if clock is not None else SYSTEM_CLOCK
         self.recorder = FlightRecorder(capacity_per_thread)
         self.enabled = bool(enabled)
-        self._lock = threading.Lock()
-        self._next_trace = CONTROL_TRACE_ID
+        # trace ids in minting order, from a C-level counter: client threads
+        # minting at once never queue on a lock of ours
+        self._trace_ids = itertools.count(CONTROL_TRACE_ID + 1)
         self._tls = threading.local()
         #: platform-wide timeline for merge/split/park/scale events
         self.control = SpanContext(self, CONTROL_TRACE_ID,
@@ -327,9 +334,7 @@ class Tracer:
         when tracing is disabled — callers guard every touch on that."""
         if not self.enabled:
             return None
-        with self._lock:
-            self._next_trace += 1
-            tid = self._next_trace
+        tid = next(self._trace_ids)
         if t0 is None:
             t0 = self.clock.now()
         return SpanContext(self, tid, name, kind, float(t0), attrs)

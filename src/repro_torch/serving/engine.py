@@ -118,7 +118,7 @@ class ServingEngine:
         self.platform = platform
         self.max_len = max_len
         self.device = resolve_device(device)
-        self.params = params if params is not None else model.init(seed, device=self.device)
+        self._params = params if params is not None else model.init(seed, device=self.device)
         self.prefix = self.cfg.name
         self.trust = trust_domain or self.cfg.name
         self.entry = f"{self.prefix}/embed"
@@ -129,6 +129,17 @@ class ServingEngine:
             self._deploy_blocks_chain()
         if kv_pages:
             self.enable_paging(kv_pages, kv_page_size)
+
+    @property
+    def params(self):
+        """The model's weights as deployed. Released by :meth:`scale_to_zero`:
+        the stages' params are views of these tensors, so the engine must let
+        go of them for a park to free the device memory."""
+        if self._params is None:
+            raise RuntimeError(
+                f"{self.prefix}: the engine's params were released by scale_to_zero; "
+                "each stage's weights live in its (parked or resurrected) function")
+        return self._params
 
     # ------------------------------------------------------------ chain
 
@@ -246,6 +257,29 @@ class ServingEngine:
         if self.cfg.family == "hybrid":
             return [self.entry, f"{self.prefix}/core", f"{self.prefix}/head"]
         return [self.entry, *self.group_names, f"{self.prefix}/head"]
+
+    def scale_to_zero(self) -> tuple[str, ...]:
+        """Park the whole serving chain as snapshots (the platform must have
+        snapshots enabled). Idle models stop paying for resident params; the
+        next prefill/decode resurrects the chain from its snapshots. Returns
+        the parked function names.
+
+        Unlike the JAX package, the engine also releases its own ``params``:
+        a stage's weights are views of the engine's stacked tensors (a torch
+        slice is a view where a JAX slice is a copy), so the device frees a
+        stacked tensor only once nothing holds it — the engine, and every
+        stage that views it, parked. A later read of ``engine.params``
+        raises. ``ram_bytes()`` still bills per instance, as the reference
+        does (with the tied table once per stage that holds it)."""
+        parked: list[str] = []
+        for name in self.chain_names():
+            if name in parked:
+                continue  # co-parked as a member of an earlier fused group
+            if self.platform.registry.get(name) is None:
+                continue  # already parked (or never routed)
+            parked.extend(self.platform.scale_to_zero(name))
+        self._params = None
+        return tuple(parked)
 
     # ------------------------------------------------------------ caches
 

@@ -354,6 +354,44 @@ def test_a_dropped_last_graph_takes_the_pool_with_it(monkeypatch):
         p.shutdown()
 
 
+def test_a_retired_instance_forgets_its_pool_and_a_resurrect_binds_the_restored_params(monkeypatch, tmp_path):
+    """``retire`` drops the graphs with the entries and forgets their pool,
+    as dropping the last graph does; a resurrected instance captures into a
+    pool of its own, and its graph reads the params restored from the
+    snapshot, never the old ones (written with NaN after the park here)."""
+    handed, pools = [], iter(range(1, 10))
+
+    def capture_graph(warmup, fn, dev, pool):
+        handed.append(pool)
+        result, out = warmup(), fn()
+        return result, EmulatedGraph(fn, out[0]), out, pool or ("pool", next(pools)), 1000
+
+    monkeypatch.setattr(fn_mod, "_capture_graph", capture_graph)
+    monkeypatch.setattr(fn_mod, "_capture_device", lambda *trees: CPU)
+    monkeypatch.setattr(fn_mod, "_synchronize", lambda dev: None)
+    w = torch.eye(4) * 0.5
+    p = TinyTorchBackend(FusionPolicy(enabled=False), snapshot_dir=str(tmp_path))
+    try:
+        p.deploy(FunctionSpec("f", lambda ctx, params, x: torch.tanh(x @ params), w))
+        x = torch.ones(2, 4)
+        want = [p.invoke("f", x * i) for i in range(3)]  # first run, capture, replay
+        old = p.registry.resolve("f")
+        assert old.graph_pool_bytes() == 1000 and old.graph_stats()[0]["replays"] == 1
+        assert p.scale_to_zero("f") == ("f",)
+        assert old.graph_pool_bytes() == 0 and old._graph_pool is None and old.graph_stats() == []
+        w.fill_(float("nan"))  # the old weights: nothing may read them now
+        got = [p.invoke("f", x * i) for i in range(3)]  # resurrect (its health check runs first)
+        new = p.registry.resolve("f")
+        assert new is not old and new.params["f"].data_ptr() != w.data_ptr()
+        (g,) = new.graph_stats()
+        assert g["captured"] and g["replays"] >= 1
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+        assert handed == [None, None]  # the resurrected instance's pool is a new one
+    finally:
+        p.shutdown()
+
+
 def load_chip_smoke():
     import importlib.util
     from pathlib import Path

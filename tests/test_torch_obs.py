@@ -29,6 +29,7 @@ from repro.core import FunctionSpec as RefSpec  # noqa: E402
 from repro.core import FusionPolicy as RefPolicy  # noqa: E402
 from repro.core import TinyJaxBackend  # noqa: E402
 from repro.core.handler import EdgeStats as RefEdgeStats  # noqa: E402
+from repro.launch.compile_cache import EXECUTABLE_INDEX as REF_INDEX  # noqa: E402
 from repro.scheduler import RequestScheduler as RefScheduler  # noqa: E402
 from repro.scheduler import VirtualClock as RefClock  # noqa: E402
 from repro.scheduler.adaptive import SchedulerSignals as RefSignals  # noqa: E402
@@ -37,6 +38,7 @@ import repro_torch.obs as obs  # noqa: E402
 from repro_torch.analysis.dispatch import TRACER  # noqa: E402
 from repro_torch.core import FunctionSpec, FusionPolicy, TinyTorchBackend  # noqa: E402
 from repro_torch.core.handler import EdgeStats  # noqa: E402
+from repro_torch.launch.compile_cache import EXECUTABLE_INDEX  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
     CONTROL_TRACE_ID,
     FlightRecorder,
@@ -53,6 +55,19 @@ from repro_torch.scheduler.scheduler import RequestScheduler  # noqa: E402
 from repro_torch.scheduler.adaptive import SchedulerSignals  # noqa: E402
 
 REAL_BUDGET_S = 10.0
+
+
+@pytest.fixture(autouse=True)
+def _fresh_index():
+    """Each case starts with both packages' executable indexes empty (as
+    ``tests/test_coldstart.py`` does): a unit an earlier case built would be
+    an index hit here, with no shape-only run, no ``fused-inline`` event and
+    no new entry to count."""
+    EXECUTABLE_INDEX.clear()
+    REF_INDEX.clear()
+    yield
+    EXECUTABLE_INDEX.clear()
+    REF_INDEX.clear()
 FETCHES = ("item", "tolist", "numpy", "cpu")
 
 # each package's side of a cross-package case
@@ -78,6 +93,39 @@ PKGS = {
 def _rec(trace_id, span_id, t0=0.0, t1=1.0, parent=1, name="s", cat="execute",
          ph="X", record=SpanRecord):
     return record(trace_id, span_id, parent, name, cat, t0, t1, ph)
+
+
+def test_trace_and_span_ids_stay_unique_under_threads():
+    """Trace ids and a context's span ids come from lock-free counters: many
+    threads minting at once (a short switch interval forcing interleaving)
+    get every id once, with nothing lost."""
+    import sys
+
+    tracer = Tracer()
+    ctx = tracer.begin_request("r", "invoke")
+    n_threads, per = 16, 500
+    traces, spans = [[] for _ in range(n_threads)], [[] for _ in range(n_threads)]
+
+    def mint(i):
+        for _ in range(per):
+            traces[i].append(tracer.begin_request("r", "invoke_async").trace_id)
+            spans[i].append(ctx.alloc_id())
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=mint, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    got_traces = sorted(x for xs in traces for x in xs)
+    got_spans = sorted(x for xs in spans for x in xs)
+    assert got_traces == list(range(ctx.trace_id + 1, ctx.trace_id + 1 + n_threads * per))
+    assert got_spans == list(range(2, 2 + n_threads * per))
 
 
 @pytest.mark.parametrize("pkg", ["port", "ref"])
@@ -585,6 +633,7 @@ def test_fused_unit_third_run_adds_no_program():
         finally:
             p.shutdown()
     assert got == {"port": 0, "ref": 0}
+    EXECUTABLE_INDEX.clear()  # B ran above: its record would be an index hit
     p, x = _chain("port", enabled=False)
     try:
         base = TRACER.snapshot()
