@@ -147,6 +147,34 @@ Phases (any failed check exits non-zero and prints no result):
    route: the first 8 paged requests (K1, K2) through the continuous
    batcher over a fresh arena before and after a third park give the same
    tokens. The ``chrome_trace`` line follows it.
+6e. Control-plane phases, full-width ``llama3.2-1b`` (weights from seed 0)
+   unless said otherwise. ``orchestrated_serve``: the serve phase (3) on
+   ``OrchestratedBackend`` (a pod per unit: a queue and a thread), the
+   executable index emptied first, unfused then fused: its checks, tokens
+   identical to the ``TinyTorchBackend`` serve phase's, the live pods the
+   live instances (6 unfused, 1 fused), every retired unit's pod thread
+   exited, every graph capture on a pod's thread; per-token p50s beside the
+   serve phase's; then the batched phase (6b) through the pods, without the
+   tracing gate. ``replicas``: ``load_bench``'s replicas gate (hot handler:
+   eager compute on the card, a 5 ms host wait, a boundary call; 8
+   shape-distinct closed-loop clients and a strict class at 250 ms; one
+   instance, then the autoscaler): at least 1.5x the requests/s, the strict
+   p95 in target in both runs, warm scale-outs with no new entry, capture or
+   bucket, picks on at least 2 replicas, scale-in back to 1 replica once the
+   load stops, every future resolved; then the fused llama unit with a
+   second replica (``request_replica``): no demand stamped or invocation
+   billed by the spin-up, no new entry, identical tokens on each replica,
+   exact launches, less than 0.5 GB of device memory added; the spin-up
+   seconds beside the merge seconds. ``churn``: ``load_bench``'s churn on
+   the pods (H's loop on the card, 2048 wide, calibrated to 80 ms per batch
+   of 4): the merge and the split with its regret reason, every future
+   resolved, L's requests/s at least 1.3x after the split. ``split``: the
+   fused unit split into ``{embed, g0, g1}`` and ``{g2, g3, head}``, served,
+   re-merged after ``remerge_backoff_s`` (the policy's virtual clock): a
+   healthy split, identical tokens before, after and re-merged, a re-merge
+   inside the backoff refused as "recently split", allocated memory within
+   0.5 GB of the cells' count, no segment of the fused unit's graph pool
+   left, a warm re-merge with no new entry, exact launches.
 7. MoE serve phase: the llama tensors freed, full-width
    ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
    random bf16 weights from seed 0, about 61 GB) as the eight-function
@@ -186,7 +214,8 @@ Phases (any failed check exits non-zero and prints no result):
 Standard output opens with the device line and the ``ptxas`` line; its
 last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
 ``reference``, ``profile``, ``batched``, ``trace_batched``, ``dispatch``,
-``coldstart``, ``chrome_trace``, ``moe_serve``, ``moe_paged_serve``,
+``coldstart``, ``chrome_trace``, ``orchestrated_serve``, ``replicas``,
+``churn``, ``split``, ``moe_serve``, ``moe_paged_serve``,
 ``moe_block``, ``moe_profile``, ``moe_memory``,
 ``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
 ``ssm_coldstart``, ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
@@ -938,7 +967,8 @@ def graph_summary(platform, label: str) -> dict:
 
 
 def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
-                max_len=MAX_LEN, params=None, dispatch_window: bool = False) -> dict:
+                max_len=MAX_LEN, params=None, dispatch_window: bool = False,
+                backend: str = "tinytorch", tokens_out: list | None = None) -> dict:
     """Drive the serving chain unfused and fused on ``dev`` (``params``:
     the model's weights, made from seed 0 when not given). On the card it
     also checks that the kernels, and never their plain versions, ran, each
@@ -947,8 +977,13 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     applied); on the CPU the plain attention versions stand in. Every
     platform traces (:func:`serve_traces`); with ``dispatch_window`` each
     platform then serves the first prompt twice more and a third time with
-    the dispatch tracer armed (:func:`dispatch_window`)."""
-    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    the dispatch tracer armed (:func:`dispatch_window`). ``backend``:
+    ``tinytorch`` or ``orchestrated`` (:data:`BACKENDS`); on the
+    orchestrated backend the live pods must be the live instances, every
+    retired unit's pod thread must have exited, and every graph capture
+    must have run on a pod's thread (:func:`pod_check`). ``tokens_out``
+    (a list) receives each prompt's fused tokens."""
+    from repro_torch.core import FusionPolicy
     from repro_torch.kernels import build, ops
     from repro_torch.models.model import build_model
     from repro_torch.obs import prometheus_text
@@ -965,12 +1000,15 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     prompts = [torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)
                for t in prompt_lens]
 
+    Backend = backend_class(backend)
     platforms = {
-        "unfused": TinyTorchBackend(FusionPolicy(enabled=False)),
-        "fused": TinyTorchBackend(FusionPolicy(**SERVE_POLICY)),
+        "unfused": Backend(FusionPolicy(enabled=False)),
+        "fused": Backend(FusionPolicy(**SERVE_POLICY)),
     }
     results = {}
     replays = {label: record_replays(p) for label, p in platforms.items()}
+    pods = {label: watch_pods(p) for label, p in platforms.items()}
+    captures = CaptureThreads()
     ops.reset_counts()
     try:
         engines = {label: ServingEngine(model, p, max_len=max_len, params=params, device=dev)
@@ -1010,7 +1048,9 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         traces = {label: serve_traces(p, label, len(engines[label].chain_names()), new_tokens)
                   for label, p in platforms.items()}
         traces["prometheus_lines"] = len(prometheus_text(platforms["fused"]).splitlines())
+        pod_lines = {label: pod_check(p, pods[label], label, captures) for label, p in platforms.items()}
     finally:
+        captures.close()
         for platform in platforms.values():
             platform.shutdown()
 
@@ -1045,6 +1085,8 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     if dev.type == "cuda":
         check(all(counts[k] == 0 for k in PLAIN), f"the main path called a plain version on the card: {counts}")
 
+    if tokens_out is not None:
+        tokens_out.extend(results["fused"]["tokens"])
     # the chain computes what the model computes without the platform
     ref = direct_generate(torch, model, params, prompts[0], new_tokens, max_len)
     check(torch.equal(ref, results["unfused"]["tokens"][0]),
@@ -1053,6 +1095,8 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     prefills = 2 * len(prompt_lens)  # client requests; the merges' canary replays come on top
     decode_steps = prefills * (new_tokens - 1)
     return {
+        "backend": Backend.backend_name,
+        "pods": pod_lines if backend == "orchestrated" else None,
         "arch": cfg.name,
         "layers": cfg.num_layers,
         "d_model": cfg.d_model,
@@ -1538,7 +1582,8 @@ def closed_loop(torch, engine, clients, batched: bool, warmup: int, steps: int) 
 
 
 def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMPT, warmup=BATCH_WARMUP,
-                  steps=BATCH_STEPS, max_len=MAX_LEN, params=None) -> dict:
+                  steps=BATCH_STEPS, max_len=MAX_LEN, params=None, backend: str = "tinytorch",
+                  overhead: bool = True) -> dict:
     """The main path's two modes on one fused platform (``max_batch`` 8,
     ``max_delay_ms`` 2): ``clients`` closed-loop clients, each prefilled
     once with a random prompt and its own max_len caches, feeding a constant
@@ -1549,8 +1594,9 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
     execution, K4 launched exactly once per layer of each program run, K4
     at the lanes' own caches under vmap equal in bits to K4 per lane, and
     each lane of a batched step that the captured bucket programs served
-    against the same request's ``invoke`` (:func:`lane_check`)."""
-    from repro_torch.core import FusionPolicy, TinyTorchBackend
+    against the same request's ``invoke`` (:func:`lane_check`). ``backend``
+    as :func:`serve_phase`'s; ``overhead``: run the tracing-overhead gate."""
+    from repro_torch.core import FusionPolicy
     from repro_torch.core.function import _capture_device
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as k4
@@ -1563,7 +1609,8 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
         params = model.init(0, device=dev)
     captures = _capture_device(params) is not None  # the card captures; the CPU runs every program eagerly
     gen = torch.Generator(device=dev).manual_seed(13)
-    platform = TinyTorchBackend(FusionPolicy(**SERVE_POLICY), max_batch=BATCH_MAX, max_delay_ms=BATCH_DELAY_MS)
+    platform = backend_class(backend)(FusionPolicy(**SERVE_POLICY), max_batch=BATCH_MAX,
+                                      max_delay_ms=BATCH_DELAY_MS)
     try:
         engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
         warm = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev, dtype=torch.int32)
@@ -1609,7 +1656,7 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
         traces = batched_traces(platform, clients * (warmup + steps))
         gate_steps = min(GATE_STEPS, steps)
         dispatch = dispatch_window(torch, lambda: window(gate_steps), clients * gate_steps, BATCH_MAX)
-        traces["overhead"] = overhead_gate(platform, window, gate_steps, dev.type == "cuda")
+        traces["overhead"] = overhead_gate(platform, window, gate_steps, dev.type == "cuda") if overhead else None
         traces["prometheus_lines"] = len(prometheus_text(platform).splitlines())
         lane_err, lane_replays = lane_check(torch, engine, platform, state, captures)
         graphs = graph_summary(platform, "batched") if captures else None
@@ -1619,14 +1666,16 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
     check(sched["max_batch_seen"] >= 2, f"batched: no batch of 2 or more formed ({sched})")
     check(all(not f["fallback_requests"] for f in fallbacks.values()),
           f"batched: requests fell back to per-request execution: {fallbacks}")
-    k4_name = "decode_attention" if dev.type == "cuda" else STAND_INS["decode_attention"]
+    k3_name, k4_name = (k if dev.type == "cuda" else STAND_INS[k] for k in ("flash_attention", "decode_attention"))
     check(counts[k4_name] == cfg.num_layers * runs,
           f"{k4_name} ran {counts[k4_name]} times, {runs} decode program runs make {cfg.num_layers * runs}")
+    check(counts[k3_name] == 0, f"batched: {k3_name} ran {counts[k3_name]} times in a window of decode steps only")
     buckets = None
     if captures:
         buckets = sorted({g["bucket"] for g in graphs["captured_entries"] if g["bucket"] is not None})
         check(buckets, "batched: no bucket program was captured")
     return {
+        "backend": platform.backend_name,
         "arch": cfg.name, "layers": cfg.num_layers, "clients": clients, "prompt_len": prompt_len,
         "warmup_steps": warmup, "steps": steps, "max_batch": BATCH_MAX, "max_delay_ms": BATCH_DELAY_MS,
         "fused_serial": serial, "fused_batched": batched,
@@ -1634,6 +1683,7 @@ def batched_phase(torch, dev, cfg, clients=BATCH_CLIENTS, prompt_len=BATCH_PROMP
         "max_batch_seen": sched["max_batch_seen"], "mean_batch": sched["mean_batch"],
         "batches": sched["batches"] - batches0, "buckets_captured": buckets,
         "decode_program_runs": runs, "decode_attention_launches": counts[k4_name],
+        "launches": {"flash_attention": counts[k3_name], "decode_attention": counts[k4_name]},
         "launch_parts": {part: n["decode_attention"] for part, n in parts.items()},
         "lane_rel_err": lane_err, "lane_check_bucket_replays": lane_replays, "k4_vmap_bits_equal": True,
         "batch_fallbacks": fallbacks,
@@ -2523,6 +2573,850 @@ def ssm_coldstart_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW
     }
 
 
+# ------------------------------------------------ the control plane on the card
+
+BACKENDS = {"tinytorch": "TinyTorchBackend", "orchestrated": "OrchestratedBackend"}
+POD_JOIN_S = 10.0  # a retired unit's pod thread must have exited within this
+
+
+def backend_class(name: str):
+    """The port's platform backend called ``name`` (:data:`BACKENDS`)."""
+    import repro_torch.core as core
+
+    return getattr(core, BACKENDS[name])
+
+
+def watch_pods(platform) -> dict:
+    """Every pod the platform starts, recorded at attach (instance id -> its
+    thread); stays empty on a backend without pods."""
+    seen: dict = {}
+    if not hasattr(platform, "pods"):
+        return seen
+    attach = platform.attach_instance
+
+    def attach_instance(instance):
+        attach(instance)
+        seen.update(platform.pods())
+
+    platform.attach_instance = attach_instance
+    return seen
+
+
+class GCPauses:
+    """While open, every pass of the cyclic collector: its generation and
+    how long it held the interpreter (a pause every thread waits out)."""
+
+    def __init__(self):
+        self.pauses: list = []
+        self._t0 = None
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append((info["generation"], time.perf_counter() - self._t0))
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._note)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._note)
+
+    def summary(self) -> dict:
+        return {"passes": len(self.pauses), "gen2_passes": sum(1 for g, _ in self.pauses if g == 2),
+                "max_pause_ms": max((p for _, p in self.pauses), default=0.0) * 1e3,
+                "total_pause_ms": sum(p for _, p in self.pauses) * 1e3}
+
+
+class CaptureThreads:
+    """While open, record the platform and the thread of every CUDA-graph
+    capture (``FunctionInstance._capture``)."""
+
+    def __init__(self):
+        from repro_torch.core.function import FunctionInstance
+
+        self.records: list = []
+        self._cls, self._orig = FunctionInstance, FunctionInstance._capture
+        orig, records = self._orig, self.records
+
+        def capture(inst, ce, args):
+            records.append((id(inst.platform), threading.current_thread().name))
+            return orig(inst, ce, args)
+
+        FunctionInstance._capture = capture
+
+    def close(self) -> None:
+        self._cls._capture = self._orig
+
+
+def pod_check(platform, seen: dict, label: str, captures: CaptureThreads | None = None) -> dict | None:
+    """On the orchestrated backend (None elsewhere): the live pods are the
+    live instances, every pod of a unit no longer live (a merge's or a
+    split's originals, a scaled-in replica, an aborted build) has exited
+    within POD_JOIN_S, and (with ``captures``) every graph capture of the
+    platform's units ran on a pod's thread."""
+    if not hasattr(platform, "pods"):
+        return None
+    live = {inst.instance_id for inst in platform.registry.live_instances()}
+    pods = platform.pods()
+    check(set(pods) == live, f"{label}: pods {sorted(pods)} are not the live instances {sorted(live)}")
+    retired = [th for iid, th in seen.items() if iid not in live]
+    for th in retired:
+        th.join(timeout=POD_JOIN_S)
+    alive = [th.name for th in retired if th.is_alive()]
+    check(not alive, f"{label}: pods of retired units still running: {alive}")
+    mine = [name for pid, name in (captures.records if captures else ()) if pid == id(platform)]
+    off = [name for name in mine if not name.startswith("worker-")]
+    check(not off, f"{label}: graphs captured off the pods, on {off}")
+    return {"pods": len(pods), "live_instances": len(live), "pods_started": len(seen),
+            "retired_pods_exited": len(retired), "captures_on_pods": len(mine)}
+
+
+def orchestrated_phase(torch, dev, cfg, params, tiny_serve: dict, tiny_tokens: list, serve_kw=None,
+                       batched_kw=None) -> dict:
+    """The serve phase on ``OrchestratedBackend`` (a pod per unit: a queue
+    and a thread), unfused and then fused, with the serve phase's checks
+    and :func:`pod_check`; its tokens identical to ``TinyTorchBackend``'s
+    (``tiny_tokens``) for the same prompts, and on the card graphs captured
+    (from the pods) and replayed. Then the batched phase's main path
+    through the pods (8 closed-loop clients, ``max_batch`` 8), with its
+    checks but the tracing-overhead gate. Returns the two phases' lines,
+    the serve line holding ``tiny_serve``'s per-token p50s beside its own."""
+    from repro_torch.launch.compile_cache import EXECUTABLE_INDEX
+
+    # the index is process-wide: emptied, the fused unit's entries are built
+    # by inlining here, as the trace checks expect, not taken from the
+    # TinyTorchBackend serve phase's
+    EXECUTABLE_INDEX.clear()
+    tokens: list = []
+    serve = serve_phase(torch, dev, cfg, params=params, backend="orchestrated", tokens_out=tokens,
+                        **(serve_kw or {}))
+    check(len(tokens) == len(tiny_tokens) and all(torch.equal(a, b) for a, b in zip(tokens, tiny_tokens)),
+          "orchestrated: tokens differ from TinyTorchBackend's for the same prompts")
+    pods = serve["pods"]
+    if dev.type == "cuda":
+        check(pods["fused"]["captures_on_pods"] > 0 and pods["unfused"]["captures_on_pods"] > 0,
+              f"orchestrated: no graph was captured on a pod: {pods}")
+    serve["tokens_identical_to_tinytorch"] = True
+    serve["p50_token_ms_tinytorch"] = tiny_serve["p50_token_ms"]
+    serve.pop("dispatch", None)
+    batched = batched_phase(torch, dev, cfg, params=params, backend="orchestrated", overhead=False,
+                            **(batched_kw or {}))
+    return {"serve": serve, "batched": batched, "hop": hop_cost(torch, dev)}
+
+
+HOP_CALLS = 2000
+
+
+def hop_cost(torch, dev) -> dict:
+    """What a pod hop adds on this host: the p50 of ``invoke`` of a one-op
+    function on a 4-element tensor on ``dev`` (its run ends in a device
+    sync) on each backend, after 50 untimed calls (host clock)."""
+    from repro_torch.core import FunctionSpec, FusionPolicy
+
+    x = torch.ones(4, device=dev)
+    out = {}
+    for name in BACKENDS:
+        platform = backend_class(name)(FusionPolicy(enabled=False))
+        try:
+            platform.deploy(FunctionSpec("f", lambda ctx, params, v: v + 1, None))
+            lat = []
+            for i in range(50 + HOP_CALLS):
+                t0 = time.perf_counter()
+                platform.invoke("f", x)
+                if i >= 50:
+                    lat.append(time.perf_counter() - t0)
+        finally:
+            platform.shutdown()
+        out[name] = statistics.median(lat) * 1e3
+    return {"invoke_p50_ms": out, "hop_ms": out["orchestrated"] - out["tinytorch"], "calls": HOP_CALLS}
+
+
+# The replicas scenario: benchmarks/load_bench.py's run_replicas (:691).
+REPLICA_IO_WAIT_S = 0.005  # the hot handler's downstream wait, on the host
+REPLICA_CLIENTS = 8
+REPLICA_STRICT_MS = 250.0
+REPLICA_STRICT_RPS = 10.0
+REPLICA_SPEEDUP_MIN = 1.5
+REPLICA_AUTOSCALE = dict(rho_high=0.35, rho_low=0.05, sustain=2, max_replicas=3, cooldown_s=0.25,
+                         eval_interval_s=0.05)
+REPLICA_IDLE_S = 1.0  # lanes retire after this long idle, so rho falls to 0 once the load stops
+SCALE_IN_WAIT_S = 20.0
+REPLICA_GROWTH_MAX = 0.5e9  # bytes of device memory a replica of the fused llama unit may add
+
+
+def replica_scenario(torch, dev, duration: float = 4.0, ramp: float = 1.5, gate: bool = True) -> dict:
+    """``load_bench``'s replicas gate through the port on ``dev``: a hot
+    handler of eager compute on the device, a host wait (the downstream RPC)
+    and a boundary call; 8 shape-distinct closed-loop clients and a strict
+    class (250 ms p95, 10 requests/s) on one ``OrchestratedBackend``. Run A:
+    one instance; run B: ``autoscale_config``. Checks: every future
+    resolves; the strict class meets its target in both runs; in run B a
+    scale-out happened, every scale-out is warm, the dispatch tracer (armed
+    through run B) saw no new entry, capture or bucket, spread picks landed
+    on at least 2 replicas; once the load stops, scale-in returns the set to
+    1 replica and the retired replicas' pods exit; with ``gate``, run B
+    delivers at least 1.5x run A's requests/s."""
+    import numpy as np
+
+    from repro_torch.analysis.dispatch import TRACER
+    from repro_torch.core import FunctionSpec, FusionPolicy
+    from repro_torch.scheduler.adaptive import AdaptiveConfig
+    from repro_torch.scheduler.metrics import percentiles_ms
+    from repro_torch.scheduler.slo import SLOClass
+
+    Backend = backend_class("orchestrated")
+    strict = SLOClass("gold", REPLICA_STRICT_MS)
+    w = torch.from_numpy(np.random.RandomState(0).randn(64, 64).astype(np.float32) * 0.05).to(dev)
+    lane_xs = [torch.ones(4 + lane, 64, device=dev) for lane in range(REPLICA_CLIENTS)]
+    x_strict = torch.ones(3, 64, device=dev)
+
+    def fn_hot(ctx, params, x):
+        y = torch.tanh(x @ params)  # eager local compute on the device
+        time.sleep(REPLICA_IO_WAIT_S)  # the downstream RPC's network wait
+        return ctx.call("downstream", y)  # boundary: keeps the entry eager
+
+    def fn_downstream(ctx, params, x):
+        return x + 1.0
+
+    def build(autoscale: bool):
+        platform = Backend(FusionPolicy(enabled=False), max_batch=4, max_delay_ms=2.0, adaptive=True,
+                           adaptive_config=AdaptiveConfig(max_delay_s=0.002), be_shed_depth=10**6,
+                           autoscale=autoscale, autoscale_config=REPLICA_AUTOSCALE if autoscale else None)
+        platform.scheduler.idle_timeout_s = REPLICA_IDLE_S
+        platform.deploy(FunctionSpec("downstream", fn_downstream, None))
+        platform.deploy(FunctionSpec("hot", fn_hot, w))
+        # every program the run touches: each shape's downstream entry run
+        # twice (its first run eager, its second captured on the card)
+        for _ in range(2):
+            for x in (*lane_xs, x_strict):
+                platform.invoke("hot", x)
+        return platform
+
+    def drive(platform, span_s: float) -> dict:
+        strict_lats: list = []
+        lock = threading.Lock()
+        counts = [0] * REPLICA_CLIENTS
+        errors: list = []
+        t_end = time.perf_counter() + span_s
+
+        def be_client(cid: int):
+            try:
+                while time.perf_counter() < t_end:
+                    platform.invoke_async("hot", lane_xs[cid]).result(timeout=120)
+                    counts[cid] += 1
+            except Exception as exc:  # noqa: BLE001 — reported through the check below
+                errors.append(exc)
+
+        def strict_client():
+            futs = []
+            while time.perf_counter() < t_end:
+                t_s = time.perf_counter()
+                fut = platform.invoke_async("hot", x_strict, slo=strict)
+
+                def cb(_fut, t_submit=t_s):
+                    with lock:
+                        strict_lats.append(time.perf_counter() - t_submit)
+
+                fut.add_done_callback(cb)
+                futs.append(fut)
+                time.sleep(1.0 / REPLICA_STRICT_RPS)
+            try:
+                for f in futs:
+                    f.result(timeout=120)
+            except Exception as exc:  # noqa: BLE001
+                errors.append(exc)
+
+        threads = [threading.Thread(target=be_client, args=(i,)) for i in range(REPLICA_CLIENTS)]
+        threads.append(threading.Thread(target=strict_client))
+        t0 = time.perf_counter()
+        with GCPauses() as pauses:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        elapsed = time.perf_counter() - t0
+        check(not errors, f"replicas: requests failed: {errors[:3]}")
+        return {"requests": sum(counts), "elapsed_s": elapsed, "requests_per_s": sum(counts) / elapsed,
+                "strict_requests": len(strict_lats),
+                "strict_p95_ms": percentiles_ms(strict_lats)["p95_ms"] if strict_lats else 0.0,
+                "strict_slowest_ms": sorted(x * 1e3 for x in strict_lats)[-3:], "gc": pauses.summary()}
+
+    heap = {"single_instance": collected_heap()}
+    platform = build(autoscale=False)
+    try:
+        base = drive(platform, duration)
+        check(platform.registry.replica_count("hot") == 1, "replicas: run A grew a replica")
+    finally:
+        platform.shutdown()
+
+    heap["autoscaled"] = collected_heap()
+    platform = build(autoscale=True)
+    pods = watch_pods(platform)
+    armed = False
+    try:
+        tr0 = TRACER.snapshot()
+        TRACER.arm()
+        armed = True
+        drive(platform, ramp)  # unmeasured: the autoscaler acts in here
+        peak = platform.registry.replica_count("hot")
+        check(peak >= 2, f"replicas: the autoscaler never scaled out (replicas {peak})")
+        auto = drive(platform, duration)
+        spin = TRACER.delta(tr0)
+        TRACER.disarm()
+        armed = False
+        info = platform.stats()["replicas"]["functions"]["hot"]
+        scale_outs = [e for e in platform.provisioning_stats()["events"] if e["kind"] == "scale-out"]
+        peak = max(peak, len(info["replicas"]))
+        t0 = time.perf_counter()
+        while platform.registry.replica_count("hot") > 1 and time.perf_counter() - t0 < SCALE_IN_WAIT_S:
+            time.sleep(0.05)
+        scale_in_s = time.perf_counter() - t0
+        check(platform.registry.replica_count("hot") == 1,
+              f"replicas: scale-in left {platform.registry.replica_count('hot')} replicas after {scale_in_s:.1f} s")
+        platform.lifecycle.wait_idle(10.0)
+        scale_ins = [e for e in platform.lifecycle.events if e.kind == "scale-in"]
+        pod_line = pod_check(platform, pods, "replicas")
+        spinup_s = platform.replica_spinup_estimate()
+    finally:
+        if armed:
+            TRACER.disarm()
+        platform.shutdown()
+    check(scale_outs and all(e["warm"] for e in scale_outs), f"replicas: a scale-out was not warm: {scale_outs}")
+    check(spin.entries == 0 and spin.captures == 0 and spin.buckets == 0,
+          f"replicas: the scale-outs made new programs: {spin}")
+    busy = [iid for iid, n in info["picks"].items() if n > 0]
+    check(len(busy) >= 2, f"replicas: spread never fanned out: picks {info['picks']}")
+    for label, res in (("single instance", base), ("autoscaled", auto)):
+        check(res["strict_p95_ms"] <= REPLICA_STRICT_MS,
+              f"replicas: {label} strict p95 {res['strict_p95_ms']:.1f} ms over {REPLICA_STRICT_MS} ms")
+    ratio = auto["requests_per_s"] / base["requests_per_s"]
+    if gate:
+        check(ratio >= REPLICA_SPEEDUP_MIN, f"replicas: autoscaled {ratio:.2f}x the single instance, "
+              f"under {REPLICA_SPEEDUP_MIN}x")
+    return {"single_instance": base, "autoscaled": auto, "speedup": ratio, "peak_replicas": peak,
+            "picks": info["picks"], "scale_outs": len(scale_outs), "scale_outs_warm": True,
+            "scale_out_s": [e["seconds"] for e in scale_outs], "spinup_estimate_s": spinup_s,
+            "dispatch_window": {"entries": spin.entries, "captures": spin.captures, "buckets": spin.buckets,
+                                "cuda_syncs": spin.cuda_syncs},
+            "scale_ins": len(scale_ins), "scale_in_s": scale_in_s, "pods": pod_line,
+            "strict_target_ms": REPLICA_STRICT_MS, "io_wait_s": REPLICA_IO_WAIT_S,
+            "autoscale_config": REPLICA_AUTOSCALE, "heap": heap}
+
+
+def pinned_spread():
+    """A spread policy whose every pick is replica ``index`` of the set (so
+    that each replica of a unit can be driven on its own)."""
+    from repro_torch.core.registry import SpreadPolicy
+
+    class Pinned(SpreadPolicy):
+        name = "pinned"
+        index = 0
+
+        def select(self, name, replicas):
+            return replicas[min(self.index, len(replicas) - 1)]
+
+    return Pinned()
+
+
+def chain_prompts(torch, dev, cfg, prompt_lens):
+    """The serve phase's prompts (seed 7)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return [torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)
+            for t in prompt_lens]
+
+
+def allocated(torch, dev) -> int:
+    """Device bytes allocated once the cyclic collector ran and the cache
+    let go of free segments (0 on the CPU)."""
+    import gc
+
+    gc.collect()  # the platforms of earlier phases hold reference cycles
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def fuse_chain(torch, engine, prompts, new_tokens: int, label: str) -> dict:
+    """The serve phase's prompts until the chain is one unit, then the first
+    prompt once more: the chain fuses during the first prompt's decode
+    steps, so only then has every request shape of the prompts run on the
+    fused unit (and its entries are in the executable index). Returns
+    :func:`serve_prompts`'s result."""
+    run = serve_prompts(torch, engine, prompts, new_tokens)
+    check(len(engine.platform.registry.live_instances()) == 1, f"{label}: the chain did not fuse to one instance")
+    check(torch.equal(timed_generate(torch, engine, prompts[0], new_tokens)[0], run["tokens"][0]),
+          f"{label}: the fused unit's tokens differ from the fusing run's")
+    return run
+
+
+def replicated_unit(torch, dev, cfg, params, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
+                    max_len=MAX_LEN) -> dict:
+    """The fused llama unit replicated on ``OrchestratedBackend``: the chain
+    fused by the serve phase's prompts, then ``request_replica`` (the policy's
+    replicate arm's hint) and one autoscaler scale-out of the whole unit; a
+    pinned spread then drives each replica alone through the same prompts.
+    Checks: the replica serves every name of the chain; its spin-up stamped
+    no demand and billed no invocation; no new entry or bucket from the
+    spin-up on (the replica's own captures counted and reported); both
+    replicas' tokens identical to the unreplicated unit's; each kernel
+    launched exactly as the prefills, decode steps and the spin-up's canary
+    runs (once each, from the member down) make it; on the card allocated
+    memory grew by less than REPLICA_GROWTH_MAX (the weights are the
+    specs' own tensors, never copied; measured after the spin-up and after
+    both replicas served, their own graphs captured). Reports the spin-up
+    seconds beside the merge seconds (the replicate arm's two inputs) and
+    ``ram_bytes``, which counts a replica's weights again, as the
+    reference's ``resident_bytes`` does, beside the device's bytes."""
+    from repro_torch.analysis.dispatch import TRACER
+    from repro_torch.core import FusionPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cuda = dev.type == "cuda"
+    model = build_model(cfg)
+    prompts = chain_prompts(torch, dev, cfg, prompt_lens)
+    spread = pinned_spread()
+    platform = backend_class("orchestrated")(
+        FusionPolicy(**SERVE_POLICY), spread=spread, autoscale=True,
+        # no organic scaling: only the hint below scales out
+        autoscale_config=dict(rho_high=float("inf"), rho_low=-1.0, max_replicas=2, cooldown_s=0.0))
+    replays = record_replays(platform)
+    pods = watch_pods(platform)
+    try:
+        engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
+        names = engine.chain_names()
+        before = fuse_chain(torch, engine, prompts, new_tokens, "replica")
+        (unit,) = platform.registry.live_instances()
+        merges = [m for m in platform.merger.merge_log if m.healthy]
+        demand: list = []
+        note = platform.handler.note_demand
+
+        def note_demand(fn):
+            demand.append(fn)
+            note(fn)
+
+        platform.handler.note_demand = note_demand
+        records0 = len(platform.meter.records)
+        alloc0 = allocated(torch, dev)
+        n_rep = len(replays)
+        ops.reset_counts()
+        base = TRACER.snapshot()
+        TRACER.arm()
+        try:
+            platform.request_replica(engine.entry, reason="replicate the fused unit")
+            t0 = time.perf_counter()
+            while platform.registry.replica_count(engine.entry) < 2 and time.perf_counter() - t0 < 120.0:
+                time.sleep(0.01)
+            check(all(platform.registry.replica_count(n) == 2 for n in names),
+                  f"replica: the scale-out did not reach every name: {platform.registry.replica_summary()}")
+            replica = platform.registry.replicas(engine.entry)[1]
+            spawn = TRACER.delta(base)
+            alloc_spawned = allocated(torch, dev)
+            ram = {"one_unit": unit.resident_bytes(), "two_units": platform.ram_bytes()}
+            check(not demand and len(platform.meter.records) == records0,
+                  f"replica: the spin-up stamped demand {demand} or billed {len(platform.meter.records) - records0}")
+            replays[n_rep:] = [(m, p, 1) for m, p, _ in replays[n_rep:]]  # a spin-up canary runs once
+            tokens = {}
+            for i in (0, 1):
+                spread.index = i
+                tokens[i] = [timed_generate(torch, engine, p, new_tokens)[0] for p in prompts]
+        finally:
+            TRACER.disarm()
+        window = TRACER.delta(base)
+        counts = ops.counts()
+        alloc1 = allocated(torch, dev)
+        picks = platform.registry.replica_summary()[engine.entry]["picks"]
+        prov = [r for r in platform.meter.provisioning if r.kind == "scale-out"]
+        replica_graphs = sum(g["captured"] for g in replica.graph_stats())
+        spinup_s = platform.replica_spinup_estimate()
+        pod_line = pod_check(platform, pods, "replica")
+    finally:
+        platform.shutdown()
+    for i in (0, 1):
+        check(all(torch.equal(a, b) for a, b in zip(before["tokens"], tokens[i])),
+              f"replica: replica {i}'s tokens differ from the unreplicated unit's")
+    check(picks.get(unit.instance_id, 0) > 0 and picks.get(replica.instance_id, 0) > 0,
+          f"replica: the picks did not reach both replicas: {picks}")
+    check(len(prov) == 1 and prov[0].warm, f"replica: the spin-up is not one warm scale-out: {prov}")
+    check(spawn.entries == 0 and spawn.buckets == 0 and window.entries == 0 and window.buckets == 0,
+          f"replica: new entries or buckets from the spin-up on: {window}")
+    runs = len(prompts) * 2
+    expected = expected_launches(cfg, engine, runs, runs * (new_tokens - 1), replays[n_rep:])
+    for k, want in expected.items():
+        if cuda:
+            check(counts[k] == want, f"replica: {k} launched {counts[k]} times, the run makes {want}")
+        elif k in STAND_INS:
+            check(counts[STAND_INS[k]] == want, f"replica: {STAND_INS[k]} ran {counts[STAND_INS[k]]} times for {want}")
+    if cuda:
+        check(all(counts[k] == 0 for k in PLAIN), f"replica: a plain version ran on the card: {counts}")
+        check(alloc1 - alloc0 < REPLICA_GROWTH_MAX,
+              f"replica: allocated memory grew by {alloc1 - alloc0} B with the replica")
+    merge_s = [m.build_s for m in merges]
+    return {"chain": names, "replicas": 2, "picks": picks, "tokens_identical": True,
+            "spinup_s": spinup_s, "merge_s": merge_s, "spinup_over_merge_s": spinup_s / sum(merge_s),
+            "spinup_demand": 0, "spinup_billed_invocations": 0, "scale_out_warm": prov[0].warm,
+            "spinup_canary_runs": len(replays) - n_rep, "spinup_window": {"entries": spawn.entries,
+                                                                          "captures": spawn.captures},
+            "replica_captures": replica_graphs, "window_captures": window.captures,
+            "launches": {k: counts[k] for k in ("flash_attention", "decode_attention")},
+            "expected_launches": expected, "allocated_growth_bytes": alloc1 - alloc0,
+            "allocated_growth_at_spinup_bytes": alloc_spawned - alloc0, "ram_bytes": ram,
+            "pods": pod_line}
+
+
+def replicas_phase(torch, dev, cfg, params, scenario_kw=None, unit_kw=None) -> dict:
+    """The ``replicas`` line: :func:`replica_scenario` (``load_bench``'s
+    replicas gate through the port) and :func:`replicated_unit` (the fused
+    llama unit with a second replica)."""
+    return {"scenario": replica_scenario(torch, dev, **(scenario_kw or {})),
+            "fused_unit": replicated_unit(torch, dev, cfg, params, **(unit_kw or {}))}
+
+
+def collected_heap() -> dict:
+    """One full pass of the cyclic collector, which frees the earlier runs'
+    shut-down platforms (each is a web of reference cycles, as in the
+    reference: its instances, merger, control plane and scheduler point
+    back at it), then a second, timed pass over what is left. Nothing is
+    frozen: a pass of the oldest generation during the next run traverses
+    this whole heap, and :class:`GCPauses` reports it."""
+    import gc
+
+    t0 = time.perf_counter()
+    freed = gc.collect()
+    t1 = time.perf_counter()
+    gc.collect()
+    t2 = time.perf_counter()
+    return {"garbage_objects": freed, "garbage_pass_ms": (t1 - t0) * 1e3, "live_objects": len(gc.get_objects()),
+            "full_pass_ms": (t2 - t1) * 1e3}
+
+
+# The churn scenario: benchmarks/load_bench.py's run_churn (:292).
+CHURN_TARGET_BATCH_S = 0.080  # H's batch of 4 on the device, as the reference calibrates it
+CHURN_RATE_L = 100.0
+CHURN_RECOVERY_MIN = 1.3  # the reference's full-run gate
+CHURN_SETTLE_S = 0.5
+CHURN_POLICY = dict(min_observations=2, merge_cost_s=0.0, split_occupancy=0.3, split_depth=10, split_sustain=3,
+                    min_group_age_s=0.5, remerge_backoff_s=300.0)
+
+
+def churn_phase(torch, dev, width: int = 2048, rows: int = 512, duration: float = 4.0,
+                target_batch_s: float = CHURN_TARGET_BATCH_S, gate: bool = True) -> dict:
+    """``load_bench``'s churn scenario on ``OrchestratedBackend``: a chain H
+    -> L fused on serial traffic (the merge queued on the reconciler), then
+    open-loop direct traffic on both: H at 1.6x the fused pod's measured
+    capacity, L at 100 requests/s starving behind it, until the regret check
+    splits the group (or a bound). H's loop runs on the device, calibrated to
+    ``target_batch_s`` per batch of 4 as the reference does. Its width: the
+    reference's 256-wide body needs some 20,000 graph nodes for 80 ms on the
+    card, so the card runs 2048 wide over 512 rows (a few hundred
+    iterations). Checks: the merge and the split both happened and the
+    split's regret reason is recorded, every future resolved (none failed or
+    hung), the split landed while traffic was still offered, the pods match
+    the units; with ``gate``, L's delivered requests/s after the split at
+    least 1.3x before it."""
+    from concurrent.futures import TimeoutError as FuturesTimeout
+
+    import numpy as np
+
+    from repro_torch.core import FunctionSpec, FusionPolicy
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    scale = 0.05 * (256 / width) ** 0.5  # the reference's gain at its width
+    wh = torch.from_numpy(np.random.RandomState(0).randn(width, width).astype(np.float32) * scale).to(dev)
+    wl = torch.from_numpy(np.random.RandomState(1).randn(width, width).astype(np.float32) * scale).to(dev)
+    probe_iters = 20
+    xb = torch.ones(4, rows, width, device=dev)
+
+    def probe():
+        h = xb
+        for _ in range(probe_iters):
+            h = torch.tanh(h @ wh)
+        sync()
+
+    probe()
+    trials = []
+    for _ in range(3):  # best of 3: contention only ever adds time
+        t0 = time.perf_counter()
+        probe()
+        trials.append(time.perf_counter() - t0)
+    probe_s = max(min(trials), 1e-4)
+    heavy_iters = max(4, int(probe_iters * target_batch_s / probe_s))
+
+    def fn_h(ctx, params, x):
+        for _ in range(heavy_iters):
+            x = torch.tanh(x @ params)
+        return ctx.call("L", x)
+
+    def fn_l(ctx, params, x):
+        return torch.tanh(x @ params)
+
+    platform = backend_class("orchestrated")(
+        FusionPolicy(**CHURN_POLICY), max_batch=4, max_delay_ms=2.0, adaptive=True,
+        fission=True, fission_interval_s=0.1, trough_merges=True, max_defer_s=1.0)
+    pods = watch_pods(platform)
+    try:
+        platform.deploy(FunctionSpec("H", fn_h, wh))
+        platform.deploy(FunctionSpec("L", fn_l, wl))
+        x = torch.ones(rows, width, device=dev)
+        # --- phase 1: a hot sync chain; the reconciler lands the merge
+        for _ in range(4):
+            platform.invoke("H", x)
+        platform.merger.wait_idle()
+        merges = [m for m in platform.merger.merge_log if m.healthy]
+        check(merges and set(merges[-1].members) == {"H", "L"}, f"churn: phase 1 did not fuse H and L: {merges}")
+        # warm the fused unit's buckets (a bucket's first run is eager, its
+        # second captured), then size the overload on warm batches
+        for _ in range(2):
+            for name in ("H", "L"):
+                for f in [platform.invoke_async(name, x) for _ in range(4)]:
+                    f.result(timeout=120)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for f in [platform.invoke_async("H", x) for _ in range(4)]:
+                f.result(timeout=120)
+            walls.append(time.perf_counter() - t0)
+        capacity_rps = 4.0 / max(min(walls), 1e-3)
+        rate_h = min(300.0, max(20.0, 1.6 * capacity_rps))
+        platform.scheduler.reset_stats()
+
+        # --- phase 2: concurrent direct traffic; H oversubscribes the fused pod
+        done: list = []
+        done_lock = threading.Lock()
+        failures: list = []
+
+        def stamp(name):
+            def cb(fut):
+                exc = fut.exception()
+                t = time.perf_counter()
+                with done_lock:
+                    (failures.append(exc) if exc is not None else done.append((name, t)))
+            return cb
+
+        pending = []
+        t0 = time.perf_counter()
+        next_h = next_l = 0.0
+        hard_cap = duration + 4.0
+        split_seen_at = None
+        while True:
+            now = time.perf_counter() - t0
+            if split_seen_at is None and any(e.healthy for e in platform.merger.split_log):
+                split_seen_at = now
+            if now >= hard_cap or (split_seen_at is not None and now >= max(duration, split_seen_at + 1.5)):
+                break
+            if now >= next_h:
+                fut = platform.invoke_async("H", x)
+                fut.add_done_callback(stamp("H"))
+                pending.append(fut)
+                next_h += 1.0 / rate_h
+            if now >= next_l:
+                fut = platform.invoke_async("L", x)
+                fut.add_done_callback(stamp("L"))
+                pending.append(fut)
+                next_l += 1.0 / CHURN_RATE_L
+            time.sleep(max(0.0, min(next_h, next_l) - (time.perf_counter() - t0)))
+        t_submit_end = time.perf_counter()
+        hung = 0
+        wait_deadline = time.perf_counter() + 120.0
+        for fut in pending:
+            try:
+                fut.result(timeout=max(0.0, wait_deadline - time.perf_counter()))
+            except FuturesTimeout:
+                hung += 1
+            except Exception:  # noqa: BLE001 — counted by the done-callback
+                pass
+        deadline = time.perf_counter() + 5.0
+        while time.perf_counter() < deadline:
+            with done_lock:
+                if len(done) + len(failures) >= len(pending):
+                    break
+            time.sleep(0.001)
+        splits = [e for e in platform.merger.split_log if e.healthy]
+        epoch = platform.lifecycle.epoch
+        platform.lifecycle.wait_idle(10.0)
+        pod_line = pod_check(platform, pods, "churn")
+    finally:
+        platform.shutdown()
+    check(splits, "churn: phase 2 did not split the saturated fused group")
+    check(not failures, f"churn: requests failed across epoch transitions: {failures[:3]}")
+    check(hung == 0, f"churn: {hung} requests hung across epoch transitions")
+    split_t = splits[0].t_completed
+    check(split_t < t_submit_end, "churn: the split landed after the traffic ended")
+    l_pre = [t for n, t in done if n == "L" and t0 <= t < split_t]
+    l_post = [t for n, t in done if n == "L" and split_t + CHURN_SETTLE_S <= t <= t_submit_end]
+    pre_rate = len(l_pre) / max(split_t - t0, 1e-9)
+    post_rate = len(l_post) / max(t_submit_end - (split_t + CHURN_SETTLE_S), 1e-9)
+    recovery = post_rate / max(pre_rate, 1.0)
+    if gate:
+        check(recovery >= CHURN_RECOVERY_MIN, f"churn: L recovered {recovery:.2f}x, under {CHURN_RECOVERY_MIN}x")
+    return {"width": width, "rows": rows, "heavy_iters": heavy_iters, "probe_s": probe_s,
+            "capacity_rps": capacity_rps, "rate_h": rate_h, "rate_l": CHURN_RATE_L,
+            "requests": len(pending), "failed": 0, "hung": 0,
+            "merge_epoch": merges[-1].epoch, "split_epoch": splits[0].epoch, "split_reason": splits[0].reason,
+            "split_build_s": splits[0].build_s, "split_at_s": split_t - t0, "epoch": epoch,
+            "l_rate_pre_split": pre_rate, "l_rate_post_split": post_rate, "recovery": recovery,
+            "pods": pod_line}
+
+
+def manual_generate(torch, engine, prompt, steps: int, between=None):
+    """``engine.generate``'s greedy loop with ``between()`` run after the
+    prefill, before the decode steps: (tokens (B, steps))."""
+    from repro_torch.serving.engine import _greedy_token
+
+    logits, caches, cur = engine.prefill({"tokens": prompt})
+    out = [_greedy_token(logits)]
+    if between is not None:
+        between()
+    for _ in range(steps - 1):
+        logits, caches = engine.decode_step(out[-1], cur, caches)
+        cur = cur + 1
+        out.append(_greedy_token(logits))
+    return torch.cat(out, dim=1)
+
+
+SPLIT_BACKOFF_S = 10.0  # remerge_backoff_s, on the policy's own virtual clock
+SPLIT_MEMORY_TOL = 0.5e9  # bytes: allocated after the split vs the two cells' footprint
+
+
+def split_phase(torch, dev, cfg, params, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
+                max_len=MAX_LEN) -> dict:
+    """Fission of the fused llama unit on ``OrchestratedBackend``: the chain
+    fused by the serve phase's prompts, split with ``Merger.split`` into
+    ``{embed, g0, g1}`` and ``{g2, g3, head}`` (the first half of the chain
+    and the rest), served, then re-merged once ``remerge_backoff_s`` has
+    passed on the policy's virtual clock. Checks: the split is healthy and
+    the tail cell's self-contained entries passed their health checks
+    against the fused unit's canaries (the head cell's entries all call
+    across the cells, so, as in the reference, there is nothing of it to
+    replay); the fused unit retired and its pod exited; tokens identical
+    before the split, after it and after the re-merge; a re-merge decision
+    inside the backoff is refused as "recently split" and traffic there
+    fuses nothing; on the card, after the split, allocated memory within
+    SPLIT_MEMORY_TOL of the two cells' footprint and no segment of the
+    fused unit's graph pool left (``torch.cuda.memory_snapshot``); the
+    re-merge warm with no new entry or bucket; each kernel launched exactly
+    as the run's prefills, decode steps, merge canaries and the split's
+    health checks (twice each) make it."""
+    from repro_torch.analysis.dispatch import TRACER
+    from repro_torch.core import FusionPolicy, InstanceState
+    from repro_torch.core.function import INSTANCE_RUNTIME_OVERHEAD_BYTES, tree_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.scheduler.clock import VirtualClock
+    from repro_torch.serving.engine import ServingEngine
+
+    cuda = dev.type == "cuda"
+    model = build_model(cfg)
+    prompts = chain_prompts(torch, dev, cfg, prompt_lens)
+    policy_clock = VirtualClock()
+    platform = backend_class("orchestrated")(
+        FusionPolicy(**SERVE_POLICY, remerge_backoff_s=SPLIT_BACKOFF_S, clock=policy_clock))
+    replays = record_replays(platform)
+    pods = watch_pods(platform)
+    base_alloc = allocated(torch, dev)
+    ops.reset_counts()
+    try:
+        engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev)
+        names = engine.chain_names()
+        fused_run = fuse_chain(torch, engine, prompts, new_tokens, "split")
+        (fused,) = platform.registry.live_instances()
+        pool = fused._graph_pool
+        n = len(names) // 2
+        cells = [frozenset(names[:n]), frozenset(names[n:])]
+        n_rep = len(replays)
+        prefill_canary = {m: canary_is_prefill(platform.handler.canary(m)) for m in names}
+        t0 = time.perf_counter()
+        event = platform.merger.split(frozenset(names), cells, reason="split the fused llama unit")
+        split_s = time.perf_counter() - t0
+        del replays[n_rep:]  # the fetches above and the split's: counted from its event
+        check(event is not None and event.healthy, f"split: the split is not healthy: {event}")
+        check(fused.state == InstanceState.RETIRED, f"split: the fused unit is {fused.state.value}")
+        live = platform.registry.live_instances()
+        check(sorted(sorted(i.members) for i in live) == sorted(sorted(c) for c in cells),
+              f"split: live units {[sorted(i.members) for i in live]} are not the cells")
+        split_tokens = [timed_generate(torch, engine, p, new_tokens)[0] for p in prompts]
+        check(len(platform.registry.live_instances()) == 2, "split: traffic inside the backoff re-merged")
+        a, b = names[n - 1], names[n]  # the edge across the cells
+        refused = platform.policy.decide(a, b, platform.handler.edges[(a, b)], platform.spec_of(a).trust_domain,
+                                         platform.spec_of(b).trust_domain)
+        check(not refused.fuse and "recently split" in refused.reason,
+              f"split: a re-merge inside the backoff was not refused as recently split: {refused}")
+        split_alloc = allocated(torch, dev)
+        cells_bytes = sum(inst.resident_bytes() - INSTANCE_RUNTIME_OVERHEAD_BYTES - tree_bytes(inst.params)
+                          for inst in live)
+        pool_left = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if pool is not None and tuple(seg.get("segment_pool_id") or ()) == tuple(pool)] if cuda else []
+        n_merges = len(platform.merger.merge_log)
+        base = TRACER.snapshot()
+        TRACER.arm()
+        try:
+            # the re-merge: a prefill inside the backoff, then the decode
+            # steps once it has passed (the merge's canaries are decode
+            # steps, as the first fusion's were)
+            remerge_tokens = [manual_generate(torch, engine, prompts[0], new_tokens,
+                                              between=lambda: policy_clock.advance(SPLIT_BACKOFF_S + 1.0))]
+            platform.merger.wait_idle()
+            remerge_tokens += [timed_generate(torch, engine, p, new_tokens)[0] for p in prompts]
+        finally:
+            TRACER.disarm()
+        d = TRACER.delta(base)
+        counts = ops.counts()
+        remerges = [m for m in platform.merger.merge_log[n_merges:] if m.healthy]
+        live_after = len(platform.registry.live_instances())
+        pod_line = pod_check(platform, pods, "split")
+    finally:
+        platform.shutdown()
+    want = fused_run["tokens"]
+    check(all(torch.equal(x, y) for x, y in zip(want, split_tokens)), "split: tokens after the split differ")
+    check(torch.equal(want[0], remerge_tokens[0]) and all(torch.equal(x, y) for x, y in zip(want, remerge_tokens[1:])),
+          "split: tokens after the re-merge differ")
+    check(live_after == 1 and remerges and set(remerges[-1].members) == set(names),
+          f"split: the chain did not re-merge after the backoff: {remerges}")
+    check(all(m.warm for m in remerges) and d.entries == 0 and d.buckets == 0,
+          f"split: the re-merge is not warm or made new entries: {[m.warm for m in remerges]}, {d}")
+    prefills = 3 * len(prompts) + 2  # fusing, the split, the re-merge; prompt 0 twice more
+    expected = expected_launches(cfg, engine, prefills, prefills * (new_tokens - 1),
+                                 replays + [(m, prefill_canary[m], 2) for m in event.checked_members])
+    for k, want_n in expected.items():
+        if cuda:
+            check(counts[k] == want_n, f"split: {k} launched {counts[k]} times, the run makes {want_n}")
+        elif k in STAND_INS:
+            check(counts[STAND_INS[k]] == want_n, f"split: {STAND_INS[k]} ran {counts[STAND_INS[k]]} times for {want_n}")
+    held = split_alloc - base_alloc
+    if cuda:
+        check(all(counts[k] == 0 for k in PLAIN), f"split: a plain version ran on the card: {counts}")
+        check(not pool_left, f"split: segments of the fused unit's graph pool are left: {pool_left}")
+        check(abs(held - cells_bytes) <= SPLIT_MEMORY_TOL,
+              f"split: {held} B allocated beside the weights after the split, the cells count {cells_bytes} B")
+    return {"chain": names, "cells": [sorted(c) for c in cells], "healthy": True,
+            "checked_members": list(event.checked_members), "split_s": split_s, "split_build_s": event.build_s,
+            "split_warm": event.warm, "tokens_identical": True, "refused_reason": refused.reason,
+            "allocated_beside_weights_bytes": held, "cells_counted_bytes": cells_bytes,
+            "fused_pool_segments_left": len(pool_left),
+            "remerge_build_s": [m.build_s for m in remerges], "remerge_warm": True,
+            "remerge_window": {"entries": d.entries, "captures": d.captures, "buckets": d.buckets},
+            "launches": {k: counts[k] for k in ("flash_attention", "decode_attention")},
+            "expected_launches": expected, "pods": pod_line}
+
+
+def canary_is_prefill(args) -> bool:
+    """Whether a recorded chain request is a prefill (T > 1) or a decode step."""
+    x = args[0]["tokens"] if isinstance(args[0], dict) else args[0]
+    return x.shape[1] > 1
+
+
 def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, parts: dict) -> dict:
     """One entry per kernel: its source, the TPU kernel it replaces, its
     launches on the main path that runs it (``launch_parts``: made by eager
@@ -2642,6 +3536,37 @@ def ssm_phases(torch, dev, arch: str, key: str) -> dict:
     return {"launches": serve["launches"], "captured": captured, "parts": serve["launch_parts"]}
 
 
+def control_plane_phases(torch, dev, cfg, serve: dict, serve_tokens: list) -> dict:
+    """The control plane's four phases on full-width ``cfg`` (weights from
+    seed 0, made once for all four): ``orchestrated_serve``, ``replicas``,
+    ``churn`` and ``split``, each printed as its JSON line with its seconds
+    on stderr. Returns their K3/K4 launches by path."""
+    from repro_torch.models.model import build_model
+
+    params = build_model(cfg).init(0, device=dev)
+    launches = {}
+    t0 = time.perf_counter()
+    orch = orchestrated_phase(torch, dev, cfg, params, serve, serve_tokens)
+    print(json.dumps({"orchestrated_serve": orch}), flush=True)
+    print(f"orchestrated serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    launches["orchestrated"] = orch["serve"]["launches"]
+    launches["orchestrated batched"] = orch["batched"]["launches"]
+    t0 = time.perf_counter()
+    replicas = replicas_phase(torch, dev, cfg, params)
+    print(json.dumps({"replicas": replicas}), flush=True)
+    print(f"replicas phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    launches["replica"] = replicas["fused_unit"]["launches"]
+    t0 = time.perf_counter()
+    print(json.dumps({"churn": churn_phase(torch, dev)}), flush=True)
+    print(f"churn phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    split = split_phase(torch, dev, cfg, params)
+    print(json.dumps({"split": split}), flush=True)
+    print(f"split phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    launches["split"] = split["launches"]
+    return launches
+
+
 def chrome_export(path: Path) -> dict:
     """Every live tracer's records (the llama phases') as one Chrome
     ``trace_event`` file at ``path``, parsed back."""
@@ -2692,7 +3617,8 @@ def main() -> int:
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     retain_tracers(True)  # the llama phases' traces outlive their platforms, for the export
     t0 = time.perf_counter()
-    serve = serve_phase(torch, dev, cfg, dispatch_window=True)
+    serve_tokens: list = []
+    serve = serve_phase(torch, dev, cfg, dispatch_window=True, tokens_out=serve_tokens)
     trace_serve, dispatch = serve.pop("trace"), {"serve": serve.pop("dispatch")}
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"trace_serve": trace_serve}), flush=True)
@@ -2722,6 +3648,8 @@ def main() -> int:
     print(json.dumps({"chrome_trace": chrome_export(ROOT / "chiprun_out" / "trace_llama.json")}), flush=True)
     retain_tracers(False)
 
+    control = control_plane_phases(torch, dev, cfg, serve, serve_tokens)
+
     moe = moe_phases(torch, dev)
     ssm = ssm_phases(torch, dev, "mamba2-370m", "ssm")
     t0 = time.perf_counter()
@@ -2735,7 +3663,8 @@ def main() -> int:
                 "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"]}
     by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
                       "zamba2-7b": hybrid["launches"][name],
-                      "llama3.2-1b coldstart": coldstart["launches"][name]}
+                      "llama3.2-1b coldstart": coldstart["launches"][name],
+                      **{f"llama3.2-1b {path}": n[name] for path, n in control.items()}}
                for name in ("flash_attention", "decode_attention")}
     by_path["ssd_scan"] = {"mamba2-370m": ssm["launches"]["ssd_scan"], "zamba2-7b": hybrid["launches"]["ssd_scan"],
                            "mamba2-370m coldstart": ssm_cold["launches"]["ssd_scan"]}

@@ -162,6 +162,16 @@ class BillingMeter:
         with self._lock:
             return sum(r.blocked_s * r.resident_bytes / 1e9 for r in self.records)
 
+    def by_instance(self) -> dict[str, dict]:
+        """Billing split by the execution unit that actually served each
+        request — the per-replica view behind ``platform.stats()['replicas']``.
+        Each client request appears in exactly one instance's bucket (the
+        replica the spread routed it to), so bucket call counts sum to the
+        total client request count no matter how many replicas share a name."""
+        with self._lock:
+            records = list(self.records)
+        return self._by_instance(records)
+
     @staticmethod
     def _by_instance(records: list[InvocationRecord]) -> dict[str, dict]:
         """Billing split by the execution unit that served each request:

@@ -428,6 +428,13 @@ class FunctionInstance:
             if self._active == 0:
                 self._idle_event.set()
 
+    def outstanding(self) -> int:
+        """In-flight request count (begin/end_request bracketing) — the
+        least-outstanding spread's load signal. Pod work queued behind a
+        busy orchestrated worker but not yet begun is not counted."""
+        with self._lock:
+            return self._active
+
     def retire(self, timeout: float = 30.0) -> int:
         """Drain in-flight requests, terminate, free weights and captured
         graphs. Returns bytes freed (the RAM the fusion reclaims). The

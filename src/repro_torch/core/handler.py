@@ -14,7 +14,8 @@ The handler also:
   Merger's health check;
 * maintains the per-thread invocation stack so blocked time is attributed
   to the right billing record (the double-billing measurement);
-* counts direct client demand per function (``note_demand``).
+* counts direct client demand per function (``note_demand``) and reports
+  windowed rates of it and of each edge, which fission's regret check reads.
 """
 from __future__ import annotations
 
@@ -23,13 +24,40 @@ import contextlib
 import dataclasses
 import math
 import threading
+import time
 from typing import Callable
 
 from repro_torch.core.billing import BillingMeter, InvocationRecord
 from repro_torch.scheduler.clock import SYSTEM_CLOCK
 
 _RECENT_WAITS = 64  # bounded per-edge wait history for the tail estimate
-_RECENT_TS = 256  # bounded per-function / per-edge timestamp history
+_RECENT_TS = 256  # bounded per-edge / per-function timestamp history: the
+# fission regret path must see whether an edge or a member is hot NOW —
+# all-time counters stay "hot" forever after traffic moves away
+RECENT_WINDOW_S = 5.0  # default lookback for the windowed rates
+
+
+def _windowed_rate(ts, window_s: float, now: float) -> float:
+    """Events/s over the trailing window from a bounded timestamp deque.
+    When the deque overflowed INSIDE the window (high-rate source: 256
+    entries can span well under 5s), the denominator is the span the deque
+    actually covers — dividing the capped count by the full window would
+    clamp every hot source to maxlen/window_s (~51 req/s) and compress the
+    rate ratios the divergence check compares."""
+    if not ts:
+        return 0.0
+    cutoff = now - window_s
+    count = sum(1 for t in ts if t >= cutoff)
+    if count == 0:
+        return 0.0
+    span = window_s
+    maxlen = getattr(ts, "maxlen", None)
+    if maxlen is not None and len(ts) == maxlen and ts[0] >= cutoff:
+        # ONLY an overflowed deque truncates the window. Shortening the span
+        # just because the oldest retained sample is recent would turn a
+        # function's first two requests into a thousands-req/s reading.
+        span = max(now - ts[0], 1e-6)
+    return count / span
 
 
 @dataclasses.dataclass
@@ -43,6 +71,13 @@ class EdgeStats:
         # stay plain scalars (JSON-serializable stats, cheap copies).
         self.recent_waits: list[float] = []
         self.recent_ts: collections.deque[float] = collections.deque(maxlen=_RECENT_TS)
+
+    def recent_sync_rate(self, window_s: float = RECENT_WINDOW_S, now: float | None = None) -> float:
+        """Sync observations per second over the trailing ``window_s`` — the
+        *windowed* view of edge heat: a chain whose traffic moved away reads
+        ~0 here while sync_count stays frozen at its all-time total."""
+        now = time.perf_counter() if now is None else now
+        return _windowed_rate(self.recent_ts, window_s, now)
 
     @property
     def mean_wait_s(self) -> float:
@@ -201,6 +236,32 @@ class FunctionHandler:
                 recent = self._recent_calls[function] = collections.deque(maxlen=_RECENT_TS)
             recent.append(self.clock.now())
 
+    def recent_rate(self, function: str, window_s: float = RECENT_WINDOW_S) -> float:
+        """Direct external demand (requests/s) on this function over the
+        trailing window — the per-member signal the fission divergence check
+        compares against its commit-time baseline."""
+        now = self.clock.now()
+        with self._lock:
+            recent = self._recent_calls.get(function)
+            return _windowed_rate(recent, window_s, now) if recent else 0.0
+
+    def recent_inbound_rate(self, function: str, exclude=frozenset(),
+                            window_s: float = RECENT_WINDOW_S) -> float:
+        """Windowed rate of synchronous dispatches INTO ``function`` from
+        callers outside ``exclude`` — demand a fused member receives from
+        other execution units, invisible to `recent_rate` (eager-glue calls
+        are not client traffic). The fission divergence check sums this with
+        the direct rate so a member fed by an external caller never reads
+        cold. Calls from inside ``exclude`` (the member's own fusion group)
+        are inlined post-merge and must not count either way."""
+        now = self.clock.now()
+        with self._lock:
+            return sum(
+                st.recent_sync_rate(window_s, now=now)
+                for (caller, callee), st in self.edges.items()
+                if callee == function and caller not in exclude
+            )
+
     def observe_edge(self, caller: str, callee: str, *, sync: bool, wait_s: float = 0.0) -> None:
         notify = False
         with self._lock:
@@ -235,8 +296,12 @@ class FunctionHandler:
             return last
 
     def stats(self) -> dict:
+        now = self.clock.now()
         with self._lock:
             return {
-                f"{a}->{b}": dataclasses.asdict(v)
+                f"{a}->{b}": {
+                    **dataclasses.asdict(v),
+                    "recent_sync_rate": round(v.recent_sync_rate(now=now), 3),
+                }
                 for (a, b), v in sorted(self.edges.items())
             }

@@ -1,4 +1,4 @@
-"""Provuse platform: deploy / invoke / observe / fuse.
+"""Provuse platform: deploy / invoke / observe / fuse / split / replicate.
 
 Two external invocation paths, as in the JAX package:
 
@@ -17,17 +17,35 @@ publish — and its entries come from the executable index when they were
 seen before. ``idle_park_s > 0`` parks instances from the reconciler tick
 once every member has been idle that long.
 
-:class:`TinyTorchBackend` is the tinyFaaS analogue and the counterpart of
-the JAX package's ``TinyJaxBackend``: a minimal in-process dispatcher.
-Invocations execute in the calling thread; routing is a dict lookup; async
-branches run on a small shared pool. The Function Handler, Merger, policy,
-control plane and billing meter are backend-agnostic, as the paper shows.
+A merge can be undone: with ``fission=True`` the reconciler runs the regret
+check over the committed groups (``Merger.evaluate_splits``) and splits a
+group whose live signals say the merge was a mistake. A name may be served
+by an ordered replica set: ``enable_autoscaler`` (or ``autoscale=True``)
+scales replicas out on sustained predicted load and back in at troughs, and
+a replica holds the spec's own tensors (it never copies the weights).
+
+Two backends mirror the paper's two implementations:
+
+* :class:`TinyTorchBackend` — the tinyFaaS analogue: a minimal in-process
+  dispatcher. Invocations execute in the calling thread; routing is a dict
+  lookup; async branches run on a small shared pool.
+* :class:`OrchestratedBackend` — the Kubernetes analogue: every execution
+  unit gets a worker (queue + thread = Pod), invocations travel through a
+  Service-like indirection (routing table -> worker queue -> Future),
+  merged units go through a readiness gate before the Service selector
+  flips (rolling swap), and displaced units are drained before their worker
+  stops. On the card every pod launches on its device's current stream, as
+  every execution of an XLA device runs on that device's one compute stream.
+
+The Function Handler, Merger, policy, control plane and billing meter are
+backend-agnostic, as the paper shows.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import queue
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -39,7 +57,7 @@ from repro_torch import tree
 from repro_torch.core.billing import BillingMeter, ProvisioningRecord
 from repro_torch.core.context import AbstractContext
 from repro_torch.core.errors import DeploymentError, InvocationError, UnknownFunctionError
-from repro_torch.core.function import FunctionInstance, FunctionSpec, _struct_key, _structs_of
+from repro_torch.core.function import FunctionInstance, FunctionSpec, _cuda_device, _struct_key, _structs_of
 from repro_torch.core.handler import FunctionHandler
 from repro_torch.core.lifecycle import ControlPlane
 from repro_torch.core.merger import Merger
@@ -69,7 +87,8 @@ class _ParkedFunction:
 
 class ProvusePlatform:
     """Base platform: ``invoke`` (serial) and ``invoke_async`` (scheduled,
-    micro-batched); with snapshots, ``scale_to_zero`` and resurrect."""
+    micro-batched); with snapshots, ``scale_to_zero`` and resurrect; with
+    ``fission``, splits; with an autoscaler, replica sets."""
 
     backend_name = "base"
 
@@ -84,14 +103,20 @@ class ProvusePlatform:
         "_compile_misses": "_prov_lock",
         "_compile_saved_s": "_prov_lock",
         "_compile_spent_s": "_prov_lock",
+        "_spinup_ewma_s": "_prov_lock",
     }
 
     def __init__(self, policy: FusionPolicy | None = None, *, async_build: bool = False,
                  health_rtol: float = 2e-2, health_atol: float = 1e-2,
                  max_batch: int = 8, max_delay_ms: float = 2.0,
                  adaptive: bool = False, adaptive_config=None,
-                 be_shed_depth: int | None = None, snapshot_dir: str | None = None,
-                 idle_park_s: float = 0.0, clock=None, tracing: bool = True):
+                 be_shed_depth: int | None = None,
+                 fission: bool = False, fission_interval_s: float = 0.25,
+                 trough_merges: bool = False, max_defer_s: float = 1.0,
+                 snapshot_dir: str | None = None, idle_park_s: float = 0.0,
+                 spread=None, autoscale: bool = False,
+                 autoscale_config: dict | None = None,
+                 clock=None, tracing: bool = True):
         self.clock = clock or SYSTEM_CLOCK
         # Always-on causal tracing: every entry point mints a SpanContext,
         # every phase lands in the tracer's flight recorder, and the
@@ -100,17 +125,24 @@ class ProvusePlatform:
         # (the overhead-gate baseline) without touching any call site.
         self.tracer = Tracer(clock=self.clock, enabled=tracing)
         self.edge_costs = EdgeCostModel()
-        self.registry = RoutingTable()
+        # spread: replica selection policy for multi-replica routes —
+        # "least-outstanding" (default) or "round-robin" (see registry).
+        self.registry = RoutingTable(spread=spread)
         self.meter = BillingMeter(clock=self.clock)
         self.policy = policy or FusionPolicy()
         if self.policy.cost_model is None:
             self.policy.cost_model = self.edge_costs
         self.handler = FunctionHandler(self.meter, on_fusion_candidate=self._on_candidate,
                                        clock=self.clock, tracer=self.tracer)
-        # Control plane: every deploy/merge/redeploy/park/resurrect is an
-        # epoch transition published through here; the reconciler thread
-        # (started lazily) runs the idle-park tick.
-        self.lifecycle = ControlPlane(self, self.registry, clock=self.clock)
+        # Control plane: every deploy/merge/split/redeploy/park/resurrect/scale
+        # is an epoch transition published through here; the reconciler thread
+        # (started lazily) runs the tick hooks and executes deferred
+        # transitions during traffic troughs.
+        self.lifecycle = ControlPlane(self, self.registry, max_defer_s=max_defer_s,
+                                      clock=self.clock)
+        # trough_merges: promoted merges queue on the reconciler and run at
+        # the next observed trough instead of stalling live traffic.
+        self.trough_merges = trough_merges
         self.merger = Merger(self, self.policy, async_build=async_build,
                              health_rtol=health_rtol, health_atol=health_atol)
         self.scheduler = RequestScheduler(
@@ -121,6 +153,15 @@ class ProvusePlatform:
             clock=self.clock,
             tracer=self.tracer,
         )
+        # fission: the reconciler periodically runs the regret check
+        # (Merger.evaluate_splits) so a merge the live signals say was a
+        # mistake gets reversed — see FusionPolicy.decide_split. Registered
+        # after the scheduler exists: the hook starts the reconciler thread,
+        # which reads scheduler signals.
+        self._fission_interval_s = fission_interval_s
+        self._last_fission_eval = 0.0
+        if fission:
+            self.lifecycle.add_tick_hook(self._fission_tick)
         self._specs: dict[str, FunctionSpec] = {}
         self._shape_cache: dict[tuple, Any] = {}
         self._shape_stack: list[str] = []
@@ -144,9 +185,16 @@ class ProvusePlatform:
         self._compile_misses = 0
         self._compile_saved_s = 0.0
         self._compile_spent_s = 0.0
+        # EWMA of measured replica spin-up wall time (None until the first
+        # spin-up) — the fusion policy's replicate-arm cost input.
+        self._spinup_ewma_s: float | None = None
         self._prov_lock = threading.Lock()
         if snapshot_dir is not None:
             self.enable_snapshots(snapshot_dir, idle_park_s=idle_park_s)
+        # --- replicated data plane ---
+        self.autoscaler = None
+        if autoscale:
+            self.enable_autoscaler(**(autoscale_config or {}))
 
     # ------------------------------------------------------------- deploy
 
@@ -441,6 +489,115 @@ class ProvusePlatform:
             out["snapshots"] = self.snapshots.stats()
         return out
 
+    # ------------------------------------- replicated data plane / autoscaling
+
+    def enable_autoscaler(self, **knobs):
+        """Turn on rho-driven replica autoscaling: registers an
+        :class:`repro_torch.core.autoscaler.Autoscaler` as a reconciler tick
+        hook. ``knobs`` forward to its constructor (rho_high, rho_low,
+        depth_high, sustain, max_replicas, min_replicas, cooldown_s,
+        eval_interval_s)."""
+        from repro_torch.core.autoscaler import Autoscaler
+
+        self.autoscaler = Autoscaler(self, **knobs)
+        self.lifecycle.add_tick_hook(self.autoscaler.tick)
+        return self.autoscaler
+
+    def request_replica(self, name: str, reason: str = "") -> None:
+        """Scale-out hint (the fusion policy's replicate arm routes here).
+        No-op without an autoscaler — the hint is advisory, and the
+        autoscaler owns the max-replica/cooldown guards."""
+        scaler = self.autoscaler
+        if scaler is not None:
+            scaler.request_scale_out(name, reason=reason)
+
+    def replica_spinup_estimate(self, name: str | None = None) -> float | None:
+        """EWMA of measured warm replica spin-up seconds, or None before any
+        replica has ever spun up (the policy's replicate arm then stays
+        cold — it never bets on an unmeasured cost)."""
+        with self._prov_lock:
+            return self._spinup_ewma_s
+
+    def _spawn_replica(self, name: str) -> FunctionInstance | None:
+        """Build one replica of the unit currently routed for ``name`` and
+        publish it through a scale-out epoch. The replica holds the specs'
+        own tensors (the weights are never copied); its entries come from
+        the executable index, and it captures graphs of its own (two replicas
+        must never replay one graph's static buffers at once).
+
+        The canary health check runs via DIRECT ``replica.execute`` — never
+        ``invoke`` — so spin-up traffic stamps no demand (note_demand) and
+        bills nothing: per-replica demand attribution stays consistent with
+        what clients actually sent. Returns None when the route vanished
+        under us (a racing park/merge won)."""
+        inst = self.registry.get(name)
+        if inst is None:
+            return None
+        t0 = self.clock.now()
+        specs = {m: self.spec_of(m) for m in inst.members}
+        replica = FunctionInstance(specs, self)
+        self.attach_instance(replica)
+        for m in sorted(replica.members):
+            canary = self.handler.canary(m)
+            if canary is None:
+                continue
+            if replica.get_compiled(m, canary) is None:
+                # boundary entry: replaying it would dispatch outbound calls
+                # through live routing (edge stats + billing pollution);
+                # get_compiled above still recorded what it could
+                continue
+            replica.execute(m, canary)
+        replica.mark_ready()
+        event = self.lifecycle.scale_out(
+            replica, tuple(sorted(replica.members)),
+            reason=f"replica of {inst.instance_id}",
+        )
+        if event is None:
+            self.detach_instance(replica)
+            return None
+        seconds = self.clock.now() - t0
+        profile = replica.provision_profile()
+        self.note_provisioning(
+            "scale-out", seconds, warm=profile["cache_misses"] == 0,
+            functions=tuple(sorted(replica.members)),
+            resident_bytes=replica.resident_bytes(), billed=True,
+        )
+        with self._prov_lock:
+            prev = self._spinup_ewma_s
+            self._spinup_ewma_s = seconds if prev is None else 0.5 * prev + 0.5 * seconds
+        return replica
+
+    def replica_stats(self, per_instance: dict | None = None) -> dict:
+        """Per-replica view for ``stats()["replicas"]``: replica ids, spread
+        pick counts, in-flight counts, per-replica billing split, and the
+        name-level demand rate. Demand is stamped ONCE per client request at
+        the entry points (note_demand) — never per replica pick — so the
+        fission divergence signals see replicated traffic exactly once.
+        ``stats()`` passes the per-instance split from its coherent meter
+        snapshot; standalone callers let it be computed fresh."""
+        summary = self.registry.replica_summary()
+        if per_instance is None:
+            per_instance = self.meter.by_instance()
+        functions = {}
+        for name, info in summary.items():
+            functions[name] = {
+                **info,
+                "demand_rps": round(self.handler.recent_rate(name), 3),
+                "billing": {
+                    iid: per_instance[iid]
+                    for iid in info["replicas"]
+                    if iid in per_instance
+                },
+            }
+        out = {
+            "spread": self.registry.spread_name,
+            "spinup_estimate_s": self.replica_spinup_estimate(),
+            "functions": functions,
+        }
+        if self.autoscaler is not None:
+            out["autoscaler"] = self.autoscaler.stats()
+        return out
+
     # ------------------------------------------------------------- shapes
 
     def output_structs(self, name: str, args: tuple):
@@ -628,8 +785,17 @@ class ProvusePlatform:
         self.attach_instance(fresh)
         fresh.mark_ready()
         # Epoch transition: the displaced (dead-routed) instance is drained
-        # AND retired.
+        # AND retired, and on the orchestrated backend its pod's loop exits.
         self.lifecycle.publish({name: fresh}, kind="redeploy", reason=f"redeploy {name}")
+
+    def _fission_tick(self) -> None:
+        """Reconciler-tick hook: rate-limited regret evaluation over the
+        committed fusion groups (control-plane work, off the data path)."""
+        now = self.clock.now()
+        if now - self._last_fission_eval < self._fission_interval_s:
+            return
+        self._last_fission_eval = now
+        self.merger.evaluate_splits()
 
     def remote_call(self, caller_instance: FunctionInstance, caller_fn: str, callee: str, args: tuple):
         """Blocking function-to-function dispatch from eager glue: the caller
@@ -668,7 +834,8 @@ class ProvusePlatform:
     def note_provisioning(self, kind: str, seconds: float, *, warm: bool,
                           functions=(), resident_bytes: int = 0,
                           billed: bool = False) -> None:
-        """Record one provisioning transition (merge/park/resurrect) with its
+        """Record one provisioning transition (merge/split/park/resurrect/
+        scale-out) with its
         warm-vs-cold classification on the billing meter (billed records —
         a resurrect's restore time — are billed; a park's idle time is not),
         as a span ending now on the control-plane timeline, and — for a
@@ -714,12 +881,25 @@ class ProvusePlatform:
                 }
                 for e in self.merger.merge_log
             ],
+            "splits": [
+                {
+                    "members": e.members,
+                    "partition": e.partition,
+                    "healthy": e.healthy,
+                    "epoch": e.epoch,
+                    "reason": e.reason,
+                    "build_s": round(e.build_s, 4),
+                    "warm": e.warm,
+                }
+                for e in self.merger.split_log
+            ],
             "lifecycle": self.lifecycle.stats(),
             "provisioning": self.provisioning_stats(),
             "billing": meter_snap["billing"],
             "latency": meter_snap["latency"],
             "scheduler": self.scheduler.stats(),
             "batching": self.batching_stats(),
+            "replicas": self.replica_stats(per_instance=meter_snap["by_instance"]),
             "edge_costs": self.edge_costs.stats(),
         }
 
@@ -774,6 +954,124 @@ class TinyTorchBackend(ProvusePlatform):
     def shutdown(self) -> None:
         super().shutdown()
         self._async_pool.shutdown(wait=True)
+
+
+class _Worker:
+    """A Pod: serial request loop over a queue, on a thread of its own. On
+    the card the thread sets its instance's device, then launches on that
+    device's current stream, as every pod does (no stream of its own)."""
+
+    def __init__(self, platform: "OrchestratedBackend", instance: FunctionInstance):
+        self.instance = instance
+        self.platform = platform
+        self.q: "queue.Queue[tuple | None]" = queue.Queue()  # (entry, payload, fut, is_batch, trace-ctx)
+        self.thread = threading.Thread(target=self._loop, daemon=True, name=f"worker-{instance.instance_id}")
+        self.thread.start()
+
+    def _loop(self):
+        dev = _cuda_device(self.instance.params)
+        if dev is not None:
+            torch.cuda.set_device(dev)
+        tracer = self.platform.tracer
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            entry, payload, fut, is_batch, cur = item
+            try:
+                # re-activate the submitter's trace context: spans emitted
+                # inside the pod (handler execute, nested calls) land in the
+                # request's tree even though it hopped threads
+                with tracer.activate_snapshot(cur):
+                    if is_batch:
+                        fut.set_result(self.platform._run_batch(self.instance, entry, payload))
+                    else:
+                        fut.set_result(self.platform._run_request(self.instance, entry, payload))
+            except Exception as exc:  # noqa: BLE001 — reaches the caller through its Future
+                fut.set_exception(exc)
+
+    def submit(self, entry: str, args: tuple) -> Future:
+        fut: Future = Future()
+        self.q.put((entry, args, fut, False, self.platform.tracer.current()))
+        return fut
+
+    def submit_batch(self, entry: str, args_list: list[tuple]) -> Future:
+        fut: Future = Future()
+        self.q.put((entry, args_list, fut, True, self.platform.tracer.current()))
+        return fut
+
+    def stop(self):
+        self.q.put(None)
+
+
+class OrchestratedBackend(ProvusePlatform):
+    """Kubernetes analogue: queue+thread Pods, Service indirection, rolling
+    swaps with readiness gating."""
+
+    backend_name = "orchestrated"
+
+    GUARDED_FIELDS = {"_workers": "_workers_lock"}
+
+    def __init__(self, *args, **kwargs):
+        # the workers exist before the base constructor, which may already
+        # attach instances (an autoscaler's first tick)
+        self._workers: dict[str, _Worker] = {}
+        self._workers_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def attach_instance(self, instance: FunctionInstance) -> None:
+        with self._workers_lock:
+            self._workers[instance.instance_id] = _Worker(self, instance)
+
+    def detach_instance(self, instance: FunctionInstance) -> None:
+        with self._workers_lock:
+            worker = self._workers.pop(instance.instance_id, None)
+        if worker:
+            worker.stop()
+
+    def _worker_for(self, instance: FunctionInstance) -> _Worker:
+        with self._workers_lock:
+            worker = self._workers.get(instance.instance_id)
+        if worker is None:
+            raise InvocationError(f"no worker for {instance.instance_id}")
+        return worker
+
+    def pods(self) -> dict[str, threading.Thread]:
+        """The live pods' threads, by instance id."""
+        with self._workers_lock:
+            return {iid: w.thread for iid, w in self._workers.items()}
+
+    def _dispatch_sync(self, name: str, args: tuple):
+        instance = self.registry.resolve(name)
+        current = threading.current_thread()
+        worker = self._worker_for(instance)
+        if worker.thread is current:
+            # self-call inside the same pod: run inline (avoids deadlock)
+            return self._run_request(instance, name, args)
+        return worker.submit(name, args).result()
+
+    def _dispatch_batch_impl(self, name: str, args_list: list[tuple]) -> list:
+        instance = self.registry.resolve(name)
+        worker = self._worker_for(instance)
+        if worker.thread is threading.current_thread():
+            return self._run_batch(instance, name, args_list)
+        return worker.submit_batch(name, args_list).result()
+
+    def _dispatch_async(self, name: str, args: tuple) -> None:
+        instance = self.registry.resolve(name)
+        self._worker_for(instance).submit(name, args)
+
+    def shutdown(self) -> None:
+        """Stop every pod once the work queued to it has run (its async
+        calls included), and wait for its thread to end."""
+        super().shutdown()
+        with self._workers_lock:
+            workers, self._workers = list(self._workers.values()), {}
+        for worker in workers:
+            worker.stop()
+        for worker in workers:
+            if worker.thread is not threading.current_thread():
+                worker.thread.join(timeout=30.0)
 
 
 @contextlib.contextmanager

@@ -49,7 +49,7 @@ class UnionFind:
         """Dissolve one group into the given partition cells: members of a
         cell stay unioned with each other and disconnected from every other
         cell. Only valid when the cells' union is a complete group (no
-        outside member roots through it)."""
+        outside member roots through it) — which is how fission uses it."""
         for cell in cells:
             root = min(cell)
             for member in cell:
@@ -61,6 +61,21 @@ class FusionDecision:
     fuse: bool
     reason: str
     group: frozenset[str] = frozenset()
+    # The alternative arm of the fuse decision (Konflux frames fusion as a
+    # cost-model choice): don't merge — add a replica of the saturated callee
+    # instead. Set only when replica spin-up is estimated cheaper than the
+    # merge; the Merger forwards it to the autoscaler as a scale-out hint.
+    replicate: bool = False
+
+
+@dataclasses.dataclass
+class SplitDecision:
+    split: bool
+    reason: str
+    # Partition of the fused group's members: each cell becomes one rebuilt
+    # execution unit (singletons for saturation/tail regret; hot singletons +
+    # one cold residual cell for traffic divergence).
+    partition: tuple[frozenset[str], ...] = ()
 
 
 @dataclasses.dataclass
@@ -72,19 +87,29 @@ class FusionPolicy:
     amortization_horizon: invocations over which the merge must pay off.
 
     Scheduler-feedback knobs (used when `decide` receives live
-    :class:`SchedulerSignals`): a chain whose batches already run at least
-    ``saturation_occupancy`` full with ``saturation_depth`` requests queued
-    is *saturated* and must beat ``saturation_penalty x`` the merge cost; a
-    cold chain whose per-edge sync-wait tail (p95) reaches ``promote_wait_s``
-    is promoted — half the observation floor at ``promote_discount x`` the
-    merge cost.
+    :class:`SchedulerSignals` from the request scheduler):
+    saturation_occupancy/saturation_depth: a chain whose batches already
+    run at least this full with at least this many requests queued is
+    *saturated* — micro-batching is absorbing the load, and the merge's
+    rebuild stall lands exactly when clients are waiting, so the
+    projected saving must beat ``saturation_penalty x`` the merge cost.
+    promote_wait_s: a *cold* (unsaturated) chain whose per-edge sync-wait
+    tail (p95) reaches this long gets promoted — half the observation floor
+    and ``promote_discount x`` the merge cost — because per-request blocking
+    dominates and fusion removes it directly. The chain's end-to-end p95
+    gates this: blocking must be a meaningful share of observed latency.
     """
 
     # provlint: un-annotated, so dataclasses ignores it (not a field).
+    # merge_cost_s is RMW'd by feedback_merge_cost while decide reads it —
+    # both must hold _lock.
     GUARDED_FIELDS = {
         "merge_cost_s": "_lock",
         "groups": "_lock",
         "_fused_edges": "_lock",
+        "_edge_backoff": "_lock",
+        "_sat_streak": "_lock",
+        "_slo_streak": "_lock",
     }
 
     min_observations: int = 3
@@ -96,6 +121,45 @@ class FusionPolicy:
     saturation_penalty: float = 4.0
     promote_wait_s: float = 0.05
     promote_discount: float = 0.5
+    # ---- fuse-vs-replicate knobs ----
+    # A SATURATED callee poses a choice: merging drags the caller into the
+    # hot instance (and pays a rebuild stall mid-overload), while a replica
+    # is warm (restore-not-rebuild) and adds capacity directly. When the
+    # measured replica spin-up time is <= replicate_bias x the merge cost,
+    # `decide` returns replicate=True instead of weighing the penalized
+    # merge. max_replica_hint stops hinting once the callee already holds
+    # that many replicas — more capacity isn't the fix at that point, and
+    # the penalized-merge arm gets its turn again.
+    replicate_enabled: bool = True
+    replicate_bias: float = 1.0
+    max_replica_hint: int = 4
+    # ---- fission (reversible fusion) knobs ----
+    # split_occupancy/split_depth/split_sustain: a fused group whose batches
+    # run at least split_occupancy full with split_depth+ requests queued for
+    # split_sustain consecutive regret evaluations is *saturated*: its one
+    # serialized unit has become the bottleneck, so fission rebuilds
+    # per-partition units to win back parallel dispatch.
+    # regret_p95_factor: post-merge tail regret — the group splits when its
+    # recent p95 exceeds this multiple of the pre-merge baseline snapshotted
+    # at commit time.
+    # cold_rate_ratio: traffic-divergence regret — members whose recent
+    # request rate fell below this fraction of the hottest member's are
+    # "cold"; hot members split out as singletons, cold ones stay co-located.
+    # min_group_age_s / remerge_backoff_s: hysteresis. A fresh merge cannot
+    # split before min_group_age_s (no reacting to its own swap transient),
+    # and a split group's edges cannot re-merge within remerge_backoff_s —
+    # together they bound merge<->split flapping to one transition per
+    # backoff period even under pathological oscillating load.
+    fission_enabled: bool = True
+    split_occupancy: float = 0.9
+    split_depth: int = 2
+    split_sustain: int = 3
+    regret_p95_factor: float = 1.5
+    cold_rate_ratio: float = 0.05
+    min_group_age_s: float = 1.0
+    remerge_backoff_s: float = 10.0
+    # Injectable time source (hysteresis backoffs, streak bookkeeping):
+    # tests drive merge<->split flap windows on a virtual clock, no sleeps.
     clock: Any = None
 
     # provlint: un-annotated — not a dataclass field. The platform assigns
@@ -111,6 +175,9 @@ class FusionPolicy:
         self.groups = UnionFind()
         self._lock = threading.Lock()
         self._fused_edges: set[tuple[str, str]] = set()
+        self._edge_backoff: dict[tuple[str, str], float] = {}
+        self._sat_streak: dict[frozenset[str], int] = {}
+        self._slo_streak: dict[frozenset[str], int] = {}
 
     def feedback_merge_cost(self, seconds: float) -> None:
         # exponential moving average of observed merge costs; `decide` reads
@@ -126,14 +193,29 @@ class FusionPolicy:
         trust_a: str,
         trust_b: str,
         signals: SchedulerSignals | Callable[[], SchedulerSignals] | None = None,
+        *,
+        replica_spinup_s: float | None = None,
+        callee_replicas: int = 1,
     ) -> FusionDecision:
         """``signals``: a :class:`SchedulerSignals`, or a zero-arg callable
-        returning one — resolved only past the cheap early-outs."""
+        returning one — resolved only past the cheap early-outs so hot
+        unfusable edges (observed on every sync call) don't pay for a
+        scheduler snapshot per invocation.
+
+        ``replica_spinup_s``: the platform's measured warm replica spin-up
+        estimate (None when no replica has ever spun up — the replicate arm
+        then never fires, so callers without an autoscaler are unaffected).
+        ``callee_replicas``: how many replicas already serve the callee."""
         with self._lock:
             if not self.enabled:
                 return FusionDecision(False, "fusion disabled")
             if (caller, callee) in self._fused_edges:
                 return FusionDecision(False, "edge already fused")
+            if self._edge_backoff.get((caller, callee), 0.0) > self.clock.now():
+                # the group this edge belonged to was just split — immediately
+                # re-merging on the same (still-warm) observation counters
+                # would flap merge<->split on every oscillation of the load
+                return FusionDecision(False, "recently split (fission hysteresis)")
             if trust_a != trust_b:
                 return FusionDecision(False, f"trust domains differ ({trust_a} vs {trust_b})")
             if self.groups.find(caller) == self.groups.find(callee):
@@ -159,11 +241,17 @@ class FusionPolicy:
                     and signals.queue_depth >= self.saturation_depth
                 )
                 # Promotion keys on the edge's own SYNC-WAIT tail — the time
-                # fusion actually removes; end-to-end p95 only gates it.
+                # fusion actually removes. End-to-end p95 (queueing + compute)
+                # only gates it: a chain whose latency is dominated by slow
+                # compute, not blocking, gains nothing from an early merge.
                 edge_wait_s = getattr(stats, "p95_wait_s", stats.mean_wait_s)
                 blocking_matters = (
                     signals.p95_ms == 0.0 or edge_wait_s >= 0.2 * signals.p95_ms / 1e3
                 )
+                # An SLO class violating its target on this chain promotes
+                # the merge IF removing the edge's sync-wait tail would
+                # plausibly un-violate it — fusion is then not a throughput
+                # optimization but the mechanism that restores the target.
                 viol = signals.worst_violation()
                 slo_fixable = (
                     viol is not None
@@ -171,10 +259,24 @@ class FusionPolicy:
                     and edge_wait_s > 0.0
                 )
                 if saturated:
+                    if (
+                        self.replicate_enabled
+                        and replica_spinup_s is not None
+                        and callee_replicas < self.max_replica_hint
+                        and replica_spinup_s <= self.merge_cost_s * self.replicate_bias
+                    ):
+                        return FusionDecision(
+                            False,
+                            f"saturated callee: warm replica "
+                            f"(~{replica_spinup_s:.3f}s) beats merge "
+                            f"(~{self.merge_cost_s:.3f}s) — replicate instead",
+                            replicate=True,
+                        )
                     if measured_stall_s is not None:
+                        # Measured replacement for the static multiplier:
                         # merging NOW serializes the measured build stall in
                         # front of every queued request, so that — not a
-                        # fixed 4x — is what the saving must beat
+                        # fixed 4x — is what the saving must beat.
                         required_cost = (
                             self.merge_cost_s
                             + measured_stall_s * max(1, signals.queue_depth)
@@ -214,20 +316,160 @@ class FusionPolicy:
         with self._lock:
             self._fused_edges.add((caller, callee))
             self.groups.union(caller, callee)
-            return self.groups.group(caller)
+            group = self.groups.group(caller)
+            self._sat_streak.pop(group, None)
+            self._slo_streak.pop(group, None)
+            return group
 
-    def dissolve(self, cells: Iterable[frozenset[str]]) -> None:
-        """Un-commit a fused group along the given partition: fused edges
-        crossing cells are forgotten and the union-find group dissolves into
-        the cells. The reference's re-merge backoff (fission hysteresis)
-        waits for fission, its only caller with a non-zero window; a park
-        dissolves with none."""
-        cells = [frozenset(c) for c in cells]
-        cell_of = {m: i for i, cell in enumerate(cells) for m in cell}
+    # ------------------------------------------------------------- fission
+
+    def decide_split(
+        self,
+        members: frozenset[str],
+        *,
+        signals: SchedulerSignals | None = None,
+        member_rates: dict[str, float] | None = None,
+        baseline_rates: dict[str, float] | None = None,
+        baseline_p95_ms: float = 0.0,
+        current_p95_ms: float = 0.0,
+        age_s: float = 0.0,
+        replica_count: int = 1,
+    ) -> SplitDecision:
+        """Regret check for one committed fusion group, evaluated off the
+        data path by the control plane's reconciler.
+
+        ``signals`` is the group's live scheduler snapshot, ``member_rates``
+        the per-member recent request rates (handler.recent_rate),
+        ``baseline_p95_ms`` the pre-merge tail snapshotted at commit,
+        ``current_p95_ms`` the recent post-merge tail, ``age_s`` time since
+        the merge committed. Four regret signals, checked in order:
+        sustained saturation, a sustained SLO-class violation on the group,
+        post-merge tail regression, member traffic divergence (edge gone
+        cold).
+
+        ``replica_count``: how many replicas the platform already runs of
+        this fused unit. Replication is itself a fission-pressure signal —
+        the autoscaler had to clone the WHOLE group to keep up, so the
+        co-located unit is the bottleneck replica_count times over, and
+        splitting wins back per-member parallel dispatch on every replica.
+        A replicated group therefore needs only half the sustained-streak
+        evidence before the saturation/SLO checks fire."""
+        members = frozenset(members)
         with self._lock:
+            if not self.fission_enabled or len(members) < 2:
+                return SplitDecision(False, "fission disabled or singleton group")
+            if age_s < self.min_group_age_s:
+                return SplitDecision(
+                    False, f"group too young ({age_s:.2f}s < {self.min_group_age_s}s hysteresis)"
+                )
+            singletons = tuple(frozenset((m,)) for m in sorted(members))
+            # replication pressure (see docstring): a cloned group halves the
+            # sustained-evidence requirement for the streak-based checks
+            sustain = (
+                self.split_sustain
+                if replica_count <= 1
+                else max(1, self.split_sustain // 2)
+            )
+            pressure = "" if replica_count <= 1 else (
+                f"; replica pressure: {replica_count} replicas halved the "
+                f"sustain floor"
+            )
+            # --- sustained saturation: the fused unit serializes a load the
+            # scheduler could be running in parallel across per-member units
+            saturated = (
+                signals is not None
+                and signals.mean_occupancy >= self.split_occupancy
+                and signals.queue_depth >= self.split_depth
+            )
+            if saturated:
+                streak = self._sat_streak.get(members, 0) + 1
+                self._sat_streak[members] = streak
+                if streak >= sustain:
+                    self._sat_streak.pop(members, None)
+                    return SplitDecision(
+                        True,
+                        f"sustained saturation ({streak} consecutive evaluations at "
+                        f"occupancy {signals.mean_occupancy:.2f}, depth "
+                        f"{signals.queue_depth}{pressure})",
+                        singletons,
+                    )
+            else:
+                self._sat_streak.pop(members, None)
+            # --- SLO-class regret: a strict class sustained above its target
+            # on the fused group means the one serialized unit is violating a
+            # deadline per-member units could meet in parallel. Sustained
+            # (same streak discipline as saturation) so one tail blip — or
+            # the merge's own swap transient — cannot trigger fission; the
+            # min_group_age_s/remerge_backoff_s hysteresis bounds flapping
+            # when the target is simply unachievable either way.
+            viol = signals.worst_violation() if signals is not None else None
+            if viol is not None:
+                streak = self._slo_streak.get(members, 0) + 1
+                self._slo_streak[members] = streak
+                if streak >= sustain:
+                    self._slo_streak.pop(members, None)
+                    return SplitDecision(
+                        True,
+                        f"SLO class {viol[0]!r} violated on fused group ({streak} "
+                        f"consecutive evaluations at p95 {viol[1]:.1f}ms vs target "
+                        f"{viol[2]:.1f}ms{pressure})",
+                        singletons,
+                    )
+            else:
+                self._slo_streak.pop(members, None)
+            # --- post-merge tail regret vs the baseline snapshotted at commit
+            if (
+                baseline_p95_ms > 0.0
+                and current_p95_ms >= self.regret_p95_factor * baseline_p95_ms
+            ):
+                return SplitDecision(
+                    True,
+                    f"post-merge p95 regressed ({current_p95_ms:.1f}ms >= "
+                    f"{self.regret_p95_factor}x baseline {baseline_p95_ms:.1f}ms)",
+                    singletons,
+                )
+            # --- traffic divergence: the fused members no longer share a
+            # workload — hot members split out, cold ones stay co-located.
+            # Only members that had DIRECT demand at commit time can go cold:
+            # an interior chain member is served by inlined calls, so its
+            # direct rate reads 0 whether the chain is hot or dead.
+            if member_rates:
+                hottest = max(member_rates.values())
+                cold = frozenset(
+                    m for m in members
+                    if member_rates.get(m, 0.0) <= self.cold_rate_ratio * hottest
+                    and (baseline_rates or {}).get(m, 0.0) > 0.0
+                )
+                hot = members - cold
+                if hottest > 0.0 and cold and hot:
+                    partition = tuple(frozenset((m,)) for m in sorted(hot)) + (cold,)
+                    return SplitDecision(
+                        True,
+                        f"member traffic diverged (cold: {sorted(cold)} at <= "
+                        f"{self.cold_rate_ratio:.0%} of hottest member's rate)",
+                        partition,
+                    )
+            return SplitDecision(False, "no regret signal")
+
+    def dissolve(self, cells: Iterable[frozenset[str]], backoff_s: float | None = None) -> None:
+        """Un-commit a fused group along the given partition: fused edges
+        crossing cells are forgotten, the union-find group dissolves into
+        the cells, and every crossing pair enters the re-merge backoff
+        window (hysteresis — see ``remerge_backoff_s``)."""
+        cells = [frozenset(c) for c in cells]
+        members = frozenset().union(*cells) if cells else frozenset()
+        cell_of = {m: i for i, cell in enumerate(cells) for m in cell}
+        until = self.clock.now() + (self.remerge_backoff_s if backoff_s is None else backoff_s)
+        with self._lock:
+            for a in members:
+                for b in members:
+                    if a != b and cell_of[a] != cell_of[b]:
+                        self._edge_backoff[(a, b)] = until
             self._fused_edges = {
                 (a, b)
                 for (a, b) in self._fused_edges
                 if not (a in cell_of and b in cell_of and cell_of[a] != cell_of[b])
             }
             self.groups.split_cells(cells)
+            self._sat_streak.pop(members, None)
+            self._slo_streak.pop(members, None)

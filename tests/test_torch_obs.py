@@ -782,9 +782,9 @@ def test_merger_passes_lazy_scheduler_signals():
     seen = []
     decide = p.policy.decide
 
-    def spy(caller, callee, stats, trust_a, trust_b, signals=None):
+    def spy(caller, callee, stats, trust_a, trust_b, signals=None, **replicate_arm):
         seen.append((caller, callee, signals))
-        return decide(caller, callee, stats, trust_a, trust_b, signals=signals)
+        return decide(caller, callee, stats, trust_a, trust_b, signals=signals, **replicate_arm)
 
     p.policy.decide = spy
     try:

@@ -7,9 +7,11 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)  # the suite runs several workers at once: leave them cores
 
-from repro_torch.core import FunctionSpec, FusionPolicy, TinyTorchBackend  # noqa: E402
+from repro_torch.core import FunctionInstance, FunctionSpec, FusionPolicy, OrchestratedBackend, TinyTorchBackend  # noqa: E402
 from repro_torch.core.handler import EdgeStats  # noqa: E402
 from repro_torch.core.merger import _allclose_tree  # noqa: E402
+
+BACKENDS = [TinyTorchBackend, OrchestratedBackend]  # the reference's test_core_fusion / test_merger_aborts
 
 
 def weights(seed):
@@ -45,8 +47,9 @@ def chain_reference(wa, wb, wc, x):
     return torch.tanh(torch.tanh(torch.tanh(x @ wa) @ wb) @ wc)
 
 
-def test_progressive_fusion_preserves_semantics():
-    p = TinyTorchBackend(FusionPolicy(min_observations=3, merge_cost_s=0.0))
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_progressive_fusion_preserves_semantics(backend_cls):
+    p = backend_cls(FusionPolicy(min_observations=3, merge_cost_s=0.0))
     try:
         wa, wb, wc = deploy_chain_app(p)
         x = torch.ones(4, 64)
@@ -66,15 +69,16 @@ def test_progressive_fusion_preserves_semantics():
         p.shutdown()
 
 
-def test_async_edges_never_fuse():
-    p = TinyTorchBackend(FusionPolicy(min_observations=1, merge_cost_s=0.0))
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_async_edges_never_fuse(backend_cls):
+    p = backend_cls(FusionPolicy(min_observations=1, merge_cost_s=0.0))
     try:
         deploy_chain_app(p)
         x = torch.ones(4, 64)
         for _ in range(8):
             p.invoke("A", x)
     finally:
-        p.shutdown()  # drains the async pool: every D invocation has run
+        p.shutdown()  # drains the async pool (or D's pod): every D invocation has run
     assert p.registry.resolve("D").members.keys() == {"D"}
     edge = p.handler.edges[("A", "D")]
     # 8 client requests plus the merges' canary replays of A
@@ -124,8 +128,9 @@ def deploy_pair(platform, w):
     platform.deploy(FunctionSpec("B", lambda ctx, params, x: torch.tanh(x @ params), w))
 
 
-def test_merge_aborts_without_canary():
-    p = TinyTorchBackend(FusionPolicy(min_observations=1, merge_cost_s=0.0))
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_merge_aborts_without_canary(backend_cls):
+    p = backend_cls(FusionPolicy(min_observations=1, merge_cost_s=0.0))
     try:
         deploy_pair(p, torch.eye(8) * 0.5)
         before = {n: id(p.registry.resolve(n)) for n in ("A", "B")}
@@ -135,13 +140,16 @@ def test_merge_aborts_without_canary():
         assert events and not events[-1].healthy
         assert events[-1].reason == "no canary traffic captured"
         assert {n: id(p.registry.resolve(n)) for n in ("A", "B")} == before
+        if backend_cls is OrchestratedBackend:  # the never-promoted unit's pod is gone
+            assert {tuple(sorted(w.instance.members)) for w in p._workers.values()} == {("A",), ("B",)}
     finally:
         p.shutdown()
 
 
-def test_health_check_failure_never_swaps_routing():
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_health_check_failure_never_swaps_routing(backend_cls):
     """Bad callee output in the merged unit -> abort; originals keep serving."""
-    p = TinyTorchBackend(FusionPolicy(min_observations=1, merge_cost_s=0.0, enabled=False))
+    p = backend_cls(FusionPolicy(min_observations=1, merge_cost_s=0.0, enabled=False))
     try:
         w = torch.eye(8) * 0.5
         deploy_pair(p, w)
@@ -287,3 +295,84 @@ def test_kernel_wrappers_refuse_a_launch_that_would_drop_a_gradient():
     with torch.no_grad():
         build.refuse_grad("moe_gmm", x)
     build.refuse_grad("moe_gmm", x.detach(), torch.ones(2), None)
+
+
+def test_detach_instance_stops_never_promoted_worker():
+    p = OrchestratedBackend(FusionPolicy(enabled=False))
+    try:
+        p.deploy(FunctionSpec("B", lambda ctx, params, x: x + 1, None))
+        candidate = FunctionInstance({"B": p.spec_of("B")}, p)
+        p.attach_instance(candidate)
+        worker = p._workers[candidate.instance_id]
+        assert worker.thread.is_alive()
+        p.detach_instance(candidate)
+        worker.thread.join(timeout=10)
+        assert not worker.thread.is_alive(), "detached pod's request loop must exit"
+        assert candidate.instance_id not in p._workers
+        # routing never pointed at the candidate; B still serves
+        assert int(p.invoke("B", torch.tensor(1, dtype=torch.int32))) == 2
+    finally:
+        p.shutdown()
+
+
+def test_detach_is_noop_for_unknown_instance():
+    p = OrchestratedBackend(FusionPolicy(enabled=False))
+    try:
+        p.deploy(FunctionSpec("B", lambda ctx, params, x: x, None))
+        ghost = FunctionInstance({"B": p.spec_of("B")}, p)  # never attached
+        p.detach_instance(ghost)  # must not raise or disturb live workers
+        assert int(p.invoke("B", torch.tensor(7, dtype=torch.int32))) == 7
+    finally:
+        p.shutdown()
+
+
+def test_pods_exit_at_shutdown_after_their_queued_work():
+    """Each pod is a thread of its own that the platform's shutdown ends,
+    after the requests already queued to it; a failing request reaches its
+    caller through the pod's Future, as in the reference."""
+    p = OrchestratedBackend(FusionPolicy(enabled=False))
+    p.deploy(FunctionSpec("F", lambda ctx, params, x: x * 2, None))
+    p.deploy(FunctionSpec("Bad", lambda ctx, params, x: x[10], None))
+    threads = list(p.pods().values())
+    assert len(threads) == 2 and all(t.is_alive() for t in threads)
+    assert int(p.invoke("F", torch.tensor(3))) == 6
+    with pytest.raises(IndexError):
+        p.invoke("Bad", torch.zeros(2))
+    p.shutdown()
+    assert not any(t.is_alive() for t in threads) and p.pods() == {}
+
+
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_shut_down_platform_is_freed_by_the_cyclic_collector(backend_cls):
+    """A platform that fused, retired instances and served scheduled traffic
+    keeps nothing alive once it is shut down: its cycles (instances,
+    merger, control plane and scheduler point back at it) are garbage, and
+    one collection frees it with every instance it made, retired or live."""
+    import gc
+    import weakref
+
+    made = []
+    orig = FunctionInstance.__init__
+
+    def record(self, *args, **kwargs):
+        orig(self, *args, **kwargs)
+        made.append(weakref.ref(self))
+
+    FunctionInstance.__init__ = record
+    try:
+        p = backend_cls(FusionPolicy(min_observations=3, merge_cost_s=0.0))
+        deploy_chain_app(p)
+        x = torch.ones(4, 64)
+        for _ in range(10):
+            p.invoke("A", x)
+        p.merger.wait_idle()
+        assert any(m.healthy for m in p.merger.merge_log)
+        assert all(f.result(timeout=60).shape == (4, 64) for f in [p.invoke_async("A", x) for _ in range(4)])
+        p.shutdown()
+    finally:
+        FunctionInstance.__init__ = orig
+    ref = weakref.ref(p)
+    del p
+    gc.collect()
+    assert ref() is None, "the shut-down platform is still reachable"
+    assert len(made) > 4 and not [r() for r in made if r() is not None]

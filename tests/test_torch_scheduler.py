@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import FunctionSpec, FusionPolicy, TinyTorchBackend  # noqa: E402
+from repro_torch.core import FunctionSpec, FusionPolicy, OrchestratedBackend, TinyTorchBackend  # noqa: E402
 from repro_torch.scheduler.batching import next_batch_bucket, split_results, stack_requests  # noqa: E402
 from repro_torch.scheduler.clock import VirtualClock  # noqa: E402
 from repro_torch.scheduler.coalescer import AdmissionQueue, PendingRequest  # noqa: E402
@@ -19,6 +19,7 @@ from repro_torch.scheduler.metrics import percentiles_ms  # noqa: E402
 from repro_torch.scheduler.scheduler import RequestScheduler  # noqa: E402
 
 FP32 = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py's fp32 tolerance
+BACKENDS = [TinyTorchBackend, OrchestratedBackend]  # the reference's test_scheduler runs both
 
 
 # --------------------------------------------------------------- pure units
@@ -200,7 +201,8 @@ def leaf_inputs(seed, n, shape, d=16):
     return w, xs
 
 
-def test_batched_matches_serial_on_leaf_and_the_jax_platform():
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_batched_matches_serial_on_leaf_and_the_jax_platform(backend_cls):
     """11 requests (an odd count pads a bucket) through invoke_async equal
     the same requests through invoke on the port, and the JAX platform's
     invoke_async on the same numpy inputs (fp32, 2e-5)."""
@@ -211,7 +213,7 @@ def test_batched_matches_serial_on_leaf_and_the_jax_platform():
     from repro.core import TinyJaxBackend
 
     w, xs = leaf_inputs(0, 11, (3,))
-    p = TinyTorchBackend(FusionPolicy(enabled=False), max_batch=4, max_delay_ms=10.0)
+    p = backend_cls(FusionPolicy(enabled=False), max_batch=4, max_delay_ms=10.0)
     try:
         p.deploy(FunctionSpec("leaf", lambda ctx, params, x: torch.tanh(x @ params), torch.from_numpy(w)))
         ref = [p.invoke("leaf", torch.from_numpy(x)) for x in xs]
@@ -281,10 +283,11 @@ def test_batched_billing_one_record_per_request_and_split_gbs():
         p.shutdown()
 
 
-def test_invoke_async_works_on_boundary_entries():
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_invoke_async_works_on_boundary_entries(backend_cls):
     """A chain entry before fusion cannot be one program: its batches run per
     request, counted in the platform's batching stats, and never fail."""
-    p = TinyTorchBackend(FusionPolicy(enabled=False), max_batch=4, max_delay_ms=10.0)
+    p = backend_cls(FusionPolicy(enabled=False), max_batch=4, max_delay_ms=10.0)
     try:
         w = torch.eye(8) * 0.5
         p.deploy(FunctionSpec("A", lambda ctx, params, x: ctx.call("B", x @ params), w))
