@@ -18,10 +18,14 @@ Phases (any failed check exits non-zero and prints no result):
    exceed the L2 four times over), then at qwen3-moe-30b-a3b's attention
    (32 query heads over 4 kv heads of 128) and at the groups of starcoder2-3b
    (24/2 heads of 128) and granite-34b (48/1), wider than one head slice of
-   the kernel; K1 ``paged_decode_attention`` (the paged serve path's shape,
-   B = 1, MQA, qwen3's 32/4 heads of 128 and the two wide groups) and K2
-   ``paged_chunk_attention`` at the paged serve paths' (llama's 32/8 heads of
-   64, qwen3's 32/4 of 128: the 512-row chunk); K5 ``moe_gmm`` at the
+   the kernel, then the served decoders' own shapes (K3 at T = 300 for
+   stablelm-1.6b's 32/32 heads of 64, starcoder2-3b's 24/2, granite-34b's
+   48/1 and chameleon-34b's 64/8 of 128; K4 at stablelm's and chameleon's at
+   the serve's cur_len); K1 ``paged_decode_attention`` (the paged serve
+   path's shape, B = 1, MQA, qwen3's 32/4 heads of 128, the two wide groups
+   and chameleon's 64/8 of 128) and K2 ``paged_chunk_attention`` at the
+   paged serve paths' (llama's 32/8 heads of 64, qwen3's 32/4 of 128,
+   granite's 48/1 of 128: the 512-row chunk); K5 ``moe_gmm`` at the
    MoE serve path's (E = 128): every row kept at C = 8, 24, 40, and ``rows``
    from a top-8 routing through the layer's own ``route`` (a decode step's
    gate/up and down, 8 paged sequences' gate/up: skipped rows exact zeros,
@@ -210,6 +214,31 @@ Phases (any failed check exits non-zero and prints no result):
    and a tail of 3; 13.5 GB) as the three-function chain
    ``embed -> core -> head``; K3 once per shared-block application of each
    prefill, K4 once per application of each decode step, K6 as above.
+13. Decoder phases (``DECODERS``): the hybrid's tensors freed, full-width
+   ``stablelm-1.6b`` (24 layers, 32/32 heads of 64, LayerNorm; 6 functions),
+   ``starcoder2-3b`` (30 layers, 24/2 heads of 128, LayerNorm and tanh GELU;
+   5), ``granite-34b`` (88 layers, 48/1 heads of 128, a tied head; 10, 67.3
+   GB) and ``chameleon-34b`` (48 layers, 64/8 heads of 128, QK-norm; 8,
+   68.6 GB), each made once from seed 0 and shared by every platform of its
+   phases: the serve phase with its checks (N -> 1 instances, identical
+   tokens fused, unfused and without the platform, less ``ram_bytes``,
+   exact launches with ``launch_parts``, decode entries captured and
+   replayed; chameleon serves one more prompt, 300 rows of ``embeds``);
+   for granite and chameleon the paged serve phase over the 321-page arena
+   at capacity 8 with 8 requests (granite's token prompts share a prefix:
+   K1 and K2 at 48/1; chameleon's are the ``embeds`` of theirs, admitted by
+   the batcher's serialized dense prefill: K1 and K3, no K2, no page shared
+   or copied on write) with the paged phase's checks (K1 against K4 block by
+   block within 5e-2); the first and last block card vs host within 5e-2 of
+   the block's contribution; the memory record (parameter bytes, peak
+   allocated, their shares of the device; a phase that runs out of memory
+   fails the run).
+14. Launcher phase (``launch_serve``): ``python -m repro_torch.launch.serve``
+   in a process of its own, twice (``LAUNCH_RUNS``): full-width
+   ``stablelm-1.6b`` with its defaults, and ``--arch chameleon-34b
+   --reduced --backend orchestrated`` (its ``embeds`` through pods); each
+   run's JSON shows one healthy merge of the whole chain, 1 instance left
+   and the device ``cuda``, with no ``--device`` given.
 
 Standard output opens with the device line and the ``ptxas`` line; its
 last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
@@ -218,8 +247,10 @@ last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
 ``churn``, ``split``, ``moe_serve``, ``moe_paged_serve``,
 ``moe_block``, ``moe_profile``, ``moe_memory``,
 ``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
-``ssm_coldstart``, ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``
-and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
+``ssm_coldstart``, ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``,
+``<key>_serve``, ``<key>_block`` and ``<key>_memory`` for ``stablelm``, ``starcoder2``,
+``granite`` and ``chameleon`` (``granite_paged_serve`` and ``chameleon_paged_serve``
+after their serve lines), ``launch_serve`` and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -425,12 +456,17 @@ def kernel_phase(torch, F) -> dict:
     gen_fixed = torch.Generator(device=dev).manual_seed(15)
     gen128 = torch.Generator(device=dev).manual_seed(128)
     gen_wide = torch.Generator(device=dev).manual_seed(16)
+    gen_dec = torch.Generator(device=dev).manual_seed(23)
     out = {}
     # the dense chain's prompts (llama3.2-1b), zamba2-7b's shared block, a
     # long causal prompt, and qwen3-moe-30b-a3b's attention (32/4 heads of 128)
     out["flash_attention"] = [flash_case(torch, F, *args) for args in (
         (37, 32, 8, 64, gen), (128, 32, 8, 64, gen), (300, 32, 8, 64, gen), (300, 32, 32, 112, gen112),
-        (1024, 32, 8, 64, gen_fixed), (300, 32, 4, 128, gen128))]
+        (1024, 32, 8, 64, gen_fixed), (300, 32, 4, 128, gen128))] + [
+        # the served decoders' prompts of 300: stablelm-1.6b (32/32 heads of
+        # 64), starcoder2-3b (24/2 of 128), granite-34b (48/1), chameleon-34b (64/8)
+        flash_case(torch, F, 300, h, kv, hd, gen_dec) for h, kv, hd in ((32, 32, 64), (24, 2, 128), (48, 1, 128),
+                                                                         (64, 8, 128))]
     # the dense chain's decode (B = 1, 4; llama3.2-1b), zamba2-7b's shared
     # block; then fixed lengths that a later change can compare with: the
     # full S = 512 cache at both shapes, and a long cache of 4096 rows, where
@@ -443,7 +479,9 @@ def kernel_phase(torch, F) -> dict:
         decode_case(torch, F, 1, 512, 32, 4, 128, gen128, lens=[406])] + [
         # starcoder2-3b's and granite-34b's groups (G * hd 1536 and 6144),
         # wider than one head slice of the kernel
-        decode_case(torch, F, 2, 512, h, kv, 128, gen_wide) for h, kv in ((24, 2), (48, 1))]
+        decode_case(torch, F, 2, 512, h, kv, 128, gen_wide) for h, kv in ((24, 2), (48, 1))] + [
+        # stablelm-1.6b's and chameleon-34b's decode at the serve's cur_len
+        decode_case(torch, F, 1, 512, h, kv, hd, gen_dec, lens=[406]) for h, kv, hd in ((32, 32, 64), (64, 8, 128))]
     out.update(paged_kernel_cases(torch, F, gen))
     out["moe_gmm"] = moe_kernel_cases(torch, gen)
     out["ssd_scan"] = ssd_kernel_cases(torch, gen)
@@ -707,15 +745,18 @@ def paged_kernel_cases(torch, F, gen) -> dict:
 
     dev = torch.device("cuda")
     # the cases added after the first three draw from a generator of their
-    # own, so that every other case draws the inputs it drew before
+    # own (chameleon-34b's from one more), so that every other case draws the
+    # inputs it drew before
     gen_added = torch.Generator(device=dev).manual_seed(16)
+    gen_chameleon = torch.Generator(device=dev).manual_seed(19)
     out = {}
     cases = []
     # (label, B, n, page, P, H, KV, hd, cur_len): the serve shape (capacity
     # 8, 32 pages of 16 per sequence, the arena of 321 pages), B = 1, MQA;
     # qwen3-moe-30b-a3b's paged shape (32/4 heads of 128); the groups of
     # starcoder2-3b (24/2 heads of 128: G * hd = 1536) and granite-34b (48/1:
-    # 6144), wider than one head slice of the kernel (1024 outputs)
+    # 6144), wider than one head slice of the kernel (1024 outputs);
+    # chameleon-34b's paged shape (64/8 heads of 128)
     for label, b, n, page, p, h, kv, hd, lens in (
         ("serve", 8, 32, 16, 321, 32, 8, 64, [0, 37, 129, 300, 406, 511, 150, 64]),
         ("B=1", 1, 32, 16, 321, 32, 8, 64, [406]),
@@ -723,8 +764,9 @@ def paged_kernel_cases(torch, F, gen) -> dict:
         ("qwen3", 8, 32, 16, 321, 32, 4, 128, [0, 37, 129, 300, 406, 511, 150, 64]),
         ("G*hd=1536", 4, 32, 16, 321, 24, 2, 128, [0, 37, 300, 512]),
         ("G*hd=6144", 4, 32, 16, 321, 48, 1, 128, [1, 64, 300, 511]),
+        ("chameleon", 8, 32, 16, 321, 64, 8, 128, [0, 37, 129, 300, 406, 511, 150, 64]),
     ):
-        g_case = gen if label in ("serve", "B=1", "MQA") else gen_added
+        g_case = gen if label in ("serve", "B=1", "MQA") else gen_chameleon if label == "chameleon" else gen_added
         kp, vp, bt = _paged_inputs(torch, g_case, b, n, page, p, kv, hd)
         q = torch.randn(b, h, hd, generator=g_case, device=dev).to(torch.bfloat16)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -758,15 +800,18 @@ def paged_kernel_cases(torch, F, gen) -> dict:
     out["paged_decode_attention"] = cases
 
     cases = []
-    # qwen3-moe-30b-a3b's paged chunk (32/4 heads of 128) draws from a
-    # generator of its own, so that every other case draws what it drew before
+    # qwen3-moe-30b-a3b's paged chunk (32/4 heads of 128) and granite-34b's
+    # (48/1) each draw from a generator of their own, so that every other
+    # case draws what it drew before
     gen_qwen3 = torch.Generator(device=dev).manual_seed(17)
+    gen_granite = torch.Generator(device=dev).manual_seed(18)
     # (C, start, valid rows, H, KV, hd, generator): a 37-token prompt padded
     # to 64, a chunk from 192, a 300-token prompt padded to 512, a 5-row
-    # chunk from 37 (llama3.2-1b, 32/8 heads of 64); qwen3's 512-row chunk
+    # chunk from 37 (llama3.2-1b, 32/8 heads of 64); qwen3's 512-row chunk;
+    # granite-34b's (48/1 heads of 128)
     for c, start, valid, h, kv, hd, g_case in (
         (64, 0, 37, 32, 8, 64, gen), (64, 192, 64, 32, 8, 64, gen), (512, 0, 300, 32, 8, 64, gen),
-        (5, 37, 5, 32, 8, 64, gen), (512, 0, 300, 32, 4, 128, gen_qwen3),
+        (5, 37, 5, 32, 8, 64, gen), (512, 0, 300, 32, 4, 128, gen_qwen3), (512, 0, 300, 48, 1, 128, gen_granite),
     ):
         n, page, p = 32, 16, 321
         kp, vp, bt = _paged_inputs(torch, g_case, 1, n, page, p, kv, hd)
@@ -901,6 +946,22 @@ def expected_launches(cfg, engine, prefills: int, decodes: int, replays) -> dict
     return exp
 
 
+def prompt_rows(inputs):
+    """A request's prompt rows: its token ids (B, T) or its ``embeds``
+    (B, T, d)."""
+    return inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
+
+
+def frontend_embeds(torch, params, tokens) -> dict:
+    """A token prompt ((1, T) int32, on the host or the card) as a vlm
+    request's ``embeds``: 0.02 x the table rows of its tokens, drawn like the
+    launcher's 0.02 x N(0, 1) (the table is unit normal), so that repeated
+    prompts and a shared prefix carry identical embeds rows."""
+    table = params["embed"]["table"]
+    rows = table[torch.as_tensor(tokens, device=table.device).long()]
+    return {"embeds": (0.02 * rows.float()).to(torch.bfloat16)}
+
+
 def record_replays(platform) -> list:
     """Record every canary the platform fetches to replay: its member,
     whether it was a prefill (T > 1) or a decode step, and how often the
@@ -924,7 +985,7 @@ def record_replays(platform) -> list:
         if getattr(restoring, "name", None) == name:
             restoring.name, runs = None, 1
         if args is not None:
-            x = args[0]["tokens"] if isinstance(args[0], dict) else args[0]
+            x = prompt_rows(args[0]) if isinstance(args[0], dict) else args[0]
             replays.append((name, x.shape[1] > 1, runs))
         return args
 
@@ -968,7 +1029,7 @@ def graph_summary(platform, label: str) -> dict:
 
 def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
                 max_len=MAX_LEN, params=None, dispatch_window: bool = False,
-                backend: str = "tinytorch", tokens_out: list | None = None) -> dict:
+                backend: str = "tinytorch", tokens_out: list | None = None, embeds_len: int = 0) -> dict:
     """Drive the serving chain unfused and fused on ``dev`` (``params``:
     the model's weights, made from seed 0 when not given). On the card it
     also checks that the kernels, and never their plain versions, ran, each
@@ -982,7 +1043,9 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     orchestrated backend the live pods must be the live instances, every
     retired unit's pod thread must have exited, and every graph capture
     must have run on a pod's thread (:func:`pod_check`). ``tokens_out``
-    (a list) receives each prompt's fused tokens."""
+    (a list) receives each prompt's fused tokens. ``embeds_len``: one more
+    prompt of that many ``embeds`` rows (:func:`frontend_embeds`), the vlm
+    family's input, served after the token prompts."""
     from repro_torch.core import FusionPolicy
     from repro_torch.kernels import build, ops
     from repro_torch.models.model import build_model
@@ -997,8 +1060,13 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(7)
-    prompts = [torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)
+    prompts = [{"tokens": torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)}
                for t in prompt_lens]
+    labels = [str(t) for t in prompt_lens]
+    if embeds_len:
+        toks = torch.randint(0, cfg.vocab_size, (1, embeds_len), generator=gen, device=dev, dtype=torch.int32)
+        prompts.append(frontend_embeds(torch, params, toks))
+        labels.append(f"embeds {embeds_len}")
 
     Backend = backend_class(backend)
     platforms = {
@@ -1019,7 +1087,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
             # the two platforms take turns (fused first on even prompts), so
             # that neither is always the one that runs first
             for label in ("fused", "unfused") if i % 2 == 0 else ("unfused", "fused"):
-                toks, lat = engines[label].generate({"tokens": prompt}, steps=new_tokens)
+                toks, lat = engines[label].generate(prompt, steps=new_tokens)
                 if i == 0:
                     platforms[label].merger.wait_idle()
                 else:  # the first request carries warm-up and, fused, the merges
@@ -1065,15 +1133,15 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
           f"fused ram_bytes is not below unfused: {results['fused']['ram_bytes']} vs "
           f"{results['unfused']['ram_bytes']}; fused {results['fused']['footprints']}, "
           f"{results['fused']['graphs']}; unfused {results['unfused']['footprints']}, {results['unfused']['graphs']}")
-    invocations = len(prompt_lens) * new_tokens  # per platform: a prefill and new_tokens - 1 steps
+    invocations = len(prompts) * new_tokens  # per platform: a prefill and new_tokens - 1 steps
     moe_runs = sum(moe_layer_runs(cfg, engines[label], invocations, results[label]["replayed"])
                    for label in platforms)
     expected = {"moe_gmm": 3 * moe_runs}
     for label in platforms:
-        for k, n in expected_launches(cfg, engines[label], len(prompt_lens), len(prompt_lens) * (new_tokens - 1),
+        for k, n in expected_launches(cfg, engines[label], len(prompts), len(prompts) * (new_tokens - 1),
                                       replays[label]).items():
             expected[k] = expected.get(k, 0) + n
-    for i, t in enumerate(prompt_lens):
+    for i, t in enumerate(labels):
         a, b = results["unfused"]["tokens"][i], results["fused"]["tokens"][i]
         check(a.shape == (1, new_tokens), f"prompt {t}: tokens of shape {tuple(a.shape)}")
         check(torch.equal(a, b), f"prompt {t}: greedy tokens differ fused vs unfused")
@@ -1088,11 +1156,11 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
     if tokens_out is not None:
         tokens_out.extend(results["fused"]["tokens"])
     # the chain computes what the model computes without the platform
-    ref = direct_generate(torch, model, params, prompts[0], new_tokens, max_len)
+    ref = direct_generate(torch, model, params, prompts[0]["tokens"], new_tokens, max_len)
     check(torch.equal(ref, results["unfused"]["tokens"][0]),
           "chain tokens differ from the model run without the platform")
 
-    prefills = 2 * len(prompt_lens)  # client requests; the merges' canary replays come on top
+    prefills = 2 * len(prompts)  # client requests; the merges' canary replays come on top
     decode_steps = prefills * (new_tokens - 1)
     return {
         "backend": Backend.backend_name,
@@ -1102,6 +1170,7 @@ def serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
         "d_model": cfg.d_model,
         "params_init_s": init_s,
         "prompts": list(prompt_lens),
+        "embeds_prompt": embeds_len or None,
         "new_tokens": new_tokens,
         "max_len": max_len,
         "p50_token_ms": {k: r["p50_token_ms"] for k, r in results.items()},
@@ -1209,13 +1278,13 @@ def dispatch_window(torch, run, requests: int, capacity: int) -> dict:
             "buckets": d.buckets, "cuda_syncs": d.cuda_syncs, "eager_kernel_calls": d.kernel_calls}
 
 
-def serve_dispatch(torch, engine, prompt, new_tokens: int) -> dict:
+def serve_dispatch(torch, engine, prompt: dict, new_tokens: int) -> dict:
     """The serve phase's steady state: the prompt served twice more (every
     entry of the window has then run twice: its graph is captured), then a
     third time with the dispatch tracer armed."""
     for _ in range(2):
-        engine.generate({"tokens": prompt}, steps=new_tokens)
-    return dispatch_window(torch, lambda: engine.generate({"tokens": prompt}, steps=new_tokens), 1, 1)
+        engine.generate(prompt, steps=new_tokens)
+    return dispatch_window(torch, lambda: engine.generate(prompt, steps=new_tokens), 1, 1)
 
 
 # ---------------------------------------------------------- paged serve phase
@@ -1258,7 +1327,8 @@ def paged_requests(cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED_REQUESTS, step
 def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
     """One run of the continuous batcher over ``engine``'s arena: warm-up
     (one request per prompt shape and one whole-prompt repeat), then the
-    measured requests, all submitted at once. The kernel counts are set to
+    measured requests, all submitted at once (``prompts`` and
+    ``warm_prompts``: the requests' input dicts). The kernel counts are set to
     0 just before the measured requests and read just after them."""
     from repro_torch.kernels import build, ops
     from repro_torch.scheduler.metrics import percentiles_ms
@@ -1267,9 +1337,9 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
     arena, platform = engine.arena, engine.platform
     cb = ContinuousBatcher(engine, capacity=capacity)
     try:
-        for f in [cb.submit({"tokens": w}, 3) for w in warm_prompts]:
+        for f in [cb.submit(w, 3) for w in warm_prompts]:
             f.result(timeout=600)
-        cb.submit({"tokens": warm_prompts[0]}, 3).result(timeout=600)
+        cb.submit(warm_prompts[0], 3).result(timeout=600)
         platform.meter.reset()
         cb.reset_stats()
         hits0, cow0 = arena.shared_hits, arena.cow_copies
@@ -1277,7 +1347,7 @@ def serve_paged(torch, engine, prompts, gens, capacity, warm_prompts) -> dict:
             torch.cuda.synchronize()
         ops.reset_counts()
         t0 = time.perf_counter()
-        futs = [cb.submit({"tokens": p}, g) for p, g in zip(prompts, gens)]
+        futs = [cb.submit(p, g) for p, g in zip(prompts, gens)]
         results = [f.result(timeout=600) for f in futs]
         elapsed = time.perf_counter() - t0
         counts, parts = ops.counts(), build.LAUNCHES.parts()
@@ -1344,7 +1414,7 @@ def paged_dispatch(torch, engine, prompts, gens, capacity: int) -> dict:
     cb = ContinuousBatcher(engine, capacity=capacity)
 
     def serve():
-        for f in [cb.submit({"tokens": p}, g) for p, g in zip(prompts, gens)]:
+        for f in [cb.submit(p, g) for p, g in zip(prompts, gens)]:
             f.result(timeout=600)
 
     try:
@@ -1406,7 +1476,7 @@ def paged_block_check(torch, engine, lens, seed=3) -> list:
 def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED_REQUESTS,
                       steps=PAGED_STEPS, max_len=MAX_LEN, page=PAGE, capacity=CAPACITY,
                       prefix_len=SHARED_PREFIX, small_cfg=None, params=None,
-                      dispatch: bool = False) -> dict:
+                      dispatch: bool = False, embeds: bool = False) -> dict:
     """The paged continuous-batching serve path: ``ServingEngine(...,
     kv_pages=(capacity + 2) * max_len / page + 1)`` (load_bench's arena
     size) and ``ContinuousBatcher(engine, capacity)`` with the default chunk
@@ -1417,7 +1487,12 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     block, and a small model (``small_cfg``) served by the batcher against
     per-request generate. ``params``: the model's weights, made from seed 0
     when not given. With ``dispatch``, the fused run ends with the dispatch
-    tracer armed over its steady state (:func:`paged_dispatch`)."""
+    tracer armed over its steady state (:func:`paged_dispatch`). With
+    ``embeds`` (the vlm family) every request, the warm-up and the small
+    model's included, is the ``embeds`` of its token prompt
+    (:func:`frontend_embeds`): the batcher admits it through the serialized
+    dense prefill (K3), raw embeds have no content hash, so no page is
+    shared and none copied on write, and K2 never runs."""
     import numpy as np
 
     from repro_torch.core import FusionPolicy, TinyTorchBackend
@@ -1432,6 +1507,14 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     warm_rng = np.random.default_rng(1)
     warm = [warm_rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32) for t in prompt_lens]
     kv_pages = (capacity + 2) * (max_len // page) + 1
+    if embeds:
+        requests = [frontend_embeds(torch, params, p) for p in prompts]
+        warm_in = [frontend_embeds(torch, params, w) for w in warm]
+        dense_warm = warm_in[0]
+    else:
+        requests = [{"tokens": p} for p in prompts]
+        warm_in = [{"tokens": w} for w in warm]
+        dense_warm = {"tokens": torch.from_numpy(warm[0]).to(dev)}
     runs, block_errs = {}, None
     for label, policy in (("fused", FusionPolicy(**SERVE_POLICY)),
                           ("unfused", FusionPolicy(enabled=False))):
@@ -1440,14 +1523,14 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
             engine = ServingEngine(model, platform, max_len=max_len, params=params, device=dev,
                                    kv_pages=kv_pages, kv_page_size=page)
             # dense traffic first: the fusing platform merges the chain here
-            engine.generate({"tokens": torch.from_numpy(warm[0]).to(dev)}, steps=6)
+            engine.generate(dense_warm, steps=6)
             platform.merger.wait_idle()
-            run = serve_paged(torch, engine, prompts, gens, capacity, warm)
+            run = serve_paged(torch, engine, requests, gens, capacity, warm_in)
             run["merges"] = [(m.members, m.healthy) for m in platform.merger.merge_log]
             run["chain"] = set(engine.chain_names())
             runs[label] = run
             if label == "fused" and dispatch:
-                run["dispatch"] = paged_dispatch(torch, engine, prompts, gens, capacity)
+                run["dispatch"] = paged_dispatch(torch, engine, requests, gens, capacity)
             if label == "fused":
                 block_errs = paged_block_check(torch, engine, [t + 5 * i for i, t in
                                                                 enumerate(prompt_lens * 3)][:capacity])
@@ -1463,15 +1546,21 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     check(fused["ram_bytes"] < unfused["ram_bytes"],
           f"paged: fused ram_bytes is not below unfused: {fused['ram_bytes']} vs {unfused['ram_bytes']}; "
           f"fused {fused['footprints']}, {fused['graphs']}; unfused {unfused['footprints']}, {unfused['graphs']}")
-    check(fused["shared_hits"] > 0, "no request hit the shared-prefix cache")
+    if embeds:
+        check(all(r["shared_hits"] == 0 and r["cow_copies"] == 0 for r in runs.values()),
+              f"embeds requests shared pages: {[(r['shared_hits'], r['cow_copies']) for r in runs.values()]}")
+    else:
+        check(fused["shared_hits"] > 0, "no request hit the shared-prefix cache")
     check(max(block_errs) <= BLOCK_TOL,
           f"a block's paged decode step differs from its dense one beyond {BLOCK_TOL}: {block_errs}")
-    kernels = ("paged_decode_attention", "paged_chunk_attention") + (("moe_gmm",) if cfg.family == "moe" else ())
+    prefill = "flash_attention" if embeds else "paged_chunk_attention"
+    kernels = ("paged_decode_attention", prefill) + (("moe_gmm",) if cfg.family == "moe" else ())
     if dev.type == "cuda":
         for label, run in runs.items():
             c = run["counts"]
             check(all(c[k] > 0 for k in kernels), f"{label}: the paged serve path did not launch {kernels}: {c}")
             check(all(c[k] == 0 for k in PLAIN), f"{label}: a plain version ran on the card: {c}")
+            check(not embeds or c["paged_chunk_attention"] == 0, f"{label}: an embeds prompt ran K2: {c}")
 
     # a small model served by the batcher gives per-request generate's tokens
     small = build_model(small_cfg or cfg)
@@ -1480,12 +1569,12 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
     platform = TinyTorchBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0))
     try:
         engine = ServingEngine(small, platform, max_len=64, device=dev, kv_pages=25, kv_page_size=16)
-        refs = [engine.generate({"tokens": torch.from_numpy(p).to(dev)}, steps=8)[0].cpu().numpy()
-                for p in small_prompts]
+        small_in = [frontend_embeds(torch, engine.params, p) if embeds else {"tokens": torch.from_numpy(p).to(dev)}
+                    for p in small_prompts]
+        refs = [engine.generate(p, steps=8)[0].cpu().numpy() for p in small_in]
         cb = ContinuousBatcher(engine, capacity=4)
         try:
-            got = [f.result(timeout=600)["tokens"] for f in
-                   [cb.submit({"tokens": p}, 8) for p in small_prompts]]
+            got = [f.result(timeout=600)["tokens"] for f in [cb.submit(p, 8) for p in small_in]]
         finally:
             cb.shutdown()
     finally:
@@ -1504,6 +1593,7 @@ def paged_serve_phase(torch, dev, cfg, prompt_lens=PROMPT_LENS, n_requests=PAGED
         "layers": cfg.num_layers,
         "d_model": cfg.d_model,
         "requests": n_requests,
+        "embeds": embeds,
         "prompt_lens": list(prompt_lens),
         "gen_lens": gens,
         "capacity": capacity,
@@ -3413,7 +3503,7 @@ def split_phase(torch, dev, cfg, params, prompt_lens=PROMPT_LENS, new_tokens=NEW
 
 def canary_is_prefill(args) -> bool:
     """Whether a recorded chain request is a prefill (T > 1) or a decode step."""
-    x = args[0]["tokens"] if isinstance(args[0], dict) else args[0]
+    x = prompt_rows(args[0]) if isinstance(args[0], dict) else args[0]
     return x.shape[1] > 1
 
 
@@ -3534,6 +3624,129 @@ def ssm_phases(torch, dev, arch: str, key: str) -> dict:
     print(json.dumps({f"{key}_memory": memory}), flush=True)
     print(f"{key} block and profile phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return {"launches": serve["launches"], "captured": captured, "parts": serve["launch_parts"]}
+
+
+# The dense and vlm decoders served after the hybrid: (architecture, line
+# key, whether the paged route runs too). granite-34b's paged requests are
+# token prompts with a shared prefix (K1 and K2 at its 48/1 group),
+# chameleon-34b's the embeds of theirs (K1, and K3 through the batcher's
+# serialized prefill).
+DECODERS = (("stablelm-1.6b", "stablelm", False), ("starcoder2-3b", "starcoder2", False),
+            ("granite-34b", "granite", True), ("chameleon-34b", "chameleon", True))
+DECODER_PAGED_REQUESTS = 8
+VLM_EMBEDS_LEN = 300  # the vlm serve phase's embeds prompt
+
+
+def decoder_block_phase(torch, dev, cfg, params, prompt_len: int = 37) -> dict:
+    """The decoder's first and last block at full width on ``dev`` against
+    the same bf16 weights on the host's CPU (the plain versions), each on the
+    input that the blocks before it give it on ``dev`` for a random prompt
+    (token ids; ``embeds`` for vlm), relative to the block's own largest
+    contribution, within BLOCK_TOL (as :func:`moe_block_phase` holds an MoE
+    layer)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    kind = tfm.layer_kind(cfg)
+    pos = torch.arange(prompt_len, device=dev)[None]
+    checked = (0, cfg.num_layers - 1)
+    errs = {}
+    with torch.no_grad():
+        toks = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev, dtype=torch.int32)
+        if cfg.family == "vlm":
+            x = frontend_embeds(torch, params, toks)["embeds"]
+        else:
+            x = embed_tokens(params["embed"], toks)
+        for i in range(cfg.num_layers):
+            lp = tree.map(lambda a: a[i], params["blocks"])
+            y, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
+            if i in checked:
+                y_host, _ = tfm.apply_block_full(tree.map(lambda a: a.cpu(), lp), x.cpu(), cfg, kind, pos.cpu())
+                errs[f"block_{i}"] = rel_err(y - x, y_host - x.cpu())  # the block's own contribution
+            x = y
+    check(bool(torch.isfinite(x).all()), "non-finite hidden state after the last block")
+    check(max(errs.values()) <= BLOCK_TOL, f"a full-width block differs from the host's beyond {BLOCK_TOL}: {errs}")
+    return {"prompt_len": prompt_len, "input": "embeds" if cfg.family == "vlm" else "tokens",
+            "card_vs_host_rel_err": errs}
+
+
+def decoder_phases(torch, dev, arch: str, key: str, paged: bool) -> dict:
+    """Full-width ``arch`` at full depth, random bf16 weights from seed 0,
+    made after the earlier phases' tensors are freed, one params tree for
+    every platform of its phases: the serve phase (the vlm family with one
+    more prompt of ``embeds`` rows), with ``paged`` the paged serve phase
+    (DECODER_PAGED_REQUESTS requests; the vlm's as ``embeds``), the block
+    check and the memory record. Prints the ``<key>_serve``,
+    ``<key>_paged_serve``, ``<key>_block`` and ``<key>_memory`` lines; a
+    phase that runs out of device memory fails the run."""
+    cfg, params, memory = fresh_model(torch, dev, arch)
+    vlm = cfg.family == "vlm"
+    t0 = time.perf_counter()
+    serve = serve_phase(torch, dev, cfg, params=params, embeds_len=VLM_EMBEDS_LEN if vlm else 0)
+    serve["params_init_s"] = memory["params_init_s"]
+    serve["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({f"{key}_serve": serve}), flush=True)
+    print(f"{key} serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    out = {"launches": serve["launches"], "parts": serve["launch_parts"]}
+    if paged:
+        t0 = time.perf_counter()
+        run = paged_serve_phase(torch, dev, cfg, n_requests=DECODER_PAGED_REQUESTS, small_cfg=small_config(cfg),
+                                params=params, embeds=vlm)
+        print(json.dumps({f"{key}_paged_serve": run}), flush=True)
+        print(f"{key} paged serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+        out["paged_launches"] = run["launches"]["fused"]
+    t0 = time.perf_counter()
+    print(json.dumps({f"{key}_block": decoder_block_phase(torch, dev, cfg, params)}), flush=True)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    memory["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    memory.update(device_gb=total / 1e9, peak_share=torch.cuda.max_memory_allocated() / total,
+                  param_share=memory["param_bytes"] / total,
+                  beside_weights_gb=(total - memory["param_bytes"]) / 1e9)
+    print(json.dumps({f"{key}_memory": memory}), flush=True)
+    print(f"{key} block phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return out
+
+
+# The launcher's runs (``python -m repro_torch.launch.serve``): full-width
+# stablelm-1.6b with its defaults; the reduced chameleon-34b through pods,
+# its prompt of embeds. Neither names a device: both must run on the card.
+LAUNCH_RUNS = (("stablelm-1.6b", ()), ("chameleon-34b", ("--reduced", "--backend", "orchestrated")))
+LAUNCH_TIMEOUT_S = 600
+
+
+def launch_serve_phase(torch, dev) -> dict:
+    """Start the system as a user would: each of LAUNCH_RUNS as
+    ``python -m repro_torch.launch.serve`` in a process of its own (the
+    earlier phases' device memory freed first), its JSON parsed: one healthy
+    merge of every chain member, 1 instance left, the device ``cuda``."""
+    import gc
+    import os
+
+    from repro_torch.launch.serve import resolve_arch
+    from repro_torch.serving.engine import _pick_groups
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
+    runs = []
+    for arch, extra in LAUNCH_RUNS:
+        cfg = resolve_arch(arch, "--reduced" in extra)
+        groups = _pick_groups(cfg.num_layers, cfg.num_function_groups)
+        chain = {f"{arch}/embed", *(f"{arch}/g{i}" for i in range(groups)), f"{arch}/head"}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, *extra],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"launch_serve {arch}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout)
+        check(any(set(m) == chain for m in rec["merges"]),
+              f"launch_serve {arch}: no healthy merge of the whole chain {sorted(chain)}: {rec['merges']}")
+        check(rec["instances_left"] == 1, f"launch_serve {arch}: {rec['instances_left']} instances left")
+        check(rec["device"] == dev.type, f"launch_serve {arch}: ran on {rec['device']}, not {dev.type}")
+        runs.append({"args": ["--arch", arch, *extra], "chain": len(chain), "seconds": seconds, **rec})
+    return {"runs": runs}
 
 
 def control_plane_phases(torch, dev, cfg, serve: dict, serve_tokens: list) -> dict:
@@ -3659,6 +3872,10 @@ def main() -> int:
     print(json.dumps({"ssm_coldstart": ssm_cold}), flush=True)
     print(f"ssm coldstart phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     hybrid = ssm_phases(torch, dev, "zamba2-7b", "hybrid")
+    decoders = {arch: decoder_phases(torch, dev, arch, key, paged) for arch, key, paged in DECODERS}
+    t0 = time.perf_counter()
+    print(json.dumps({"launch_serve": launch_serve_phase(torch, dev)}), flush=True)
+    print(f"launch_serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["launches"]["moe_gmm"],
                 "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"]}
     by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
@@ -3672,6 +3889,11 @@ def main() -> int:
         by_path[kernel] = {"llama3.2-1b paged": paged["launches"]["fused"][kernel],
                            "qwen3-moe-30b-a3b paged": moe["paged_launches"][kernel],
                            "llama3.2-1b coldstart paged": coldstart["paged_launches"]["after"][kernel]}
+    for arch, run in decoders.items():  # each count from that phase's own counters
+        for kernel in ("flash_attention", "decode_attention"):
+            by_path[kernel][arch] = run["launches"][kernel]
+        for kernel, n in run.get("paged_launches", {}).items():
+            by_path[kernel][f"{arch} paged"] = n
     by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
                           "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}

@@ -2,8 +2,8 @@
 
 Every assigned architecture is a :class:`ModelConfig`; an input shape is a
 :class:`ShapeConfig`. The fields mirror the JAX package's, so a config
-carries across unchanged; the port reads those of the dense, MoE, SSM
-and hybrid families.
+carries across unchanged; the port reads those of the dense, vlm, MoE,
+SSM and hybrid families.
 """
 from __future__ import annotations
 

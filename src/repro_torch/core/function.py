@@ -25,7 +25,9 @@ share one memory pool, as a process's XLA executables share one allocator:
 the pool holds the largest graph's temporaries once, not every graph's, and
 the instance replays one graph at a time. An entry whose run queues
 ``call_async`` is never captured (its arguments would live in the graph's
-pool); on the CPU nothing is captured.
+pool); on the CPU nothing is captured. Nor is any entry that first runs a
+second time inside :func:`no_capture` (a paged admission's dense prefill,
+whose shape is each prompt's own length).
 
 An instance asks the process-wide executable index
 (:mod:`repro_torch.launch.compile_cache`) before an entry's shape-only run:
@@ -43,6 +45,7 @@ captured at its second run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import threading
@@ -303,6 +306,26 @@ def _cuda_device(*trees):
             if isinstance(x, torch.Tensor) and x.is_cuda:
                 return x.device
     return None
+
+
+_NO_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def no_capture():
+    """Capture no new graph on this thread while the block runs, at any hop
+    of the chain (a graph captured before still replays): for requests whose
+    shapes are as many as their lengths, such as a paged admission's dense
+    prefill of a prompt that the arena does not chunk. A graph per length
+    would keep its share of the instance's pool for every length admitted
+    (the chunked route pads its chunks to powers of two for this reason), and
+    a prefill's kernels outlast their launches, so a replay saves little."""
+    prev = getattr(_NO_CAPTURE, "on", False)
+    _NO_CAPTURE.on = True
+    try:
+        yield
+    finally:
+        _NO_CAPTURE.on = prev
 
 
 def _capture_device(*trees):
@@ -597,7 +620,8 @@ class FunctionInstance:
         first run eager and measured, the second captured (on the card, when
         the entry has no effects), later ones replayed. For a batched entry
         ``args`` are the stacked requests."""
-        if ce.graph is None and ce.runs and not ce.effectful and _capture_device(self.params, args) is not None:
+        if (ce.graph is None and ce.runs and not ce.effectful and not getattr(_NO_CAPTURE, "on", False)
+                and _capture_device(self.params, args) is not None):
             with ce.lock:
                 if ce.graph is None:
                     return self._capture(ce, args)

@@ -74,6 +74,11 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None):
     return {"wi": ParamDef((d, f)), "wo": ParamDef((f, d))}
 
 
+# float32 values of the tanh GELU's temporaries at once: the activation runs
+# over runs of rows of at most this many values (at least one row)
+GELU_VALUES = 1 << 21
+
+
 def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "wi_gate" in params:
         # the gate's fp32 activation in place, each (T, d_ff) temporary freed
@@ -81,7 +86,12 @@ def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.silu((x @ params["wi_gate"]).float(), inplace=True).to(x.dtype)
         h = h * (x @ params["wi_up"])
     else:
-        h = F.gelu((x @ params["wi"]).float(), approximate="tanh").to(x.dtype)
+        # the tanh GELU in fp32, a run of rows at a time, written back into
+        # the product: the same values without (T, d_ff) fp32 temporaries
+        h = x @ params["wi"]
+        rows = h.view(-1, h.shape[-1])
+        for part in rows.split(max(1, GELU_VALUES // h.shape[-1])):
+            part.copy_(F.gelu(part.float(), approximate="tanh"))
     return h @ params["wo"]
 
 

@@ -25,6 +25,11 @@ function serves both request types. Dense caches are never written in
 place: every stage returns new cache tensors, so a canary replay sees the
 cache its request saw.
 
+A prompt is token ids (``{"tokens": (B, T) int32}``) or, for the vlm
+family, precomputed frontend embeddings (``{"embeds": (B, T, d)}``), which
+the chain's entry passes through in place of the table lookup. Decode steps
+take tokens in both cases.
+
 Paged serving: with ``enable_paging`` the chain can also serve from a shared
 :class:`~repro_torch.serving.kvpool.KVArena` — ``caches`` then carries a
 block table plus each stage's page-pool slice instead of per-client dense
@@ -45,7 +50,7 @@ import torch
 from repro_torch import tree
 from repro_torch.analysis.dispatch import TRACER
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.function import FunctionSpec
+from repro_torch.core.function import FunctionSpec, no_capture
 from repro_torch.core.platform import ProvusePlatform
 from repro_torch.device import resolve_device
 from repro_torch.models import hybrid as hy
@@ -88,6 +93,12 @@ def _host_tokens(tokens) -> np.ndarray:
     if isinstance(tokens, torch.Tensor):
         tokens = tokens.cpu().numpy()
     return np.asarray(tokens, dtype=np.int32)
+
+
+def _prompt_shape(inputs: dict) -> tuple[int, int]:
+    """(batch, prompt length) of a token or an ``embeds`` prompt."""
+    x = inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
+    return x.shape[0], x.shape[1]
 
 
 def _slice_tree(t, lo: int, hi: int):
@@ -153,7 +164,11 @@ class ServingEngine:
         head_name = f"{self.prefix}/head"
 
         def embed_fn(ctx, params, inputs, cur_len, caches):
-            return ctx.call(names[0], embed_tokens(params, inputs["tokens"]), cur_len, caches)
+            if "tokens" in inputs:
+                x = embed_tokens(params, inputs["tokens"])
+            else:  # vlm: precomputed frontend embeddings
+                x = inputs["embeds"]
+            return ctx.call(names[0], x, cur_len, caches)
 
         self.platform.deploy(
             FunctionSpec(self.entry, embed_fn, {"table": self.params["embed"]["table"]}, self.trust)
@@ -344,21 +359,32 @@ class ServingEngine:
         copy-on-prefill scatters the built cache into freshly allocated
         pages and the dense caches are dropped.
 
-        Prompts go through the arena's shared-prefix cache: leading pages
-        whose content hashes hit are held by reference and skipped by the
-        scatter; a whole-prompt hit skips the dense prefill entirely — one
-        frozen decode step at the last prompt position recovers the
-        first-token logits from the cached pages. Returns (last logits
-        (1, V), prompt length)."""
+        Token prompts go through the arena's shared-prefix cache: leading
+        pages whose content hashes hit are held by reference and skipped by
+        the scatter; a whole-prompt hit skips the dense prefill entirely —
+        one frozen decode step at the last prompt position recovers the
+        first-token logits from the cached pages. An ``embeds`` prompt has
+        no content hash: its pages are allocated fresh and never shared.
+        The dense prefill is captured as no graph (:func:`no_capture`): its
+        shape is the prompt's own length. Returns (last logits (1, V),
+        prompt length)."""
         assert self.arena is not None, "enable_paging first"
-        tokens = _host_tokens(inputs["tokens"])
-        t_in = tokens.shape[1]
-        _, cached = self.arena.alloc_prefill(seq_id, tokens[0])
+        if "tokens" in inputs:
+            tokens = _host_tokens(inputs["tokens"])
+            t_in = tokens.shape[1]
+            _, cached = self.arena.alloc_prefill(seq_id, tokens[0])
+            dense = {"tokens": self._to_device(tokens)}
+        else:
+            t_in = inputs["embeds"].shape[1]
+            self.arena.alloc(seq_id, t_in)  # no content hash for raw embeds
+            cached = 0
+            dense = {"embeds": inputs["embeds"].to(self.device)}
         try:
             if cached >= t_in:
                 logits = self._frozen_first_token(seq_id, tokens)
             else:
-                logits, caches, _ = self.prefill({"tokens": self._to_device(tokens)})
+                with no_capture():
+                    logits, caches, _ = self.prefill(dense)
                 self.arena.write_prefill(seq_id, caches, t_in)
             self.arena.commit_prefill(seq_id)
         except BaseException:
@@ -454,7 +480,7 @@ class ServingEngine:
     # ------------------------------------------------------------ serving API
 
     def prefill(self, inputs: dict, caches=None):
-        b, t_in = inputs["tokens"].shape
+        b, t_in = _prompt_shape(inputs)
         if caches is None:
             caches = self.empty_caches(b)
         cur_len = torch.full((b,), t_in, dtype=torch.int32, device=self.device)
@@ -494,7 +520,7 @@ class ServingEngine:
         zeros), but decode reads and writes shared pages instead of
         per-client dense caches. Pages are freed on exit."""
         assert self.arena is not None, "enable_paging first"
-        b, t_in = inputs["tokens"].shape
+        b, t_in = _prompt_shape(inputs)
         seq_ids = [("gen", id(inputs), i) for i in range(b)]
         # dense prefill ONCE for the whole batch, then scatter each row's
         # built cache into its pages (copy-on-prefill)

@@ -38,6 +38,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert bad == []
 
 
+def test_the_scan_covers_the_launcher_and_every_config():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "src/repro_torch/launch/serve.py" in scanned
+    for name in ("stablelm_1_6b", "starcoder2_3b", "granite_34b", "chameleon_34b"):
+        assert f"src/repro_torch/configs/{name}.py" in scanned
+
+
 def test_port_calls_no_library_attention_kernel():
     for p in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         text = p.read_text(encoding="utf-8")
