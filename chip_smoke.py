@@ -41,9 +41,16 @@ Phases (any failed check exits non-zero and prints no result):
    apart — ``torch.bmm`` for K5; none computes K6) and the least time the
    card could take (``bound_ms``). Every kernel must give equal bits on two
    launches. A ``ptxas`` line gives every kernel's registers and spills, per
-   head dim for K3 and K4. A ``grad_refusal`` line: each of the six wrappers,
-   given a CUDA input that requires grad under grad mode, raises before its
-   launch (the kernels have no backward on the card yet).
+   head dim for K3 and K4. K3's gradient (``csrc/flash_attention_bwd.cu``)
+   at five shapes (``FLASH_GRAD_CASES``: the train shape B = 2, T = S = 4096,
+   32/8 heads of 64; T = 300; 48/1 and 64/8 of 128; 32/32 of 112; T = 300
+   non-causal): dq, dk and dv against ``mha_ref_bwd`` within 2e-2 of each
+   tensor's max |g|, equal bits on two launches and through autograd, the
+   forward with lse equal in bits to the forward without it; timed beside
+   the plain backward, SDPA's backward and the bound. A ``grad_refusal``
+   line: each of the five wrappers without a backward, given a CUDA input
+   that requires grad under grad mode, raises before its launch; K3 under
+   grad launches its forward and each backward kernel once.
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -179,6 +186,25 @@ Phases (any failed check exits non-zero and prints no result):
    inside the backoff refused as "recently split", allocated memory within
    0.5 GB of the cells' count, no segment of the fused unit's graph pool
    left, a warm re-merge with no new entry, exact launches.
+6f. Training phases, after the control plane, the earlier tensors freed:
+   ``train`` — full-width ``llama3.2-1b`` (remat as its config has it)
+   trained 16 steps through ``TrainLoop`` at T = 4096 with a batch of 4 as
+   2 microbatches (bf16 params, fp32 moments, AdamW at lr 1e-2 with the
+   launcher's cosine schedule, the affine stream, seed 0): every loss and
+   grad_norm finite, the last 4 losses' mean below the first 4's, K3's
+   forward launched exactly twice (remat) and each backward kernel once per
+   layer of each microbatch, no plain version; step ms, tokens/s, peak
+   memory, the state's bytes, and one profiled step's busy share and K3's
+   share. ``train_card_vs_host`` — a small model's step (loss, grad_norm
+   within 2e-2; every gradient within 5e-2 of its max) and the first and
+   last full-width block's forward and backward at T = 512 (dx and every
+   parameter gradient within 5e-2 of its max), attention at fan-in d.
+   ``train_restart`` — the reference's restart (12 steps, a checkpoint
+   every 4, failures at 5 and 9) bit-exact under
+   ``torch.use_deterministic_algorithms``. ``launch_train`` —
+   ``python -m repro_torch.launch.train`` at full width with no
+   ``--device``: it runs on ``cuda``. ``train_seconds`` gives each part's
+   seconds and the build's.
 7. MoE serve phase: the llama tensors freed, full-width
    ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
    random bf16 weights from seed 0, about 61 GB) as the eight-function
@@ -244,7 +270,8 @@ Standard output opens with the device line and the ``ptxas`` line; its
 last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
 ``reference``, ``profile``, ``batched``, ``trace_batched``, ``dispatch``,
 ``coldstart``, ``chrome_trace``, ``orchestrated_serve``, ``replicas``,
-``churn``, ``split``, ``moe_serve``, ``moe_paged_serve``,
+``churn``, ``split``, ``train``, ``train_card_vs_host``, ``train_restart``,
+``launch_train``, ``train_seconds``, ``moe_serve``, ``moe_paged_serve``,
 ``moe_block``, ``moe_profile``, ``moe_memory``,
 ``ssm_serve``, ``ssm_block``, ``ssm_profile``, ``ssm_memory``,
 ``ssm_coldstart``, ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``,
@@ -256,6 +283,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -286,14 +314,16 @@ COLD_BYTES = 4 * 50 * 2**20
 
 
 # the plain versions' call counters (repro_torch.kernels.ref.CALLS)
-PLAIN = ("mha_ref", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref", "gmm_ref", "ssd_ref")
+PLAIN = ("mha_ref", "mha_ref_bwd", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref", "gmm_ref",
+         "ssd_ref")
 # each kernel of a serve phase and the plain version that stands in for it on
 # the CPU (the CPU's SSM prefill runs the chunked scan, not the plain K6)
 STAND_INS = {"flash_attention": "mha_ref", "decode_attention": "decode_attn_ref", "moe_gmm": "gmm_ref"}
 
 
 # the device-side names of the hand-written kernels (csrc/*.cu)
-PORT_KERNELS = ("flash_attention_kernel", "decode_attention_kernel", "paged_decode_kernel",
+PORT_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel", "decode_attention_kernel",
+                "paged_decode_kernel",
                 "paged_chunk_kernel", "moe_gmm_kernel", "ssd_scan_kernel")
 
 
@@ -489,13 +519,17 @@ def kernel_phase(torch, F) -> dict:
 
 
 def grad_refusal_check(torch) -> dict:
-    """Each of the six kernel wrappers, given a CUDA input that requires grad
-    under grad mode, raises before its launch (the kernels have no backward
-    on the card yet: an output filled by a kernel would carry no gradient)."""
+    """Each of the five kernel wrappers without a backward, given a CUDA
+    input that requires grad under grad mode, raises before its launch (an
+    output filled by its kernel would carry no gradient). K3
+    (``flash_attention``) under grad returns gradients from its backward
+    kernels: one launch of each, no plain version."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as sd
 
     dev = torch.device("cuda")
@@ -505,8 +539,6 @@ def grad_refusal_check(torch) -> dict:
     table = torch.ones(1, 2, dtype=torch.int32, device=dev)
     x = lambda *shape: torch.zeros(*shape, **bf).requires_grad_()  # noqa: E731
     calls = {
-        "flash_attention": lambda: fa.flash_attention(x(1, 8, 4, 64), torch.zeros(1, 8, 2, 64, **bf),
-                                                      torch.zeros(1, 8, 2, 64, **bf)),
         "decode_attention": lambda: dec.decode_attention(x(1, 4, 64), torch.zeros(1, 16, 2, 64, **bf),
                                                          torch.zeros(1, 16, 2, 64, **bf), one),
         "paged_decode_attention": lambda: pa.paged_decode_attention(x(1, 4, 64), pages, pages, table, one),
@@ -526,6 +558,108 @@ def grad_refusal_check(torch) -> dict:
                 out[name] = "raises"
             else:
                 raise SmokeFailure(f"{name}: launched on a requires-grad input under grad mode")
+        names = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+        before = {n: build.launches(n) for n in names}
+        plain = ref.CALLS["mha_ref"] + ref.CALLS["mha_ref_bwd"]
+        q = torch.randn(1, 70, 4, 64, **bf).requires_grad_()
+        kv = torch.randn(1, 70, 2, 64, **bf).requires_grad_()
+        grads = torch.autograd.grad(fa.flash_attention(q, kv, kv).float().square().sum(), (q, kv))
+        torch.cuda.synchronize()
+        check({n: build.launches(n) - before[n] for n in names} == dict.fromkeys(names, 1),
+              "flash_attention under grad: not one launch of the forward and of each backward kernel")
+        check(ref.CALLS["mha_ref"] + ref.CALLS["mha_ref_bwd"] == plain, "flash_attention under grad ran a plain version")
+        check(all(bool(torch.isfinite(g.float()).all()) and bool(g.any()) for g in grads),
+              "flash_attention under grad: non-finite or all-zero gradients")
+        out["flash_attention"] = "gradient from the kernel"
+    return out
+
+
+# (label, B, T, H, KV, hd, causal) of K3's gradient: (a) the train phase's
+# shape, (b) T = 300, (c) the widest groups at heads of 128 (granite-34b's
+# 48/1, chameleon-34b's 64/8), (d) MHA at 112 (zamba2-7b's shared block),
+# (e) (b) non-causal
+FLASH_GRAD_CASES = (
+    ("a", 2, 4096, 32, 8, 64, True),
+    ("b", 1, 300, 32, 8, 64, True),
+    ("c", 1, 512, 48, 1, 128, True),
+    ("c", 1, 512, 64, 8, 128, True),
+    ("d", 1, 512, 32, 32, 112, True),
+    ("e", 1, 300, 32, 8, 64, False),
+)
+GRAD_TOL = 2e-2  # of each gradient's max |g|: bf16 inputs, sums in another order
+# the plain backward at case (a) holds ~20 GB of fp32 scores and their
+# gradients: it is timed in fewer samples of one call
+PLAIN_GRAD_SAMPLES, PLAIN_GRAD_REPS = 5, 1
+
+
+def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen, split_times: bool = False) -> dict:
+    """K3's gradient at one shape on inputs drawn from ``gen``: the forward
+    with lse (equal in bits to the serve path's forward without it), then
+    dq, dk and dv from the two backward kernels against ``mha_ref_bwd``
+    within GRAD_TOL of each tensor's max |g|, equal bits on two launches and
+    through autograd; timed (the two kernels together and each alone) beside
+    the plain backward and SDPA's backward on the same inputs (a yardstick
+    only: ``scaled_dot_product_attention(..., enable_gqa=True)``'s graph,
+    its backward alone); with ``split_times`` each backward kernel alone too."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q, dout = (torch.randn(b, t, h, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=dev)
+    out = fa._forward(q, k, v, causal, lse)
+    check(torch.equal(out, fa.flash_attention(q, k, v, causal=causal)),
+          f"K3 gradient {label}: the forward with lse differs in bits from the forward without it")
+    check(bool(torch.isfinite(lse).all()), f"K3 gradient {label}: non-finite lse")
+    got = fa.backward(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip(got, fa.backward(q, k, v, out, lse, dout, causal))),
+          f"K3 gradient {label}: two launches differ in bits")
+    x = [a.clone().requires_grad_() for a in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention(*x, causal=causal), x, dout)
+    check(all(torch.equal(a, c) for a, c in zip(got, auto)), f"K3 gradient {label}: autograd's differ in bits")
+    want = fa.plain_bwd(q, k, v, dout, causal=causal)
+    errs, abs_errs = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g.float()).all()), f"K3 gradient {label}: non-finite {name}")
+        abs_errs[name] = float((g.float() - w).abs().max())
+        errs[name] = abs_errs[name] / float(w.abs().max())
+    del want, auto, x
+    check(max(errs.values()) <= GRAD_TOL, f"K3 gradient {label}: beyond {GRAD_TOL} of max |g|: {errs}")
+    flops = 5 * 2 * b * h * t * t * hd * (0.5 if causal else 1.0)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(flops, nbytes)
+    ms = time_ms(torch, lambda: fa.backward(q, k, v, out, lse, dout, causal))
+    split = {}
+    if split_times:  # each of the two kernels alone
+        _, dsum = fa.backward_dq(q, k, v, out, lse, dout, causal)
+        split = {"dq_ms": time_ms(torch, lambda: fa.backward_dq(q, k, v, out, lse, dout, causal)),
+                 "dkdv_ms": time_ms(torch, lambda: fa.backward_dkdv(q, k, v, dout, lse, dsum, causal))}
+    big = b * h * t * t > 2**28
+    plain_ms = time_ms(torch, lambda: fa.plain_bwd(q, k, v, dout, causal=causal),
+                       *((PLAIN_GRAD_SAMPLES, PLAIN_GRAD_REPS) if big else ()))
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = dout.transpose(1, 2)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
+    return {
+        "case": label,
+        "shape": f"B={b} T=S={t} H={h} KV={kv} hd={hd} {'causal' if causal else 'non-causal'} bf16",
+        "max_abs_err": max(abs_errs.values()),
+        "rel_err": errs,
+        "ms": ms, **split, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "scaled_dot_product_attention backward", "gflop": flops / 1e9,
+        "tflops": flops / (ms * 1e-3) / 1e12,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+    }
+
+
+def flash_grad_cases(torch, F) -> list:
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(24)
+    out = []
+    for i, case in enumerate(FLASH_GRAD_CASES):
+        t0 = time.perf_counter()
+        out.append({**flash_grad_case(torch, F, *case, gen, split_times=i == 0), "seconds": time.perf_counter() - t0})
     return out
 
 
@@ -1813,31 +1947,60 @@ def overhead_gate(platform, window, steps: int, gate: bool, rounds: int = GATE_R
     OVERHEAD_MIN. Interleaved rounds on one warm platform (on, off, off,
     on, ...), ``window(steps)`` each; one retry, as the reference has it.
     Checked where ``gate`` (on the card); the CPU reports the ratio only."""
+    import gc
+
     order = [True, False, False, True] * (rounds // 4)
     formed = {True: [0, 0], False: [0, 0]}  # requests and batches per mode, all attempts
+    # the collector's passes while each mode's rounds ran, per attempt:
+    # passes by generation and their seconds (a pass holds every thread)
+    collector = []
+    per_round = []  # each attempt's rounds: [on, requests/s]
+    mode, started = [None], [0.0]
+
+    def on_collect(phase: str, info: dict) -> None:
+        if mode[0] is None:
+            return
+        if phase == "start":
+            started[0] = time.perf_counter()
+            return
+        tally = collector[-1][mode[0]]
+        tally["passes"][info["generation"]] += 1
+        tally["seconds"] += time.perf_counter() - started[0]
 
     def attempt() -> float:
         done = {True: [0, 0.0], False: [0, 0.0]}
+        collector.append({on: {"passes": [0, 0, 0], "seconds": 0.0} for on in (True, False)})
+        per_round.append([])
+        gc.callbacks.append(on_collect)
         try:
             for on in order:
                 platform.tracer.enabled = on
                 b0 = platform.scheduler.stats()["batches"]
+                mode[0] = on
                 r = window(steps, GATE_WARMUP)
+                mode[0] = None
                 formed[on][0] += r["requests"] * (steps + GATE_WARMUP) // steps  # the warm-up's batches formed too
                 formed[on][1] += platform.scheduler.stats()["batches"] - b0
                 done[on][0] += r["requests"]
                 done[on][1] += r["elapsed_s"]
+                per_round[-1].append([on, r["requests_per_s"]])
         finally:
+            mode[0] = None
+            gc.callbacks.remove(on_collect)
             platform.tracer.enabled = True
         return (done[True][0] / done[True][1]) / (done[False][0] / done[False][1])
 
     ratios = [attempt()]
     if ratios[0] < OVERHEAD_MIN:
         ratios.append(attempt())
+    out = {"on_over_off_requests_per_s": ratios, "rounds": rounds, "steps_per_round": steps,
+           "mean_batch": {"on": formed[True][0] / formed[True][1], "off": formed[False][0] / formed[False][1]},
+           "collector": [{"on" if on else "off": t for on, t in a.items()} for a in collector],
+           "rounds_requests_per_s": per_round}
     if gate:
-        check(ratios[-1] >= OVERHEAD_MIN, f"batched: tracing on / off requests/s {ratios} < {OVERHEAD_MIN}")
-    return {"on_over_off_requests_per_s": ratios, "rounds": rounds, "steps_per_round": steps,
-            "mean_batch": {"on": formed[True][0] / formed[True][1], "off": formed[False][0] / formed[False][1]}}
+        check(ratios[-1] >= OVERHEAD_MIN,
+              f"batched: tracing on / off requests/s {ratios} < {OVERHEAD_MIN} (collector: {out['collector']})")
+    return out
 
 
 def lane_check(torch, engine, platform, state, captures: bool, attempts: int = 4):
@@ -3518,6 +3681,9 @@ def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, part
     meta = {  # source, TPU kernel, index of the main path's case
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73", 2),
+        # K3's gradient: the Pallas kernel has no VJP; its two kernels, timed together
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:73", 0),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:59", 0),
         "paged_decode_attention": (paged, "src/repro/kernels/paged_attention.py:86", 0),
@@ -3749,6 +3915,341 @@ def launch_serve_phase(torch, dev) -> dict:
     return {"runs": runs}
 
 
+# The train phase: full-width llama3.2-1b at train_4k's length
+# (src/repro/configs/base.py: SHAPES["train_4k"], 4096 tokens) with a card's
+# batch of 4 as 2 microbatches of 2, bf16 params and fp32 moments from seed 0,
+# the affine stream from seed 0, the launcher's default learning rate (1e-2,
+# cosine after one warm-up step).
+TRAIN_STEPS = 16
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_MICRO = 2
+TRAIN_LR = 1e-2
+TRAIN_TOL = 2e-2  # a small model's loss and grad_norm, card vs host, relative
+TRAIN_GRAD_TOL = 5e-2  # each gradient, card vs host, over its max |g| (the block checks' limit)
+TRAIN_BLOCK_T = 512
+RESTART_STEPS = 12
+RESTART_FAILS = (5, 9)
+LAUNCH_TRAIN = ("--arch", "llama3.2-1b", "--steps", "6", "--batch", "2", "--seq", "2048", "--ckpt-every", "0")
+
+
+def train_loop_run(torch, dev, cfg, state, steps: int, shape, lr: float, ckpt_every: int = 0, seed: int = 0,
+                   injector=None):
+    """``steps`` steps of ``cfg`` from ``state`` through the port's
+    TrainLoop (AdamW, the launcher's cosine schedule, the affine stream of
+    ``seed`` on ``dev``; checkpoints in a temporary directory). Returns
+    (loop, final state, history, the step function)."""
+    import tempfile
+
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.training import TrainLoop
+    from repro_torch.training.train_step import make_train_step
+
+    step_fn = make_train_step(build_model(cfg), AdamWConfig(lr=lr), cosine_schedule(lr, max(1, steps // 10), steps))
+    with tempfile.TemporaryDirectory() as d:
+        loop = TrainLoop(step_fn, lambda start: SyntheticTokenPipeline(cfg, shape, seed=seed, mode="affine",
+                                                                      start_batch=start, device=dev),
+                         CheckpointManager(d), ckpt_every=ckpt_every)
+        state, history = loop.run(state, steps, injector)
+    return loop, state, history, step_fn
+
+
+def train_phase(torch, dev, cfg) -> tuple[dict, dict]:
+    """Full-width ``cfg`` (llama3.2-1b: 16 layers, d 2048, 32/8 heads of 64,
+    the tied table of 128,256 rows, remat as its config has it) trained for
+    TRAIN_STEPS steps through TrainLoop at T = 4096, a batch of 4 as 2
+    microbatches. Checks: every loss and grad_norm finite, the mean of the
+    last 4 losses below the first 4's, K3's forward launched 2 x (1 with no
+    remat) and each backward kernel once per layer of each microbatch, no
+    plain version called. Reports step ms (p50), tokens/s, peak allocated
+    memory and its share of the card, the state's bytes and, from one more
+    step under torch.profiler, the device's busy share and K3's. Returns
+    (the ``train`` line, the final params for the block check)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import init_train_state
+
+    card = dev.type == "cuda"
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tcfg = dataclasses.replace(cfg, microbatches=TRAIN_MICRO)
+    t0 = time.perf_counter()
+    state = init_train_state(build_model(tcfg), 0, device=dev)
+    if card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = lambda t: sum(x.numel() * x.element_size() for x in tree.leaves(t))  # noqa: E731
+    state_bytes = {"params": nbytes(state["params"]), "moments": nbytes(state["opt"]["m"]) + nbytes(state["opt"]["v"])}
+    shape = ShapeConfig("train_4k on one card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ops.reset_counts()
+    _, state, hist, step_fn = train_loop_run(torch, dev, tcfg, state, TRAIN_STEPS, shape, TRAIN_LR)
+    counts = ops.counts()
+    losses, norms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    check(all(map(math.isfinite, losses + norms)), f"train: a non-finite loss or grad_norm: {losses} {norms}")
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    check(last < first, f"train: the loss did not fall: first 4 {first}, last 4 {last}")
+    applied = TRAIN_STEPS * TRAIN_MICRO * cfg.num_layers
+    want = {"flash_attention": applied * (2 if cfg.remat else 1), "flash_attention_bwd_dq": applied,
+            "flash_attention_bwd_dkdv": applied}
+    if card:
+        check(all(counts[k] == n for k, n in want.items()) and
+              all(counts[k] == 0 for k in ("decode_attention", "paged_decode_attention", "paged_chunk_attention",
+                                           "moe_gmm", "ssd_scan")),
+              f"train: launches {counts}, expected {want}")
+        check(all(counts[k] == 0 for k in PLAIN), f"train: a plain version ran on the card: {counts}")
+    else:  # the host: the plain forward stands in, and autograd differentiates it
+        check(counts["mha_ref"] == want["flash_attention"] and counts["mha_ref_bwd"] == 0,
+              f"train on the host: plain calls {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    total = torch.cuda.get_device_properties(dev).total_memory if card else 1
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    p50 = statistics.median(step_ms[1:])
+
+    data = SyntheticTokenPipeline(tcfg, shape, seed=0, start_batch=TRAIN_STEPS, device=dev)
+    batch = next(data)
+    data.close()
+
+    def one_step() -> float:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3
+
+    profile = None
+    if card:
+        prof = device_profile(torch, one_step, 1)
+        k3 = prof["port_kernels"]
+        dev_ms = prof["device_kernel_ms_per_step"]
+        profile = {"wall_ms": prof["wall_ms_per_step"], "profiled_wall_ms": prof["profiled_wall_ms_per_step"],
+                   "device_kernel_ms": dev_ms, "device_busy_share": prof["device_busy_share"],
+                   "k3_forward_share": k3.get("flash_attention_kernel", {}).get("ms_per_step", 0.0) / dev_ms,
+                   "k3_backward_share": sum(k3.get(n, {}).get("ms_per_step", 0.0)
+                                            for n in ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")) / dev_ms,
+                   "port_kernels": k3, "top_kernels": prof["top_kernels"], "kernels": prof["kernels_per_step"]}
+    out = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "remat": cfg.remat, "seq": TRAIN_SEQ,
+        "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+        "lr_schedule": f"cosine_schedule({TRAIN_LR}, {max(1, TRAIN_STEPS // 10)}, {TRAIN_STEPS})",
+        "params_dtype": "bfloat16", "moments_dtype": "float32", "data": "affine, seed 0",
+        "losses": losses, "grad_norms": norms, "first4_mean_loss": first, "last4_mean_loss": last,
+        "step_ms": step_ms, "step_ms_p50": p50, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+        "state_bytes": {**state_bytes, "grads": state_bytes["params"],
+                        "total": 2 * state_bytes["params"] + state_bytes["moments"]},
+        "peak_allocated_gb": peak / 1e9, "peak_share": peak / total, "device_gb": total / 1e9,
+        "params_init_s": init_s, "launches": {k: counts[k] for k in want}, "expected_launches": want,
+        "plain_calls": {k: counts[k] for k in PLAIN}, "profile": profile,
+    }
+    return out, state["params"]
+
+
+def grads_of(torch, model, params, batch) -> list:
+    """The gradient leaves of one step's objective."""
+    from repro_torch import tree
+    from repro_torch.training.train_step import value_and_grad
+
+    return tree.leaves(value_and_grad(model, params, batch)[2])
+
+
+def train_block_check(torch, dev, cfg, params, t: int = TRAIN_BLOCK_T) -> dict:
+    """The first and last full-width block, forward and backward at B = 1,
+    T = ``t``, on the card and on the host's CPU (the plain versions) from
+    the same bf16 weights, input (the hidden state the blocks before it give
+    on the card for a random prompt) and output gradient: dx and every
+    parameter gradient within TRAIN_GRAD_TOL of its max |g|. The checked
+    block's wq and wk are rescaled to fan-in d (:func:`attention_fan_in_d`):
+    under the JAX init rule its scores have a std of ~128, q and k round
+    differently in bf16 on the two sides, and the gradients through the
+    softmax (dx, dwq, dwk) move on rounding alone; the same comparison on
+    the block's own weights is reported beside it (``jax_init_rel_err``),
+    not held."""
+    from repro_torch import tree
+    from repro_torch.checkpointing.manager import _flatten_with_paths
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    kind = tfm.layer_kind(cfg)
+    pos = torch.arange(t, device=dev)[None]
+    toks = torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)
+    errs, jax_rule = {}, {}
+
+    def block_grads(lp, x, dy, p):
+        leaves, struct = tree.flatten(lp)
+        live = [a.detach().requires_grad_() for a in leaves]
+        xi = x.detach().requires_grad_()
+        y, _ = tfm.apply_block_full(tree.unflatten(struct, live), xi, cfg, kind, p)
+        return torch.autograd.grad(y, [xi, *live], dy)
+
+    with torch.no_grad():
+        x = embed_tokens(params["embed"], toks)
+    for i in range(cfg.num_layers):
+        lp = tree.map(lambda a: a[i], params["blocks"])
+        if i in (0, cfg.num_layers - 1):
+            dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+            soft = tree.map(torch.clone, lp)
+            attention_fan_in_d(soft, cfg)
+            names = ["dx"] + ["d" + k for k in _flatten_with_paths(lp)]
+            for out, weights in ((errs, soft), (jax_rule, lp)):
+                here = block_grads(weights, x, dy, pos)
+                host = block_grads(tree.map(lambda a: a.cpu(), weights), x.cpu(), dy.cpu(), pos.cpu())
+                out[f"block_{i}"] = {n: rel_err(a, b) for n, a, b in zip(names, here, host)}
+        with torch.no_grad():
+            x, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
+    worst = max(max(e.values()) for e in errs.values())
+    check(worst <= TRAIN_GRAD_TOL, f"train block gradients differ from the host's beyond {TRAIN_GRAD_TOL}: {errs}")
+    return {"batch": 1, "seq": t, "attention_fan_in_d": True, "rel_err": errs, "worst": worst,
+            "jax_init_rel_err": jax_rule}
+
+
+def train_card_vs_host(torch, dev, cfg, seq: int = 256, batch: int = 2) -> dict:
+    """One train step of ``small_config(cfg)`` on the card and on the host's
+    CPU from the same bf16 params and batch: the step's loss and grad_norm
+    within TRAIN_TOL relative, every gradient leaf within TRAIN_GRAD_TOL of
+    its max |g|. Its attention is drawn at fan-in d
+    (:func:`attention_fan_in_d`), as :func:`train_block_check`'s."""
+    from repro_torch import tree
+    from repro_torch.checkpointing.manager import _flatten_with_paths
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.training.train_step import init_train_state, make_train_step
+
+    small = small_config(cfg)
+    model = build_model(small)
+    state = init_train_state(model, 0, device=dev)
+    attention_fan_in_d(state["params"], small)
+    data = SyntheticTokenPipeline(small, ShapeConfig("small", seq, batch, "train"), seed=0, device=dev)
+    b = next(data)
+    data.close()
+    host_state = tree.map(lambda x: x.cpu(), state)
+    host_b = tree.map(lambda x: x.cpu(), b)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR), cosine_schedule(TRAIN_LR, 1, 10))
+    _, m_card = step(state, b)
+    _, m_host = step(host_state, host_b)
+    g_card = grads_of(torch, model, state["params"], b)
+    g_host = grads_of(torch, model, host_state["params"], host_b)
+    names = list(_flatten_with_paths(state["params"]))
+    out = {"arch": small.name, "d_model": small.d_model, "layers": small.num_layers, "seq": seq, "batch": batch,
+           "attention_fan_in_d": True,
+           "loss": {"card": float(m_card["loss"]), "host": float(m_host["loss"])},
+           "grad_norm": {"card": float(m_card["grad_norm"]), "host": float(m_host["grad_norm"])},
+           "grad_rel_err": {n: rel_err(a, c) for n, a, c in zip(names, g_card, g_host)}}
+    for key in ("loss", "grad_norm"):
+        c, h = out[key]["card"], out[key]["host"]
+        check(math.isfinite(c) and abs(c - h) <= TRAIN_TOL * abs(h), f"train small {key}: card {c}, host {h}")
+    check(max(out["grad_rel_err"].values()) <= TRAIN_GRAD_TOL,
+          f"train small: a gradient differs from the host's beyond {TRAIN_GRAD_TOL}: {out['grad_rel_err']}")
+    return out
+
+
+def train_restart_phase(torch, dev, cfg) -> dict:
+    """The reference's bit-exact restart on the card: ``small_config(cfg)``
+    for RESTART_STEPS steps with a checkpoint every 4, once without failures
+    and once with failures at RESTART_FAILS; the final params must be equal
+    bit for bit. The steps run under torch.use_deterministic_algorithms
+    (the CE's gather backward sums with atomics otherwise; cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG, set by main before the first handle)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.training import FailureInjector
+    from repro_torch.training.train_step import init_train_state
+
+    small = small_config(cfg)
+    shape = ShapeConfig("restart", 128, 4, "train")
+    state0 = init_train_state(build_model(small), 0, device=dev)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, state_a, hist_a, _ = train_loop_run(torch, dev, small, state0, RESTART_STEPS, shape, 1e-2, ckpt_every=4,
+                                               seed=7)
+        injector = FailureInjector(list(RESTART_FAILS))
+        loop_b, state_b, hist_b, _ = train_loop_run(torch, dev, small, state0, RESTART_STEPS, shape, 1e-2,
+                                                    ckpt_every=4, seed=7, injector=injector)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    check(loop_b.restarts == len(RESTART_FAILS) and injector.fired == list(RESTART_FAILS),
+          f"restart: {loop_b.restarts} restarts, fired {injector.fired}")
+    same = [torch.equal(a, b) for a, b in zip(tree.leaves(state_a["params"]), tree.leaves(state_b["params"]))]
+    check(all(same), f"restart: {same.count(False)} of {len(same)} param leaves differ from the run without failures")
+    return {"arch": small.name, "steps": RESTART_STEPS, "ckpt_every": 4, "failures": list(RESTART_FAILS),
+            "restarts": loop_b.restarts, "bit_exact_leaves": len(same), "deterministic_algorithms": True,
+            "final_loss": {"no_failures": hist_a[-1]["loss"], "with_failures": hist_b[-1]["loss"]}}
+
+
+def launch_train_phase(torch, dev) -> dict:
+    """``python -m repro_torch.launch.train`` (LAUNCH_TRAIN: full-width
+    llama3.2-1b, 6 steps of 2 x 2048 tokens, no checkpoint) in a process of
+    its own with no ``--device``: it must run on the card, exit 0 and print
+    its JSON line with finite losses."""
+    import gc
+    import os
+    import tempfile
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_TRAIN, "--ckpt-dir", d],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launch_train: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    check(len(lines) == 1, f"launch_train: {len(lines)} JSON lines: {proc.stdout[-2000:]}")
+    rec = lines[0]
+    check(rec["device"] == dev.type, f"launch_train: ran on {rec['device']}, not {dev.type}")
+    check(math.isfinite(rec["first_loss"]) and math.isfinite(rec["final_loss"]), f"launch_train: {rec}")
+    return {"args": list(LAUNCH_TRAIN), "seconds": seconds, **rec}
+
+
+def training_phases(torch, dev, cfg) -> dict:
+    """The train phase, card vs host (a small model's step, two full-width
+    blocks), the restart on the card and the launcher, each printed as its
+    JSON line; the earlier phases' memory freed first and this phase's after.
+    Returns the train line's launches."""
+    import gc
+
+    t0 = time.perf_counter()
+    train, params = train_phase(torch, dev, cfg)
+    print(json.dumps({"train": train}), flush=True)
+    t1 = time.perf_counter()
+    blocks = train_block_check(torch, dev, cfg, params)
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_card_vs_host": {"small": train_card_vs_host(torch, dev, cfg), "blocks": blocks}}),
+          flush=True)
+    t2 = time.perf_counter()
+    print(json.dumps({"train_restart": train_restart_phase(torch, dev, cfg)}), flush=True)
+    t3 = time.perf_counter()
+    print(json.dumps({"launch_train": launch_train_phase(torch, dev)}), flush=True)
+    t4 = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"train phase {t1 - t0:.1f} s, card vs host {t2 - t1:.1f} s, restart {t3 - t2:.1f} s, "
+          f"launch_train {t4 - t3:.1f} s", file=sys.stderr)
+    return {"launches": train["launches"], "seconds": {"train": t1 - t0, "card_vs_host": t2 - t1,
+                                                        "restart": t3 - t2, "launch_train": t4 - t3}}
+
+
 def control_plane_phases(torch, dev, cfg, serve: dict, serve_tokens: list) -> dict:
     """The control plane's four phases on full-width ``cfg`` (weights from
     seed 0, made once for all four): ``orchestrated_serve``, ``replicas``,
@@ -3800,6 +4301,12 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SmokeFailure(f"{SRC / 'repro_torch'} is missing: run from a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    import os
+
+    # the train restart phase runs under torch.use_deterministic_algorithms,
+    # which needs cuBLAS's workspace fixed before the first handle is made
+    # (":4096:8" is PyTorch's default size on Hopper, so nothing else changes)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     import torch.nn.functional as F
 
@@ -3816,7 +4323,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    build_s = time.perf_counter() - t0
+    print(f"kernels built in {build_s:.1f} s", file=sys.stderr)
     print(json.dumps({"ptxas": ptxas_report(build.build_report())}), flush=True)
 
     from repro_torch.configs import get_arch
@@ -3826,8 +4334,13 @@ def main() -> int:
     cfg, dev = get_arch("llama3.2-1b"), torch.device("cuda")
     t0 = time.perf_counter()
     kern = kernel_phase(torch, F)
+    t1 = time.perf_counter()
+    kern["flash_attention_bwd"] = flash_grad_cases(torch, F)
+    torch.cuda.empty_cache()  # the plain backward's fp32 scores
+    grad_cases_s = time.perf_counter() - t1
     print(json.dumps({"grad_refusal": grad_refusal_check(torch)}), flush=True)
-    print(f"kernel phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"kernel phase {time.perf_counter() - t0:.1f} s (K3's gradient cases {grad_cases_s:.1f} s)",
+          file=sys.stderr)
     retain_tracers(True)  # the llama phases' traces outlive their platforms, for the export
     t0 = time.perf_counter()
     serve_tokens: list = []
@@ -3862,6 +4375,10 @@ def main() -> int:
     retain_tracers(False)
 
     control = control_plane_phases(torch, dev, cfg, serve, serve_tokens)
+    training = training_phases(torch, dev, cfg)
+    training["seconds"]["grad_cases"] = grad_cases_s
+    print(json.dumps({"train_seconds": {**training["seconds"], "build": build_s,
+                                        "total": sum(training["seconds"].values())}}), flush=True)
 
     moe = moe_phases(torch, dev)
     ssm = ssm_phases(torch, dev, "mamba2-370m", "ssm")
@@ -3876,8 +4393,12 @@ def main() -> int:
     t0 = time.perf_counter()
     print(json.dumps({"launch_serve": launch_serve_phase(torch, dev)}), flush=True)
     print(f"launch_serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    train_launches = training["launches"]
+    check(train_launches["flash_attention_bwd_dq"] == train_launches["flash_attention_bwd_dkdv"],
+          f"train: the two backward kernels launched apart: {train_launches}")
     launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["launches"]["moe_gmm"],
-                "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"]}
+                "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"],
+                "flash_attention_bwd": train_launches["flash_attention_bwd_dkdv"]}
     by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
                       "zamba2-7b": hybrid["launches"][name],
                       "llama3.2-1b coldstart": coldstart["launches"][name],
@@ -3894,6 +4415,9 @@ def main() -> int:
             by_path[kernel][arch] = run["launches"][kernel]
         for kernel, n in run.get("paged_launches", {}).items():
             by_path[kernel][f"{arch} paged"] = n
+    by_path["flash_attention"]["llama3.2-1b train"] = train_launches["flash_attention"]
+    by_path["flash_attention_bwd"] = {"llama3.2-1b train": {k: train_launches[k] for k in
+                                                            ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")}}
     by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
                           "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
@@ -3903,6 +4427,7 @@ def main() -> int:
     parts = {k: {p: src[p][k] for p in ("eager", "replayed")} for k, src in part_src.items()}
     parts["ssd_scan"] = {p: ssm["parts"][p]["ssd_scan"] + hybrid["parts"][p]["ssd_scan"]
                          for p in ("eager", "replayed")}
+    parts["flash_attention_bwd"] = {"eager": launches["flash_attention_bwd"], "replayed": 0}  # training: eager
     print(json.dumps(kernels_line(kern, launches, by_path, captured, parts)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)

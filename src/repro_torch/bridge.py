@@ -7,7 +7,8 @@ jnp.float32))``, because ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``
 tree: same keys, same shapes, each leaf in the dtype its def gives it (the
 MoE router stays float32 beside bf16 weights), widened to ``dtype`` where
 that is wider, on ``device``. Both packages then compute the same function
-on the same weights.
+on the same weights. ``train_state_from_numpy`` does the same for a whole
+train state, so both packages take the same step from the same state.
 """
 from __future__ import annotations
 
@@ -33,3 +34,30 @@ def params_from_numpy(params, defs, *, dtype: torch.dtype = torch.bfloat16, devi
             device=dev, dtype=torch.promote_types(d.dtype, dtype))
 
     return tree.map(convert, params, defs)
+
+
+def train_state_from_numpy(state, param_defs, *, dtype: torch.dtype = torch.bfloat16, device=None):
+    """The JAX package's train state ``{"params", "opt": {"step", "m",
+    "v"}}`` (float32 numpy leaves; the step an integer array or int) as the
+    port's: the params by :func:`params_from_numpy`, the moments float32
+    tensors of the params' shapes, the step a 0-d int32 tensor, all on
+    ``device``."""
+    dev = resolve_device(device)
+    params = params_from_numpy(state["params"], param_defs, dtype=dtype, device=dev)
+
+    def moment(x, p):
+        a = np.asarray(x)
+        if a.dtype != np.float32 or tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"a moment must be float32 of its param's shape {tuple(p.shape)}, got "
+                             f"{a.dtype} {a.shape}")
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    opt = state["opt"]
+    return {
+        "params": params,
+        "opt": {
+            "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev),
+            "m": tree.map(moment, opt["m"], params),
+            "v": tree.map(moment, opt["v"], params),
+        },
+    }

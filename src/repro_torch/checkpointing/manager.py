@@ -1,6 +1,14 @@
-"""Content-addressed instance snapshots: the snapshot half of the JAX
-package's ``checkpointing/manager.py`` (``CheckpointManager`` waits for
-training).
+"""Step-atomic training checkpoints (:class:`CheckpointManager`) and
+content-addressed instance snapshots (:class:`SnapshotStore`): the JAX
+package's ``checkpointing/manager.py``.
+
+A checkpoint is written to ``step_<N>.tmp/`` and ``os.rename``d into place,
+so a crash mid-save never leaves a readable-but-corrupt checkpoint. Its
+format is the reference's, so a checkpoint written by either package
+restores into the other bit for bit: ``arrays.npz`` holds every leaf keyed
+by its ``/``-joined tree path (bf16 as ``uint16`` views, float8 as
+``uint8``), and ``meta.json`` the step, the keys, each leaf's dtype name and
+shape, and the wall time.
 
 A snapshot stores *logical* content: every tensor leaf of a parameter tree,
 keyed by its tree path, as a ``.npy`` file, plus a ``meta.json`` with each
@@ -30,6 +38,11 @@ _VIEW_AS = {
     torch.float8_e4m3fn: torch.uint8,
     torch.float8_e5m2: torch.uint8,
 }
+
+
+# the reference's views on disk (numpy's names: bf16 as uint16, float8 as uint8)
+_NP_VIEW = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8, torch.float8_e5m2: np.uint8}
+_VIEW_BACK = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -67,6 +80,167 @@ def _host_leaf(x) -> tuple[str, tuple, np.ndarray]:
     if t.dtype in _VIEW_AS:
         t = t.view(_VIEW_AS[t.dtype])
     return name, shape, t.numpy()
+
+
+def _host_copy(x) -> torch.Tensor:
+    """A host tensor that owns its bytes: a copy even of a CPU leaf, so a
+    snapshot taken for an async save is not changed by later steps."""
+    return torch.as_tensor(x).detach().to("cpu", copy=True)
+
+
+def _stored_array(t: torch.Tensor) -> np.ndarray:
+    """The array of a host tensor as the reference stores it: bf16 and
+    float8 as same-width unsigned integer views."""
+    t = t.contiguous()
+    if t.dtype in _NP_VIEW:
+        return t.view(_VIEW_AS[t.dtype]).numpy().view(_NP_VIEW[t.dtype])
+    return t.numpy()
+
+
+class CheckpointSaveError(RuntimeError):
+    """An async save worker failed. Raised on the NEXT ``wait()`` /
+    ``latest_step()`` / ``save()`` — the thread itself can only die silently,
+    and a training loop that keeps stepping against a checkpointer that
+    stopped persisting is the failure mode this surfaces."""
+
+
+class CheckpointManager:
+    """Save and restore a training state (a tree of tensors) by step, with
+    retention (the newest ``retain`` steps are kept) and an optional async
+    save on a worker thread, whose failure surfaces on the next ``wait``,
+    ``latest_step`` or ``save``. ``writer`` replaces ``np.savez`` (tests
+    inject a failing one); ``clock`` stamps ``meta.json``."""
+
+    def __init__(self, directory: str, *, retain: int = 3, async_save: bool = False,
+                 clock=None, writer=None):
+        self.directory = directory
+        self.retain = retain
+        self.async_save = async_save
+        self.clock = clock if clock is not None else SYSTEM_CLOCK
+        os.makedirs(directory, exist_ok=True)
+        self._save_thread: threading.Thread | None = None
+        self._save_error: BaseException | None = None
+        self._writer = writer if writer is not None else np.savez
+        self.save_log: list[dict] = []
+
+    # --------------------------------------------------------------- save
+
+    def save(self, step: int, state) -> None:
+        if self.async_save:
+            host_state = tree.map(_host_copy, state)  # snapshot before the step moves on
+            self.wait()  # one in-flight save at a time; surfaces a prior failure
+            self._save_thread = threading.Thread(
+                target=self._save_guarded, args=(step, host_state), daemon=True
+            )
+            self._save_thread.start()
+        else:
+            self._save_sync(step, state)
+
+    def _save_guarded(self, step: int, state) -> None:
+        try:
+            self._save_sync(step, state)
+        except BaseException as exc:  # noqa: BLE001 — captured, re-raised on wait()
+            self._save_error = exc
+
+    def _surface_save_error(self) -> None:
+        exc = self._save_error
+        if exc is not None:
+            # surfaced once: the failed step is gone either way, and the next
+            # save may succeed (transient disk pressure, fixed permissions)
+            self._save_error = None
+            raise CheckpointSaveError(f"async checkpoint save failed: {exc!r}") from exc
+
+    def wait(self) -> None:
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        self._surface_save_error()
+
+    def _save_sync(self, step: int, state) -> None:
+        t0 = time.perf_counter()
+        tmp = os.path.join(self.directory, f"step_{step:010d}.tmp")
+        final = os.path.join(self.directory, f"step_{step:010d}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        host = {k: torch.as_tensor(v).detach().cpu() for k, v in _flatten_with_paths(state).items()}
+        meta = {
+            "step": step,
+            "keys": sorted(host),
+            "dtypes": {k: _dtype_name(v.dtype) for k, v in host.items()},
+            "shapes": {k: list(v.shape) for k, v in host.items()},
+            "wall_time": self.clock.now(),
+        }
+        self._writer(os.path.join(tmp, "arrays.npz"), **{k: _stored_array(v) for k, v in host.items()})
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+        self._cleanup()
+        self.save_log.append({"step": step, "seconds": time.perf_counter() - t0})
+
+    def _cleanup(self) -> None:
+        steps = self.all_steps()
+        for s in steps[: -self.retain] if self.retain else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:010d}"), ignore_errors=True)
+
+    # --------------------------------------------------------------- restore
+
+    def all_steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name.split("_")[1]))
+                except ValueError:
+                    continue
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        # A finished-but-failed async worker must not let the PREVIOUS step
+        # silently masquerade as latest. Only a completed thread is joined —
+        # latest_step never blocks behind an in-flight save.
+        t = self._save_thread
+        if t is not None and not t.is_alive():
+            self.wait()
+        else:
+            self._surface_save_error()
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like, step: int | None = None, *, device=None):
+        """Restore into the structure of ``like`` (a tree of tensors, or of
+        meta tensors as the port's ``ShapeDtypeStruct``): each leaf in its
+        ``like`` leaf's dtype, on ``device`` when given, else on its ``like``
+        leaf's device (a meta leaf without ``device`` raises)."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        path = os.path.join(self.directory, f"step_{step:010d}")
+        with np.load(os.path.join(path, "arrays.npz")) as npz:
+            data = dict(npz.items())
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        flat_like = _flatten_with_paths(like)
+        restored = {}
+        for key, leaf in flat_like.items():
+            dev = torch.device(device) if device is not None else leaf.device
+            if dev.type == "meta":
+                raise ValueError(f"checkpoint leaf {key!r}: a meta tensor needs a device= to restore onto")
+            arr = data[key]
+            if not arr.flags.c_contiguous:  # (np.ascontiguousarray would make a 0-d leaf (1,))
+                arr = arr.copy()
+            t = torch.from_numpy(arr)
+            name = meta["dtypes"].get(key)
+            if name in _VIEW_BACK:  # the integer view back to its true dtype
+                t = t.view(_VIEW_AS[_VIEW_BACK[name]]).view(_VIEW_BACK[name])
+            restored[key] = t.to(device=dev, dtype=leaf.dtype)
+        return tree.unflatten(tree.flatten(like)[1], [restored[k] for k in flat_like])
+
+
+# ------------------------------------------------------------------ snapshots
 
 
 def _update(h, key: str, name: str, shape: tuple, data) -> None:

@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu", "ssd_scan.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu",
+           "ssd_scan.cu")
 # included by sources; hashed with them, never compiled alone
 HEADERS = ("async_copy.cuh", "mma_bf16.cuh", "row_policy.cuh", "decode_split.cuh", "flash_sweep.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -39,8 +40,12 @@ _L = ctypes.c_longlong
 # C signatures (every pointer and the stream as c_void_p, every int as c_int,
 # a row stride as c_longlong)
 SIGNATURES = {
-    # q, k, v, out, B, T, S, H, KV, D, causal, stream
-    "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, lse (or null), B, T, S, H, KV, D, causal, stream
+    "repro_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, dout, lse, dq, dsum, B, T, S, H, KV, D, causal, stream
+    "repro_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, dsum, dk, dv, B, T, S, H, KV, D, causal, stream
+    "repro_flash_attention_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, cur_len, out, B, S, batch (rows between sequences of k/v), H, KV, D, stream
     "repro_decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, cur_len, out, B, P, page, n, H, KV, D, stream
@@ -56,9 +61,10 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
-#: The kernels whose launches are counted (one name per wrapper).
+#: The kernels whose launches are counted (one name per wrapper; K3's
+#: gradient counts each of its two kernels by its own name).
 KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_chunk_attention",
-           "moe_gmm", "ssd_scan")
+           "moe_gmm", "ssd_scan", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 
 
 class LaunchCounts:
@@ -207,8 +213,8 @@ def load() -> ctypes.CDLL:
 
 def refuse_grad(what: str, *tensors) -> None:
     """Raise before a launch whose output would silently drop a gradient:
-    the kernels have no backward on the card yet, and an output filled
-    through ctypes carries no ``grad_fn``. Grad mode with an input that
+    every kernel but K3 has no backward on the card yet, and an output
+    filled through ctypes carries no ``grad_fn``. Grad mode with an input that
     requires grad is refused; ``torch.no_grad()`` (the serve paths) passes."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors if isinstance(t, torch.Tensor)):
         raise RuntimeError(f"{what}: the kernel has no backward on the card yet, and an input requires "

@@ -1,4 +1,5 @@
-// K3 — causal / non-causal GQA flash attention, forward only, for Hopper (sm_90a).
+// K3 — causal / non-causal GQA flash attention, forward, for Hopper (sm_90a);
+// its gradient is csrc/flash_attention_bwd.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention / _flash_kernel
 // (the Pallas TPU kernel behind the dense prompt prefill, models/attention.py).
@@ -54,16 +55,16 @@ template <int D>
 __global__ void __launch_bounds__(flash_sweep::kThreads)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                       const int* __restrict__ start, int T, int H, int KV, int causal, float scale_log2,
-                       row_policy::Contiguous rows) {
-  flash_sweep::sweep<D>(q, k, v, out, start, T, H, KV, causal, scale_log2, rows);
+                       float* __restrict__ lse, const int* __restrict__ start, int T, int H, int KV, int causal,
+                       float scale_log2, row_policy::Contiguous rows) {
+  flash_sweep::sweep<D>(q, k, v, out, lse, start, T, H, KV, causal, scale_log2, rows);
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int T, int S,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int T, int S,
                    int H, int KV, int causal, cudaStream_t stream) {
   static std::atomic<uint32_t> smem_set{0u};
-  return flash_sweep::launch<D>(flash_attention_kernel<D>, smem_set, q, k, v, out, nullptr, B, T, H, KV, causal,
+  return flash_sweep::launch<D>(flash_attention_kernel<D>, smem_set, q, k, v, out, lse, nullptr, B, T, H, KV, causal,
                                 row_policy::Contiguous{S, S}, stream);
 }
 
@@ -72,19 +73,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 extern "C" {
 
 // q, out: (B, T, H, D); k, v: (B, S, KV, D); all bf16, contiguous, 16-byte
-// aligned. Returns a cudaError_t (0 on a successful launch).
-int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
+// aligned; lse: (B, H, T) fp32, or null (the serve paths: not written).
+// Returns a cudaError_t (0 on a successful launch).
+int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                               int T, int S, int H, int KV, int D, int causal, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || (T + flash_sweep::kBlockQ - 1) / flash_sweep::kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch<64>(q, k, v, out, B, T, S, H, KV, causal, st);
+      return (int)launch<64>(q, k, v, out, lse, B, T, S, H, KV, causal, st);
     case 112:  // zamba2-7b's shared attention block
-      return (int)launch<112>(q, k, v, out, B, T, S, H, KV, causal, st);
+      return (int)launch<112>(q, k, v, out, lse, B, T, S, H, KV, causal, st);
     case 128:
-      return (int)launch<128>(q, k, v, out, B, T, S, H, KV, causal, st);
+      return (int)launch<128>(q, k, v, out, lse, B, T, S, H, KV, causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

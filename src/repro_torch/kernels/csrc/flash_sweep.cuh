@@ -35,7 +35,12 @@
 //     out-of-range K/V rows are zero-filled and their probabilities are
 //     exactly 0, a warp whose 16 rows all lie past T skips the math, and a
 //     row with no valid column divides by l = 1 and writes exact zeros;
-//   * every sum is taken in one fixed order, so equal inputs give equal bits.
+//   * every sum is taken in one fixed order, so equal inputs give equal bits;
+//   * with a non-null `lse` (K3 under autograd), warpgroup 0 also writes each
+//     row's natural-log logsumexp of the scaled scores, (B, H, T) fp32, for
+//     the backward (csrc/flash_attention_bwd.cu) to recompute P from; a row
+//     with no valid column writes +inf, so its P recomputes to exact zeros.
+//     The output's arithmetic is the same with or without it.
 // Shared-memory rows are padded by 8 bf16 so ldmatrix and fragment loads are
 // bank-conflict free.
 #pragma once
@@ -60,6 +65,7 @@ constexpr int kWarps = 4;             // per warpgroup: 16 query rows each
 constexpr int kThreads = 2 * kWarps * 32;  // two warpgroups split each kv tile's columns
 constexpr int kPad = 8;       // bf16 padding per shared-memory row
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kStages = 2;    // K/V ring depth: tile k + 1 loads while tile k is computed
 
@@ -69,14 +75,14 @@ constexpr size_t smem_bytes() {
 }
 
 // One block's query tile. q, out: (B, T, H, D); k, v: (rows, KV, D) read
-// through `rows` (capacity S = rows.capacity() per sequence); `start`: (B,)
-// absolute position of query row 0 (null: 0); causal row i attends the
-// columns <= start + i.
+// through `rows` (capacity S = rows.capacity() per sequence); `lse`: (B, H,
+// T) or null; `start`: (B,) absolute position of query row 0 (null: 0);
+// causal row i attends the columns <= start + i.
 template <int D, class Rows>
 __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                                      const int* __restrict__ start, int T, int H, int KV, int causal,
-                                      float scale_log2, const Rows& rows) {
+                                      float* __restrict__ lse, const int* __restrict__ start, int T, int H,
+                                      int KV, int causal, float scale_log2, const Rows& rows) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + kPad;          // row stride of every tile (bf16)
   constexpr int kTile = kBlockK * kStride;   // bf16 per K or V stage
@@ -319,6 +325,14 @@ __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const
   l_a = w0_a * l_a + w1_a * xs[2 * kSlots + slot];
   l_b = w0_b * l_b + w1_b * xs[3 * kSlots + slot];
 
+  // ---- the rows' logsumexp for the backward (l == 0 -> +inf) ----
+  if (lse != nullptr && tig == 0) {
+    float* lb = lse + ((int64_t)b * H + h) * T;
+    const float inf = __int_as_float(0x7f800000);
+    if (row_a < T) lb[row_a] = l_a == 0.f ? inf : (mn_a * scale_log2 + log2f(l_a)) * kLn2;
+    if (row_b < T) lb[row_b] = l_b == 0.f ? inf : (mn_b * scale_log2 + log2f(l_b)) * kLn2;
+  }
+
   // ---- finalize: divide by l (l == 0 -> 1: a fully masked row writes 0) ----
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
@@ -340,8 +354,8 @@ __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const
 // of T query rows and H heads. Returns a cudaError_t.
 template <int D, class Rows, class Kernel>
 cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& smem_set, const void* q, const void* k, const void* v,
-                   void* out, const void* start, int B, int T, int H, int KV, int causal, const Rows& rows,
-                   cudaStream_t stream) {
+                   void* out, void* lse, const void* start, int B, int T, int H, int KV, int causal,
+                   const Rows& rows, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = allow_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
@@ -349,7 +363,8 @@ cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& smem_set, const void* q
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);  // log2(e) / sqrt(D)
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), static_cast<const int*>(start), T,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      static_cast<const int*>(start), T,
       H, KV, causal, scale_log2, rows);
   return cudaGetLastError();
 }

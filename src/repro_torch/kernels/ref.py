@@ -14,8 +14,8 @@ import threading
 
 import torch
 
-CALLS = {"mha_ref": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0, "paged_chunk_attn_ref": 0,
-         "gmm_ref": 0, "ssd_ref": 0}
+CALLS = {"mha_ref": 0, "mha_ref_bwd": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0,
+         "paged_chunk_attn_ref": 0, "gmm_ref": 0, "ssd_ref": 0}
 _CALLS_LOCK = threading.Lock()
 
 
@@ -42,6 +42,10 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
     Query head h reads kv head h // (H // KV). Scores in fp32; P is cast to
     the V dtype before PV."""
     _called("mha_ref")
+    return _mha(q, k, v, causal, q_offset)
+
+
+def _mha(q, k, v, causal: bool, q_offset: int = 0):
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, t, kv, h // kv, hd)
@@ -53,6 +57,20 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
     probs = _masked_softmax(scores, mask)
     out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
     return out.reshape(b, t, h, hd)
+
+
+def mha_ref_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+                causal: bool = True):
+    """The gradient of :func:`mha_ref` (K3's gradient, the plain version):
+    (dq, dk, dv) of ``mha_ref(q, k, v)`` against the output gradient ``do``
+    (B, T, H, hd), by ``torch.autograd.grad`` through the same formula in
+    fp32 (the inputs widened first), returned in fp32. A kv head's dk and dv
+    sum over its group of query heads."""
+    _called("mha_ref_bwd")
+    with torch.enable_grad():
+        qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+        out = _mha(qf, kf, vf, causal)
+        return torch.autograd.grad(out, (qf, kf, vf), do.float())
 
 
 def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,11 +1,17 @@
 """build_model(cfg) — the Model API for the block families (dense, MoE, VLM,
 SSM) and the hybrid family.
 
-A Model exposes the serving programs (plain functions of parameter trees —
-exactly what the Provuse platform deploys as FaaS functions):
+A Model exposes the programs (plain functions of parameter trees — exactly
+what the Provuse platform deploys as FaaS functions):
 
-  prefill_fn(params, batch)         -> (last_logits, cache)
-  decode_fn(params, batch, cache)   -> (logits, new_cache)
+  loss_fn(params, batch)            -> (loss, metrics)          [train]
+  prefill_fn(params, batch)         -> (last_logits, cache)     [serve]
+  decode_fn(params, batch, cache)   -> (logits, new_cache)      [serve]
+
+``loss_fn`` trains the dense and vlm families (``tokens`` or ``embeds``):
+their only kernel, K3, has a gradient on the card. The MoE, SSM and hybrid
+families raise until K5's and K6's gradients exist (ROADMAP.md, Queue 1
+item 11).
 
 plus ``cache_defs`` (the decode cache's ParamDef tree for a shape: the
 dense KV cache, the SSM states, or the hybrid's mix of both) and ``init``
@@ -17,6 +23,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import hybrid as hy
@@ -25,15 +32,53 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, embedding_defs, norm_defs, unembed
 from repro_torch.models.params import ParamDef, init_params
 
+CE_CHUNK = 512
+TRAINED_FAMILIES = ("dense", "vlm")
+
 
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     param_defs: Any
     init: Callable[..., Any]
+    loss_fn: Callable
     prefill_fn: Callable
     decode_fn: Callable
     cache_defs: Callable[[ShapeConfig], Any]
+
+
+# ------------------------------------------------------------------ loss
+
+
+def _ce_chunk(emb_params, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: fp32 logits (B, c, V), their
+    logsumexp less the target's logit."""
+    logits = unembed(emb_params, h)
+    lz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+    return torch.sum(lz - ll)
+
+
+def chunked_ce(emb_params, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig,
+               chunk: int = CE_CHUNK) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks: a (B, chunk, V) logits
+    buffer replaces the (B, T, V) one, the largest buffer of a train step
+    otherwise. Chunks are summed in order, as the reference's scan sums
+    them; under autograd with ``cfg.remat`` each chunk's logits are
+    recomputed in the backward."""
+    b, t, _ = hidden.shape
+    c = min(chunk, t)
+    if t % c:
+        c = t
+    remat = cfg.remat and torch.is_grad_enabled() and hidden.requires_grad
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for h, y in zip(hidden.split(c, dim=1), targets.split(c, dim=1)):
+        if remat:
+            part = checkpoint(_ce_chunk, emb_params, h, y, use_reentrant=False, preserve_rng_state=False)
+        else:
+            part = _ce_chunk(emb_params, h, y)
+        tot = tot + part
+    return tot / (b * t)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -47,6 +92,29 @@ def build_model(cfg: ModelConfig) -> Model:
         defs["hybrid"] = hy.hybrid_defs(cfg)
     else:
         defs["blocks"] = tfm.stack_block_defs(cfg, kind, L)
+
+    def loss_fn(params, batch):
+        """(loss, metrics): the mean next-token cross-entropy of ``batch``
+        (``tokens`` or ``embeds``, and ``targets``); ``metrics`` holds
+        ``ce``, ``loss`` and the MoE metrics of the reference (0 here)."""
+        if fam not in TRAINED_FAMILIES:
+            raise NotImplementedError(
+                f"the port trains the dense and vlm families, not {fam!r}: training it needs the "
+                "gradients of K5 and K6 and the MoE aux loss (ROADMAP.md, Queue 1 item 11)")
+        if "embeds" in batch:  # vlm: stub frontend embeddings, in the weights' dtype
+            x = batch["embeds"].to(params["embed"]["table"].dtype)
+        else:
+            x = embed_tokens(params["embed"], batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        h, _ = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True)
+        h = apply_norm(params["ln_f"], h, cfg)
+        ce = chunked_ce(params["embed"], h, batch["targets"], cfg)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        metrics = {"moe_aux": zero, "moe_dropped": zero}
+        loss = ce + cfg.router_aux_weight * metrics["moe_aux"]
+        out = dict(metrics)
+        out.update(ce=ce, loss=loss)
+        return loss, out
 
     def prefill_fn(params, batch):
         if "embeds" in batch:  # vlm: precomputed frontend embeddings
@@ -96,6 +164,7 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         param_defs=defs,
         init=lambda seed=0, *, device=None: init_params(defs, seed, device=device),
+        loss_fn=loss_fn,
         prefill_fn=prefill_fn,
         decode_fn=decode_fn,
         cache_defs=cache_defs,

@@ -12,10 +12,18 @@ as in the JAX package. An attention block's cache entry is (k, v); an SSM
 block's is its state dict (``models/ssm.py: ssm_cache_shapes``), which has
 no pages. The MoE layer's metrics (aux loss, drop share) are discarded here,
 as the JAX serving engine discards them.
+
+Under autograd (training), a full-sequence pass takes each layer's slice of
+the stacked parameters once (one ``unbind`` per leaf, whose backward builds
+the stacked gradient with one stack), and with ``cfg.remat`` runs each
+block under ``torch.utils.checkpoint``: the block's activations are dropped
+after the forward and recomputed in the backward, as the reference's
+``jax.checkpoint`` of its scan body does.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import donate, tree
 from repro_torch.configs.base import ModelConfig
@@ -170,6 +178,16 @@ def _num_layers(stacked_params) -> int:
     return tree.leaves(stacked_params)[0].shape[0]
 
 
+def _layers(stacked_params) -> list:
+    """Every layer's slice of the stacked parameters, taken at once: one
+    ``unbind`` per leaf. Under autograd each ``a[i]`` would zero-fill a
+    full-size stacked gradient in its backward (one per layer); the slices
+    of one ``unbind`` share one backward, a single stack."""
+    leaves, struct = tree.flatten(stacked_params)
+    per_leaf = [x.unbind(0) for x in leaves]
+    return [tree.unflatten(struct, [u[i] for u in per_leaf]) for i in range(_num_layers(stacked_params))]
+
+
 def stack_into(stacked, i: int, n: int, entry, like=None) -> dict:
     """Copy layer ``i``'s cache entry (a (k, v) tuple, or a dict of tensors
     nested to any depth) into slot ``i`` of ``stacked``, the n layers' caches
@@ -195,12 +213,19 @@ def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: st
     a leading 'layers' axis — {'k','v'} for attention kinds, the SSM state
     dict for 'ssm' — or None). ``into``: a stacked cache of the right shapes
     (e.g. a view of a larger one) that the layers' caches are copied into,
-    in place of a new one."""
+    in place of a new one. Under autograd with ``cfg.remat``, each block
+    runs under ``torch.utils.checkpoint`` (recomputed in the backward)."""
     n = _num_layers(stacked_params)
+    layers = _layers(stacked_params)
+    remat = cfg.remat and not collect_cache and torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in tree.leaves(stacked_params)))
     cache = into
-    for i in range(n):
-        x, entry = apply_block_full(_layer(stacked_params, i), x, cfg, kind, positions, causal,
-                                    collect_cache)
+    for i, lp in enumerate(layers):
+        if remat:
+            x, entry = checkpoint(apply_block_full, lp, x, cfg, kind, positions, causal, collect_cache,
+                                  use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, entry = apply_block_full(lp, x, cfg, kind, positions, causal, collect_cache)
         if collect_cache:
             cache = stack_into(cache, i, n, entry)
     return x, cache

@@ -24,11 +24,14 @@ drops the oldest record and bumps a drop counter.  The contexts append a
 record's fields as a plain tuple, and ``snapshot()`` builds the
 :class:`SpanRecord` objects: building a frozen dataclass costs several
 times an append, and most records are overwritten before anyone reads
-them.  The recorder never blocks the request path on a reader —
-``snapshot()`` copies buffers one at a time.
+them.  :meth:`SpanContext.tile` records a request's phases and its root in
+one append, which is how the batched dispatch closes each member's trace.
+The recorder never blocks the request path on a reader — ``snapshot()``
+copies buffers one at a time.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import threading
@@ -82,35 +85,35 @@ class SpanRecord:
 class _ThreadBuffer:
     """One thread's bounded ring. Only its owner appends; readers copy."""
 
-    GUARDED_FIELDS = {"items": "_lock", "dropped": "_lock", "_head": "_lock"}
+    GUARDED_FIELDS = {"items": "_lock", "dropped": "_lock"}
 
     def __init__(self, capacity: int):
         self._lock = threading.Lock()
         self.capacity = capacity
-        self.items: list = []  # SpanRecords, or their fields as tuples
+        # SpanRecords, or their fields as tuples; a full ring drops its oldest
+        self.items: collections.deque = collections.deque(maxlen=capacity)
         self.dropped = 0
-        #: ring cursor: index of the oldest record once the buffer wrapped
-        self._head = 0
 
     def append(self, rec) -> None:
         with self._lock:
-            if len(self.items) < self.capacity:
-                self.items.append(rec)
-            else:
-                self.items[self._head] = rec
-                self._head = (self._head + 1) % self.capacity
+            if len(self.items) == self.capacity:
                 self.dropped += 1
+            self.items.append(rec)
+
+    def extend(self, recs: list) -> None:
+        with self._lock:
+            self.dropped += max(0, len(self.items) + len(recs) - self.capacity)
+            self.items.extend(recs)
 
     def snapshot(self) -> tuple[list[SpanRecord], int]:
         with self._lock:
-            ordered = self.items[self._head:] + self.items[: self._head]
+            ordered = list(self.items)
             dropped = self.dropped
         return [SpanRecord(*r) if type(r) is tuple else r for r in ordered], dropped
 
     def clear(self) -> None:
         with self._lock:
-            self.items = []
-            self._head = 0
+            self.items.clear()
             self.dropped = 0
 
 
@@ -130,16 +133,25 @@ class FlightRecorder:
         self._buffers: list[_ThreadBuffer] = []
         self._tls = threading.local()
 
+    def _buffer(self) -> _ThreadBuffer:
+        """The calling thread's buffer, made at its first record."""
+        try:
+            return self._tls.buf
+        except AttributeError:
+            buf = self._tls.buf = _ThreadBuffer(self.capacity_per_thread)
+            with self._lock:
+                self._buffers.append(buf)
+            return buf
+
     def append(self, rec) -> None:
         """Record ``rec``: a :class:`SpanRecord`, or its fields as a tuple
         (built into one when read)."""
-        buf = getattr(self._tls, "buf", None)
-        if buf is None:
-            buf = _ThreadBuffer(self.capacity_per_thread)
-            self._tls.buf = buf
-            with self._lock:
-                self._buffers.append(buf)
-        buf.append(rec)
+        self._buffer().append(rec)
+
+    def extend(self, recs: list) -> None:
+        """Record each of ``recs`` in order, as :meth:`append` would, under
+        one acquisition of the thread's buffer."""
+        self._buffer().extend(recs)
 
     def snapshot(self) -> list[SpanRecord]:
         """All retained records, globally ordered for deterministic export:
@@ -189,16 +201,15 @@ class FlightRecorder:
 class SpanContext:
     """Per-request (or per-batch) trace handle.
 
-    Thread-safe: the span-id counter and the finished flag sit behind the
-    context's own lock, so a request whose phases are emitted from the
+    Thread-safe without a lock of its own: span ids and the close come from
+    C-level counters, whose ``next()`` cannot be interleaved under the
+    interpreter lock, so a request whose phases are emitted from the
     coalescer thread while cross-function children land from a worker
-    thread never collides.
+    thread never collides, and exactly one close records the root.
     """
 
-    GUARDED_FIELDS = {"_finished": "_lock"}
-
     __slots__ = ("tracer", "trace_id", "name", "kind", "t0", "attrs",
-                 "_lock", "_ids", "_finished")
+                 "_ids", "_closes")
 
     def __init__(self, tracer: "Tracer", trace_id: int, name: str,
                  kind: str, t0: float, attrs: dict | None = None):
@@ -208,11 +219,8 @@ class SpanContext:
         self.kind = kind
         self.t0 = t0
         self.attrs = attrs
-        self._lock = threading.Lock()
-        # span ids: one C-level counter, whose next() cannot be interleaved
-        # under the interpreter lock (no lock of ours to contend for)
         self._ids = itertools.count(_ROOT_SPAN_ID + 1)
-        self._finished = False
+        self._closes = itertools.count()  # the first next() is 0: that close records
 
     def alloc_id(self) -> int:
         return next(self._ids)
@@ -238,22 +246,38 @@ class SpanContext:
             self.trace_id, self.alloc_id(), parent_id, name, "event",
             float(t), float(t), "i", args))
 
-    def finish(self, t1: float | None = None, *, args: dict | None = None) -> None:
-        """Close the trace: emit the root span covering ``[t0, t1)``.
-        Idempotent — later calls are dropped, so error paths may finish
-        defensively."""
-        with self._lock:
-            if self._finished:
-                return
-            self._finished = True
+    def _root(self, t1: float | None, args: dict | None) -> tuple | None:
+        """The root span's record for the first close, else None."""
+        if next(self._closes):
+            return None
         if t1 is None:
             t1 = self.tracer.clock.now()
         merged = dict(self.attrs or {})
         if args:
             merged.update(args)
-        self.tracer.recorder.append((
-            self.trace_id, _ROOT_SPAN_ID, 0, self.name, self.kind,
-            float(self.t0), float(max(self.t0, t1)), "X", merged or None))
+        return (self.trace_id, _ROOT_SPAN_ID, 0, self.name, self.kind,
+                float(self.t0), float(max(self.t0, t1)), "X", merged or None)
+
+    def finish(self, t1: float | None = None, *, args: dict | None = None) -> None:
+        """Close the trace: emit the root span covering ``[t0, t1)``.
+        Idempotent — later calls are dropped, so error paths may finish
+        defensively."""
+        root = self._root(t1, args)
+        if root is not None:
+            self.tracer.recorder.append(root)
+
+    def tile(self, phases: list, t1: float, *, args: dict | None = None) -> None:
+        """Emit each of ``phases`` — ``(name, cat, t0, t1, args)`` — as a
+        child of the root, in order, then :meth:`finish` at ``t1``: the same
+        records as those calls make, in one append."""
+        tid, ids = self.trace_id, self._ids
+        recs = [(tid, next(ids), _ROOT_SPAN_ID, name, cat,
+                 float(a), float(b if b > a else a), "X", pargs)
+                for name, cat, a, b, pargs in phases]
+        root = self._root(t1, args)
+        if root is not None:
+            recs.append(root)
+        self.tracer.recorder.extend(recs)
 
 
 #: Registry of live tracers so ``export_all`` (load_bench --trace) can merge

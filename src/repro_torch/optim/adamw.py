@@ -1,0 +1,92 @@
+"""AdamW with fp32 first and second moments (the JAX package's
+``optim/adamw.py``).
+
+Functional, as the reference: :func:`adamw_update` returns new parameter
+and moment tensors and leaves its inputs as they were, so a caller that
+keeps the old state (a training loop's initial state, a checkpoint being
+written) still holds it. The update is clipped by the global norm of the
+gradients and runs in float32, one leaf at a time in the reference's order
+of operations; each new parameter is cast back to its own dtype. On the
+card every quantity stays a tensor (the step, the learning rate, the norm):
+an update never reads a device value on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch import tree
+from repro_torch.models.params import ParamDef
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def adamw_state_defs(param_defs):
+    """The optimizer state's ParamDef tree: the step (int32) and m / v with
+    the params' shapes in fp32, zero-initialized."""
+    as_fp32 = lambda d: dataclasses.replace(d, dtype=torch.float32, init="zeros")  # noqa: E731
+    return {
+        "step": ParamDef((), init="zeros", dtype=torch.int32),
+        "m": tree.map(as_fp32, param_defs),
+        "v": tree.map(as_fp32, param_defs),
+    }
+
+
+def adamw_init(params):
+    """Step 0 and zero moments, on the params' device."""
+    leaf = tree.leaves(params)[0]
+    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+        "m": tree.map(zeros32, params),
+        "v": tree.map(zeros32, params),
+    }
+
+
+def global_norm(t) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares, in fp32."""
+    return torch.sqrt(torch.sum(torch.stack([torch.sum(torch.square(x.float())) for x in tree.leaves(t)])))
+
+
+def adamw_update(params, grads, opt_state, cfg: AdamWConfig,
+                 lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None):
+    """Returns (new_params, new_opt_state, metrics): ``metrics`` holds the
+    gradients' global norm before clipping (``grad_norm``) and the step's
+    learning rate (``lr``), both 0-d fp32 tensors."""
+    step = opt_state["step"] + 1
+    stepf = step.float()
+    lr = lr_schedule(step) if lr_schedule is not None else torch.tensor(cfg.lr, dtype=torch.float32,
+                                                                        device=step.device)
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+    bc1 = 1 - cfg.b1 ** stepf
+    bc2 = 1 - cfg.b2 ** stepf
+
+    def upd(p, g, m, v):
+        g32 = g.float() * scale
+        m_new = cfg.b1 * m + (1 - cfg.b1) * g32
+        v_new = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+        mhat = m_new / bc1
+        vhat = v_new / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+        p_new = p.float() - lr * delta
+        return p_new.to(p.dtype), m_new, v_new
+
+    flat_p, struct = tree.flatten(params)
+    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, tree.leaves(grads), tree.leaves(opt_state["m"]),
+                                                 tree.leaves(opt_state["v"]))]
+    new_params = tree.unflatten(struct, [o[0] for o in out])
+    new_state = {"step": step,
+                 "m": tree.unflatten(struct, [o[1] for o in out]),
+                 "v": tree.unflatten(struct, [o[2] for o in out])}
+    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

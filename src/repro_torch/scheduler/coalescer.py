@@ -306,15 +306,15 @@ class AdmissionQueue:
             if span is None:
                 continue
             open_r = min(max(t_open, r.t_enqueue), t_exec)
-            span.emit("queue-wait", "queue-wait", r.t_enqueue, open_r)
-            span.emit("window-wait", "window-wait", open_r, t_exec)
             cargs = {"size": len(batch)}
             if bctx is not None:
                 cargs["batch_trace"] = bctx.trace_id
             if error:
                 cargs["error"] = error
-            span.emit("batch-compute", "batch-compute", t_exec, t_done, args=cargs)
-            span.finish(t_done, args=err_args)
+            span.tile([("queue-wait", "queue-wait", r.t_enqueue, open_r, None),
+                       ("window-wait", "window-wait", open_r, t_exec, None),
+                       ("batch-compute", "batch-compute", t_exec, t_done, cargs)],
+                      t_done, args=err_args)
         if bctx is not None:
             bctx.finish(t_done, args=err_args)
 

@@ -1,0 +1,128 @@
+"""Fault-tolerant training loop: checkpoint/restart, failure injection,
+straggler monitoring (the JAX package's ``training/loop.py``).
+
+Failure model:
+* process crash / node loss  -> restart from the latest atomic checkpoint
+  (exercised by :class:`FailureInjector`, which raises at configured steps;
+  the loop restores and continues, and with the deterministic pipeline the
+  run ends with the same params bit for bit);
+* stragglers                 -> per-step wall times are tracked; steps
+  slower than ``straggler_factor`` x the trailing median are recorded as
+  :class:`StragglerEvent`\\ s.
+
+A step's clock stops after a device sync on its metrics (the reference's
+``jax.block_until_ready``). There is no ``jit_step``: the port runs eagerly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.checkpointing.manager import CheckpointManager
+
+
+class InjectedFailure(RuntimeError):
+    pass
+
+
+class FailureInjector:
+    """Raises InjectedFailure the first time each configured step is reached."""
+
+    def __init__(self, fail_at_steps: list[int]):
+        self.pending = set(fail_at_steps)
+        self.fired: list[int] = []
+
+    def maybe_fail(self, step: int) -> None:
+        if step in self.pending:
+            self.pending.discard(step)
+            self.fired.append(step)
+            raise InjectedFailure(f"injected failure at step {step}")
+
+
+@dataclasses.dataclass
+class StragglerEvent:
+    step: int
+    seconds: float
+    median_seconds: float
+
+
+def _block_until_ready(metrics: dict) -> None:
+    """Wait for every CUDA device that holds one of ``metrics``."""
+    for dev in {v.device for v in metrics.values() if isinstance(v, torch.Tensor) and v.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+class TrainLoop:
+    def __init__(
+        self,
+        train_step: Callable,
+        make_data: Callable[[int], Any],
+        manager: CheckpointManager,
+        *,
+        ckpt_every: int = 50,
+        straggler_factor: float = 3.0,
+        window: int = 20,
+    ):
+        """``make_data(start_batch)`` returns an iterator positioned at that
+        batch (restart resumes the stream exactly where it crashed)."""
+        self.train_step = train_step
+        self.make_data = make_data
+        self.manager = manager
+        self.ckpt_every = ckpt_every
+        self.straggler_factor = straggler_factor
+        self.window = window
+        self.straggler_events: list[StragglerEvent] = []
+        self.restarts = 0
+
+    def run(self, init_state, num_steps: int, failure_injector: FailureInjector | None = None):
+        history: list[dict] = []
+        step_times: list[float] = []
+
+        latest = self.manager.latest_step()
+        if latest is not None:
+            state = self.manager.restore(init_state, latest)
+            step = latest
+        else:
+            state = init_state
+            step = 0
+        data = self.make_data(step)
+
+        while step < num_steps:
+            try:
+                batch = next(data)
+                if failure_injector is not None:
+                    failure_injector.maybe_fail(step)
+                t0 = time.perf_counter()
+                state, metrics = self.train_step(state, batch)
+                _block_until_ready(metrics)
+                dt = time.perf_counter() - t0
+                step += 1
+                step_times.append(dt)
+                if len(step_times) > 3:
+                    med = statistics.median(step_times[-self.window :])
+                    if dt > self.straggler_factor * med:
+                        self.straggler_events.append(StragglerEvent(step, dt, med))
+                history.append({"step": step, "seconds": dt, **{k: float(v) for k, v in metrics.items()}})
+                if self.ckpt_every and step % self.ckpt_every == 0:
+                    self.manager.save(step, state)
+            except InjectedFailure:
+                # simulated crash: drop in-memory state, restore, reposition data
+                self.restarts += 1
+                if hasattr(data, "close"):
+                    data.close()
+                latest = self.manager.latest_step()
+                if latest is None:
+                    state = init_state
+                    step = 0
+                else:
+                    state = self.manager.restore(init_state, latest)
+                    step = latest
+                data = self.make_data(step)
+        self.manager.wait()
+        if hasattr(data, "close"):
+            data.close()
+        return state, history

@@ -1,0 +1,78 @@
+"""train_step: loss -> grads -> clipped AdamW update, with optional
+gradient-accumulation microbatching (the JAX package's
+``training/train_step.py``).
+
+``torch.autograd.grad`` takes the place of ``jax.value_and_grad``: the
+params' leaves are detached views that require grad, so a step never
+accumulates into ``.grad`` and leaves its input state as it was. The
+microbatches run one after the other (the reference scans over them) and
+their gradients accumulate in the grad dtype (bf16 for bf16 params), then
+divide by their number, as the reference does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import tree
+from repro_torch.models.model import Model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_state_defs, adamw_update
+
+
+def make_train_state_defs(model: Model):
+    return {"params": model.param_defs, "opt": adamw_state_defs(model.param_defs)}
+
+
+def init_train_state(model: Model, seed: int = 0, *, device=None):
+    """Params from ``seed`` (``model.init``) on ``device`` (default: the
+    card) and a fresh AdamW state beside them."""
+    params = model.init(seed, device=device)
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def value_and_grad(model: Model, params, batch):
+    """(loss, metrics, grads) of ``model.loss_fn`` at ``params``, detached:
+    the counterpart of ``jax.value_and_grad(loss_fn, has_aux=True)``. The
+    gradients are of the params' tree and dtypes; a leaf the loss does not
+    read (the token table under ``embeds``) has a zero gradient, as in JAX."""
+    leaves, struct = tree.flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    loss, metrics = model.loss_fn(tree.unflatten(struct, live), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree.unflatten(struct, grads)
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig | None = None, lr_schedule=None):
+    """``train_step(state, batch) -> (new_state, metrics)``: the loss's
+    metrics (``loss``, ``ce``, ...) averaged over the microbatches, plus
+    ``grad_norm`` and ``lr``, all 0-d fp32 tensors on the state's device."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    n_micro = max(1, model.cfg.microbatches)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if n_micro == 1:
+            loss, metrics, grads = value_and_grad(model, params, batch)
+        else:
+            def split(x):
+                b = x.shape[0]
+                return x.reshape(n_micro, b // n_micro, *x.shape[1:])
+
+            micro = tree.map(split, batch)
+            grads = tree.map(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device), params)
+            loss = metrics = None
+            for i in range(n_micro):
+                l, m, g = value_and_grad(model, params, tree.map(lambda x: x[i], micro))
+                grads = tree.map(lambda a, b: a + b.to(a.dtype), grads, g)
+                loss = l if loss is None else loss + l
+                metrics = m if metrics is None else tree.map(lambda a, b: a + b, metrics, m)
+            grads = tree.map(lambda g: g / n_micro, grads)
+            loss = loss / n_micro
+            metrics = tree.map(lambda m: m / n_micro, metrics)
+
+        new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg, lr_schedule)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step

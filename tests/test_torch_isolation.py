@@ -41,6 +41,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 def test_the_scan_covers_the_launcher_and_every_config():
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/launch/serve.py" in scanned
+    # the training path
+    for name in ("optim/adamw.py", "optim/schedule.py", "data/pipeline.py", "training/train_step.py",
+                 "training/loop.py", "launch/train.py", "checkpointing/manager.py", "bridge.py"):
+        assert f"src/repro_torch/{name}" in scanned
     for name in ("stablelm_1_6b", "starcoder2_3b", "granite_34b", "chameleon_34b"):
         assert f"src/repro_torch/configs/{name}.py" in scanned
 

@@ -1,4 +1,4 @@
-"""The hand-written kernels K3 (flash_attention), K4 (decode_attention),
+"""The hand-written kernels K3 (flash_attention, and its gradient), K4 (decode_attention),
 K1 (paged_decode_attention), K2 (paged_chunk_attention), K5 (moe_gmm) and
 K6 (ssd_scan) against their plain versions, on the card.
 
@@ -148,7 +148,9 @@ def test_attention_kernels_give_equal_bits_on_two_launches(cuda, kernel):
 @pytest.mark.cuda
 def test_attention_c_entries_reject_an_unsupported_launch(cuda):
     """A launch the C entry refuses (head dim 96 has no instantiation) comes
-    back as an error that the wrapper's check raises, never as a silent no-op."""
+    back as an error that the wrapper's check raises, never as a silent no-op.
+    K3's forward entry takes its lse pointer after the output (null: not
+    written)."""
     from repro_torch.kernels import build
 
     lib = build.load()
@@ -157,8 +159,17 @@ def test_attention_c_entries_reject_an_unsupported_launch(cuda):
     cur = torch.ones(1, dtype=torch.int32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     with pytest.raises(RuntimeError, match="CUDA error"):
-        build.check(lib.repro_flash_attention_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+        build.check(lib.repro_flash_attention_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), None,
                                                   1, 64, 64, 2, 2, 96, 1, stream), "flash_attention launch")
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # K3's backward kernels refuse it too
+        build.check(lib.repro_flash_attention_bwd_dq(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                                     x.data_ptr(), lse.data_ptr(), x.data_ptr(), lse.data_ptr(),
+                                                     1, 64, 64, 2, 2, 96, 1, stream), "flash_attention bwd launch")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib.repro_flash_attention_bwd_dkdv(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                                       lse.data_ptr(), lse.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                                       1, 64, 64, 2, 2, 96, 1, stream), "flash_attention bwd launch")
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib.repro_decode_attention_fwd(q.data_ptr(), x.data_ptr(), x.data_ptr(), cur.data_ptr(),
                                                    q.data_ptr(), 1, 64, 64, 2, 2, 96, stream), "decode_attention launch")
@@ -552,20 +563,99 @@ def test_ssm_and_hybrid_chains_on_the_card_go_through_the_kernels(cuda, arch):
     assert (logits.cpu() - want).abs().max() <= 2e-2 * want.abs().max()
 
 
+# K3's gradient at chip_smoke.py's shapes: (a) the train shape, (b) T = 300,
+# (c) the two wide groups at heads of 128, (d) MHA at 112, (e) (b) non-causal;
+# then ragged edges (one row, a tile and one row, T != S)
+FLASH_GRAD_CASES = [
+    (2, 4096, 4096, 32, 8, 64, True),
+    (1, 300, 300, 32, 8, 64, True),
+    (1, 512, 512, 48, 1, 128, True),
+    (1, 512, 512, 64, 8, 128, True),
+    (1, 512, 512, 32, 32, 112, True),
+    (1, 300, 300, 32, 8, 64, False),
+    (1, 1, 1, 4, 1, 64, True),
+    (2, 65, 65, 8, 2, 64, True),
+    (1, 200, 70, 8, 2, 128, False),
+    (1, 65, 130, 4, 4, 112, False),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention", "paged_decode_attention",
+@pytest.mark.parametrize("b,t,s,h,kv,hd,causal", FLASH_GRAD_CASES)
+def test_flash_gradient_matches_plain(cuda, b, t, s, h, kv, hd, causal):
+    """K3 under autograd on the card: its two backward kernels (counted once
+    each) against mha_ref_bwd within 2e-2 of each gradient's max |g| (bf16
+    inputs, sums in another order); equal bits on two backward passes; the
+    forward's output with lse equal in bits to the serve path's without it.
+    A gradient that is exactly zero (one visible column: the softmax is
+    constant) is held to 1e-5 absolute."""
+    from repro_torch.kernels import ref
+
+    qn, kn, vn, dn = inputs(29, (b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, t, h, hd))
+    q, k, v, do = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn, dn))
+    before = {n: build.launches(n) for n in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")}
+    plain_before = ref.CALLS["mha_ref"] + ref.CALLS["mha_ref_bwd"]
+
+    def grads():
+        x = [a.clone().requires_grad_() for a in (q, k, v)]
+        out = tflash.flash_attention(*x, causal=causal)
+        return (out, *torch.autograd.grad(out, x, do))
+
+    out, *got = grads()
+    torch.cuda.synchronize()
+    assert {n: build.launches(n) - c for n, c in before.items()} == {n: 1 for n in before}
+    assert ref.CALLS["mha_ref"] + ref.CALLS["mha_ref_bwd"] == plain_before
+    with torch.no_grad():
+        assert torch.equal(out, tflash.flash_attention(q, k, v, causal=causal))
+    want = tflash.plain_bwd(q, k, v, do, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.isfinite(g.float()).all(), name
+        err = float((g.float() - w).abs().max())
+        assert err <= RTOL * float(w.abs().max()) + 1e-5, (name, err, float(w.abs().max()))
+    again = grads()[1:]
+    assert all(torch.equal(a, c) for a, c in zip(got, again))  # no atomics: one fixed order
+
+
+@pytest.mark.cuda
+def test_flash_gradient_through_a_model_layer_on_the_card(cuda):
+    """A small dense model's loss backward on the card launches K3's forward
+    and both backward kernels once per layer, and never a plain version."""
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced_config(get_arch("llama3.2-1b")), d_model=256, d_head=64)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    leaves = [p.requires_grad_() for p in __import__("repro_torch").tree.leaves(params)]
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    ops.reset_counts()
+    loss, _ = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkdv"] == 2
+    assert all(v == 0 for n, v in counts.items() if n.endswith("_ref") or n.endswith("_ref_bwd"))
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode_attention", "paged_decode_attention",
                                     "paged_chunk_attention", "moe_gmm", "ssd_scan"])
 def test_kernel_refuses_an_input_that_requires_grad(cuda, kernel):
-    """The kernels have no backward on the card yet: under grad mode, a CUDA
-    input that requires grad raises before the launch (an output filled by
-    the kernel would carry no gradient); under no_grad the kernel runs."""
+    """The five kernels without a backward: under grad mode, a CUDA input
+    that requires grad raises before the launch (an output filled by the
+    kernel would carry no gradient); under no_grad the kernel runs. K3 has
+    its gradient (test_flash_gradient_matches_plain)."""
     bf = dict(device=cuda, dtype=torch.bfloat16)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     pages = torch.zeros(3, 16, 2, 64, **bf)
     table = torch.ones(1, 2, dtype=torch.int32, device=cuda)
     x = torch.zeros(1, 8, 4, 64, **bf)
     call = {
-        "flash_attention": lambda x: tflash.flash_attention(x, x[:, :, :2].contiguous(), x[:, :, :2].contiguous()),
         "decode_attention": lambda x: tdec.decode_attention(x[:, 0].contiguous(), torch.zeros(1, 16, 2, 64, **bf),
                                                             torch.zeros(1, 16, 2, 64, **bf), one),
         "paged_decode_attention": lambda x: tpaged.paged_decode_attention(x[:, 0].contiguous(), pages, pages, table,

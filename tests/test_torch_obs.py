@@ -142,6 +142,40 @@ def test_flight_recorder_drop_oldest_and_counter(pkg):
     assert rec.snapshot() == [] and rec.dropped() == 0
 
 
+def test_flight_recorder_extend_drops_oldest_as_appends_would():
+    one, many = FlightRecorder(capacity_per_thread=4), FlightRecorder(capacity_per_thread=4)
+    recs = [_rec(1, i + 1, t0=float(i)) for i in range(13)]
+    for r in recs:
+        one.append(r)
+    for lo, hi in ((0, 3), (3, 6), (6, 13)):
+        many.extend(recs[lo:hi])
+    assert many.snapshot() == one.snapshot() and [r.span_id for r in many.snapshot()] == [10, 11, 12, 13]
+    assert many.dropped() == one.dropped() == 9
+
+
+def test_tile_records_what_emit_and_finish_record():
+    """``SpanContext.tile`` (the batched dispatch's close of each member):
+    the records of ``emit`` for each phase then ``finish``, bit for bit, in
+    one append; a later close records nothing."""
+    phases = [("queue-wait", "queue-wait", 1.0, 1.5, None), ("window-wait", "window-wait", 1.5, 1.25, None),
+              ("batch-compute", "batch-compute", 1.5, 4.0, {"size": 3, "batch_trace": 9})]
+    got = []
+    for tiled in (False, True):
+        tracer = Tracer()
+        ctx = tracer.begin_request("f", "invoke_async", t0=1.0, attrs={"slo": "best-effort"})
+        if tiled:
+            ctx.tile(phases, 4.0, args={"error": "X"})
+        else:
+            for name, cat, t0, t1, args in phases:
+                ctx.emit(name, cat, t0, t1, args=args)
+            ctx.finish(4.0, args={"error": "X"})
+        ctx.finish(5.0)
+        ctx.tile(phases[:1], 6.0)
+        got.append(tracer.recorder.snapshot())
+    assert got[1] == got[0] and [r.span_id for r in got[1]] == [1, 2, 5, 3, 4]
+    assert got[1][0].args == {"slo": "best-effort", "error": "X"} and got[1][3].t1 == 1.5
+
+
 def test_flight_recorder_never_mixes_threads_buffers():
     rec = FlightRecorder(capacity_per_thread=8)
 

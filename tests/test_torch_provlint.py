@@ -82,8 +82,8 @@ def test_delocking_the_launch_counters_is_caught():
 
 @pytest.mark.parametrize("path,locked,unlocked,field", [
     ("src/repro_torch/obs/trace.py",
-     "        with self._lock:\n            if self._finished:\n                return\n            self._finished = True\n",
-     "        if self._finished:\n            return\n        self._finished = True\n", "_finished"),
+     "            with self._lock:\n                self._buffers.append(buf)\n",
+     "            self._buffers.append(buf)\n", "_buffers"),
     ("src/repro_torch/obs/critical_path.py",
      "        with self._lock:\n            self._edges[key] = self._ewma(self._edges.get(key), float(wait_s))\n",
      "        self._edges[key] = self._ewma(self._edges.get(key), float(wait_s))\n", "_edges"),
