@@ -41,13 +41,16 @@ Phases (any failed check exits non-zero and prints no result):
    apart — ``torch.bmm`` for K5; none computes K6) and the least time the
    card could take (``bound_ms``). Every kernel must give equal bits on two
    launches. A ``ptxas`` line gives every kernel's registers and spills, per
-   head dim for K3 and K4. K3's gradient (``csrc/flash_attention_bwd.cu``)
-   at five shapes (``FLASH_GRAD_CASES``: the train shape B = 2, T = S = 4096,
-   32/8 heads of 64; T = 300; 48/1 and 64/8 of 128; 32/32 of 112; T = 300
-   non-causal): dq, dk and dv against ``mha_ref_bwd`` within 2e-2 of each
-   tensor's max |g|, equal bits on two launches and through autograd, the
-   forward with lse equal in bits to the forward without it; timed beside
-   the plain backward, SDPA's backward and the bound. A ``grad_refusal``
+   head dim for K3 and K4. K3's gradient (``csrc/flash_attention_bwd.cu``:
+   prep, the sweep on wgmma fed by TMA, post) at seven shapes
+   (``FLASH_GRAD_CASES``: the train shape B = 2, T = S = 4096, 32/8 heads of
+   64; T = 300; 48/1 at B = 1 and 2 and 64/8 of 128, whose query heads the
+   sweep splits over blocks; 32/32 of 112; T = 300 non-causal): dq, dk and
+   dv against ``mha_ref_bwd`` within 2e-2 of each tensor's max |g|, equal
+   bits on two launches and through autograd, one launch of each kernel a
+   call, the forward with lse equal in bits to the forward without it;
+   timed (the three kernels together and each alone, TFLOP/s, the share of
+   the bound) beside the plain backward and SDPA's backward. A ``grad_refusal``
    line: each of the five wrappers without a backward, given a CUDA input
    that requires grad under grad mode, raises before its launch; K3 under
    grad launches its forward and each backward kernel once.
@@ -322,7 +325,8 @@ STAND_INS = {"flash_attention": "mha_ref", "decode_attention": "decode_attn_ref"
 
 
 # the device-side names of the hand-written kernels (csrc/*.cu)
-PORT_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel", "decode_attention_kernel",
+PORT_KERNELS = ("flash_attention_kernel", "flash_bwd_prep_kernel", "flash_bwd_kernel", "flash_bwd_post_kernel",
+                "decode_attention_kernel",
                 "paged_decode_kernel",
                 "paged_chunk_kernel", "moe_gmm_kernel", "ssd_scan_kernel")
 
@@ -558,7 +562,7 @@ def grad_refusal_check(torch) -> dict:
                 out[name] = "raises"
             else:
                 raise SmokeFailure(f"{name}: launched on a requires-grad input under grad mode")
-        names = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+        names = ("flash_attention", *GRAD_KERNELS)
         before = {n: build.launches(n) for n in names}
         plain = ref.CALLS["mha_ref"] + ref.CALLS["mha_ref_bwd"]
         q = torch.randn(1, 70, 4, 64, **bf).requires_grad_()
@@ -576,31 +580,38 @@ def grad_refusal_check(torch) -> dict:
 
 # (label, B, T, H, KV, hd, causal) of K3's gradient: (a) the train phase's
 # shape, (b) T = 300, (c) the widest groups at heads of 128 (granite-34b's
-# 48/1, chameleon-34b's 64/8), (d) MHA at 112 (zamba2-7b's shared block),
-# (e) (b) non-causal
+# 48/1 at B = 1 and 2, chameleon-34b's 64/8: the sweep splits their query
+# heads over blocks), (d) MHA at 112 (zamba2-7b's shared block), (e) (b)
+# non-causal
 FLASH_GRAD_CASES = (
     ("a", 2, 4096, 32, 8, 64, True),
     ("b", 1, 300, 32, 8, 64, True),
     ("c", 1, 512, 48, 1, 128, True),
+    ("c", 2, 512, 48, 1, 128, True),
     ("c", 1, 512, 64, 8, 128, True),
     ("d", 1, 512, 32, 32, 112, True),
     ("e", 1, 300, 32, 8, 64, False),
 )
+# K3's gradient: prep (D = rowsum(dO * o), the dQ counters), the sweep, post
+GRAD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd", "flash_attention_bwd_post")
 GRAD_TOL = 2e-2  # of each gradient's max |g|: bf16 inputs, sums in another order
 # the plain backward at case (a) holds ~20 GB of fp32 scores and their
 # gradients: it is timed in fewer samples of one call
 PLAIN_GRAD_SAMPLES, PLAIN_GRAD_REPS = 5, 1
 
 
-def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen, split_times: bool = False) -> dict:
+def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen) -> dict:
     """K3's gradient at one shape on inputs drawn from ``gen``: the forward
     with lse (equal in bits to the serve path's forward without it), then
-    dq, dk and dv from the two backward kernels against ``mha_ref_bwd``
+    dq, dk and dv from the three backward kernels against ``mha_ref_bwd``
     within GRAD_TOL of each tensor's max |g|, equal bits on two launches and
-    through autograd; timed (the two kernels together and each alone) beside
-    the plain backward and SDPA's backward on the same inputs (a yardstick
-    only: ``scaled_dot_product_attention(..., enable_gqa=True)``'s graph,
-    its backward alone); with ``split_times`` each backward kernel alone too."""
+    through autograd, exactly one launch of each kernel a call; timed (the
+    three together and each alone) beside the plain backward and SDPA's
+    backward on the same inputs (a yardstick only:
+    ``scaled_dot_product_attention(..., enable_gqa=True)``'s graph, its
+    backward alone). The sweep alone is timed with the memset that re-zeroes
+    its dQ counters (prep zeroes them in a whole call), and the memset apart."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -611,8 +622,11 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen, split_times: 
     check(torch.equal(out, fa.flash_attention(q, k, v, causal=causal)),
           f"K3 gradient {label}: the forward with lse differs in bits from the forward without it")
     check(bool(torch.isfinite(lse).all()), f"K3 gradient {label}: non-finite lse")
+    before = {n: build.launches(n) for n in GRAD_KERNELS}
     got = fa.backward(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
+    check({n: build.launches(n) - before[n] for n in GRAD_KERNELS} == dict.fromkeys(GRAD_KERNELS, 1),
+          f"K3 gradient {label}: not one launch of each backward kernel")
     check(all(torch.equal(a, c) for a, c in zip(got, fa.backward(q, k, v, out, lse, dout, causal))),
           f"K3 gradient {label}: two launches differ in bits")
     x = [a.clone().requires_grad_() for a in (q, k, v)]
@@ -630,11 +644,13 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen, split_times: 
     nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) + 4 * lse.numel()
     b_ms, b_by = bound(flops, nbytes)
     ms = time_ms(torch, lambda: fa.backward(q, k, v, out, lse, dout, causal))
-    split = {}
-    if split_times:  # each of the two kernels alone
-        _, dsum = fa.backward_dq(q, k, v, out, lse, dout, causal)
-        split = {"dq_ms": time_ms(torch, lambda: fa.backward_dq(q, k, v, out, lse, dout, causal)),
-                 "dkdv_ms": time_ms(torch, lambda: fa.backward_dkdv(q, k, v, dout, lse, dsum, causal))}
+    dsum, lse2, sem = fa.backward_prep(out, dout, lse)
+    dq_acc, dk, dv, ws, splits = fa.backward_sweep(q, k, v, dout, lse2, dsum, sem, causal)
+    split = {"prep_ms": time_ms(torch, lambda: fa.backward_prep(out, dout, lse)),
+             "sweep_ms": time_ms(torch, lambda: (sem.zero_(), fa.backward_sweep(q, k, v, dout, lse2, dsum, sem, causal))),
+             "counter_zero_ms": time_ms(torch, sem.zero_),
+             "post_ms": time_ms(torch, lambda: fa.backward_post(dq_acc, ws, splits, q, dk, dv))}
+    del dsum, lse2, sem, dq_acc, dk, dv, ws
     big = b * h * t * t > 2**28
     plain_ms = time_ms(torch, lambda: fa.plain_bwd(q, k, v, dout, causal=causal),
                        *((PLAIN_GRAD_SAMPLES, PLAIN_GRAD_REPS) if big else ()))
@@ -645,11 +661,12 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen, split_times: 
     return {
         "case": label,
         "shape": f"B={b} T=S={t} H={h} KV={kv} hd={hd} {'causal' if causal else 'non-causal'} bf16",
+        "head_splits": splits,
         "max_abs_err": max(abs_errs.values()),
         "rel_err": errs,
         "ms": ms, **split, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library": "scaled_dot_product_attention backward", "gflop": flops / 1e9,
-        "tflops": flops / (ms * 1e-3) / 1e12,
+        "library": "scaled_dot_product_attention backward", "vs_library": ms / library_ms,
+        "gflop": flops / 1e9, "tflops": flops / (ms * 1e-3) / 1e12,
         "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
     }
 
@@ -657,9 +674,9 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen, split_times: 
 def flash_grad_cases(torch, F) -> list:
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(24)
     out = []
-    for i, case in enumerate(FLASH_GRAD_CASES):
+    for case in FLASH_GRAD_CASES:
         t0 = time.perf_counter()
-        out.append({**flash_grad_case(torch, F, *case, gen, split_times=i == 0), "seconds": time.perf_counter() - t0})
+        out.append({**flash_grad_case(torch, F, *case, gen), "seconds": time.perf_counter() - t0})
     return out
 
 
@@ -3681,7 +3698,7 @@ def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, part
     meta = {  # source, TPU kernel, index of the main path's case
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:73", 2),
-        # K3's gradient: the Pallas kernel has no VJP; its two kernels, timed together
+        # K3's gradient: the Pallas kernel has no VJP; its three kernels, timed together
         "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:73", 0),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -4000,8 +4017,7 @@ def train_phase(torch, dev, cfg) -> tuple[dict, dict]:
     first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
     check(last < first, f"train: the loss did not fall: first 4 {first}, last 4 {last}")
     applied = TRAIN_STEPS * TRAIN_MICRO * cfg.num_layers
-    want = {"flash_attention": applied * (2 if cfg.remat else 1), "flash_attention_bwd_dq": applied,
-            "flash_attention_bwd_dkdv": applied}
+    want = {"flash_attention": applied * (2 if cfg.remat else 1), **dict.fromkeys(GRAD_KERNELS, applied)}
     if card:
         check(all(counts[k] == n for k, n in want.items()) and
               all(counts[k] == 0 for k in ("decode_attention", "paged_decode_attention", "paged_chunk_attention",
@@ -4036,7 +4052,8 @@ def train_phase(torch, dev, cfg) -> tuple[dict, dict]:
                    "device_kernel_ms": dev_ms, "device_busy_share": prof["device_busy_share"],
                    "k3_forward_share": k3.get("flash_attention_kernel", {}).get("ms_per_step", 0.0) / dev_ms,
                    "k3_backward_share": sum(k3.get(n, {}).get("ms_per_step", 0.0)
-                                            for n in ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")) / dev_ms,
+                                            for n in ("flash_bwd_prep_kernel", "flash_bwd_kernel",
+                                                      "flash_bwd_post_kernel")) / dev_ms,
                    "port_kernels": k3, "top_kernels": prof["top_kernels"], "kernels": prof["kernels_per_step"]}
     out = {
         "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
@@ -4325,7 +4342,12 @@ def main() -> int:
     build.load()
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.1f} s", file=sys.stderr)
-    print(json.dumps({"ptxas": ptxas_report(build.build_report())}), flush=True)
+    ptxas = ptxas_report(build.build_report())
+    print(json.dumps({"ptxas": ptxas}), flush=True)
+    grad_ptxas = {k: v for k, v in ptxas.items() if k.startswith("flash_bwd")}
+    check(len(grad_ptxas) == 9 and all(any(" 0 bytes spill stores, 0 bytes spill loads" in line for line in lines)
+                                       for lines in grad_ptxas.values()),
+          f"K3's gradient: an instantiation spills or is missing from the ptxas report: {grad_ptxas}")
 
     from repro_torch.configs import get_arch
 
@@ -4394,11 +4416,11 @@ def main() -> int:
     print(json.dumps({"launch_serve": launch_serve_phase(torch, dev)}), flush=True)
     print(f"launch_serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     train_launches = training["launches"]
-    check(train_launches["flash_attention_bwd_dq"] == train_launches["flash_attention_bwd_dkdv"],
-          f"train: the two backward kernels launched apart: {train_launches}")
+    check(len({train_launches[k] for k in GRAD_KERNELS}) == 1,
+          f"train: the three backward kernels launched apart: {train_launches}")
     launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["launches"]["moe_gmm"],
                 "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"],
-                "flash_attention_bwd": train_launches["flash_attention_bwd_dkdv"]}
+                "flash_attention_bwd": train_launches["flash_attention_bwd"]}
     by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
                       "zamba2-7b": hybrid["launches"][name],
                       "llama3.2-1b coldstart": coldstart["launches"][name],
@@ -4416,8 +4438,7 @@ def main() -> int:
         for kernel, n in run.get("paged_launches", {}).items():
             by_path[kernel][f"{arch} paged"] = n
     by_path["flash_attention"]["llama3.2-1b train"] = train_launches["flash_attention"]
-    by_path["flash_attention_bwd"] = {"llama3.2-1b train": {k: train_launches[k] for k in
-                                                            ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")}}
+    by_path["flash_attention_bwd"] = {"llama3.2-1b train": {k: train_launches[k] for k in GRAD_KERNELS}}
     by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
                           "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}

@@ -97,6 +97,7 @@ def _allclose_tree(a, b, rtol: float, atol: float) -> bool:
 
 
 class Merger:
+    SWAP_ATTEMPTS = 4  # builds of one merge whose compare-and-swap publish lost a race
     # provlint: merge_log/split_log are append-only observability lists
     # read after quiesce; the operational state below is lock-guarded.
     GUARDED_FIELDS = {
@@ -272,56 +273,43 @@ class Merger:
                         return  # the (possibly re-shaped) group is already
                         # proven unhealthy — don't pay the build again
                 group = decision.group
-            specs = {name: platform.spec_of(name) for name in group}
-            merged = FunctionInstance(specs, platform)
-            platform.attach_instance(merged)
+            # A merge whose group overlaps one committed since its decision
+            # (two client threads, or the reconciler and wait_idle, each
+            # deciding before the other swaps) must not swap in a unit beside
+            # it: the group grows to every member of the units its functions
+            # are routed to, and the publish is a compare-and-swap on those
+            # routes. A swap that lost the race rebuilds over the new union.
+            # (The reference publishes unguarded: A->{A,B} and C->{B,C} can
+            # both stay, and the fused edges never merge again.)
+            for _ in range(self.SWAP_ATTEMPTS):
+                group = self._live_closure(group)
+                expect = {name: platform.registry.get(name) for name in group}
+                if None not in expect.values() and len({id(i) for i in expect.values()}) == 1:
+                    return  # a merge that raced this one already fused the whole group
+                merged, checked = self._build_checked(group, caller, callee, t0)
+                if merged is None:
+                    return
+                # --- pre-merge baseline snapshot: what regret will compare against ---
+                scheduler = getattr(platform, "scheduler", None)
+                baseline_p95 = {
+                    m: (scheduler.recent_p95_ms(m) if scheduler is not None else 0.0)
+                    for m in group
+                }
+                baseline_rates = {m: self._member_demand(m, group) for m in group}
 
-            # --- health check on captured canary traffic ---
-            healthy = True
-            checked: list[str] = []
-            for name in sorted(group):
-                canary = platform.handler.canary(name)
-                if canary is None:
-                    continue
-                ref = platform._invoke_with_retry(name, canary)  # old (still-routed) path
-                got = merged.execute(name, canary)
-                checked.append(name)
-                if not _allclose_tree(ref, got, self.health_rtol, self.health_atol):
-                    healthy = False
+                merged.mark_ready()
+                # Epoch transaction: atomic route publish + lifecycle transitions
+                # (merged -> SERVING, unrouted originals -> DRAINING under the
+                # routing lock), then drain + retire outside it.
+                event = platform.lifecycle.publish(
+                    {name: merged for name in group}, kind="merge",
+                    reason=f"fused {caller}->{callee}", expect=expect, deferred_s=deferred_s,
+                )
+                if event is not None:
                     break
-            if not checked:
-                healthy = False  # no canary -> cannot verify; do not swap
-
-            if not healthy:
-                # Abort: never swap an unverified unit. Originals keep serving.
                 platform.detach_instance(merged)
-                reason = "health check failed" if checked else "no canary traffic captured"
-                if checked:  # no-canary aborts may retry once traffic arrives
-                    with self._lock:
-                        self._quarantined.add((caller, callee))
-                        self._failed_groups.add(frozenset(group))
-                event = MergeEvent(self._clock.now(), tuple(sorted(group)), 0,
-                                   self._clock.now() - t0, False, reason, tuple(checked))
-                self.merge_log.append(event)
-                self._trace_outcome("merge", event)
-                return
-
-            # --- pre-merge baseline snapshot: what regret will compare against ---
-            scheduler = getattr(platform, "scheduler", None)
-            baseline_p95 = {
-                m: (scheduler.recent_p95_ms(m) if scheduler is not None else 0.0)
-                for m in group
-            }
-            baseline_rates = {m: self._member_demand(m, group) for m in group}
-
-            merged.mark_ready()
-            # Epoch transaction: atomic route publish + lifecycle transitions
-            # (merged -> SERVING, unrouted originals -> DRAINING under the
-            # routing lock), then drain + retire outside it.
-            event = platform.lifecycle.publish(
-                {name: merged for name in group}, kind="merge",
-                reason=f"fused {caller}->{callee}", deferred_s=deferred_s,
-            )
+            else:
+                return  # lost every attempt to concurrent swaps: the edge is re-observed later
             self.policy.commit(caller, callee)
             freed = event.freed_bytes
 
@@ -354,6 +342,62 @@ class Merger:
         finally:
             with self._lock:
                 self._inflight.discard((caller, callee))
+
+    def _live_closure(self, group) -> frozenset[str]:
+        """``group`` with every member of each unit its functions are routed
+        to now, to a fixed point."""
+        registry = self.platform.registry
+        out = set(group)
+        while True:
+            grown = set(out)
+            for name in out:
+                inst = registry.get(name)
+                if inst is not None:
+                    grown.update(inst.members)
+            if grown == out:
+                return frozenset(out)
+            out = grown
+
+    def _build_checked(self, group, caller: str, callee: str,
+                       t0: float) -> tuple[FunctionInstance | None, list[str]]:
+        """A new unit hosting ``group``, health-checked on captured canary
+        traffic against the live path, and the members checked; the unit is
+        None (the abort logged) when it fails or has no canary to check."""
+        platform = self.platform
+        specs = {name: platform.spec_of(name) for name in group}
+        merged = FunctionInstance(specs, platform)
+        platform.attach_instance(merged)
+
+        # --- health check on captured canary traffic ---
+        healthy = True
+        checked: list[str] = []
+        for name in sorted(group):
+            canary = platform.handler.canary(name)
+            if canary is None:
+                continue
+            ref = platform._invoke_with_retry(name, canary)  # old (still-routed) path
+            got = merged.execute(name, canary)
+            checked.append(name)
+            if not _allclose_tree(ref, got, self.health_rtol, self.health_atol):
+                healthy = False
+                break
+        if not checked:
+            healthy = False  # no canary -> cannot verify; do not swap
+        if healthy:
+            return merged, checked
+
+        # Abort: never swap an unverified unit. Originals keep serving.
+        platform.detach_instance(merged)
+        reason = "health check failed" if checked else "no canary traffic captured"
+        if checked:  # no-canary aborts may retry once traffic arrives
+            with self._lock:
+                self._quarantined.add((caller, callee))
+                self._failed_groups.add(frozenset(group))
+        event = MergeEvent(self._clock.now(), tuple(sorted(group)), 0,
+                           self._clock.now() - t0, False, reason, tuple(checked))
+        self.merge_log.append(event)
+        self._trace_outcome("merge", event)
+        return None, checked
 
     def forget_instance(self, instance: FunctionInstance) -> None:
         """Drop the committed-group record backing ``instance`` (a

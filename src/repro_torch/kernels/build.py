@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu",
            "ssd_scan.cu")
 # included by sources; hashed with them, never compiled alone
-HEADERS = ("async_copy.cuh", "mma_bf16.cuh", "row_policy.cuh", "decode_split.cuh", "flash_sweep.cuh")
+HEADERS = ("async_copy.cuh", "mma_bf16.cuh", "row_policy.cuh", "decode_split.cuh", "flash_sweep.cuh",
+           "wgmma_tma.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -42,10 +43,12 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # q, k, v, out, lse (or null), B, T, S, H, KV, D, causal, stream
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, dout, lse, dq, dsum, B, T, S, H, KV, D, causal, stream
-    "repro_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, dout, lse, dsum, dk, dv, B, T, S, H, KV, D, causal, stream
-    "repro_flash_attention_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # o, dout, lse, dsum, lse2, sem, B, T, H, D, stream
+    "repro_flash_attention_bwd_prep": [_P] * 6 + [_I] * 4 + [_P],
+    # q, k, v, dout, lse2, dsum, dq_acc, sem, dk, dv, ws, B, T, S, H, KV, D, causal, n_split, stream
+    "repro_flash_attention_bwd": [_P] * 11 + [_I] * 8 + [_P],
+    # dq_acc, dq, ws, dk, dv, B, T, S, H, KV, D, n_split, stream
+    "repro_flash_attention_bwd_post": [_P] * 5 + [_I] * 7 + [_P],
     # q, k, v, cur_len, out, B, S, batch (rows between sequences of k/v), H, KV, D, stream
     "repro_decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, cur_len, out, B, P, page, n, H, KV, D, stream
@@ -62,9 +65,9 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 #: The kernels whose launches are counted (one name per wrapper; K3's
-#: gradient counts each of its two kernels by its own name).
+#: gradient counts each of its three kernels by its own name).
 KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_chunk_attention",
-           "moe_gmm", "ssd_scan", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+           "moe_gmm", "ssd_scan", "flash_attention_bwd_prep", "flash_attention_bwd", "flash_attention_bwd_post")
 
 
 class LaunchCounts:

@@ -14,13 +14,17 @@ here as :data:`plain`. It replaces the Pallas TPU kernel
 
 Under autograd (grad mode on, an input that requires grad) a CUDA call runs
 :class:`_FlashAttention`: the same forward kernel, which then also writes
-each row's logsumexp, and as its backward the two kernels of
-``csrc/flash_attention_bwd.cu`` (dq with D = rowsum(dO * o), then dk and
-dv), each counted by its own name. Their plain version is
+each row's logsumexp, and as its backward the three kernels of
+``csrc/flash_attention_bwd.cu`` (prep: D = rowsum(dO * o); the sweep: one
+pass over kv tiles on wgmma fed by TMA, dQ summed across kv tiles in one
+fixed order, a wide group's query heads split over blocks; post: dq, and a
+split's dk and dv), each counted by its own name. Their plain version is
 :func:`repro_torch.kernels.ref.mha_ref_bwd` (:data:`plain_bwd`). On the CPU
 autograd runs through the plain forward.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -68,11 +72,46 @@ def _forward(q, k, v, causal: bool, lse: torch.Tensor | None = None) -> torch.Te
     return out
 
 
+#: Query rows of one step of the gradient's sweep at each head dim (the
+#: kernel's ``query_rows<D>()``, ``csrc/flash_attention_bwd.cu``); its kv
+#: tile is GRAD_KV_ROWS rows.
+GRAD_QUERY_ROWS = {64: 128, 112: 64, 128: 64}
+GRAD_KV_ROWS = 128
+GRAD_DQ_TILE = 2 * 64 * 64  # fp32 of one query tile's dQ accumulator
+
+
+def grad_splits(b: int, s: int, kv: int, group: int, sms: int) -> int:
+    """Blocks over which the sweep splits a group's query heads: 1 when the
+    B * KV * ceil(S / 128) blocks of kv tiles already fill the ``sms``
+    streaming multiprocessors (one block each), else as many as fill them,
+    at most ``group``, with the heads shared out evenly (ceil(group / n)
+    each, no split empty)."""
+    blocks = b * kv * -(-s // GRAD_KV_ROWS)
+    if blocks >= sms or group == 1:
+        return 1
+    per_split = -(-group // min(group, -(-sms // blocks)))
+    return -(-group // per_split)
+
+
+def grad_workspace_numel(b: int, s: int, kv: int, hd: int, splits: int) -> int:
+    """fp32 elements of the split's partial dK and dV (none without a split):
+    2 x (splits, B, KV, S rounded up to the kv tile, head dim in 64-column
+    tiles)."""
+    if splits == 1:
+        return 0
+    return 2 * splits * b * kv * (-(-s // GRAD_KV_ROWS) * GRAD_KV_ROWS) * (64 if hd <= 64 else 128)
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def backward(q, k, v, out, lse, dout, causal: bool):
     """K3's gradient on the card: (dq, dk, dv) in bf16 from the forward's
     inputs, its output ``out`` and row logsumexp ``lse``, and the output
-    gradient ``dout``. Two launches: dq (which also writes D = rowsum(dout *
-    out)), then dk and dv."""
+    gradient ``dout``. Three launches: prep (D = rowsum(dout * out)), the
+    sweep, post (dq, and dk / dv from a head split's partials)."""
     _check(q, k, v)
     b, t, h, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or torch.bfloat16 != out.dtype or dout.dtype != out.dtype:
@@ -81,39 +120,69 @@ def backward(q, k, v, out, lse, dout, causal: bool):
     if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention backward: lse must be contiguous fp32 {(b, h, t)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("flash_attention backward: out must be contiguous and 16-byte aligned")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention backward: the kernels run on the card, q is on {q.device} "
+                         "(the plain version is mha_ref_bwd)")
     dout = dout.contiguous()
     if t == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dq, dsum = backward_dq(q, k, v, out, lse, dout, causal)
-    return (dq, *backward_dkdv(q, k, v, dout, lse, dsum, causal))
+    dsum, lse2, sem = backward_prep(out, dout, lse)
+    dq_acc, dk, dv, ws, splits = backward_sweep(q, k, v, dout, lse2, dsum, sem, causal)
+    return backward_post(dq_acc, ws, splits, q, dk, dv), dk, dv
 
 
-def backward_dq(q, k, v, out, lse, dout, causal: bool):
-    """The first backward kernel on checked inputs: (dq, D)."""
+def backward_prep(out, dout, lse):
+    """The first kernel on checked inputs: D = rowsum(dout * out) and lse *
+    log2(e), (B, H, T padded to whole query tiles) fp32 each, and the
+    sweep's dQ counters (B, H, query tiles) int32, zeroed."""
+    b, t, h, hd = out.shape
+    nq = -(-t // GRAD_QUERY_ROWS[hd])
+    dsum = torch.empty(b, h, nq * GRAD_QUERY_ROWS[hd], dtype=torch.float32, device=out.device)
+    lse2 = torch.empty_like(dsum)
+    sem = torch.empty(b, h, nq, dtype=torch.int32, device=out.device)
+    err = build.load().repro_flash_attention_bwd_prep(
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), lse2.data_ptr(), sem.data_ptr(),
+        b, t, h, hd, torch.cuda.current_stream(out.device).cuda_stream)
+    build.check(err, "flash_attention backward (prep) launch")
+    build.count_launch("flash_attention_bwd_prep")
+    return dsum, lse2, sem
+
+
+def backward_sweep(q, k, v, dout, lse2, dsum, sem, causal: bool):
+    """The sweep on checked inputs and prep's outputs (its counters are
+    spent: a second sweep needs a new prep): (the fp32 dq accumulator, dk,
+    dv, the split's workspace or None, the split count). Without a split dk
+    and dv are final; with one post writes them."""
+    b, t, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    nq = -(-t // GRAD_QUERY_ROWS[hd])
+    splits = grad_splits(b, s, kv, h // kv, _sms(q.device))
+    dq_acc = torch.empty(b * h * nq * GRAD_DQ_TILE, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    n_ws = grad_workspace_numel(b, s, kv, hd, splits)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
+    err = build.load().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(), dsum.data_ptr(),
+        dq_acc.data_ptr(), sem.data_ptr(), dk.data_ptr(), dv.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        b, t, s, h, kv, hd, int(causal), splits, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention backward (sweep) launch")
+    build.count_launch("flash_attention_bwd")
+    return dq_acc, dk, dv, ws, splits
+
+
+def backward_post(dq_acc, ws, splits: int, q, dk, dv):
+    """The last kernel: dq (bf16, q's shape) from the accumulator; with a
+    split also dk and dv (written in place) from the workspace."""
     b, t, h, hd = q.shape
     dq = torch.empty_like(q)
-    dsum = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-    err = build.load().repro_flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        dq.data_ptr(), dsum.data_ptr(), b, t, k.shape[1], h, k.shape[2], hd, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention backward (dq) launch")
-    build.count_launch("flash_attention_bwd_dq")
-    return dq, dsum
-
-
-def backward_dkdv(q, k, v, dout, lse, dsum, causal: bool):
-    """The second backward kernel on checked inputs and backward_dq's D:
-    (dk, dv)."""
-    b, t, h, hd = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = build.load().repro_flash_attention_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, t, k.shape[1], h, k.shape[2], hd, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention backward (dk, dv) launch")
-    build.count_launch("flash_attention_bwd_dkdv")
-    return dk, dv
+    err = build.load().repro_flash_attention_bwd_post(
+        dq_acc.data_ptr(), dq.data_ptr(), 0 if ws is None else ws.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, t, dk.shape[1], h, dk.shape[2], hd, splits, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention backward (post) launch")
+    build.count_launch("flash_attention_bwd_post")
+    return dq
 
 
 class _FlashAttention(torch.autograd.Function):

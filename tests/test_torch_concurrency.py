@@ -106,3 +106,49 @@ def test_stress_invocations_race_merge_swap(backend_cls):
             assert set(p.pods()) == {i.instance_id for i in p.registry.live_instances()}
     finally:
         p.shutdown()
+
+
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_overlapping_merges_held_before_the_swap_end_in_one_unit(backend_cls):
+    """Two merges of overlapping groups, {A,B} and {B,C}, each built and
+    health-checked before either swaps: both threads wait at a barrier just
+    before their publish. The publish is a compare-and-swap on the group's
+    routes, so the loser rebuilds over the union and the chain ends in ONE
+    live unit {A,B,C} (the reference can end with {A,B} and {B,C} both
+    routed)."""
+    p = backend_cls(FusionPolicy(min_observations=10**6, merge_cost_s=0.0), max_batch=4, max_delay_ms=2.0)
+    try:
+        deploy_chain(p)
+        x = torch.from_numpy(np.full((2, 24), 0.3, np.float32))
+        p.invoke("A", x)  # canaries for every member; the policy never fuses on its own
+        barrier = threading.Barrier(2, timeout=60)
+        held = threading.local()
+        publish = p.lifecycle.publish
+
+        def held_publish(routes, **kw):
+            if not getattr(held, "done", False):  # each thread's first swap waits for the other's
+                held.done = True
+                barrier.wait()
+            return publish(routes, **kw)
+
+        p.lifecycle.publish = held_publish
+        errors: list[Exception] = []
+
+        def merge(caller, callee):
+            try:
+                p.merger._do_merge(caller, callee, frozenset({caller, callee}))
+            except Exception as exc:  # noqa: BLE001
+                errors.append(exc)
+
+        threads = [threading.Thread(target=merge, args=edge) for edge in (("A", "B"), ("B", "C"))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errors, errors
+        live = p.registry.live_instances()
+        assert [set(i.members) for i in live] == [{"A", "B", "C"}]
+        assert {m.members for m in p.merger.merge_log if m.healthy} >= {("A", "B", "C")}
+        np.testing.assert_allclose(p.invoke("A", x).numpy(), jax_reference(x.numpy()), rtol=FP32, atol=FP32)
+    finally:
+        p.shutdown()

@@ -162,14 +162,25 @@ def test_attention_c_entries_reject_an_unsupported_launch(cuda):
         build.check(lib.repro_flash_attention_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), None,
                                                   1, 64, 64, 2, 2, 96, 1, stream), "flash_attention launch")
     lse = torch.zeros(1, 2, 64, device=cuda)
+    sem = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):  # K3's backward kernels refuse it too
-        build.check(lib.repro_flash_attention_bwd_dq(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                                                     x.data_ptr(), lse.data_ptr(), x.data_ptr(), lse.data_ptr(),
-                                                     1, 64, 64, 2, 2, 96, 1, stream), "flash_attention bwd launch")
+        build.check(lib.repro_flash_attention_bwd_prep(x.data_ptr(), x.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+                                                       lse.data_ptr(), sem.data_ptr(), 1, 64, 2, 96, stream),
+                    "flash_attention bwd launch")
     with pytest.raises(RuntimeError, match="CUDA error"):
-        build.check(lib.repro_flash_attention_bwd_dkdv(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                                                       lse.data_ptr(), lse.data_ptr(), x.data_ptr(), x.data_ptr(),
-                                                       1, 64, 64, 2, 2, 96, 1, stream), "flash_attention bwd launch")
+        build.check(lib.repro_flash_attention_bwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                                  lse.data_ptr(), lse.data_ptr(), lse.data_ptr(), sem.data_ptr(),
+                                                  x.data_ptr(), x.data_ptr(), None, 1, 64, 64, 2, 2, 96, 1, 1, stream),
+                    "flash_attention bwd launch")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib.repro_flash_attention_bwd_post(lse.data_ptr(), x.data_ptr(), None, x.data_ptr(),
+                                                       x.data_ptr(), 1, 64, 64, 2, 2, 96, 1, stream),
+                    "flash_attention bwd launch")
+    with pytest.raises(RuntimeError, match="CUDA error"):  # a head split wider than the group
+        build.check(lib.repro_flash_attention_bwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                                  lse.data_ptr(), lse.data_ptr(), lse.data_ptr(), sem.data_ptr(),
+                                                  x.data_ptr(), x.data_ptr(), None, 1, 64, 64, 2, 2, 64, 1, 2, stream),
+                    "flash_attention bwd launch")
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib.repro_decode_attention_fwd(q.data_ptr(), x.data_ptr(), x.data_ptr(), cur.data_ptr(),
                                                    q.data_ptr(), 1, 64, 64, 2, 2, 96, stream), "decode_attention launch")
@@ -564,12 +575,15 @@ def test_ssm_and_hybrid_chains_on_the_card_go_through_the_kernels(cuda, arch):
 
 
 # K3's gradient at chip_smoke.py's shapes: (a) the train shape, (b) T = 300,
-# (c) the two wide groups at heads of 128, (d) MHA at 112, (e) (b) non-causal;
-# then ragged edges (one row, a tile and one row, T != S)
+# (c) the two wide groups at heads of 128 (granite's 48/1 at B = 1 and 2),
+# (d) MHA at 112, (e) (b) non-causal; then ragged edges (one row, a tile and
+# one row, T != S, T = 300 against S = 1000 both ways), a group of 16/2 at
+# 128 (its heads split over blocks) and 112 with a split and T != S
 FLASH_GRAD_CASES = [
     (2, 4096, 4096, 32, 8, 64, True),
     (1, 300, 300, 32, 8, 64, True),
     (1, 512, 512, 48, 1, 128, True),
+    (2, 512, 512, 48, 1, 128, True),
     (1, 512, 512, 64, 8, 128, True),
     (1, 512, 512, 32, 32, 112, True),
     (1, 300, 300, 32, 8, 64, False),
@@ -577,23 +591,29 @@ FLASH_GRAD_CASES = [
     (2, 65, 65, 8, 2, 64, True),
     (1, 200, 70, 8, 2, 128, False),
     (1, 65, 130, 4, 4, 112, False),
+    (1, 300, 1000, 16, 2, 128, True),
+    (1, 1000, 300, 16, 2, 128, True),
+    (1, 300, 1000, 8, 2, 64, False),
+    (1, 512, 512, 16, 2, 128, True),
+    (1, 700, 400, 24, 3, 112, False),
 ]
+GRAD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd", "flash_attention_bwd_post")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,s,h,kv,hd,causal", FLASH_GRAD_CASES)
 def test_flash_gradient_matches_plain(cuda, b, t, s, h, kv, hd, causal):
-    """K3 under autograd on the card: its two backward kernels (counted once
-    each) against mha_ref_bwd within 2e-2 of each gradient's max |g| (bf16
-    inputs, sums in another order); equal bits on two backward passes; the
-    forward's output with lse equal in bits to the serve path's without it.
-    A gradient that is exactly zero (one visible column: the softmax is
+    """K3 under autograd on the card: its three backward kernels (counted
+    once each) against mha_ref_bwd within 2e-2 of each gradient's max |g|
+    (bf16 inputs, sums in another order); equal bits on two backward passes;
+    the forward's output with lse equal in bits to the serve path's without
+    it. A gradient that is exactly zero (one visible column: the softmax is
     constant) is held to 1e-5 absolute."""
     from repro_torch.kernels import ref
 
     qn, kn, vn, dn = inputs(29, (b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, t, h, hd))
     q, k, v, do = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn, dn))
-    before = {n: build.launches(n) for n in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")}
+    before = {n: build.launches(n) for n in ("flash_attention", *GRAD_KERNELS)}
     plain_before = ref.CALLS["mha_ref"] + ref.CALLS["mha_ref_bwd"]
 
     def grads():
@@ -618,9 +638,36 @@ def test_flash_gradient_matches_plain(cuda, b, t, s, h, kv, hd, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kv,hd", [(1, 512, 48, 1, 128), (2, 512, 48, 1, 128), (1, 512, 16, 2, 128),
+                                          (1, 300, 32, 8, 64)])
+def test_flash_gradient_head_split_matches_one_block_per_group(cuda, monkeypatch, b, t, h, kv, hd):
+    """Shapes whose grid cannot fill the card split the group's query heads
+    over blocks: the split gradient stays within 2e-2 of mha_ref_bwd, gives
+    equal bits on two launches, and differs from the unsplit sweep (one
+    block per group, forced) only by the summation order of dk and dv (dq
+    is summed in the same order either way: equal bits)."""
+    q, k, v, do = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                   for x in inputs(31, (b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd), (b, t, h, hd)))
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=cuda)
+    out = tflash._forward(q, k, v, True, lse)
+    splits = tflash.grad_splits(b, t, kv, h // kv, tflash._sms(q.device))
+    assert splits > 1
+    split = tflash.backward(q, k, v, out, lse, do, True)
+    assert all(torch.equal(a, c) for a, c in zip(split, tflash.backward(q, k, v, out, lse, do, True)))
+    monkeypatch.setattr(tflash, "grad_splits", lambda *a: 1)
+    whole = tflash.backward(q, k, v, out, lse, do, True)
+    assert torch.equal(split[0], whole[0])
+    want = tflash.plain_bwd(q, k, v, do, causal=True)
+    for g, w in zip(split[1:], want[1:]):
+        assert float((g.float() - w).abs().max()) <= RTOL * float(w.abs().max())
+    for g, c in zip(split[1:], whole[1:]):
+        assert float((g.float() - c.float()).abs().max()) <= RTOL * float(c.float().abs().max())
+
+
+@pytest.mark.cuda
 def test_flash_gradient_through_a_model_layer_on_the_card(cuda):
     """A small dense model's loss backward on the card launches K3's forward
-    and both backward kernels once per layer, and never a plain version."""
+    and its three backward kernels once per layer, and never a plain version."""
     from repro_torch.configs import get_arch, reduced_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -637,7 +684,7 @@ def test_flash_gradient_through_a_model_layer_on_the_card(cuda):
     grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
     counts = ops.counts()
-    assert counts["flash_attention"] == counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkdv"] == 2
+    assert [counts[n] for n in ("flash_attention", *GRAD_KERNELS)] == [2] * 4
     assert all(v == 0 for n, v in counts.items() if n.endswith("_ref") or n.endswith("_ref_bwd"))
     assert all(torch.isfinite(g.float()).all() for g in grads)
 

@@ -503,8 +503,9 @@ def test_chip_smoke_training_phases_rehearsal_on_cpu(monkeypatch, capsys):
     assert set(lines) == {"train", "train_card_vs_host", "train_restart", "launch_train"}
     train = lines["train"]
     assert train["expected_launches"] == {"flash_attention": 2 * 8 * 2 * cfg.num_layers,
-                                          "flash_attention_bwd_dq": 8 * 2 * cfg.num_layers,
-                                          "flash_attention_bwd_dkdv": 8 * 2 * cfg.num_layers}
+                                          "flash_attention_bwd_prep": 8 * 2 * cfg.num_layers,
+                                          "flash_attention_bwd": 8 * 2 * cfg.num_layers,
+                                          "flash_attention_bwd_post": 8 * 2 * cfg.num_layers}
     assert train["plain_calls"]["mha_ref"] == train["expected_launches"]["flash_attention"]
     assert train["last4_mean_loss"] < train["first4_mean_loss"] and len(train["losses"]) == 8
     assert train["state_bytes"]["moments"] == 4 * train["state_bytes"]["params"]  # fp32 m and v beside bf16 params
