@@ -21,7 +21,9 @@ Phases (any failed check exits non-zero and prints no result):
    the kernel, then the served decoders' own shapes (K3 at T = 300 for
    stablelm-1.6b's 32/32 heads of 64, starcoder2-3b's 24/2, granite-34b's
    48/1 and chameleon-34b's 64/8 of 128; K4 at stablelm's and chameleon's at
-   the serve's cur_len); K1 ``paged_decode_attention`` (the paged serve
+   the serve's cur_len; seamless-m4t-medium's: K3 non-causal at T = S = 300,
+   16/16 heads of 64, the encoder's, and K4 over 300 source rows, all valid,
+   the decoder's cross-attention); K1 ``paged_decode_attention`` (the paged serve
    path's shape, B = 1, MQA, qwen3's 32/4 heads of 128, the two wide groups
    and chameleon's 64/8 of 128) and K2 ``paged_chunk_attention`` at the
    paged serve paths' (llama's 32/8 heads of 64, qwen3's 32/4 of 128,
@@ -45,7 +47,9 @@ Phases (any failed check exits non-zero and prints no result):
    prep, the sweep on wgmma fed by TMA, post) at seven shapes
    (``FLASH_GRAD_CASES``: the train shape B = 2, T = S = 4096, 32/8 heads of
    64; T = 300; 48/1 at B = 1 and 2 and 64/8 of 128, whose query heads the
-   sweep splits over blocks; 32/32 of 112; T = 300 non-causal): dq, dk and
+   sweep splits over blocks; 32/32 of 112; T = 300 non-causal; and
+   seamless-m4t-medium's train shape, one row at T = S = 4096, 16/16 of
+   64, non-causal): dq, dk and
    dv against ``mha_ref_bwd`` within 2e-2 of each tensor's max |g|, equal
    bits on two launches and through autograd, one launch of each kernel a
    call, the forward with lse equal in bits to the forward without it;
@@ -130,7 +134,8 @@ Phases (any failed check exits non-zero and prints no result):
    and the tracing-overhead gate of ``load_bench``: requests/s of
    ``fused-batched`` with tracing on over off at least 0.97, in 32
    interleaved rounds of 48 timed steps per client (after 4 untimed ones)
-   on the warm platform, one retry.
+   on the warm platform, each attempt after a full collection and one
+   untimed round, one retry.
 6c. Dispatch and export: a ``dispatch`` line — the dispatch tracer armed
    over the steady state of the serve phase (the first prompt served a
    third time on each platform), the paged serve phase (its requests a
@@ -246,9 +251,10 @@ Phases (any failed check exits non-zero and prints no result):
 13. Decoder phases (``DECODERS``): the hybrid's tensors freed, full-width
    ``stablelm-1.6b`` (24 layers, 32/32 heads of 64, LayerNorm; 6 functions),
    ``starcoder2-3b`` (30 layers, 24/2 heads of 128, LayerNorm and tanh GELU;
-   5), ``granite-34b`` (88 layers, 48/1 heads of 128, a tied head; 10, 67.3
-   GB) and ``chameleon-34b`` (48 layers, 64/8 heads of 128, QK-norm; 8,
-   68.6 GB), each made once from seed 0 and shared by every platform of its
+   5), ``granite-34b`` (24 of its 88 layers, ``DECODER_LAYERS``: the run's
+   time; 48/1 heads of 128, a tied head; 10, 18.8 GB) and ``chameleon-34b``
+   (24 of its 48 layers, 64/8 heads of 128, QK-norm; 8, 35.4 GB), each made
+   once from seed 0 and shared by every platform of its
    phases: the serve phase with its checks (N -> 1 instances, identical
    tokens fused, unfused and without the platform, less ``ram_bytes``,
    exact launches with ``launch_parts``, decode entries captured and
@@ -268,6 +274,29 @@ Phases (any failed check exits non-zero and prints no result):
    --reduced --backend orchestrated`` (its ``embeds`` through pods); each
    run's JSON shows one healthy merge of the whole chain, 1 instance left
    and the device ``cuda``, with no ``--device`` given.
+15. Enc-dec phases (``encdec_phases``), the earlier tensors freed:
+   ``encdec_serve`` — full-width ``seamless-m4t-medium`` (12 encoder and 12
+   decoder layers, d 1024, 16/16 heads of 64, vocab 256,206; 1.75 GB) as
+   the two-function app ``embed`` (the encoder) -> ``decoder``, source
+   prompts of 37, 128 and 300 frame rows (stub frontend frames, drawn by
+   the model's ``make_inputs``) and a first token,
+   16 greedy tokens each, unfused then fused (a decode step invokes the
+   decoder itself, entering the fused unit at its second member): 2 -> 1
+   instances, the same tokens fused, unfused and without the platform,
+   less ``ram_bytes``, decode entries captured and replayed, K3
+   (non-causal) and K4 launched exactly as ``expected_launches`` predicts
+   for the chain, no plain version; per-token p50s and peak memory.
+   ``encdec_card_vs_host`` — the small model (2 + 2 layers, d 256) card vs
+   host: the prefill and 3 decode steps within 2e-2 of max |logit|, one
+   train step's loss, grad_norm and gradients as ``train_card_vs_host``
+   holds them, attention at fan-in d and the cross-attention over
+   unit-scale states (``encdec_unit_cross_keys``). ``encdec_train`` — 6
+   AdamW steps of the full-width model at T = 4096 (source frames and
+   target tokens), a batch of 4 as its 4 microbatches: finite losses, K3's
+   forward twice (remat) and each backward kernel once per attention of
+   each microbatch, no K4; step p50 and peak memory. ``kvpool_stress`` —
+   the KV arena's three-thread sharing fuzz (``kvpool_stress``) on CUDA
+   pools for about 10 s, its data and bookkeeping checked as on the host.
 
 Standard output opens with the device line and the ``ptxas`` line; its
 last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
@@ -280,7 +309,8 @@ last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
 ``ssm_coldstart``, ``hybrid_serve``, ``hybrid_block``, ``hybrid_profile``, ``hybrid_memory``,
 ``<key>_serve``, ``<key>_block`` and ``<key>_memory`` for ``stablelm``, ``starcoder2``,
 ``granite`` and ``chameleon`` (``granite_paged_serve`` and ``chameleon_paged_serve``
-after their serve lines), ``launch_serve`` and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
+after their serve lines), ``launch_serve``, ``encdec_serve``, ``encdec_card_vs_host``,
+``encdec_train``, ``kvpool_stress`` and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -386,10 +416,11 @@ def max_err(torch, got, want) -> float:
 # --------------------------------------------------------------- kernel phase
 
 
-def flash_case(torch, F, t, H, KV, HD, rng) -> dict:
-    """K3 at B = 1, T = S = ``t``, causal, on inputs drawn from ``rng``:
-    against its plain version, two launches for equal bits, timed beside the
-    plain version and SDPA on the same inputs."""
+def flash_case(torch, F, t, H, KV, HD, rng, causal: bool = True) -> dict:
+    """K3 at B = 1, T = S = ``t``, causal unless ``causal`` is false, on
+    inputs drawn from ``rng``: against its plain version, two launches for
+    equal bits, timed beside the plain version and SDPA on the same
+    inputs."""
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -397,22 +428,22 @@ def flash_case(torch, F, t, H, KV, HD, rng) -> dict:
     q = torch.randn(1, t, H, HD, generator=rng, device=dev).to(torch.bfloat16)
     k = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
     v = torch.randn(1, t, KV, HD, generator=rng, device=dev).to(torch.bfloat16)
-    got = fa.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    err = max_err(torch, got, fa.plain(q, k, v, causal=True))
-    check(torch.equal(got, fa.flash_attention(q, k, v, causal=True)), f"flash_attention T={t} is not deterministic")
+    err = max_err(torch, got, fa.plain(q, k, v, causal=causal))
+    check(torch.equal(got, fa.flash_attention(q, k, v, causal=causal)), f"flash_attention T={t} is not deterministic")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kr, vr = kt.repeat_interleave(G, dim=1), vt.repeat_interleave(G, dim=1)
-    flops = 4 * H * t * t * HD / 2
+    flops = 4 * H * t * t * HD / (2 if causal else 1)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
     b_ms, b_by = bound(flops, nbytes)
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal))
     return {
-        "shape": f"B=1 T=S={t} H={H} KV={KV} hd={HD} causal bf16",
+        "shape": f"B=1 T=S={t} H={H} KV={KV} hd={HD} {'causal' if causal else 'non-causal'} bf16",
         "max_abs_err": err,
         "ms": ms,
-        "plain_ms": time_ms(torch, lambda: fa.plain(q, k, v, causal=True)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)),
+        "plain_ms": time_ms(torch, lambda: fa.plain(q, k, v, causal=causal)),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=causal)),
         "bound_ms": b_ms,
         "bound_by": b_by,
         "bound_share": b_ms / ms,
@@ -491,6 +522,7 @@ def kernel_phase(torch, F) -> dict:
     gen128 = torch.Generator(device=dev).manual_seed(128)
     gen_wide = torch.Generator(device=dev).manual_seed(16)
     gen_dec = torch.Generator(device=dev).manual_seed(23)
+    gen_ed = torch.Generator(device=dev).manual_seed(26)
     out = {}
     # the dense chain's prompts (llama3.2-1b), zamba2-7b's shared block, a
     # long causal prompt, and qwen3-moe-30b-a3b's attention (32/4 heads of 128)
@@ -500,7 +532,10 @@ def kernel_phase(torch, F) -> dict:
         # the served decoders' prompts of 300: stablelm-1.6b (32/32 heads of
         # 64), starcoder2-3b (24/2 of 128), granite-34b (48/1), chameleon-34b (64/8)
         flash_case(torch, F, 300, h, kv, hd, gen_dec) for h, kv, hd in ((32, 32, 64), (24, 2, 128), (48, 1, 128),
-                                                                         (64, 8, 128))]
+                                                                         (64, 8, 128))] + [
+        # seamless-m4t-medium's encoder over a source of 300 frames: 16/16
+        # heads of 64, non-causal
+        flash_case(torch, F, 300, 16, 16, 64, gen_ed, causal=False)]
     # the dense chain's decode (B = 1, 4; llama3.2-1b), zamba2-7b's shared
     # block; then fixed lengths that a later change can compare with: the
     # full S = 512 cache at both shapes, and a long cache of 4096 rows, where
@@ -515,7 +550,10 @@ def kernel_phase(torch, F) -> dict:
         # wider than one head slice of the kernel
         decode_case(torch, F, 2, 512, h, kv, 128, gen_wide) for h, kv in ((24, 2), (48, 1))] + [
         # stablelm-1.6b's and chameleon-34b's decode at the serve's cur_len
-        decode_case(torch, F, 1, 512, h, kv, hd, gen_dec, lens=[406]) for h, kv, hd in ((32, 32, 64), (64, 8, 128))]
+        decode_case(torch, F, 1, 512, h, kv, hd, gen_dec, lens=[406]) for h, kv, hd in ((32, 32, 64), (64, 8, 128))] + [
+        # seamless-m4t-medium's decoder cross-attention over the 300 source
+        # rows, all valid
+        decode_case(torch, F, 1, 300, 16, 16, 64, gen_ed, lens=[300])]
     out.update(paged_kernel_cases(torch, F, gen))
     out["moe_gmm"] = moe_kernel_cases(torch, gen)
     out["ssd_scan"] = ssd_kernel_cases(torch, gen)
@@ -591,6 +629,9 @@ FLASH_GRAD_CASES = (
     ("c", 1, 512, 64, 8, 128, True),
     ("d", 1, 512, 32, 32, 112, True),
     ("e", 1, 300, 32, 8, 64, False),
+    # seamless-m4t-medium's train shape: one microbatch row at T = S = 4096,
+    # 16/16 heads of 64, non-causal (the encoder and the cross-attention)
+    ("f", 1, 4096, 16, 16, 64, False),
 )
 # K3's gradient: prep (D = rowsum(dO * o), the dQ counters), the sweep, post
 GRAD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd", "flash_attention_bwd_post")
@@ -618,16 +659,18 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen) -> dict:
     q, dout = (torch.randn(b, t, h, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn(b, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     lse = torch.empty(b, h, t, dtype=torch.float32, device=dev)
-    out = fa._forward(q, k, v, causal, lse)
+    out32 = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    out = fa._forward(q, k, v, causal, lse, out32)
     check(torch.equal(out, fa.flash_attention(q, k, v, causal=causal)),
           f"K3 gradient {label}: the forward with lse differs in bits from the forward without it")
+    check(torch.equal(out32.to(torch.bfloat16), out), f"K3 gradient {label}: the fp32 output does not round to out")
     check(bool(torch.isfinite(lse).all()), f"K3 gradient {label}: non-finite lse")
     before = {n: build.launches(n) for n in GRAD_KERNELS}
-    got = fa.backward(q, k, v, out, lse, dout, causal)
+    got = fa.backward(q, k, v, out32, lse, dout, causal)
     torch.cuda.synchronize()
     check({n: build.launches(n) - before[n] for n in GRAD_KERNELS} == dict.fromkeys(GRAD_KERNELS, 1),
           f"K3 gradient {label}: not one launch of each backward kernel")
-    check(all(torch.equal(a, c) for a, c in zip(got, fa.backward(q, k, v, out, lse, dout, causal))),
+    check(all(torch.equal(a, c) for a, c in zip(got, fa.backward(q, k, v, out32, lse, dout, causal))),
           f"K3 gradient {label}: two launches differ in bits")
     x = [a.clone().requires_grad_() for a in (q, k, v)]
     auto = torch.autograd.grad(fa.flash_attention(*x, causal=causal), x, dout)
@@ -641,17 +684,17 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen) -> dict:
     del want, auto, x
     check(max(errs.values()) <= GRAD_TOL, f"K3 gradient {label}: beyond {GRAD_TOL} of max |g|: {errs}")
     flops = 5 * 2 * b * h * t * t * hd * (0.5 if causal else 1.0)
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) + 4 * lse.numel()
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + dout.numel()) + 4 * (out32.numel() + lse.numel())
     b_ms, b_by = bound(flops, nbytes)
-    ms = time_ms(torch, lambda: fa.backward(q, k, v, out, lse, dout, causal))
-    dsum, lse2, sem = fa.backward_prep(out, dout, lse)
+    ms = time_ms(torch, lambda: fa.backward(q, k, v, out32, lse, dout, causal))
+    dsum, lse2, sem = fa.backward_prep(out32, dout, lse)
     dq_acc, dk, dv, ws, splits = fa.backward_sweep(q, k, v, dout, lse2, dsum, sem, causal)
-    split = {"prep_ms": time_ms(torch, lambda: fa.backward_prep(out, dout, lse)),
+    split = {"prep_ms": time_ms(torch, lambda: fa.backward_prep(out32, dout, lse)),
              "sweep_ms": time_ms(torch, lambda: (sem.zero_(), fa.backward_sweep(q, k, v, dout, lse2, dsum, sem, causal))),
              "counter_zero_ms": time_ms(torch, sem.zero_),
              "post_ms": time_ms(torch, lambda: fa.backward_post(dq_acc, ws, splits, q, dk, dv))}
     del dsum, lse2, sem, dq_acc, dk, dv, ws
-    big = b * h * t * t > 2**28
+    big = b * h * t * t >= 2**28
     plain_ms = time_ms(torch, lambda: fa.plain_bwd(q, k, v, dout, causal=causal),
                        *((PLAIN_GRAD_SAMPLES, PLAIN_GRAD_REPS) if big else ()))
     qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
@@ -1082,7 +1125,19 @@ def expected_launches(cfg, engine, prefills: int, decodes: int, replays) -> dict
     layer of each decode step (an SSM decode step is the recurrent form, no
     kernel); ``prefills`` and ``decodes`` client invocations run the whole
     chain, and each replayed canary ``(member, is_prefill, runs)`` runs it
-    from its member down ``runs`` times (:func:`record_replays`)."""
+    from its member down ``runs`` times (:func:`record_replays`). The
+    enc-dec chain: K3 once per encoder layer of each prefill (non-causal),
+    K4 twice per decoder layer of each prefill (its BOS step) and decode
+    step (self and cross); a canary replayed at the entry runs both, one at
+    the decoder (either form) K4 alone."""
+    if cfg.family == "audio":
+        enc, dec = cfg.num_layers, cfg.num_decoder_layers
+        exp = {"flash_attention": prefills * enc, "decode_attention": (prefills + decodes) * 2 * dec, "ssd_scan": 0}
+        for member, _, runs in replays:
+            if member == engine.entry:
+                exp["flash_attention"] += runs * enc
+            exp["decode_attention"] += runs * 2 * dec
+        return exp
     below = layers_below(cfg, engine)
     entry = below[engine.entry]
     exp = {"flash_attention": prefills * entry["attn"], "decode_attention": decodes * entry["attn"],
@@ -1098,9 +1153,12 @@ def expected_launches(cfg, engine, prefills: int, decodes: int, replays) -> dict
 
 
 def prompt_rows(inputs):
-    """A request's prompt rows: its token ids (B, T) or its ``embeds``
-    (B, T, d)."""
-    return inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
+    """A request's prompt rows: an enc-dec request's ``src_embeds`` (B, S,
+    d), its token ids (B, T) or its ``embeds`` (B, T, d)."""
+    for key in ("src_embeds", "tokens", "embeds"):
+        if key in inputs:
+            return inputs[key]
+    raise KeyError(sorted(inputs))
 
 
 def frontend_embeds(torch, params, tokens) -> dict:
@@ -1963,7 +2021,13 @@ def overhead_gate(platform, window, steps: int, gate: bool, rounds: int = GATE_R
     (``Tracer.enabled``, which ``tracing=False`` sets) must be at least
     OVERHEAD_MIN. Interleaved rounds on one warm platform (on, off, off,
     on, ...), ``window(steps)`` each; one retry, as the reference has it.
-    Checked where ``gate`` (on the card); the CPU reports the ratio only."""
+    Each attempt starts after a full collection and one untimed round: the
+    garbage of the earlier phases otherwise owes the collector a full pass
+    (0.4-0.7 s over the process's heap on the card's host), and an
+    attempt's first round runs slower than the next (0.87 against 0.95 of
+    the attempt's median on the card's host), and that round is always an
+    "on" round. Checked where ``gate`` (on the card); the CPU reports the
+    ratio only."""
     import gc
 
     order = [True, False, False, True] * (rounds // 4)
@@ -1988,6 +2052,8 @@ def overhead_gate(platform, window, steps: int, gate: bool, rounds: int = GATE_R
         done = {True: [0, 0.0], False: [0, 0.0]}
         collector.append({on: {"passes": [0, 0, 0], "seconds": 0.0} for on in (True, False)})
         per_round.append([])
+        gc.collect()
+        window(steps, GATE_WARMUP)  # untimed, tracing on as it was
         gc.callbacks.append(on_collect)
         try:
             for on in order:
@@ -2097,11 +2163,30 @@ def attention_fan_in_d(params, cfg) -> None:
     import math
 
     for key, sub in params.items():
-        if key == "attn":
+        if key in ("attn", "cross"):  # the enc-dec decoder's cross-attention too
             sub["wq"].mul_(math.sqrt(cfg.num_heads / cfg.d_model))
             sub["wk"].mul_(math.sqrt(cfg.num_kv_heads / cfg.d_model))
         elif isinstance(sub, dict):
             attention_fan_in_d(sub, cfg)
+
+
+def encdec_unit_cross_keys(torch, params, cfg, src) -> float:
+    """Rescale, in place, the enc-dec decoder's cross-attention wk and wv by
+    the RMS of the encoder states of ``src`` (returned), so that its keys
+    and values are those of unit-scale states. The reference's encoder
+    returns its residual stream with no final norm, and in a small random
+    model that stream's RMS is ~13: the cross scores are ~13 times those of
+    unit-scale states, the cross-attention near-hard, and bf16 rounding
+    alone moves the small model's gradients on the host by up to 5.4 % of
+    their max against fp32 (attention at fan-in d); over unit-scale states,
+    by up to 2.0 %."""
+    from repro_torch.models import encdec as ed
+
+    with torch.no_grad():
+        rms = float(ed.encode(params["encdec"], src, cfg).float().pow(2).mean().sqrt())
+        params["encdec"]["decoder"]["cross"]["wk"].div_(rms)
+        params["encdec"]["decoder"]["cross"]["wv"].div_(rms)
+    return rms
 
 
 def small_model_check(torch, dev, small_cfg, prompt_len: int = 37, fan_in_d: bool = False) -> dict:
@@ -3681,6 +3766,421 @@ def split_phase(torch, dev, cfg, params, prompt_lens=PROMPT_LENS, new_tokens=NEW
             "expected_launches": expected, "pods": pod_line}
 
 
+# -------------------------------------------------------------- KV arena stress
+
+KV_STRESS_PROMPTS = ((0, 9), (0, 12), (100, 6), (100, 17), (200, 4))  # tests/test_kvpool.py:310-311
+KV_STRESS_JOIN_S = 60.0  # a stress thread must have finished within this
+KV_STRESS_BUDGET_S = 10.0  # the card's stress runs rounds for about this long
+
+
+def _kv_value(tok: int, pos: int) -> float:
+    """The K value a prefill writes at ``pos`` for prompt token ``tok`` (V is
+    its negative): a function of the token and the position only, so that
+    every prompt sharing a prefix writes the same values into the pages it
+    shares, and a page served from the prefix cache holds what its holder
+    would have written."""
+    return float(tok + 1000 * pos)
+
+
+def _kv_decode_value(tid: int, op: int, pos: int) -> float:
+    """The K value a decode write of thread ``tid``'s op ``op`` puts at
+    ``pos`` (exact in float32; no prefill writes it)."""
+    return float(1_000_000 + 100_000 * tid + 1000 * op + pos)
+
+
+def kvpool_stress(torch, dev, rounds: int = 3, ops: int = 40, threads: int = 3, budget_s: float = 0.0) -> dict:
+    """The reference's concurrent sharing fuzz (``tests/test_kvpool.py:296``)
+    on a float32 ``KVArena`` on ``dev``, made under ``patched_locks``, so its
+    two locks record their acquisition order. ``threads`` threads storm the
+    arena for ``rounds`` rounds (more while ``budget_s`` seconds have not
+    passed) of ``ops`` operations each: content-aware ``alloc_prefill`` of a
+    shared prompt pool with ``write_prefill`` and ``commit_prefill``,
+    ``extend`` followed by decode writes (``make_private`` of the position,
+    then the row written in place through the block table, as a decode
+    step writes it), ``gather``, ``make_private`` and ``free``. The arena's
+    pages are written in place, so the data is checked too: every gather
+    of a live sequence (during the storm, and at each thread's end before
+    and after all threads finish their operations) equals what a replay of
+    that sequence's own writes gives — its prompt's values below its prompt
+    length, whoever wrote the shared pages, and its own decode writes past
+    it. After each round: every thread joined within KV_STRESS_JOIN_S, no
+    error, ``check_consistency``, an acyclic lock graph; after all, no page
+    held and every page but the scratch page free."""
+    import random
+
+    from repro_torch.analysis.lockorder import LockGraph, patched_locks
+    from repro_torch.serving.kvpool import ArenaFull, KVArena
+
+    graph = LockGraph()
+    with patched_locks(graph):
+        arena = KVArena({"g0": 2, "g1": 2}, num_pages=32, page_size=4, kv_heads=2, head_dim=4,
+                        dtype=torch.float32, device=dev)
+    prompts = [list(range(s, s + n)) for s, n in KV_STRESS_PROMPTS]
+    ps = arena.page_size
+    errors: list = []
+    verified = [0] * threads
+
+    def verify(tid: int, sid, expect: dict) -> None:
+        for stage in arena.data:
+            got = arena.gather(sid, stage)
+            k, v = got["k"].cpu(), got["v"].cpu()
+            for pos, val in expect.items():
+                check(bool((k[:, pos] == val).all()) and bool((v[:, pos] == -val).all()),
+                      f"kvpool_stress: {sid} stage {stage} position {pos}: K {k[:, pos].flatten()[:4].tolist()} "
+                      f"V {v[:, pos].flatten()[:4].tolist()}, want +-{val}")
+        verified[tid] += len(expect)
+
+    def decode_write(sid, pos: int, val: float) -> bool:
+        try:
+            arena.make_private(sid, pos)
+        except ArenaFull:
+            return False
+        page = int(arena.block_row(sid, arena.pages_held(sid))[pos // ps])
+        for stage in arena.data.values():
+            stage["k"][:, page, pos % ps] = val
+            stage["v"][:, page, pos % ps] = -val
+        return True
+
+    def worker(tid: int, rnd: int, done: threading.Barrier) -> None:
+        rng = random.Random(1000 + tid + 100 * rnd)
+        live: dict = {}  # seq id -> (length, {position: K value}); only this thread touches its ids
+        try:
+            for i in range(ops):
+                op = rng.random()
+                if op < 0.35 and len(live) < 4:
+                    sid = (rnd, tid, i)
+                    prompt = rng.choice(prompts)
+                    try:
+                        arena.alloc_prefill(sid, prompt)
+                    except ArenaFull:
+                        continue
+                    span = arena.pages_for(len(prompt)) * ps
+                    col = torch.tensor([_kv_value(t, p) for p, t in enumerate(prompt)] + [0.0] * (span - len(prompt)),
+                                       dtype=torch.float32, device=dev)
+                    src = col[None, None, :, None, None].expand(2, 1, span, 2, 4)
+                    arena.write_prefill(sid, {s: {"k": src, "v": -src} for s in arena.data}, len(prompt))
+                    arena.commit_prefill(sid)
+                    live[sid] = (len(prompt), {p: _kv_value(t, p) for p, t in enumerate(prompt)})
+                elif op < 0.55 and live:
+                    sid = rng.choice(list(live))
+                    length, expect = live[sid]
+                    new_len = length + rng.randint(1, 6)
+                    try:
+                        arena.extend(sid, new_len)
+                    except ArenaFull:
+                        continue
+                    for pos in range(length, new_len):
+                        val = _kv_decode_value(tid, i, pos)
+                        if decode_write(sid, pos, val):
+                            expect[pos] = val
+                    live[sid] = (new_len, expect)
+                elif op < 0.7 and live:
+                    sid = rng.choice(list(live))
+                    verify(tid, sid, live[sid][1])
+                elif op < 0.85 and live:
+                    sid = rng.choice(list(live))
+                    try:
+                        arena.make_private(sid, live[sid][0] - 1)
+                    except ArenaFull:
+                        pass
+                elif live:
+                    sid = rng.choice(list(live))
+                    live.pop(sid)
+                    arena.free(sid)
+            for sid, (_, expect) in live.items():
+                verify(tid, sid, expect)
+            done.wait(timeout=KV_STRESS_JOIN_S)  # every thread's operations are over
+            for sid, (_, expect) in live.items():
+                verify(tid, sid, expect)
+        except BaseException as exc:  # noqa: BLE001 — surfaced by the main thread
+            errors.append(exc)
+            done.abort()
+        finally:
+            for sid in live:
+                arena.free(sid)
+
+    t0 = time.perf_counter()
+    done_rounds = 0
+    while done_rounds < rounds or time.perf_counter() - t0 < budget_s:
+        done = threading.Barrier(threads)
+        pool = [threading.Thread(target=worker, args=(t, done_rounds, done), daemon=True) for t in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=KV_STRESS_JOIN_S)
+            check(not t.is_alive(), f"kvpool_stress: a thread did not finish within {KV_STRESS_JOIN_S} s")
+        check(not errors, f"kvpool_stress round {done_rounds}: {errors[:3]!r}")
+        arena.check_consistency()
+        graph.assert_acyclic()
+        done_rounds += 1
+    edges = graph.edges()
+    locks = {n for n in edges if n.startswith("kvpool.py:")}
+    check(len(locks) == 2, f"kvpool_stress: the arena's two locks did not both record: {sorted(edges)}")
+    check(arena.used_pages() == 0 and arena.free_pages() == arena.num_pages - 1,
+          f"kvpool_stress: {arena.used_pages()} pages still used, {arena.free_pages()} free")
+    return {"device": str(dev), "threads": threads, "rounds": done_rounds, "ops_per_round": ops,
+            "seconds": time.perf_counter() - t0, "positions_verified": sum(verified),
+            "cow_copies": arena.cow_copies, "shared_hits": arena.shared_hits,
+            "lock_edges": {n: sorted(v) for n, v in edges.items() if n in locks}}
+
+
+# ------------------------------------------------------------------ enc-dec
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_TRAIN_STEPS = 6
+ENCDEC_TRAIN_BATCH = 4  # as the config's 4 microbatches of one row (train_4k's global batch cut to the card)
+ENCDEC_DECODE_STEPS = 3  # decode steps of the small model, card vs host
+
+
+def encdec_prompts(model, dev, src_lens) -> list:
+    """An enc-dec request per source length, drawn by the model's own
+    ``make_inputs`` at a ``prefill`` shape of batch 1: ``src_embeds`` (1, S,
+    d) of 0.02 x N(0, 1) frames in bf16 (the stub frontend's) and the
+    decoder's first token."""
+    from repro_torch.configs.base import ShapeConfig
+
+    return [model.make_inputs(ShapeConfig("source", s, 1, "prefill"), 7 + i, device=dev)
+            for i, s in enumerate(src_lens)]
+
+
+def encdec_model_logits(torch, model, params, prompt, steps: int, fed=None) -> list:
+    """The enc-dec model without the platform: ``prefill_fn``, then ``steps``
+    ``decode_fn`` steps, each fed ``fed[i]`` or, without ``fed``, the last
+    logits' greedy token. Returns every call's logits (steps + 1)."""
+    logits, cache = model.prefill_fn(params, prompt)
+    out = [logits]
+    for i in range(steps):
+        tok = fed[i] if fed is not None else torch.argmax(logits, -1)[:, None].to(torch.int32)
+        cur = torch.full((tok.shape[0],), i + 1, dtype=torch.int32, device=tok.device)
+        logits, cache = model.decode_fn(params, {"tokens": tok, "cur_len": cur}, cache)
+        out.append(logits)
+    return out
+
+
+def encdec_serve_phase(torch, dev, cfg, params, src_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
+                       max_len=MAX_LEN) -> dict:
+    """Full-width ``seamless-m4t-medium`` served as the two-function app
+    (``embed`` = the encoder -> ``decoder``) on an unfused and a fusing
+    platform (``SERVE_POLICY``: the edge is observed once per prefill, so
+    the chain fuses at the second prompt), source prompts of ``src_lens``
+    frame rows at batch 1, ``new_tokens`` greedy tokens each, the platforms
+    taking turns; the first prompt is served twice first (warm-up and, at
+    its second prefill, the merge) and not timed.
+    Checks: 2 live instances unfused, 1 fused by a healthy merge of both,
+    the same tokens fused and unfused and as the model computes them
+    without the platform, ``ram_bytes`` fused below unfused, the decode
+    entries captured and replayed, and K3 (non-causal, the encoder) and K4
+    (the decoder's self and cross attention) launched exactly as
+    :func:`expected_launches` predicts for the chain, no plain version."""
+    from repro_torch.core import FusionPolicy
+    from repro_torch.kernels import build, ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    model = build_model(cfg)
+    prompts = encdec_prompts(model, dev, src_lens)
+    prompts = prompts[:1] + prompts  # the warm-up: the edge is observed once per prefill
+    Backend = backend_class("tinytorch")
+    platforms = {"unfused": Backend(FusionPolicy(enabled=False)), "fused": Backend(FusionPolicy(**SERVE_POLICY))}
+    replays = {label: record_replays(p) for label, p in platforms.items()}
+    results = {}
+    ops.reset_counts()
+    try:
+        engines = {label: ServingEngine(model, p, max_len=max_len, params=params, device=dev)
+                   for label, p in platforms.items()}
+        ram_before = {label: p.ram_bytes() for label, p in platforms.items()}
+        tokens = {label: [] for label in platforms}
+        lats = {label: [] for label in platforms}
+        for i, prompt in enumerate(prompts):
+            for label in ("fused", "unfused") if i % 2 == 0 else ("unfused", "fused"):
+                toks, lat = engines[label].generate(prompt, steps=new_tokens)
+                if i <= 1:
+                    platforms[label].merger.wait_idle()
+                else:
+                    lats[label].extend(lat)
+                tokens[label].append(toks)
+        for label, platform in platforms.items():
+            platform.merger.wait_idle()
+            results[label] = {
+                "tokens": tokens[label], "p50_token_ms": statistics.median(lats[label]) * 1e3,
+                "ram_bytes": platform.ram_bytes(), "footprints": footprints(platform),
+                "live_instances": len(platform.registry.live_instances()),
+                "merges": [(m.members, m.healthy) for m in platform.merger.merge_log],
+                "graphs": graph_summary(platform, f"encdec {label}") if dev.type == "cuda" else None,
+            }
+        counts, parts = ops.counts(), build.LAUNCHES.parts()
+    finally:
+        for platform in platforms.values():
+            platform.shutdown()
+    chain = set(engines["fused"].chain_names())
+    check(chain == {f"{cfg.name}/embed", f"{cfg.name}/decoder"}, f"encdec: chain {chain}")
+    check(results["unfused"]["live_instances"] == 2 and results["fused"]["live_instances"] == 1,
+          f"encdec: live instances {results['unfused']['live_instances']} unfused, "
+          f"{results['fused']['live_instances']} fused")
+    check(any(ok and set(m) == chain for m, ok in results["fused"]["merges"]),
+          f"encdec: no healthy merge of the chain: {results['fused']['merges']}")
+    check(results["fused"]["ram_bytes"] < results["unfused"]["ram_bytes"],
+          f"encdec: fused ram_bytes {results['fused']['ram_bytes']} not below unfused "
+          f"{results['unfused']['ram_bytes']}: {results['fused']['footprints']} {results['unfused']['footprints']}")
+    for i, s in enumerate([src_lens[0], *src_lens]):
+        a, b = results["unfused"]["tokens"][i], results["fused"]["tokens"][i]
+        check(a.shape == (1, new_tokens) and torch.equal(a, b), f"encdec source {s}: tokens differ fused vs unfused")
+    expected: dict = {}
+    for label in platforms:
+        for k, n in expected_launches(cfg, engines[label], len(prompts), len(prompts) * (new_tokens - 1),
+                                      replays[label]).items():
+            expected[k] = expected.get(k, 0) + n
+    for k, want in expected.items():
+        if dev.type == "cuda":
+            check(counts[k] == want, f"encdec: {k} launched {counts[k]} times, the run makes {want} ({counts})")
+        elif k in STAND_INS:
+            check(counts[STAND_INS[k]] == want, f"encdec: {STAND_INS[k]} ran {counts[STAND_INS[k]]} times for {want}")
+    if dev.type == "cuda":
+        check(all(counts[k] == 0 for k in PLAIN), f"encdec: the chain called a plain version on the card: {counts}")
+    with torch.no_grad():
+        ref = torch.stack([torch.argmax(x, -1) for x in encdec_model_logits(torch, model, params, prompts[0],
+                                                                        new_tokens - 1)], 1).to(torch.int32)
+    check(torch.equal(ref, results["unfused"]["tokens"][0]), "encdec: chain tokens differ from the model's own")
+    total = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else 1
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    prefills = 2 * len(prompts)
+    return {
+        "arch": cfg.name, "encoder_layers": cfg.num_layers, "decoder_layers": cfg.num_decoder_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.head_dim,
+        "source_frames": list(src_lens), "new_tokens": new_tokens, "max_len": max_len,
+        "chain": sorted(chain), "live_instances": {k: r["live_instances"] for k, r in results.items()},
+        "p50_token_ms": {k: r["p50_token_ms"] for k, r in results.items()},
+        "p50_fused_over_unfused": results["fused"]["p50_token_ms"] / results["unfused"]["p50_token_ms"],
+        "ram_bytes": {k: r["ram_bytes"] for k, r in results.items()}, "ram_bytes_deployed": ram_before,
+        "ram_bytes_unfused_minus_fused": results["unfused"]["ram_bytes"] - results["fused"]["ram_bytes"],
+        "footprints": {k: r["footprints"] for k, r in results.items()},
+        "tokens_identical": True, "first_tokens": results["fused"]["tokens"][0][0, :8].tolist(),
+        "launches": {k: counts[k] for k in ("flash_attention", "decode_attention")},
+        "launch_parts": {part: {k: n[k] for k in ("flash_attention", "decode_attention")}
+                         for part, n in parts.items()},
+        "expected_launches": expected, "plain_calls": {k: counts[k] for k in PLAIN},
+        "canary_replays": {label: len(r) for label, r in replays.items()},
+        "prefills": prefills, "decode_steps": prefills * (new_tokens - 1),
+        "graphs": {k: r["graphs"] for k, r in results.items()},
+        "peak_allocated_gb": peak / 1e9, "peak_share": peak / total, "device_gb": total / 1e9,
+    }
+
+
+def encdec_card_vs_host(torch, dev, cfg, src_len: int = 37) -> dict:
+    """``small_config(cfg)`` (2 + 2 layers, d 256, heads of 64), attention at
+    fan-in d (:func:`attention_fan_in_d`) and the cross keys over unit-scale
+    states (:func:`encdec_unit_cross_keys`), on the card and on the host's CPU
+    (the plain versions) from the same bf16 weights and frames: the prefill
+    (encoder, cross K/V, the first token) and ENCDEC_DECODE_STEPS decode
+    steps, each step's logits within REF_TOL of max |logit|."""
+    from repro_torch import tree
+    from repro_torch.models.model import build_model
+
+    small = small_config(cfg)
+    model = build_model(small)
+    with torch.no_grad():
+        params = model.init(0, device=dev)
+        attention_fan_in_d(params, small)
+        prompt = encdec_prompts(model, dev, [src_len])[0]
+        rms = encdec_unit_cross_keys(torch, params, small, prompt["src_embeds"])
+        nxt = torch.randint(0, small.vocab_size, (ENCDEC_DECODE_STEPS, 1, 1),
+                            generator=torch.Generator(device=dev).manual_seed(9), device=dev, dtype=torch.int32)
+        here = encdec_model_logits(torch, model, params, prompt, ENCDEC_DECODE_STEPS, nxt)
+        host = encdec_model_logits(torch, model, tree.map(lambda x: x.cpu(), params),
+                                   tree.map(lambda x: x.cpu(), prompt), ENCDEC_DECODE_STEPS, nxt.cpu())
+    errs = [rel_err(a, b) for a, b in zip(here, host)]
+    for a in here:
+        check(tuple(a.shape) == (1, small.vocab_size) and bool(torch.isfinite(a).all()), "encdec small: bad logits")
+    check(max(errs) <= REF_TOL, f"encdec small: card vs host beyond {REF_TOL} of max |logit|: {errs}")
+    return {"arch": small.name, "d_model": small.d_model, "layers": [small.num_layers, small.num_decoder_layers],
+            "source_frames": src_len, "decode_steps": ENCDEC_DECODE_STEPS, "attention_fan_in_d": True,
+            "encoder_states_rms": rms, "rel_err": errs}
+
+
+def encdec_train_phase(torch, dev, cfg) -> dict:
+    """Full-width ``seamless-m4t-medium`` trained ENCDEC_TRAIN_STEPS steps
+    through TrainLoop at T = 4096 (``train_4k``: source frames and target
+    tokens of 4096), a batch of ENCDEC_TRAIN_BATCH as the config's 4
+    microbatches, bf16 params, fp32 moments, AdamW at TRAIN_LR, remat as the
+    config has it. Checks: every loss and grad_norm finite; K3's forward
+    launched 2 x (remat) and each backward kernel once per attention of each
+    microbatch (the encoder's self-attention, the decoder's self- and
+    cross-attention), no K4 and no plain version. Reports step ms (p50),
+    tokens/s and peak memory."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import init_train_state
+
+    card = dev.type == "cuda"
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(build_model(cfg), 0, device=dev)
+    shape = ShapeConfig("train_4k on one card", TRAIN_SEQ, ENCDEC_TRAIN_BATCH, "train")
+    ops.reset_counts()
+    _, state, hist, _ = train_loop_run(torch, dev, cfg, state, ENCDEC_TRAIN_STEPS, shape, TRAIN_LR)
+    counts = ops.counts()
+    del state
+    losses, norms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    check(all(map(math.isfinite, losses + norms)), f"encdec train: a non-finite loss or grad_norm: {losses} {norms}")
+    applied = ENCDEC_TRAIN_STEPS * cfg.microbatches * (cfg.num_layers + 2 * cfg.num_decoder_layers)
+    want = {"flash_attention": applied * (2 if cfg.remat else 1), **dict.fromkeys(GRAD_KERNELS, applied)}
+    if card:
+        check(all(counts[k] == n for k, n in want.items()) and counts["decode_attention"] == 0,
+              f"encdec train: launches {counts}, expected {want}")
+        check(all(counts[k] == 0 for k in PLAIN), f"encdec train: a plain version ran on the card: {counts}")
+    else:
+        check(counts["mha_ref"] == want["flash_attention"], f"encdec train on the host: {counts}, expected {want}")
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    p50 = statistics.median(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated(dev) if card else 0
+    total = torch.cuda.get_device_properties(dev).total_memory if card else 1
+    return {"arch": cfg.name, "seq": TRAIN_SEQ, "batch": ENCDEC_TRAIN_BATCH, "microbatches": cfg.microbatches,
+            "steps": ENCDEC_TRAIN_STEPS, "lr": TRAIN_LR, "remat": cfg.remat, "losses": losses, "grad_norms": norms,
+            "step_ms": step_ms, "step_ms_p50": p50,
+            "tokens_per_s": ENCDEC_TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+            "peak_allocated_gb": peak / 1e9, "peak_share": peak / total,
+            "launches": {k: counts[k] for k in want}, "expected_launches": want}
+
+
+def encdec_phases(torch, dev) -> dict:
+    """The enc-dec family, after the earlier phases' tensors are freed:
+    ``encdec_serve`` (full width, unfused then fused), ``encdec_card_vs_host``
+    (the small model's serve and train step), ``encdec_train`` (full width)
+    and ``kvpool_stress`` (the arena's sharing fuzz on CUDA pools), each
+    printed as its JSON line. Returns the launches of the serve and train
+    runs."""
+    import gc
+
+    t0 = time.perf_counter()
+    cfg, params, memory = fresh_model(torch, dev, ENCDEC_ARCH)
+    serve = encdec_serve_phase(torch, dev, cfg, params)
+    serve.update(param_bytes=memory["param_bytes"], params_init_s=memory["params_init_s"])
+    print(json.dumps({"encdec_serve": serve}), flush=True)
+    del params
+    gc.collect()
+    t1 = time.perf_counter()
+    print(json.dumps({"encdec_card_vs_host": {"serve": encdec_card_vs_host(torch, dev, cfg),
+                                              "train": train_card_vs_host(torch, dev, cfg)}}), flush=True)
+    t2 = time.perf_counter()
+    train = encdec_train_phase(torch, dev, cfg)
+    print(json.dumps({"encdec_train": train}), flush=True)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    print(json.dumps({"kvpool_stress": kvpool_stress(torch, dev, budget_s=KV_STRESS_BUDGET_S)}), flush=True)
+    t4 = time.perf_counter()
+    print(f"encdec serve {t1 - t0:.1f} s, card vs host {t2 - t1:.1f} s, train {t3 - t2:.1f} s, "
+          f"kvpool_stress {t4 - t3:.1f} s", file=sys.stderr)
+    return {"launches": serve["launches"], "parts": serve["launch_parts"], "train_launches": train["launches"],
+            "seconds": {"serve": t1 - t0, "card_vs_host": t2 - t1, "train": t3 - t2, "kvpool_stress": t4 - t3}}
+
+
 def canary_is_prefill(args) -> bool:
     """Whether a recorded chain request is a prefill (T > 1) or a decode step."""
     x = prompt_rows(args[0]) if isinstance(args[0], dict) else args[0]
@@ -3724,10 +4224,12 @@ def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, part
     return {"kernels": entries}
 
 
-def fresh_model(torch, dev, arch: str):
+def fresh_model(torch, dev, arch: str, layers: int | None = None):
     """Free the earlier phases' tensors, then make ``arch`` at full width and
-    depth with random bf16 weights from seed 0. Returns (cfg, params, the
-    memory record: parameter bytes, init seconds, allocated GB after it)."""
+    depth (``layers``: that many layers) with random bf16 weights from seed
+    0. Returns (cfg, params, the memory record: parameter bytes, init
+    seconds, allocated GB after it)."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import get_arch
@@ -3738,12 +4240,14 @@ def fresh_model(torch, dev, arch: str):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, device=dev)
     torch.cuda.synchronize()
     memory = {"param_bytes": param_bytes(model.param_defs), "params_init_s": time.perf_counter() - t0,
-              "after_init_gb": torch.cuda.memory_allocated() / 1e9}
+              "after_init_gb": torch.cuda.memory_allocated() / 1e9, "layers": cfg.num_layers}
     return cfg, params, memory
 
 
@@ -3817,6 +4321,12 @@ def ssm_phases(torch, dev, arch: str, key: str) -> dict:
 DECODERS = (("stablelm-1.6b", "stablelm", False), ("starcoder2-3b", "starcoder2", False),
             ("granite-34b", "granite", True), ("chameleon-34b", "chameleon", True))
 DECODER_PAGED_REQUESTS = 8
+# The decoders' depth where it is cut to keep the run inside its time limit:
+# granite-34b's serve and paged phases took 190-237 s of the run at its 88
+# layers and 124 s at 40, chameleon-34b's 78 s at its 48; 24 keep granite's
+# chain of 10 functions (3 layers each) and chameleon's of 8 (4 each), and
+# both attentions at full width.
+DECODER_LAYERS = {"granite-34b": 24, "chameleon-34b": 24}
 VLM_EMBEDS_LEN = 300  # the vlm serve phase's embeds prompt
 
 
@@ -3856,7 +4366,7 @@ def decoder_block_phase(torch, dev, cfg, params, prompt_len: int = 37) -> dict:
 
 
 def decoder_phases(torch, dev, arch: str, key: str, paged: bool) -> dict:
-    """Full-width ``arch`` at full depth, random bf16 weights from seed 0,
+    """Full-width ``arch`` at full depth (DECODER_LAYERS: a cut), random bf16 weights from seed 0,
     made after the earlier phases' tensors are freed, one params tree for
     every platform of its phases: the serve phase (the vlm family with one
     more prompt of ``embeds`` rows), with ``paged`` the paged serve phase
@@ -3864,7 +4374,7 @@ def decoder_phases(torch, dev, arch: str, key: str, paged: bool) -> dict:
     check and the memory record. Prints the ``<key>_serve``,
     ``<key>_paged_serve``, ``<key>_block`` and ``<key>_memory`` lines; a
     phase that runs out of device memory fails the run."""
-    cfg, params, memory = fresh_model(torch, dev, arch)
+    cfg, params, memory = fresh_model(torch, dev, arch, DECODER_LAYERS.get(arch))
     vlm = cfg.family == "vlm"
     t0 = time.perf_counter()
     serve = serve_phase(torch, dev, cfg, params=params, embeds_len=VLM_EMBEDS_LEN if vlm else 0)
@@ -4136,7 +4646,9 @@ def train_card_vs_host(torch, dev, cfg, seq: int = 256, batch: int = 2) -> dict:
     CPU from the same bf16 params and batch: the step's loss and grad_norm
     within TRAIN_TOL relative, every gradient leaf within TRAIN_GRAD_TOL of
     its max |g|. Its attention is drawn at fan-in d
-    (:func:`attention_fan_in_d`), as :func:`train_block_check`'s."""
+    (:func:`attention_fan_in_d`), as :func:`train_block_check`'s, and an
+    enc-dec's cross-attention reads unit-scale states
+    (:func:`encdec_unit_cross_keys`)."""
     from repro_torch import tree
     from repro_torch.checkpointing.manager import _flatten_with_paths
     from repro_torch.configs.base import ShapeConfig
@@ -4148,10 +4660,12 @@ def train_card_vs_host(torch, dev, cfg, seq: int = 256, batch: int = 2) -> dict:
     small = small_config(cfg)
     model = build_model(small)
     state = init_train_state(model, 0, device=dev)
-    attention_fan_in_d(state["params"], small)
     data = SyntheticTokenPipeline(small, ShapeConfig("small", seq, batch, "train"), seed=0, device=dev)
     b = next(data)
     data.close()
+    attention_fan_in_d(state["params"], small)
+    if small.family == "audio":
+        encdec_unit_cross_keys(torch, state["params"], small, b["src_embeds"])
     host_state = tree.map(lambda x: x.cpu(), state)
     host_b = tree.map(lambda x: x.cpu(), b)
     step = make_train_step(model, AdamWConfig(lr=TRAIN_LR), cosine_schedule(TRAIN_LR, 1, 10))
@@ -4415,6 +4929,7 @@ def main() -> int:
     t0 = time.perf_counter()
     print(json.dumps({"launch_serve": launch_serve_phase(torch, dev)}), flush=True)
     print(f"launch_serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    encdec = encdec_phases(torch, dev)
     train_launches = training["launches"]
     check(len({train_launches[k] for k in GRAD_KERNELS}) == 1,
           f"train: the three backward kernels launched apart: {train_launches}")
@@ -4437,8 +4952,12 @@ def main() -> int:
             by_path[kernel][arch] = run["launches"][kernel]
         for kernel, n in run.get("paged_launches", {}).items():
             by_path[kernel][f"{arch} paged"] = n
+    for kernel in ("flash_attention", "decode_attention"):
+        by_path[kernel][ENCDEC_ARCH] = encdec["launches"][kernel]
     by_path["flash_attention"]["llama3.2-1b train"] = train_launches["flash_attention"]
-    by_path["flash_attention_bwd"] = {"llama3.2-1b train": {k: train_launches[k] for k in GRAD_KERNELS}}
+    by_path["flash_attention"][f"{ENCDEC_ARCH} train"] = encdec["train_launches"]["flash_attention"]
+    by_path["flash_attention_bwd"] = {"llama3.2-1b train": {k: train_launches[k] for k in GRAD_KERNELS},
+                                      f"{ENCDEC_ARCH} train": {k: encdec["train_launches"][k] for k in GRAD_KERNELS}}
     by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
                           "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}

@@ -3,7 +3,7 @@
 Every assigned architecture is a :class:`ModelConfig`; an input shape is a
 :class:`ShapeConfig`. The fields mirror the JAX package's, so a config
 carries across unchanged; the port reads those of the dense, vlm, MoE,
-SSM and hybrid families.
+SSM, hybrid and enc-dec (audio) families.
 """
 from __future__ import annotations
 

@@ -42,7 +42,7 @@ _L = ctypes.c_longlong
 # a row stride as c_longlong)
 SIGNATURES = {
     # q, k, v, out, lse (or null), B, T, S, H, KV, D, causal, stream
-    "repro_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_flash_attention_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # o, dout, lse, dsum, lse2, sem, B, T, H, D, stream
     "repro_flash_attention_bwd_prep": [_P] * 6 + [_I] * 4 + [_P],
     # q, k, v, dout, lse2, dsum, dq_acc, sem, dk, dv, ws, B, T, S, H, KV, D, causal, n_split, stream

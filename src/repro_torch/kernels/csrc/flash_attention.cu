@@ -55,17 +55,17 @@ template <int D>
 __global__ void __launch_bounds__(flash_sweep::kThreads)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, const int* __restrict__ start, int T, int H, int KV, int causal,
-                       float scale_log2, row_policy::Contiguous rows) {
-  flash_sweep::sweep<D>(q, k, v, out, lse, start, T, H, KV, causal, scale_log2, rows);
+                       float* __restrict__ lse, float* __restrict__ o32, const int* __restrict__ start, int T,
+                       int H, int KV, int causal, float scale_log2, row_policy::Contiguous rows) {
+  flash_sweep::sweep<D>(q, k, v, out, lse, o32, start, T, H, KV, causal, scale_log2, rows);
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int T, int S,
-                   int H, int KV, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, void* o32, int B, int T,
+                   int S, int H, int KV, int causal, cudaStream_t stream) {
   static std::atomic<uint32_t> smem_set{0u};
-  return flash_sweep::launch<D>(flash_attention_kernel<D>, smem_set, q, k, v, out, lse, nullptr, B, T, H, KV, causal,
-                                row_policy::Contiguous{S, S}, stream);
+  return flash_sweep::launch<D>(flash_attention_kernel<D>, smem_set, q, k, v, out, lse, o32, nullptr, B, T, H, KV,
+                                causal, row_policy::Contiguous{S, S}, stream);
 }
 
 }  // namespace
@@ -73,20 +73,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
 extern "C" {
 
 // q, out: (B, T, H, D); k, v: (B, S, KV, D); all bf16, contiguous, 16-byte
-// aligned; lse: (B, H, T) fp32, or null (the serve paths: not written).
-// Returns a cudaError_t (0 on a successful launch).
-int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B,
-                              int T, int S, int H, int KV, int D, int causal, void* stream) {
+// aligned; lse: (B, H, T) fp32, and o32: (B, T, H, D) fp32 (the output
+// before its rounding, for the backward's D), or null (the serve paths: not
+// written). Returns a cudaError_t (0 on a successful launch).
+int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse, void* o32,
+                              int B, int T, int S, int H, int KV, int D, int causal, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || (T + flash_sweep::kBlockQ - 1) / flash_sweep::kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch<64>(q, k, v, out, lse, B, T, S, H, KV, causal, st);
+      return (int)launch<64>(q, k, v, out, lse, o32, B, T, S, H, KV, causal, st);
     case 112:  // zamba2-7b's shared attention block
-      return (int)launch<112>(q, k, v, out, lse, B, T, S, H, KV, causal, st);
+      return (int)launch<112>(q, k, v, out, lse, o32, B, T, S, H, KV, causal, st);
     case 128:
-      return (int)launch<128>(q, k, v, out, lse, B, T, S, H, KV, causal, st);
+      return (int)launch<128>(q, k, v, out, lse, o32, B, T, S, H, KV, causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

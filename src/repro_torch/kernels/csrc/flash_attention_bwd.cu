@@ -12,7 +12,9 @@
 // forward's output o and its gradient dO (B, T, H, D), and the forward's
 // row logsumexp lse (B, H, T) fp32, with P = exp(scale * q k^T - lse)
 // recomputed tile by tile (the (T, S) matrix is never stored):
-//   D_i  = sum_d dO_id * o_id                       (fp32, one per row)
+//   D_i  = sum_d dO_id * o_id                       (fp32, one per row; o the
+//                                                    forward's fp32 output,
+//                                                    not its bf16 rounding)
 //   dV_j = sum_i P_ij dO_i
 //   dS_ij = P_ij (dO_i . v_j - D_i)
 //   dQ_i = scale sum_j dS_ij k_j,   dK_j = scale sum_i dS_ij q_i
@@ -132,7 +134,7 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 
 template <int D>
 __global__ void __launch_bounds__(kPrepRows * 8)
-flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+flash_bwd_prep_kernel(const float* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                       const float* __restrict__ lse, float* __restrict__ dsum, float* __restrict__ lse2,
                       int* __restrict__ sem, int T, int H, int Tp) {
   const int row = blockIdx.x * kPrepRows + threadIdx.x / 8;
@@ -143,15 +145,16 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* 
   float acc = 0.f;
   if (row < T) {
     const int64_t at = (((int64_t)b * T + row) * H + h) * D;
-    for (int c = part; c < D / 8; c += 8) {  // each thread its 16-byte chunks, in order
-      const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c * 8);
+    for (int c = part; c < D / 8; c += 8) {  // each thread its 8-column chunks, in order
+      const float4 oa = *reinterpret_cast<const float4*>(o + at + c * 8);
+      const float4 ob = *reinterpret_cast<const float4*>(o + at + c * 8 + 4);
       const uint4 dv = *reinterpret_cast<const uint4*>(dout + at + c * 8);
-      const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+      const float o8[8] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
       const uint32_t* d2 = reinterpret_cast<const uint32_t*>(&dv);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        acc = fmaf(bf16_lo(o2[e]), bf16_lo(d2[e]), acc);
-        acc = fmaf(bf16_hi(o2[e]), bf16_hi(d2[e]), acc);
+        acc = fmaf(o8[2 * e], bf16_lo(d2[e]), acc);
+        acc = fmaf(o8[2 * e + 1], bf16_hi(d2[e]), acc);
       }
     }
   }
@@ -550,7 +553,7 @@ cudaError_t launch_prep(const void* o, const void* dout, const void* lse, void* 
   const int Tp = (T + kM - 1) / kM * kM;
   const dim3 grid((Tp + kPrepRows - 1) / kPrepRows, B * H);
   flash_bwd_prep_kernel<D><<<grid, kPrepRows * 8, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(o), static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(dsum), static_cast<float*>(lse2), static_cast<int*>(sem), T, H, Tp);
   return cudaGetLastError();
 }
@@ -599,7 +602,8 @@ bool bad_shape(int B, int T, int S, int H, int KV) {
 
 extern "C" {
 
-// K3's gradient, first kernel. o, dout: (B, T, H, D) bf16; lse: (B, H, T)
+// K3's gradient, first kernel. o: (B, T, H, D) fp32, the forward's output
+// before its rounding (its o32); dout: (B, T, H, D) bf16; lse: (B, H, T)
 // fp32 from the forward; dsum, lse2: (B, H, Tp) fp32 with Tp = T rounded up
 // to whole query tiles of GRAD_QUERY_ROWS(D) rows, written; sem: (B, H, Tp /
 // rows) int32, zeroed. Returns a cudaError_t (0 on a successful launch).

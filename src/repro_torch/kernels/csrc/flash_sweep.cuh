@@ -40,7 +40,14 @@
 //     row's natural-log logsumexp of the scaled scores, (B, H, T) fp32, for
 //     the backward (csrc/flash_attention_bwd.cu) to recompute P from; a row
 //     with no valid column writes +inf, so its P recomputes to exact zeros.
-//     The output's arithmetic is the same with or without it.
+//     The output's arithmetic is the same with or without it;
+//   * with a non-null `o32` (K3 under autograd), the output is also written
+//     in fp32 before its rounding to bf16, (B, T, H, D): the backward's
+//     D = rowsum(dO * O) is taken from it. From the bf16 output, D carries
+//     that rounding (2^-9 of |O|), and where the rows of V share a large
+//     common component, dP - D cancels and the rounding moves dq and dk by
+//     tens of percent of their max (measured on the enc-dec's
+//     cross-attention, whose V reads the encoder's un-normalized states).
 // Shared-memory rows are padded by 8 bf16 so ldmatrix and fragment loads are
 // bank-conflict free.
 #pragma once
@@ -76,13 +83,15 @@ constexpr size_t smem_bytes() {
 
 // One block's query tile. q, out: (B, T, H, D); k, v: (rows, KV, D) read
 // through `rows` (capacity S = rows.capacity() per sequence); `lse`: (B, H,
-// T) or null; `start`: (B,) absolute position of query row 0 (null: 0);
-// causal row i attends the columns <= start + i.
+// T) or null; `o32`: (B, T, H, D) fp32 or null; `start`: (B,) absolute
+// position of query row 0 (null: 0); causal row i attends the columns <=
+// start + i.
 template <int D, class Rows>
 __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                                      float* __restrict__ lse, const int* __restrict__ start, int T, int H,
-                                      int KV, int causal, float scale_log2, const Rows& rows) {
+                                      float* __restrict__ lse, float* __restrict__ o32,
+                                      const int* __restrict__ start, int T, int H, int KV, int causal,
+                                      float scale_log2, const Rows& rows) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + kPad;          // row stride of every tile (bf16)
   constexpr int kTile = kBlockK * kStride;   // bf16 per K or V stage
@@ -122,6 +131,7 @@ __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const
   const __nv_bfloat16* kb = k + (int64_t)kvh * D;
   const __nv_bfloat16* vb = v + (int64_t)kvh * D;
   __nv_bfloat16* ob = out + ((int64_t)b * T) * q_row_stride + (int64_t)h * D;
+  float* o32b = o32 == nullptr ? nullptr : o32 + ((int64_t)b * T) * q_row_stride + (int64_t)h * D;
 
   int n_tiles = (S + kBlockK - 1) / kBlockK;
   if (causal) {
@@ -340,13 +350,17 @@ __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + tig * 2;
     const float* x1 = xs + (4 + 4 * n) * kSlots + slot;
-    if (row_a < T)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_a * q_row_stride + col) =
-          pack_bf16((w0_a * o[n][0] + w1_a * x1[0]) * inv_a, (w0_a * o[n][1] + w1_a * x1[kSlots]) * inv_a);
-    if (row_b < T)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_b * q_row_stride + col) =
-          pack_bf16((w0_b * o[n][2] + w1_b * x1[2 * kSlots]) * inv_b,
-                    (w0_b * o[n][3] + w1_b * x1[3 * kSlots]) * inv_b);
+    const float a0 = (w0_a * o[n][0] + w1_a * x1[0]) * inv_a, a1 = (w0_a * o[n][1] + w1_a * x1[kSlots]) * inv_a;
+    const float b0 = (w0_b * o[n][2] + w1_b * x1[2 * kSlots]) * inv_b;
+    const float b1 = (w0_b * o[n][3] + w1_b * x1[3 * kSlots]) * inv_b;
+    if (row_a < T) {
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_a * q_row_stride + col) = pack_bf16(a0, a1);
+      if (o32b != nullptr) *reinterpret_cast<float2*>(o32b + (int64_t)row_a * q_row_stride + col) = make_float2(a0, a1);
+    }
+    if (row_b < T) {
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_b * q_row_stride + col) = pack_bf16(b0, b1);
+      if (o32b != nullptr) *reinterpret_cast<float2*>(o32b + (int64_t)row_b * q_row_stride + col) = make_float2(b0, b1);
+    }
   }
 }
 
@@ -354,7 +368,7 @@ __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const
 // of T query rows and H heads. Returns a cudaError_t.
 template <int D, class Rows, class Kernel>
 cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& smem_set, const void* q, const void* k, const void* v,
-                   void* out, void* lse, const void* start, int B, int T, int H, int KV, int causal,
+                   void* out, void* lse, void* o32, const void* start, int B, int T, int H, int KV, int causal,
                    const Rows& rows, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = allow_smem_once(kernel, smem, smem_set);
@@ -364,7 +378,7 @@ cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& smem_set, const void* q
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      static_cast<const int*>(start), T,
+      static_cast<float*>(o32), static_cast<const int*>(start), T,
       H, KV, causal, scale_log2, rows);
   return cudaGetLastError();
 }

@@ -92,9 +92,9 @@ template <int D>
 __global__ void __launch_bounds__(flash_sweep::kThreads)
 paged_chunk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
                    const __nv_bfloat16* __restrict__ vp, __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ lse, const int* __restrict__ start, int C, int H, int KV, int causal,
-                   float scale_log2, row_policy::Paged rows) {
-  flash_sweep::sweep<D>(q, kp, vp, out, lse, start, C, H, KV, causal, scale_log2, rows);
+                   float* __restrict__ lse, float* __restrict__ o32, const int* __restrict__ start, int C, int H,
+                   int KV, int causal, float scale_log2, row_policy::Paged rows) {
+  flash_sweep::sweep<D>(q, kp, vp, out, lse, o32, start, C, H, KV, causal, scale_log2, rows);
 }
 
 template <int D>
@@ -103,8 +103,8 @@ cudaError_t launch_chunk(const void* q, const void* kp, const void* vp, const vo
                          int KV, cudaStream_t stream) {
   static std::atomic<uint32_t> smem_set{0u};
   const row_policy::Paged rows{static_cast<const int*>(block_table), n, page, P};
-  return flash_sweep::launch<D>(paged_chunk_kernel<D>, smem_set, q, kp, vp, out, nullptr, start, B, C, H, KV, 1,
-                                rows, stream);
+  return flash_sweep::launch<D>(paged_chunk_kernel<D>, smem_set, q, kp, vp, out, nullptr, nullptr, start, B, C, H,
+                                KV, 1, rows, stream);
 }
 
 }  // namespace

@@ -14,8 +14,9 @@ here as :data:`plain`. It replaces the Pallas TPU kernel
 
 Under autograd (grad mode on, an input that requires grad) a CUDA call runs
 :class:`_FlashAttention`: the same forward kernel, which then also writes
-each row's logsumexp, and as its backward the three kernels of
-``csrc/flash_attention_bwd.cu`` (prep: D = rowsum(dO * o); the sweep: one
+each row's logsumexp and its output in fp32, and as its backward the three
+kernels of ``csrc/flash_attention_bwd.cu`` (prep: D = rowsum(dO * o) from
+the fp32 output; the sweep: one
 pass over kv tiles on wgmma fed by TMA, dQ summed across kv tiles in one
 fixed order, a wide group's query heads split over blocks; post: dq, and a
 split's dk and dv), each counted by its own name. Their plain version is
@@ -54,9 +55,12 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _forward(q, k, v, causal: bool, lse: torch.Tensor | None = None) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, lse: torch.Tensor | None = None,
+             out32: torch.Tensor | None = None) -> torch.Tensor:
     """The forward kernel on checked CUDA inputs; with ``lse`` ((B, H, T)
-    fp32) it also writes each row's logsumexp."""
+    fp32) it also writes each row's logsumexp, with ``out32`` ((B, T, H, hd)
+    fp32, contiguous) the output before its rounding to bf16 (the bf16
+    output's arithmetic is the same either way)."""
     b, t, h, hd = q.shape
     out = torch.empty_like(q)
     if t == 0:
@@ -64,7 +68,7 @@ def _forward(q, k, v, causal: bool, lse: torch.Tensor | None = None) -> torch.Te
     lib = build.load()
     err = lib.repro_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-        b, t, k.shape[1], h, k.shape[2], hd, int(causal),
+        0 if out32 is None else out32.data_ptr(), b, t, k.shape[1], h, k.shape[2], hd, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention launch")
@@ -107,44 +111,48 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def backward(q, k, v, out, lse, dout, causal: bool):
+def backward(q, k, v, out32, lse, dout, causal: bool):
     """K3's gradient on the card: (dq, dk, dv) in bf16 from the forward's
-    inputs, its output ``out`` and row logsumexp ``lse``, and the output
-    gradient ``dout``. Three launches: prep (D = rowsum(dout * out)), the
-    sweep, post (dq, and dk / dv from a head split's partials)."""
+    inputs, its fp32 output ``out32`` (before the rounding to bf16) and row
+    logsumexp ``lse``, and the output gradient ``dout``. Three launches:
+    prep (D = rowsum(dout * out32)), the sweep, post (dq, and dk / dv from a
+    head split's partials). D is taken from the fp32 output: dS = P (dP - D)
+    cancels where the rows of V share a large common component, and D from
+    the bf16 output would carry its rounding into dq and dk."""
     _check(q, k, v)
     b, t, h, _ = q.shape
-    if out.shape != q.shape or dout.shape != q.shape or torch.bfloat16 != out.dtype or dout.dtype != out.dtype:
-        raise ValueError(f"flash_attention backward: out {tuple(out.shape)} {out.dtype} and dout "
-                         f"{tuple(dout.shape)} {dout.dtype} must be bf16 of q's shape {tuple(q.shape)}")
     if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention backward: lse must be contiguous fp32 {(b, h, t)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if not out.is_contiguous() or out.data_ptr() % 16:
-        raise ValueError("flash_attention backward: out must be contiguous and 16-byte aligned")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention backward: the kernels run on the card, q is on {q.device} "
                          "(the plain version is mha_ref_bwd)")
+    if out32.shape != q.shape or out32.dtype != torch.float32 or dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: out32 {tuple(out32.shape)} {out32.dtype} must be fp32 and "
+                         f"dout {tuple(dout.shape)} {dout.dtype} bf16, both of q's shape {tuple(q.shape)}")
+    if not out32.is_contiguous() or out32.data_ptr() % 16:
+        raise ValueError("flash_attention backward: out32 must be contiguous and 16-byte aligned")
     dout = dout.contiguous()
     if t == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dsum, lse2, sem = backward_prep(out, dout, lse)
+    dsum, lse2, sem = backward_prep(out32, dout, lse)
     dq_acc, dk, dv, ws, splits = backward_sweep(q, k, v, dout, lse2, dsum, sem, causal)
     return backward_post(dq_acc, ws, splits, q, dk, dv), dk, dv
 
 
-def backward_prep(out, dout, lse):
-    """The first kernel on checked inputs: D = rowsum(dout * out) and lse *
-    log2(e), (B, H, T padded to whole query tiles) fp32 each, and the
-    sweep's dQ counters (B, H, query tiles) int32, zeroed."""
-    b, t, h, hd = out.shape
+def backward_prep(out32, dout, lse):
+    """The first kernel on checked inputs: D = rowsum(dout * out32) (the
+    forward's fp32 output) and lse * log2(e), (B, H, T padded to whole query
+    tiles) fp32 each, and the sweep's dQ counters (B, H, query tiles) int32,
+    zeroed."""
+    b, t, h, hd = out32.shape
     nq = -(-t // GRAD_QUERY_ROWS[hd])
-    dsum = torch.empty(b, h, nq * GRAD_QUERY_ROWS[hd], dtype=torch.float32, device=out.device)
+    dsum = torch.empty(b, h, nq * GRAD_QUERY_ROWS[hd], dtype=torch.float32, device=out32.device)
     lse2 = torch.empty_like(dsum)
-    sem = torch.empty(b, h, nq, dtype=torch.int32, device=out.device)
+    sem = torch.empty(b, h, nq, dtype=torch.int32, device=out32.device)
     err = build.load().repro_flash_attention_bwd_prep(
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), lse2.data_ptr(), sem.data_ptr(),
-        b, t, h, hd, torch.cuda.current_stream(out.device).cuda_stream)
+        out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), lse2.data_ptr(), sem.data_ptr(),
+        b, t, h, hd, torch.cuda.current_stream(out32.device).cuda_stream)
     build.check(err, "flash_attention backward (prep) launch")
     build.count_launch("flash_attention_bwd_prep")
     return dsum, lse2, sem
@@ -187,23 +195,25 @@ def backward_post(dq_acc, ws, splits: int, q, dk, dv):
 
 class _FlashAttention(torch.autograd.Function):
     """K3 under autograd on the card: the forward kernel with the rows'
-    logsumexp, saved with its inputs and output for the backward kernels."""
+    logsumexp and its fp32 output, saved with its inputs for the backward
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
         _check(q, k, v)
         b, t, h, _ = q.shape
         lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-        out = _forward(q, k, v, causal, lse)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, causal, lse, out32)
+        ctx.save_for_backward(q, k, v, out32, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = backward(q, k, v, out, lse, dout, ctx.causal)
+        q, k, v, out32, lse = ctx.saved_tensors
+        dq, dk, dv = backward(q, k, v, out32, lse, dout, ctx.causal)
         return dq, dk, dv, None
 
 

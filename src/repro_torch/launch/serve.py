@@ -12,8 +12,9 @@ present and ``--device cpu`` was not given; it never falls back to the
 host). ``--backend`` takes the port's backends, ``tinytorch`` and
 ``orchestrated``. The same draws from ``np.random.default_rng(0)`` make the
 prompts: token ids for the text families, ``embeds`` of 0.02 x N(0, 1) in
-bf16 for ``vlm`` (cast to the weights' dtype, a no-op for the bf16 weights
-of :func:`serve`'s default). ``--reduced`` gives the JAX package's reduced
+bf16 for ``vlm`` and ``src_embeds`` of the same draw with a BOS token 0
+for the enc-dec ``audio`` family (cast to the weights' dtype, a no-op for
+the bf16 weights of :func:`serve`'s default). ``--reduced`` gives the JAX package's reduced
 configuration; on the card its heads are widened to 64, the smallest head
 dim the attention kernels take (``kernels/flash_attention.py``).
 
@@ -34,8 +35,6 @@ import torch
 
 # Architectures of the JAX package that the port does not serve, and why.
 NOT_SERVED = {
-    "seamless-m4t-medium": "the enc-dec family (models/encdec.py and its chain) is not ported yet "
-                           "(ROADMAP.md, Queue 1 item 10)",
     "phi3.5-moe-42b-a6.6b": "its bf16 weights (83.7 GB) do not fit one 80 GB card, "
                             "and the port serves on one card",
 }
@@ -64,12 +63,17 @@ def resolve_arch(name: str, reduced: bool = False, device="cpu"):
 
 def prompt_inputs(cfg, batch: int, prompt_len: int, device, dtype=torch.bfloat16) -> dict:
     """The launcher's prompts, drawn from ``np.random.default_rng(0)``:
-    ``tokens`` for the text families, ``embeds`` for ``vlm`` (drawn in
-    float32, rounded to bf16, then cast to ``dtype``)."""
+    ``tokens`` for the text families, ``embeds`` for ``vlm`` and
+    ``src_embeds`` with a BOS ``tokens`` (B, 1) of zeros for ``audio``
+    (embeddings drawn in float32, rounded to bf16, then cast to
+    ``dtype``)."""
     rng = np.random.default_rng(0)
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "audio"):
         x = (rng.standard_normal((batch, prompt_len, cfg.d_model)) * 0.02).astype(np.float32)
-        return {"embeds": torch.from_numpy(x).to(torch.bfloat16).to(device=device, dtype=dtype)}
+        x = torch.from_numpy(x).to(torch.bfloat16).to(device=device, dtype=dtype)
+        if cfg.family == "vlm":
+            return {"embeds": x}
+        return {"src_embeds": x, "tokens": torch.zeros((batch, 1), dtype=torch.int32, device=device)}
     toks = rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
     return {"tokens": torch.from_numpy(toks).to(device)}
 

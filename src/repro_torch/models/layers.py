@@ -86,12 +86,18 @@ def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.silu((x @ params["wi_gate"]).float(), inplace=True).to(x.dtype)
         h = h * (x @ params["wi_up"])
     else:
-        # the tanh GELU in fp32, a run of rows at a time, written back into
-        # the product: the same values without (T, d_ff) fp32 temporaries
         h = x @ params["wi"]
-        rows = h.view(-1, h.shape[-1])
-        for part in rows.split(max(1, GELU_VALUES // h.shape[-1])):
-            part.copy_(F.gelu(part.float(), approximate="tanh"))
+        if torch.is_grad_enabled() and h.requires_grad:
+            # under autograd the same values out of place: a product written
+            # in place has no backward
+            h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        else:
+            # the tanh GELU in fp32, a run of rows at a time, written back
+            # into the product: the same values without (T, d_ff) fp32
+            # temporaries
+            rows = h.view(-1, h.shape[-1])
+            for part in rows.split(max(1, GELU_VALUES // h.shape[-1])):
+                part.copy_(F.gelu(part.float(), approximate="tanh"))
     return h @ params["wo"]
 
 

@@ -1,5 +1,5 @@
 """build_model(cfg) — the Model API for the block families (dense, MoE, VLM,
-SSM) and the hybrid family.
+SSM), the hybrid family and the enc-dec (audio) family.
 
 A Model exposes the programs (plain functions of parameter trees — exactly
 what the Provuse platform deploys as FaaS functions):
@@ -8,14 +8,21 @@ what the Provuse platform deploys as FaaS functions):
   prefill_fn(params, batch)         -> (last_logits, cache)     [serve]
   decode_fn(params, batch, cache)   -> (logits, new_cache)      [serve]
 
-``loss_fn`` trains the dense and vlm families (``tokens`` or ``embeds``):
-their only kernel, K3, has a gradient on the card. The MoE, SSM and hybrid
-families raise until K5's and K6's gradients exist (ROADMAP.md, Queue 1
-item 11).
+``loss_fn`` trains the dense, vlm and audio families (``tokens``,
+``embeds``, or ``src_embeds`` and ``tgt_tokens``): their only kernel, K3,
+has a gradient on the card. The MoE, SSM and hybrid families raise until
+K5's and K6's gradients exist (ROADMAP.md, Queue 1 item 11).
 
 plus ``cache_defs`` (the decode cache's ParamDef tree for a shape: the
-dense KV cache, the SSM states, or the hybrid's mix of both) and ``init``
+dense KV cache, the SSM states, the hybrid's mix of both, or the enc-dec's
+decoder self cache and cross K/V), ``input_defs`` / ``make_inputs`` (a
+shape's request or batch, as ParamDefs and drawn from a seed) and ``init``
 (seeded parameters on a device).
+
+The audio family's frontend is a stub: a prompt is ``src_embeds`` (B, S, d)
+frame embeddings and a BOS ``tokens`` (B, 1); the prefill encodes the
+source, builds the decoder's cross K/V at the source length and decodes
+the BOS into a ``ENCDEC_TGT_CACHE``-row self cache.
 """
 from __future__ import annotations
 
@@ -26,14 +33,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, embedding_defs, norm_defs, unembed
 from repro_torch.models.params import ParamDef, init_params
 
+ENCDEC_TGT_CACHE = 4096  # decoder self-cache length for enc-dec decode cells
 CE_CHUNK = 512
-TRAINED_FAMILIES = ("dense", "vlm")
+TRAINED_FAMILIES = ("dense", "vlm", "audio")
 
 
 @dataclasses.dataclass
@@ -45,6 +55,8 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     cache_defs: Callable[[ShapeConfig], Any]
+    input_defs: Callable[[ShapeConfig], Any]
+    make_inputs: Callable[..., Any]
 
 
 # ------------------------------------------------------------------ loss
@@ -83,33 +95,41 @@ def chunked_ce(emb_params, hidden: torch.Tensor, targets: torch.Tensor, cfg: Mod
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(f"the port serves the dense, moe, vlm, ssm and hybrid families, not {fam!r}")
+    if fam not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        raise NotImplementedError(f"the port serves the dense, moe, vlm, ssm, hybrid and audio families, not {fam!r}")
     L = cfg.num_layers
     kind = tfm.layer_kind(cfg)
     defs: dict = {"embed": embedding_defs(cfg), "ln_f": norm_defs(cfg)}
     if fam == "hybrid":
         defs["hybrid"] = hy.hybrid_defs(cfg)
+    elif fam == "audio":
+        defs["encdec"] = ed.encdec_defs(cfg)
     else:
         defs["blocks"] = tfm.stack_block_defs(cfg, kind, L)
 
     def loss_fn(params, batch):
         """(loss, metrics): the mean next-token cross-entropy of ``batch``
-        (``tokens`` or ``embeds``, and ``targets``); ``metrics`` holds
-        ``ce``, ``loss`` and the MoE metrics of the reference (0 here)."""
+        (``tokens`` or ``embeds``, or the enc-dec's ``src_embeds`` and
+        ``tgt_tokens``, and ``targets``); ``metrics`` holds ``ce``, ``loss``
+        and the MoE metrics of the reference (0 here)."""
         if fam not in TRAINED_FAMILIES:
             raise NotImplementedError(
-                f"the port trains the dense and vlm families, not {fam!r}: training it needs the "
+                f"the port trains the dense, vlm and audio families, not {fam!r}: training it needs the "
                 "gradients of K5 and K6 and the MoE aux loss (ROADMAP.md, Queue 1 item 11)")
-        if "embeds" in batch:  # vlm: stub frontend embeddings, in the weights' dtype
-            x = batch["embeds"].to(params["embed"]["table"].dtype)
+        if fam == "audio":
+            enc = ed.encode(params["encdec"], batch["src_embeds"], cfg)
+            tgt = embed_tokens(params["embed"], batch["tgt_tokens"])
+            h = ed.decode_train(params["encdec"], tgt, enc, cfg)
         else:
-            x = embed_tokens(params["embed"], batch["tokens"])
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        h, _ = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True)
+            if "embeds" in batch:  # vlm: stub frontend embeddings, in the weights' dtype
+                x = batch["embeds"].to(params["embed"]["table"].dtype)
+            else:
+                x = embed_tokens(params["embed"], batch["tokens"])
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+            h, _ = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True)
         h = apply_norm(params["ln_f"], h, cfg)
         ce = chunked_ce(params["embed"], h, batch["targets"], cfg)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
         metrics = {"moe_aux": zero, "moe_dropped": zero}
         loss = ce + cfg.router_aux_weight * metrics["moe_aux"]
         out = dict(metrics)
@@ -117,6 +137,19 @@ def build_model(cfg: ModelConfig) -> Model:
         return loss, out
 
     def prefill_fn(params, batch):
+        if fam == "audio":  # encode, the cross K/V at the source length, then the BOS at position 0
+            enc = ed.encode(params["encdec"], batch["src_embeds"], cfg)
+            cross = ed.cross_kv_from_enc(params["encdec"], enc)
+            b = enc.shape[0]
+            shape = (cfg.num_decoder_layers, b, ENCDEC_TGT_CACHE, cfg.num_kv_heads, cfg.head_dim)
+            # bf16 whatever the weights' dtype, as the reference's prefill_fn
+            self_cache = {kv: torch.zeros(shape, dtype=torch.bfloat16, device=enc.device) for kv in ("k", "v")}
+            cur = torch.zeros((b,), dtype=torch.int32, device=enc.device)
+            src_len = torch.full((b,), enc.shape[1], dtype=torch.int32, device=enc.device)
+            x = embed_tokens(params["embed"], batch["tokens"])  # (B, 1, d)
+            h, new_self = ed.decoder_step(params["encdec"], x, self_cache, cross, cfg, cur, src_len)
+            h = apply_norm(params["ln_f"], h, cfg)
+            return unembed(params["embed"], h)[:, 0], {"self": new_self, "cross": cross}
         if "embeds" in batch:  # vlm: precomputed frontend embeddings
             x = batch["embeds"]
         else:
@@ -134,6 +167,12 @@ def build_model(cfg: ModelConfig) -> Model:
         x = embed_tokens(params["embed"], batch["tokens"])  # (B, 1, d)
         if fam == "hybrid":
             h, new_cache = hy.apply_hybrid_decode(params["hybrid"], x, cache, cfg, batch["cur_len"])
+        elif fam == "audio":
+            cross = cache["cross"]
+            src_len = torch.full((x.shape[0],), cross["k"].shape[2], dtype=torch.int32, device=x.device)
+            h, new_self = ed.decoder_step(params["encdec"], x, cache["self"], cross, cfg, batch["cur_len"],
+                                          src_len)
+            new_cache = {"self": new_self, "cross": cross}
         else:
             h, new_cache = tfm.apply_stack_decode(params["blocks"], x, cache, cfg, kind, batch["cur_len"])
         h = apply_norm(params["ln_f"], h, cfg)
@@ -158,7 +197,54 @@ def build_model(cfg: ModelConfig) -> Model:
             if tail:
                 out["tail"] = _ssm_cache_defs((tail,), b)
             return out
+        if fam == "audio":
+            # the reference declares cross at s rows; a prefill builds it at
+            # the source length (ServingEngine.prefill takes only "self")
+            ld = cfg.num_decoder_layers
+            return {"self": _attn_cache_defs((ld,), b, min(ENCDEC_TGT_CACHE, s)),
+                    "cross": _attn_cache_defs((ld,), b, s)}
         return _attn_cache_defs((L,), b, s)
+
+    def input_defs(shape: ShapeConfig):
+        """The inputs of a ``train`` batch, a ``prefill`` request or a
+        ``decode`` step at ``shape``, as ParamDefs (the reference's
+        ``input_defs``)."""
+        b, s = shape.global_batch, shape.seq_len
+        tok = lambda t: ParamDef((b, t), init="zeros", dtype=torch.int32)  # noqa: E731
+        emb = lambda t: ParamDef((b, t, cfg.d_model), init="normal", dtype=torch.bfloat16)  # noqa: E731
+        if shape.kind == "train":
+            if fam == "audio":
+                return {"src_embeds": emb(s), "tgt_tokens": tok(s), "targets": tok(s)}
+            if fam == "vlm":
+                return {"embeds": emb(s), "targets": tok(s)}
+            return {"tokens": tok(s), "targets": tok(s)}
+        if shape.kind == "prefill":
+            if fam == "audio":
+                return {"src_embeds": emb(s), "tokens": tok(1)}
+            if fam == "vlm":
+                return {"embeds": emb(s)}
+            return {"tokens": tok(s)}
+        return {"tokens": tok(1), "cur_len": ParamDef((b,), init="zeros", dtype=torch.int32)}
+
+    def make_inputs(shape: ShapeConfig, seed: int = 0, *, device=None):
+        """``input_defs(shape)`` drawn from ``seed`` on ``device`` (default:
+        the card): token ids uniform over the vocabulary, ``cur_len`` at
+        ``seq_len - 2``, embeddings normal with std 0.02, as the reference
+        draws them (with its own generator, so not its values)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out = {}
+        for name, d in sorted(input_defs(shape).items()):
+            if d.dtype == torch.int32 and name == "cur_len":
+                out[name] = torch.full(d.shape, max(0, shape.seq_len - 2), dtype=torch.int32, device=dev)
+            elif d.dtype == torch.int32:
+                hi = max(2, cfg.vocab_size or 2)
+                out[name] = torch.randint(0, hi, d.shape, generator=gen, dtype=torch.int32, device=dev)
+            else:
+                x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=dev)
+                out[name] = (x * 0.02).to(d.dtype)
+        return out
 
     return Model(
         cfg=cfg,
@@ -168,4 +254,6 @@ def build_model(cfg: ModelConfig) -> Model:
         prefill_fn=prefill_fn,
         decode_fn=decode_fn,
         cache_defs=cache_defs,
+        input_defs=input_defs,
+        make_inputs=make_inputs,
     )

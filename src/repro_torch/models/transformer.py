@@ -232,10 +232,12 @@ def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: st
 
 
 def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: ModelConfig, kind: str,
-                       cur_len: torch.Tensor):
+                       cur_len: torch.Tensor, post=None):
     """One decode step through the stack; caches have a leading 'layers' dim.
     Returns (x, new caches), each in the dtype of the cache it replaces (as
-    the JAX package's carry keeps it). When the inputs are donated
+    the JAX package's carry keeps it). ``post(layer_params, i, x)``, when
+    given, runs after each block on its output (the enc-dec decoder's
+    cross-attention). When the inputs are donated
     (:func:`repro_torch.donate.donated`), each layer's new cache is written
     into its slot of ``caches`` and ``caches`` is returned: a layer that
     wrote its slot in place (an attention layer's new rows, an SSM layer's
@@ -246,7 +248,10 @@ def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: Model
     stacked = caches if donated else None
     for i in range(n):
         old = _layer(caches, i)
-        x, new_cache = apply_block_decode(_layer(stacked_params, i), x, old, cfg, kind, cur_len)
+        lp = _layer(stacked_params, i)
+        x, new_cache = apply_block_decode(lp, x, old, cfg, kind, cur_len)
+        if post is not None:
+            x = post(lp, i, x)
         if donated:
             tree.map(lambda slot, prev, new: prev is new or slot[i].copy_(new), caches, old, new_cache)
         else:

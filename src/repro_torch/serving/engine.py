@@ -6,7 +6,13 @@ Chain layout (the block families: dense, MoE and SSM):
     <arch>/embed  ->  <arch>/g0  ->  ...  ->  <arch>/g{G-1}  ->  <arch>/head
 
 The hybrid family deploys ``<arch>/embed -> <arch>/core -> <arch>/head``:
-the core holds every Mamba group and the shared attention block.
+the core holds every Mamba group and the shared attention block. The
+enc-dec (audio) family deploys the canonical two-function app
+``<arch>/embed -> <arch>/decoder``: the entry runs the encoder over the
+prompt's frame embeddings and calls the decoder, which builds the cross
+K/V and decodes the BOS; a decode step invokes ``<arch>/decoder`` itself
+(after a merge, that name routes to the fused unit, entered at its second
+member).
 
 Each stage is an independently deployed function holding its own layer-slice
 weights; every stage synchronously calls the next and returns the final
@@ -53,6 +59,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.function import FunctionSpec, no_capture
 from repro_torch.core.platform import ProvusePlatform
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, unembed
@@ -96,9 +103,12 @@ def _host_tokens(tokens) -> np.ndarray:
 
 
 def _prompt_shape(inputs: dict) -> tuple[int, int]:
-    """(batch, prompt length) of a token or an ``embeds`` prompt."""
-    x = inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
-    return x.shape[0], x.shape[1]
+    """(batch, prompt length) of a token, an ``embeds`` or an enc-dec
+    (``src_embeds``) prompt."""
+    for key in ("src_embeds", "embeds", "tokens"):
+        if key in inputs:
+            return inputs[key].shape[0], inputs[key].shape[1]
+    raise KeyError(f"a prompt holds tokens, embeds or src_embeds; got {sorted(inputs)}")
 
 
 def _slice_tree(t, lo: int, hi: int):
@@ -136,6 +146,8 @@ class ServingEngine:
         self.arena: KVArena | None = None
         if self.cfg.family == "hybrid":
             self._deploy_monolithic_chain()
+        elif self.cfg.family == "audio":
+            self._deploy_encdec_chain()
         else:
             self._deploy_blocks_chain()
         if kv_pages:
@@ -267,8 +279,49 @@ class ServingEngine:
             FunctionSpec(head_name, head_fn, {"ln_f": self.params["ln_f"], "embed": self.params["embed"]}, self.trust)
         )
 
+    def _deploy_encdec_chain(self) -> None:
+        """The enc-dec family's two-function app, ``embed -> decoder``. The
+        decoder is variadic: a prefill calls it with ``(enc, tokens,
+        cur_len, caches)`` (caches hold only the empty ``self`` cache; it
+        builds the cross K/V at the source length), a decode step invokes it
+        with ``(tokens, cur_len, caches)``. The two forms have their own
+        argument structures, so each is its own entry (and graph)."""
+        cfg = self.cfg
+        dec_name = f"{self.prefix}/decoder"
+
+        def enc_fn(ctx, params, inputs, cur_len, caches):
+            enc = ed.encode(params, inputs["src_embeds"], cfg)
+            return ctx.call(dec_name, enc, inputs["tokens"], cur_len, caches)
+
+        def dec_fn(ctx, params, *args):
+            if len(args) == 4:  # prefill: (enc, tokens, cur_len, caches)
+                enc, tokens, cur_len, caches = args
+                cross = ed.cross_kv_from_enc(params["encdec"], enc)
+                src = enc.shape[1]
+            else:  # decode: (tokens, cur_len, caches)
+                tokens, cur_len, caches = args
+                cross = caches["cross"]
+                src = cross["k"].shape[2]
+            x = embed_tokens(params["embed"], tokens)
+            src_len = torch.full((x.shape[0],), src, dtype=torch.int32, device=x.device)
+            h, new_self = ed.decoder_step(params["encdec"], x, caches["self"], cross, cfg, cur_len, src_len)
+            h = apply_norm(params["ln_f"], h, cfg)
+            return unembed(params["embed"], h)[:, 0], {"self": new_self, "cross": cross}
+
+        enc_params = {"encoder": self.params["encdec"]["encoder"]}
+        dec_params = {
+            "encdec": {"decoder": self.params["encdec"]["decoder"]},
+            "embed": self.params["embed"],
+            "ln_f": self.params["ln_f"],
+        }
+        self.platform.deploy(FunctionSpec(self.entry, enc_fn, enc_params, self.trust))
+        self.platform.deploy(FunctionSpec(dec_name, dec_fn, dec_params, self.trust))
+        self.dec_name = dec_name
+
     def chain_names(self) -> list[str]:
         """Every function name this engine deployed, in chain order."""
+        if self.cfg.family == "audio":
+            return [self.entry, self.dec_name]
         if self.cfg.family == "hybrid":
             return [self.entry, f"{self.prefix}/core", f"{self.prefix}/head"]
         return [self.entry, *self.group_names, f"{self.prefix}/head"]
@@ -301,9 +354,13 @@ class ServingEngine:
     def empty_caches(self, batch: int):
         """Zeroed max_len caches: re-keyed by chain stage for the block
         families (an SSM stage's states included), the model's own layout
-        for the hybrid."""
+        for the hybrid, and for the enc-dec the decoder's self cache alone
+        (its prefill builds the cross K/V at the source length)."""
         shape = ShapeConfig("serve", self.max_len, batch, "decode")
-        cache = init_params(self.model.cache_defs(shape), device=self.device)
+        defs = self.model.cache_defs(shape)
+        if self.cfg.family == "audio":
+            return {"self": init_params(defs["self"], device=self.device)}
+        cache = init_params(defs, device=self.device)
         if self.cfg.family == "hybrid":
             return cache
         g = len(self.group_names)
@@ -315,7 +372,8 @@ class ServingEngine:
     @property
     def paging_supported(self) -> bool:
         """Paged KV applies to length-indexed attention caches: an SSM state
-        is recurrent, and the hybrid keeps its dedicated layout."""
+        is recurrent, and the hybrid and the enc-dec keep their dedicated
+        layouts."""
         return self.cfg.family in ("dense", "moe", "vlm")
 
     def enable_paging(self, num_pages: int, page_size: int = 16) -> KVArena:
@@ -480,15 +538,24 @@ class ServingEngine:
     # ------------------------------------------------------------ serving API
 
     def prefill(self, inputs: dict, caches=None):
+        """(first logits, caches, cur_len). An enc-dec prompt is
+        ``{"src_embeds": (B, S, d), "tokens": (B, 1) BOS}``: the chain
+        decodes the BOS at position 0, so ``cur_len`` comes back as 1."""
         b, t_in = _prompt_shape(inputs)
         if caches is None:
             caches = self.empty_caches(b)
+        if self.cfg.family == "audio":
+            t = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            logits, caches = self.platform.invoke(self.entry, inputs, t, {"self": caches["self"]})
+            return logits, caches, t + 1
         cur_len = torch.full((b,), t_in, dtype=torch.int32, device=self.device)
         logits, caches = self.platform.invoke(self.entry, inputs, cur_len, caches)
         return logits, caches, cur_len
 
     def decode_step(self, tokens, cur_len, caches):
         TRACER.note_decode_step()
+        if self.cfg.family == "audio":
+            return self.platform.invoke(self.dec_name, tokens, cur_len, caches)
         return self.platform.invoke(self.entry, {"tokens": tokens}, cur_len, caches)
 
     def decode_step_async(self, tokens, cur_len, caches):
@@ -496,6 +563,8 @@ class ServingEngine:
         Concurrent clients decoding with the same shapes coalesce into one
         micro-batched execution on the (possibly fused) chain."""
         TRACER.note_decode_step()
+        if self.cfg.family == "audio":
+            return self.platform.invoke_async(self.dec_name, tokens, cur_len, caches)
         return self.platform.invoke_async(self.entry, {"tokens": tokens}, cur_len, caches)
 
     def generate(self, inputs: dict, steps: int):

@@ -367,7 +367,15 @@ class KVArena:
         page is shared (refcount > 1), copy its data to a fresh page and
         swap it into this sequence's table. Returns True when the block row
         changed (callers must rebuild it). Raises :class:`ArenaFull` when
-        no page is free for the copy."""
+        no page is free for the copy.
+
+        The copy is made (on the card: issued) while the allocator lock is
+        held, before this sequence's reference to the shared page is gone
+        for other threads: once it is, the page's other holder may free it
+        and a new sequence may be given it and write its own prefill there,
+        which a copy made after the lock (the reference's order) would read.
+        The nesting is ``_lock`` -> ``_data_lock``, and no path takes them in
+        the other order."""
         with self._lock:
             pages = self._held.get(seq_id)
             if pages is None:
@@ -379,19 +387,16 @@ class KVArena:
             if self._refs.get(old, 0) <= 1:
                 return False
             new = self._pop_free_page_locked()
+            with self._data_lock:
+                for stage in self.data.values():
+                    for arr in stage.values():
+                        arr[:, new].copy_(arr[:, old])
             self._refs[new] = 1
             self._refs[old] -= 1
             pages[idx] = new
             if self._shared_upto.get(seq_id, 0) > idx:
                 self._shared_upto[seq_id] = idx
             self.cow_copies += 1
-        # the shared region of `old` is immutable while shared, so the copy
-        # itself is safe outside the allocator lock; it serializes with the
-        # other page-data writers
-        with self._data_lock:
-            for stage in self.data.values():
-                for arr in stage.values():
-                    arr[:, new].copy_(arr[:, old])
         return True
 
     # ------------------------------------------------------------ queries

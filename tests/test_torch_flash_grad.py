@@ -1,7 +1,8 @@
 """K3's gradient as the card computes it, on the CPU (no GPU needed).
 
 ``csrc/flash_attention_bwd.cu`` runs three kernels: prep (D = rowsum(dO * o)
-and lse * log2 e, padded to whole query tiles), the sweep (one block per
+with o the forward's fp32 output, and lse * log2 e, padded to whole query
+tiles), the sweep (one block per
 (b, kv head, split of the group's query heads, 128-row kv tile), the kv tile
 the slowest grid index; each block walks its query tiles from the last
 down, computes S^T, dP^T, P^T, dS^T, dV, dK and the tile's dQ contribution,
@@ -159,10 +160,36 @@ def test_sweep_walk_with_the_kernels_bf16_roundings_stays_within_the_card_tolera
     rng = np.random.default_rng(8)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(torch.bfloat16)
                    for sh in ((b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, t, h, hd)))
-    o = mha_ref(q, k, v, causal=causal)
+    o = mha_ref(q.float(), k.float(), v.float(), causal=causal)  # the forward's fp32 output
     got, _ = sweep_gradient(q, k, v, o, do, lse_of(q, k, causal), causal, round_bf16=True)
     for name, g, w in zip(("dq", "dk", "dv"), got, mha_ref_bwd(q, k, v, do, causal=causal)):
         within(bf16(g), w, GRAD_TOL, name)
+
+
+def test_d_from_the_fp32_output_keeps_dq_and_dk_where_the_rows_of_v_share_a_component():
+    """Why prep takes D = rowsum(dO * o) from the forward's fp32 output and
+    not its bf16 rounding. Where the rows of V share a large common
+    component (the enc-dec's cross-attention over the encoder's
+    un-normalized states: 94-96 % of their energy is common to every
+    position in a random model), dS = P (dP - D) cancels, and D's rounding
+    error (2^-9 of |o|) becomes most of dS. The walk with the kernel's
+    roundings stays within the card tolerance of ``mha_ref_bwd`` with the
+    fp32 output, and leaves it by far with the bf16 one."""
+    b, t, h, kv, hd = 1, 256, 4, 2, 64
+    rng = np.random.default_rng(11)
+    q, k, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(torch.bfloat16)
+                for sh in ((b, t, h, hd), (b, t, kv, hd), (b, t, h, hd)))
+    common = rng.standard_normal((1, 1, kv, hd)) * 10.0
+    v = torch.from_numpy((common + 0.1 * rng.standard_normal((b, t, kv, hd))).astype(np.float32)).to(torch.bfloat16)
+    want = mha_ref_bwd(q, k, v, do, causal=False)
+    lse = lse_of(q, k, False)
+    errs = {}
+    for label, o in (("fp32", mha_ref(q.float(), k.float(), v.float(), causal=False)),
+                     ("bf16", mha_ref(q, k, v, causal=False))):
+        got, _ = sweep_gradient(q, k, v, o, do, lse, False, round_bf16=True)
+        errs[label] = {n: float((bf16(g) - w).abs().max() / w.abs().max()) for n, g, w in zip(("dq", "dk"), got, want)}
+    assert max(errs["fp32"].values()) <= GRAD_TOL, errs
+    assert min(errs["bf16"].values()) > 5 * GRAD_TOL, errs
 
 
 @pytest.mark.parametrize("b,s,kv,group,sms,want", [
@@ -226,9 +253,10 @@ def no_build(monkeypatch):
 
 
 def _grad_args(hd=64, t=70, h=4, kv=2):
+    """(q, k, v, the fp32 output, lse, dout) on the host."""
     q = torch.zeros(1, t, h, hd, dtype=torch.bfloat16)
     k = torch.zeros(1, t, kv, hd, dtype=torch.bfloat16)
-    return q, k, k.clone(), q.clone(), torch.zeros(1, h, t), q.clone()
+    return q, k, k.clone(), q.float(), torch.zeros(1, h, t), q.clone()
 
 
 def test_backward_refuses_an_unsupported_head_dim_before_any_build(no_build):

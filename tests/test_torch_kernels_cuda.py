@@ -649,13 +649,14 @@ def test_flash_gradient_head_split_matches_one_block_per_group(cuda, monkeypatch
     q, k, v, do = (torch.from_numpy(x).to(cuda, torch.bfloat16)
                    for x in inputs(31, (b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd), (b, t, h, hd)))
     lse = torch.empty(b, h, t, dtype=torch.float32, device=cuda)
-    out = tflash._forward(q, k, v, True, lse)
+    out32 = torch.empty(q.shape, dtype=torch.float32, device=cuda)
+    tflash._forward(q, k, v, True, lse, out32)
     splits = tflash.grad_splits(b, t, kv, h // kv, tflash._sms(q.device))
     assert splits > 1
-    split = tflash.backward(q, k, v, out, lse, do, True)
-    assert all(torch.equal(a, c) for a, c in zip(split, tflash.backward(q, k, v, out, lse, do, True)))
+    split = tflash.backward(q, k, v, out32, lse, do, True)
+    assert all(torch.equal(a, c) for a, c in zip(split, tflash.backward(q, k, v, out32, lse, do, True)))
     monkeypatch.setattr(tflash, "grad_splits", lambda *a: 1)
-    whole = tflash.backward(q, k, v, out, lse, do, True)
+    whole = tflash.backward(q, k, v, out32, lse, do, True)
     assert torch.equal(split[0], whole[0])
     want = tflash.plain_bwd(q, k, v, do, causal=True)
     for g, w in zip(split[1:], want[1:]):

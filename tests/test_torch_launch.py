@@ -102,7 +102,6 @@ def test_launcher_draws_the_reference_prompts():
 
 
 @pytest.mark.parametrize("arch,error,reason", [
-    ("seamless-m4t-medium", ValueError, "Queue 1 item 10"),
     ("phi3.5-moe-42b-a6.6b", ValueError, "one 80 GB card"),
     ("no-such-model", KeyError, "unknown arch"),
 ])
@@ -111,6 +110,36 @@ def test_an_unregistered_architecture_raises(arch, error, reason):
         serve.resolve_arch(arch)
     with pytest.raises(error, match=reason):
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+
+
+def test_the_enc_dec_architecture_is_served_and_fuses(monkeypatch, capsys):
+    """seamless-m4t-medium, once refused, resolves to the JAX package's
+    configuration, and the launcher serves the reduced one on the CPU: the
+    two-function app (encoder -> decoder) fuses to one unit by one healthy
+    merge of both members, as the reference launcher's does, with the
+    reference's keys and ``device``.
+
+    Both launchers run with ``--min-observations 1``. A generate makes one
+    prefill, the only call that crosses the app's synchronous edge (a decode
+    step invokes the decoder itself), so under the default of 2 the edge
+    fuses only when its one wait reaches the policy's promotion threshold
+    (50 ms): the reference's first call compiles and always does, the
+    port's eager first call on the CPU does in some runs only. The default
+    run serves the same tokens, fused or not."""
+    arch = "seamless-m4t-medium"
+    assert dataclasses.asdict(serve.resolve_arch(arch)) == dataclasses.asdict(jax_get_arch(arch))
+    assert list(serve.NOT_SERVED) == ["phi3.5-moe-42b-a6.6b"]
+    argv = ["--arch", arch, *SMALL, "--min-observations", "1"]
+    ref = run_json(jax_serve.main, argv, monkeypatch, capsys, argv_style="sys")
+    got = run_json(serve.main, [*argv, "--device", "cpu"], monkeypatch, capsys)
+    assert set(got) == set(ref) | {"device"} and got["device"] == "cpu"
+    assert got["instances_left"] == ref["instances_left"] == 1
+    chain = {f"{arch}/embed", f"{arch}/decoder"}
+    assert [set(m) for m in got["merges"]] == [set(m) for m in ref["merges"]] == [chain]
+    assert len(got["generated"]) == len(ref["generated"]) == 5
+    default = run_json(serve.main, ["--arch", arch, *SMALL, "--device", "cpu"], monkeypatch, capsys)
+    assert default["generated"] == got["generated"]
+    assert [set(m) for m in default["merges"]] == [chain] * (2 - default["instances_left"])
 
 
 def test_the_launcher_runs_on_the_card_unless_asked(monkeypatch):

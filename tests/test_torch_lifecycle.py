@@ -488,9 +488,10 @@ def test_trough_merge_runs_on_the_reconciler_and_records_its_deferral(backend_cl
     decision when it executes, and its epoch records how long it was held;
     ``merger.wait_idle`` forces what is still queued. The outputs match the
     JAX platform's on the same inputs. (A three-function chain can end in
-    two overlapping units in both packages: ``wait_idle`` runs queued merges
+    two overlapping units in the reference: ``wait_idle`` runs queued merges
     on the caller's thread while the reconciler runs another, so two
-    revalidated decisions can both see the other's group uncommitted.)"""
+    revalidated decisions can both see the other's group uncommitted. The
+    port's ends in one: the next test.)"""
     w = torch.from_numpy(W)
     p = backend_cls(FusionPolicy(min_observations=2, merge_cost_s=0.0), trough_merges=True, max_defer_s=0.2)
     try:
@@ -516,6 +517,52 @@ def test_trough_merge_runs_on_the_reconciler_and_records_its_deferral(backend_cl
         jp.shutdown()
     for out in outs:
         near(out, want)
+
+
+TROUGH_TRIALS = 4
+
+
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_trough_merges_of_a_three_function_chain_end_in_one_unit(backend_cls):
+    """The case beside the one above that the reference can lose: ``trough_merges``
+    on a three-function chain A -> B -> C. Both edges promote; their merges
+    queue on the reconciler, and ``merger.wait_idle`` runs what is still
+    queued on this thread while the reconciler may run another. The port's
+    Merger publishes by compare-and-swap over the live closure of the units
+    its functions are routed to (``core/merger.py``, a deviation by design:
+    ROADMAP), so every trial ends in ONE unit holding all three, routed from
+    each name, with no transition left queued and the JAX platform's
+    outputs before and after."""
+    w = torch.from_numpy(W)
+    x = torch.from_numpy(X)
+    jp = TinyJaxBackend(RefPolicy(enabled=False))
+    try:
+        jw = jnp.asarray(W)
+        jp.deploy(RefSpec("A", lambda ctx, q, v: ctx.call("B", jnp.tanh(v @ q)), jw))
+        jp.deploy(RefSpec("B", lambda ctx, q, v: ctx.call("C", jnp.tanh(v @ q)), jw))
+        jp.deploy(RefSpec("C", lambda ctx, q, v: jnp.tanh(v @ q), jw))
+        want = np.asarray(jp.invoke("A", jnp.asarray(X)))
+    finally:
+        jp.shutdown()
+    for _ in range(TROUGH_TRIALS):
+        p = backend_cls(FusionPolicy(min_observations=2, merge_cost_s=0.0), trough_merges=True, max_defer_s=0.2)
+        try:
+            p.deploy(FunctionSpec("A", lambda ctx, q, v: ctx.call("B", torch.tanh(v @ q)), w))
+            p.deploy(FunctionSpec("B", lambda ctx, q, v: ctx.call("C", torch.tanh(v @ q)), w))
+            p.deploy(FunctionSpec("C", lambda ctx, q, v: torch.tanh(v @ q), w))
+            outs = [p.invoke("A", x) for _ in range(4)]
+            p.merger.wait_idle()
+            assert p.lifecycle.wait_idle(5.0) and p.lifecycle.queued_transitions() == 0
+            live = p.registry.live_instances()
+            assert len(live) == 1, f"overlapping units: {live}"
+            assert {n: set(p.registry.resolve(n).members) for n in "ABC"} == dict.fromkeys("ABC", {"A", "B", "C"})
+            assert all(p.registry.resolve(n) is live[0] for n in "ABC")
+            assert any(e.kind == "merge" for e in p.lifecycle.events)
+            outs.append(p.invoke("A", x))
+        finally:
+            p.shutdown()
+        for out in outs:
+            near(out, want)
 
 
 # ----------------------------------- split -> re-merge on a reduced llama

@@ -483,9 +483,10 @@ def test_moe_decode_step_never_drops_at_batch_8():
 
 
 def test_build_model_families():
-    """The port builds the block families (dense, moe, vlm, ssm) and the
-    hybrid; the vlm prefill takes frontend embeddings in place of tokens;
-    the enc-dec family (audio) is not ported and raises."""
+    """The port builds the block families (dense, moe, vlm, ssm), the
+    hybrid and the enc-dec (audio, its encoder and decoder stacks under
+    ``encdec``); the vlm prefill takes frontend embeddings in place of
+    tokens; a family the port does not know raises."""
     llama = reduced_config(get_arch("llama3.2-1b"))
     vlm = build_model(dataclasses.replace(llama, family="vlm"))
     params = vlm.init(0, device=CPU)
@@ -498,9 +499,10 @@ def test_build_model_families():
     assert "ssm" in build_model(reduced_config(get_arch("mamba2-370m"))).param_defs["blocks"]
     hybrid = build_model(reduced_config(get_arch("zamba2-7b"))).param_defs["hybrid"]
     assert set(hybrid) == {"groups", "shared", "tail"} and "attn" in hybrid["shared"]
-    for family in ("audio",):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(llama, family=family))
+    encdec = build_model(reduced_config(get_arch("seamless-m4t-medium"))).param_defs["encdec"]
+    assert set(encdec) == {"encoder", "decoder"} and {"cross", "ln_cross"} <= set(encdec["decoder"])
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(llama, family="no-such-family"))
 
 
 # ------------------------------------------------- the repairs

@@ -130,8 +130,9 @@ def main() -> None:
         q, dout = (torch.randn(b, t, h, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         k, v = (torch.randn(b, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         lse = torch.empty(b, h, t, dtype=torch.float32, device=dev)
+        out = torch.empty(q.shape, dtype=torch.float32, device=dev)  # the forward's fp32 output, prep's input
         build._lib = main_lib
-        out = fa._forward(q, k, v, causal, lse)
+        fa._forward(q, k, v, causal, lse, out)
         want = fa.backward(q, k, v, out, lse, dout, causal)
         res = {}
         for name in list(VARIANTS) + list(VARIANTS)[::-1]:
