@@ -54,10 +54,22 @@ Phases (any failed check exits non-zero and prints no result):
    bits on two launches and through autograd, one launch of each kernel a
    call, the forward with lse equal in bits to the forward without it;
    timed (the three kernels together and each alone, TFLOP/s, the share of
-   the bound) beside the plain backward and SDPA's backward. A ``grad_refusal``
-   line: each of the five wrappers without a backward, given a CUDA input
-   that requires grad under grad mode, raises before its launch; K3 under
-   grad launches its forward and each backward kernel once.
+   the bound) beside the plain backward and SDPA's backward. K5's gradient
+   (``csrc/moe_gmm_bwd.cu``: dxe and dw) at qwen3-moe-30b-a3b's train shape
+   (E = 128, C = 640 from ``capacity`` at 2 x 4096 tokens, ``rows`` from a
+   top-8 routing; gate/up, the down-projection, a ragged ``rows`` with
+   experts at 0, at full C and between) and K6's gradient
+   (``csrc/ssd_scan_bwd.cu``: the walks, then the chunks; SSD_GRAD_CASES)
+   checked at T <= 512 (mamba2's and zamba2's heads, T = 300, two groups,
+   a final-state cotangent) and timed at the train shapes (B = 2, T =
+   4096), where the plain backward does not fit: each output within 2e-2 of
+   its max |g| against ``gmm_ref_bwd`` / ``ssd_ref_bwd``, equal bits on two
+   calls and through autograd, one launch of each kernel a call; timed
+   beside the plain backward and, for K5, two ``torch.bmm``. A
+   ``grad_refusal`` line: each of the three wrappers without a backward (K4,
+   K1, K2), given a CUDA input that requires grad under grad mode, raises
+   before its launch; K3, K5 and K6 under grad launch their forward and each
+   backward kernel once, no plain version.
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -214,9 +226,9 @@ Phases (any failed check exits non-zero and prints no result):
    ``--device``: it runs on ``cuda``. ``train_seconds`` gives each part's
    seconds and the build's.
 7. MoE serve phase: the llama tensors freed, full-width
-   ``qwen3-moe-30b-a3b`` at full depth (48 layers, 128 experts, top 8,
-   random bf16 weights from seed 0, about 61 GB) as the eight-function
-   chain, unfused and fused, with the serve phase's prompts and checks
+   ``qwen3-moe-30b-a3b`` at 24 of its 48 layers (MOE_SERVE_LAYERS; 128
+   experts, top 8, random bf16 weights from seed 0, about 31 GB) as the
+   eight-function chain, unfused and fused, with the serve phase's prompts and checks
    (8 live instances unfused, 1 fused, less ``ram_bytes``, identical tokens
    fused, unfused and without the platform), and K5 launched exactly three
    times per MoE layer applied, the merges' canary replays counted.
@@ -298,6 +310,30 @@ Phases (any failed check exits non-zero and prints no result):
    the KV arena's three-thread sharing fuzz (``kvpool_stress``) on CUDA
    pools for about 10 s, its data and bookkeeping checked as on the host.
 
+16. Family training phases (``family_training_phases``), the earlier tensors
+   freed: ``moe_train`` (qwen3-moe-30b-a3b at full width, 2 of its 48
+   layers: at 3 and 4 the port's functional AdamW update ran out of the
+   card), ``ssm_train`` (mamba2-370m, full width and depth) and
+   ``hybrid_train`` (zamba2-7b at full width, 14 of its 81 layers: two groups
+   of 6, the shared block applied twice, and a tail of 2), each 8 AdamW steps (lr 1e-3, 1e-3, 3e-4) at T =
+   4096, a batch of 4 as 2 microbatches, remat: losses, moe_aux and
+   grad_norm finite, the last 3 losses' mean below the first 3's, every
+   kernel's launches exact
+   (``family_expected_launches``: the forward kernels twice a layer under
+   remat, K5 3 and its two gradient kernels 3 per MoE layer, K6 and its two
+   gradient kernels 1 per Mamba layer, K3 and its gradient per attention),
+   no plain version; step ms, tokens/s, peak memory, moe_dropped, and a
+   profiled step's busy share. Each family's ``<key>_train_card_vs_host``:
+   a small model's step (``train_card_vs_host``) and the full-width first
+   and last block (the hybrid's shared block too; its last is a tail block) at T = 512
+   (``family_block_check``); an MoE model's host pass takes the card's
+   routing (``RoutingReplay``: routing is discontinuous, and the two sides'
+   bf16 roundings move near-tie tokens; the tokens the host would have
+   routed otherwise are counted). ``moe_train_restart`` and
+   ``ssm_train_restart``: the bit-exact restart on a small MoE and SSM
+   model. ``launch_train_ssm``: the launcher on full-width mamba2-370m with
+   no ``--device``. ``family_train_seconds``: each part's seconds.
+
 Standard output opens with the device line and the ``ptxas`` line; its
 last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
 ``reference``, ``profile``, ``batched``, ``trace_batched``, ``dispatch``,
@@ -310,7 +346,10 @@ last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
 ``<key>_serve``, ``<key>_block`` and ``<key>_memory`` for ``stablelm``, ``starcoder2``,
 ``granite`` and ``chameleon`` (``granite_paged_serve`` and ``chameleon_paged_serve``
 after their serve lines), ``launch_serve``, ``encdec_serve``, ``encdec_card_vs_host``,
-``encdec_train``, ``kvpool_stress`` and ``kernels`` JSON lines and ``{"ok": true, "device": {...}}``.
+``encdec_train``, ``kvpool_stress``, ``moe_train``, ``moe_train_card_vs_host``, ``moe_train_restart``,
+``ssm_train``, ``ssm_train_card_vs_host``, ``ssm_train_restart``, ``hybrid_train``,
+``hybrid_train_card_vs_host``, ``launch_train_ssm``, ``family_train_seconds`` and ``kernels`` JSON
+lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -348,7 +387,7 @@ COLD_BYTES = 4 * 50 * 2**20
 
 # the plain versions' call counters (repro_torch.kernels.ref.CALLS)
 PLAIN = ("mha_ref", "mha_ref_bwd", "decode_attn_ref", "paged_decode_attn_ref", "paged_chunk_attn_ref", "gmm_ref",
-         "ssd_ref")
+         "gmm_ref_bwd", "ssd_ref", "ssd_ref_bwd")
 # each kernel of a serve phase and the plain version that stands in for it on
 # the CPU (the CPU's SSM prefill runs the chunked scan, not the plain K6)
 STAND_INS = {"flash_attention": "mha_ref", "decode_attention": "decode_attn_ref", "moe_gmm": "gmm_ref"}
@@ -358,7 +397,8 @@ STAND_INS = {"flash_attention": "mha_ref", "decode_attention": "decode_attn_ref"
 PORT_KERNELS = ("flash_attention_kernel", "flash_bwd_prep_kernel", "flash_bwd_kernel", "flash_bwd_post_kernel",
                 "decode_attention_kernel",
                 "paged_decode_kernel",
-                "paged_chunk_kernel", "moe_gmm_kernel", "ssd_scan_kernel")
+                "paged_chunk_kernel", "moe_gmm_kernel", "ssd_scan_kernel", "moe_gmm_bwd_dx_kernel",
+                "moe_gmm_bwd_dw_kernel", "ssd_bwd_walk_kernel", "ssd_bwd_chunk_kernel")
 
 
 class SmokeFailure(Exception):
@@ -561,11 +601,12 @@ def kernel_phase(torch, F) -> dict:
 
 
 def grad_refusal_check(torch) -> dict:
-    """Each of the five kernel wrappers without a backward, given a CUDA
-    input that requires grad under grad mode, raises before its launch (an
-    output filled by its kernel would carry no gradient). K3
-    (``flash_attention``) under grad returns gradients from its backward
-    kernels: one launch of each, no plain version."""
+    """Each of the three kernel wrappers without a backward (K4, K1, K2),
+    given a CUDA input that requires grad under grad mode, raises before its
+    launch (an output filled by its kernel would carry no gradient). K3
+    (``flash_attention``), K5 (``moe_gmm``) and K6 (``ssd_scan``) under grad
+    return gradients from their backward kernels: one launch of the forward
+    and of each backward kernel, no plain version."""
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -585,10 +626,6 @@ def grad_refusal_check(torch) -> dict:
                                                          torch.zeros(1, 16, 2, 64, **bf), one),
         "paged_decode_attention": lambda: pa.paged_decode_attention(x(1, 4, 64), pages, pages, table, one),
         "paged_chunk_attention": lambda: pa.paged_chunk_attention(x(1, 4, 4, 64), pages, pages, table, one),
-        "moe_gmm": lambda: gm.moe_gmm(x(2, 8, 64), torch.zeros(2, 64, 32, **bf)),
-        "ssd_scan": lambda: sd.ssd_scan(x(1, 8, 2, 64), torch.zeros(1, 8, 1, 64, **bf),
-                                        torch.zeros(1, 8, 1, 64, **bf), torch.ones(1, 8, 2, device=dev),
-                                        torch.zeros(2, device=dev), torch.ones(2, device=dev)),
     }
     out = {}
     with torch.enable_grad():
@@ -613,6 +650,29 @@ def grad_refusal_check(torch) -> dict:
         check(all(bool(torch.isfinite(g.float()).all()) and bool(g.any()) for g in grads),
               "flash_attention under grad: non-finite or all-zero gradients")
         out["flash_attention"] = "gradient from the kernel"
+        r = lambda *shape: torch.randn(*shape, device=dev).to(torch.bfloat16).requires_grad_()  # noqa: E731
+        f32 = lambda *shape: torch.randn(*shape, device=dev).requires_grad_()  # noqa: E731
+        rows = torch.tensor([0, 8, 3], dtype=torch.int32, device=dev)
+        backed = {
+            "moe_gmm": (("moe_gmm", *MOE_GRAD_KERNELS), lambda: (lambda a: (gm.moe_gmm(*a, rows), a))(
+                [r(3, 8, 64), r(3, 64, 32)])),
+            "ssd_scan": (("ssd_scan", *SSD_GRAD_KERNELS), lambda: (lambda a: (sd.ssd_scan(*a), a))(
+                [r(1, 70, 2, 64), r(1, 70, 1, 64), r(1, 70, 1, 64),
+                 torch.nn.functional.softplus(torch.randn(1, 70, 2, device=dev)).requires_grad_(),
+                 f32(2), f32(2)])),
+        }
+        for name, (names, call) in backed.items():
+            before = {n: build.launches(n) for n in names}
+            plain = sum(ref.CALLS[k] for k in PLAIN)
+            y, ins = call()
+            grads = torch.autograd.grad(y.float().square().sum(), ins)
+            torch.cuda.synchronize()
+            check({n: build.launches(n) - before[n] for n in names} == dict.fromkeys(names, 1),
+                  f"{name} under grad: not one launch of the forward and of each backward kernel")
+            check(sum(ref.CALLS[k] for k in PLAIN) == plain, f"{name} under grad ran a plain version")
+            check(all(bool(torch.isfinite(g.float()).all()) and bool(g.any()) for g in grads),
+                  f"{name} under grad: non-finite or all-zero gradients")
+            out[name] = "gradient from the kernel"
     return out
 
 
@@ -721,6 +781,177 @@ def flash_grad_cases(torch, F) -> list:
         t0 = time.perf_counter()
         out.append({**flash_grad_case(torch, F, *case, gen), "seconds": time.perf_counter() - t0})
     return out
+
+
+# K5's gradient (csrc/moe_gmm_bwd.cu: dxe and dw, two kernels) at
+# qwen3-moe-30b-a3b's train shape: E = 128, C = capacity(2 x 4096 tokens),
+# rows from a top-8 routing of that many tokens through the layer's own
+# route() (gate/up, w (E, d, f)), the down-projection (w (E, f, d)), and a
+# ragged rows vector with experts at 0, at full C and in between
+MOE_GRAD_TOKENS = 2 * 4096
+MOE_GRAD_KERNELS = ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw")
+# K6's gradient (csrc/ssd_scan_bwd.cu: the walks, then the chunks): (label,
+# B, T, H, G, N, state cotangent, checked against the plain backward). The
+# plain backward holds (B, T, T, H) fp32 tensors: at T = 4096 tens of GB, so
+# the train shapes are timed only, and checked at T = 512 and below
+SSD_GRAD_CASES = (
+    ("mamba2-370m T=512", 1, 512, 32, 1, 128, False, True),
+    ("zamba2-7b T=512, dS", 1, 512, 112, 1, 64, True, True),
+    ("T=300, dS", 1, 300, 32, 1, 128, True, True),
+    ("G=2", 2, 130, 8, 2, 64, True, True),
+    ("mamba2-370m train B=2 T=4096", 2, 4096, 32, 1, 128, False, False),
+    ("zamba2-7b train B=2 T=4096", 2, 4096, 112, 1, 64, False, False),
+)
+SSD_GRAD_KERNELS = ("ssd_scan_bwd_walk", "ssd_scan_bwd_chunk")
+
+
+def dev_err(a, b) -> tuple[float, float]:
+    """(max |a - b|, that over max |b|), in float32 on the card: the
+    gradient cases' outputs are too large to copy to the host."""
+    diff = float((a.float() - b.float()).abs().max())
+    return diff, diff / float(b.float().abs().max())
+
+
+def moe_grad_cases(torch) -> list:
+    """K5's gradient against ``gmm_ref_bwd`` (each output within GRAD_TOL of
+    its max |g|), equal bits on two calls and through autograd, one launch
+    of each kernel a call, dxe zero past rows[e] and dw zero for an expert
+    with no row; timed beside the plain backward and the library yardstick,
+    two ``torch.bmm`` on the full buffers. The bound counts the kept rows:
+    2 x 2 rows d f flop, and the kept rows of xe and dy, the active experts'
+    w, dxe and dw (every row written) in bytes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_gmm as gm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rows_routed, c, _ = moe_routing(torch, gen, MOE_GRAD_TOKENS)
+    e = MOE_EXPERTS
+    ragged = torch.randint(1, c, (e,), generator=gen, device=dev, dtype=torch.int32)
+    ragged[:8], ragged[8:16] = 0, c
+    cases = []
+    for label, rows, d, f in (("train gate/up", rows_routed, 2048, 768), ("train down", rows_routed, 768, 2048),
+                              ("ragged 0 / C / between", ragged, 2048, 768)):
+        t0 = time.perf_counter()
+        keep = (torch.arange(c, device=dev)[None] < rows[:, None])[..., None]
+        xe = torch.randn(e, c, d, generator=gen, device=dev).to(torch.bfloat16).masked_fill(~keep, 0)
+        w = (torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
+        dy = torch.randn(e, c, f, generator=gen, device=dev).to(torch.bfloat16).masked_fill(~keep, 0)
+        before = {n: build.launches(n) for n in MOE_GRAD_KERNELS}
+        got = gm.backward(xe, w, rows, dy)
+        torch.cuda.synchronize()
+        check({n: build.launches(n) - before[n] for n in MOE_GRAD_KERNELS} == dict.fromkeys(MOE_GRAD_KERNELS, 1),
+              f"K5 gradient {label}: not one launch of each kernel")
+        want = gm.plain_bwd(xe, w, rows, dy)
+        both = {n: dev_err(a, b) for n, a, b in zip(("dxe", "dw"), got, want)}
+        errs = {n: v[1] for n, v in both.items()}
+        abs_err = max(v[0] for v in both.values())
+        check(all(bool(torch.isfinite(a.float()).all()) for a in got), f"K5 gradient {label}: non-finite output")
+        check(max(errs.values()) <= GRAD_TOL, f"K5 gradient {label}: beyond {GRAD_TOL} of max |g|: {errs}")
+        check(bool((got[0].masked_select(~keep) == 0).all()), f"K5 gradient {label}: dxe past rows[e] is not 0")
+        empty = rows == 0
+        check(not bool(got[1][empty].any()), f"K5 gradient {label}: dw of an expert with no row is not 0")
+        check(all(torch.equal(a, b) for a, b in zip(got, gm.backward(xe, w, rows, dy))),
+              f"K5 gradient {label}: two calls differ in bits")
+        x = [xe.clone().requires_grad_(), w.clone().requires_grad_()]
+        auto = torch.autograd.grad(gm.moe_gmm(x[0], x[1], rows), x, dy)
+        check(all(torch.equal(a, b) for a, b in zip(got, auto)), f"K5 gradient {label}: autograd's differ in bits")
+        del want, auto, x
+        kept, active = int(rows.sum()), int((rows > 0).sum())
+        flops = 2 * 2 * kept * d * f
+        nbytes = 2 * (kept * d + kept * f + active * d * f + e * c * d + e * d * f)
+        b_ms, b_by = bound(flops, nbytes)
+        ms = time_ms(torch, lambda: gm.backward(xe, w, rows, dy))
+        cases.append({
+            "shape": f"{label}: E={e} C={c} d={d} f={f} active={active} rows={kept} bf16",
+            "max_abs_err": abs_err, "rel_err": errs, "ms": ms,
+            "plain_ms": time_ms(torch, lambda: gm.plain_bwd(xe, w, rows, dy), PLAIN_GRAD_SAMPLES, REPS),
+            "library_ms": time_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2)), torch.bmm(xe.transpose(1, 2), dy))),
+            "library": "two torch.bmm on the full buffers (dy w^T, xe^T dy)",
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "tflops": flops / (ms * 1e-3) / 1e12,
+            "seconds": time.perf_counter() - t0,
+        })
+        del xe, w, dy, got
+    return cases
+
+
+def ssd_grad_bound(b, t, h, g, p, n, with_state: bool = False) -> tuple[float, str]:
+    """K6's gradient's least time: x, dy, B, C, dt, A_log, D (and the final
+    state's cotangent when given) read once and dx, dB, dC, ddt, dA_log, dD
+    written once (the workspace of the recomputed states is the kernel's
+    own): in bf16 x, dy, dx (B, T, H, P) and B, C, dB, dC (B, T, G, N); in
+    fp32 dt, ddt (B, T, H), the four (H,) vectors and dstate (B, H, P, N).
+    Per (b, h) and chunk of SSD_CHUNK rows the products of the backward:
+    2Q^2 N (C B^T) + 4Q^2 P (dy x^T, the transposed weights times dy) + 4Q^2
+    N (dC, dB) + 6QNP (the states' terms) + 4QNP (the two walks)."""
+    chunks = [min(SSD_CHUNK, t - c) for c in range(0, t, SSD_CHUNK)]
+    flops = b * h * sum(2 * q * q * n + 4 * q * q * p + 4 * q * q * n + 10 * q * n * p for q in chunks)
+    nbytes = 2 * (3 * b * t * h * p + 4 * b * t * g * n) + 4 * (2 * b * t * h + 4 * h)
+    if with_state:
+        nbytes += 4 * b * h * p * n
+    return bound(flops, nbytes)
+
+
+def ssd_grad_cases(torch) -> list:
+    """K6's gradient at SSD_GRAD_CASES on unit-scale inputs (ssd_kernel_cases'
+    recipe, dy of std 1): each output (dx, dB, dC summed over a group's
+    heads, ddt, dA_log, dD) within GRAD_TOL of its max |g| of ``ssd_ref_bwd``
+    where checked, equal bits on two calls and through autograd, one launch
+    of each kernel a call; timed beside the plain backward where checked (no
+    single PyTorch call computes it: library "none")."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as sd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    cases = []
+    for label, b, t, h, g, n, with_state, checked in SSD_GRAD_CASES:
+        t0 = time.perf_counter()
+        p = 64
+        x = torch.randn(b, t, h, p, generator=gen, device=dev).to(torch.bfloat16)
+        bm, cm = ((torch.randn(b, t, g, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16) for _ in range(2))
+        dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=gen, device=dev))
+        a_log = torch.randn(h, generator=gen, device=dev) * 0.3
+        d_skip = torch.ones(h, device=dev)
+        dy = torch.randn(b, t, h, p, generator=gen, device=dev).to(torch.bfloat16)
+        ds = torch.randn(b, h, p, n, generator=gen, device=dev) if with_state else None
+        ins = (x, bm, cm, dt, a_log, d_skip)
+        before = {k: build.launches(k) for k in SSD_GRAD_KERNELS}
+        got = sd.backward(*ins, dy, ds)
+        torch.cuda.synchronize()
+        check({k: build.launches(k) - before[k] for k in SSD_GRAD_KERNELS} == dict.fromkeys(SSD_GRAD_KERNELS, 1),
+              f"K6 gradient {label}: not one launch of each kernel")
+        check(all(bool(torch.isfinite(a.float()).all()) for a in got), f"K6 gradient {label}: non-finite output")
+        check(all(torch.equal(a, c) for a, c in zip(got, sd.backward(*ins, dy, ds))),
+              f"K6 gradient {label}: two calls differ in bits")
+        live = [v.clone().requires_grad_() for v in ins]
+        y, state = sd.ssd_scan(*live, return_state=True)
+        outs, cot = ((y, state), (dy, ds)) if with_state else ((y,), (dy,))
+        auto = torch.autograd.grad(outs, live, cot)
+        check(all(torch.equal(a, c) for a, c in zip(got, auto)), f"K6 gradient {label}: autograd's differ in bits")
+        del live, y, state, auto
+        errs, abs_err, plain_ms = None, None, None
+        if checked:
+            want = sd.plain_bwd(*ins, dy, ds)
+            names = ("dx", "dbm", "dcm", "ddt", "da_log", "dd_skip")
+            both = {k: dev_err(a, w) for k, a, w in zip(names, got, want)}
+            errs = {k: v[1] for k, v in both.items()}
+            abs_err = max(v[0] for v in both.values())
+            check(max(errs.values()) <= GRAD_TOL, f"K6 gradient {label}: beyond {GRAD_TOL} of max |g|: {errs}")
+            del want
+            torch.cuda.empty_cache()
+            plain_ms = time_ms(torch, lambda: sd.plain_bwd(*ins, dy, ds), PLAIN_GRAD_SAMPLES, PLAIN_GRAD_REPS)
+            torch.cuda.empty_cache()
+        b_ms, b_by = ssd_grad_bound(b, t, h, g, p, n, with_state)
+        ms = time_ms(torch, lambda: sd.backward(*ins, dy, ds))
+        cases.append({
+            "shape": f"{label}: B={b} T={t} H={h} G={g} P={p} N={n} x/dy/B/C bf16, dt fp32"
+                     f"{', dstate fp32' if with_state else ''}",
+            "checked": checked, "max_abs_err": abs_err, "rel_err": errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "library": "none", "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "workspace_bytes": 2 * 4 * b * h * -(-t // SSD_CHUNK) * p * n, "seconds": time.perf_counter() - t0,
+        })
+    return cases
 
 
 def ptxas_report(report: str) -> dict:
@@ -2248,8 +2479,8 @@ def reference_phase(torch, dev, cfg, prompt_len: int = 37) -> dict:
         pos = torch.arange(prompt_len, device=dev)[None]
         blocks = []
         for i in range(cfg.num_layers):
-            y, _ = tfm.apply_block_full(tree.map(lambda a: a[i], params["blocks"]), x, cfg, kind, pos)
-            y_host, _ = tfm.apply_block_full(tree.map(lambda a: a[i], host_params["blocks"]),
+            y, _, _ = tfm.apply_block_full(tree.map(lambda a: a[i], params["blocks"]), x, cfg, kind, pos)
+            y_host, _, _ = tfm.apply_block_full(tree.map(lambda a: a[i], host_params["blocks"]),
                                              x.cpu(), cfg, kind, pos.cpu())
             blocks.append(rel_err(y - x, y_host - x.cpu()))  # the block's own contribution
             x = y
@@ -2545,12 +2776,12 @@ def ssm_block_phase(torch, dev, cfg, params, small_cfg, prompt_len: int = 37) ->
     with torch.no_grad():
         x = embed_tokens(params["embed"], toks)
         for name, kind, lp in model_blocks(cfg, params):
-            y, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
+            y, _, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
             label = "ssm_block_0" if kind == "ssm" else "shared_block"
             if label not in host:
-                y_host, _ = tfm.apply_block_full(tree.map(lambda a: a.cpu(), lp), x.cpu(), cfg, kind, pos.cpu())
+                y_host, _, _ = tfm.apply_block_full(tree.map(lambda a: a.cpu(), lp), x.cpu(), cfg, kind, pos.cpu())
                 host[label] = rel_err(y - x, y_host - x.cpu())
-            _, cache = tfm.apply_block_full(lp, x[:, :t], cfg, kind, pos[:, :t], collect_cache=True)
+            _, cache, _ = tfm.apply_block_full(lp, x[:, :t], cfg, kind, pos[:, :t], collect_cache=True)
             if kind != "ssm":  # (k, v) of (B, T, KV, hd): one more slot for the step's write
                 cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1)) for n, c in zip("kv", cache)}
             step, _ = tfm.apply_block_decode(lp, x[:, t:], cache, cfg, kind, cur)
@@ -4207,6 +4438,11 @@ def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, part
         "paged_chunk_attention": (paged, "src/repro/kernels/paged_attention.py:178", 2),
         "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:39", MOE_MAIN_CASE),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:63", 0),
+        # K5's and K6's gradients: the Pallas kernels have no VJP; two kernels
+        # each, timed together (K6's checked case is its main case: its plain
+        # backward does not fit the train shape, timed apart in its cases)
+        "moe_gmm_bwd": ("src/repro_torch/kernels/csrc/moe_gmm_bwd.cu", "src/repro/kernels/moe_gmm.py:39", 0),
+        "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu", "src/repro/kernels/ssd_scan.py:63", 0),
     }
     entries = []
     for name, cases in kern.items():
@@ -4215,7 +4451,7 @@ def kernels_line(kern: dict, launches: dict, by_path: dict, captured: dict, part
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "launch_parts": parts[name], "launches_by_path": by_path.get(name, {}),
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases if c["max_abs_err"] is not None),
             "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library": main.get("library", "scaled_dot_product_attention"),
@@ -4251,14 +4487,22 @@ def fresh_model(torch, dev, arch: str, layers: int | None = None):
     return cfg, params, memory
 
 
+# qwen3-moe-30b-a3b's serve phases run 24 of its 48 layers at full width
+# (the chain keeps its 8 functions, 4 layers each): at 48 they took 145 s of
+# the run (serve 44.5, paged 53.4, block and profile 47.0 s), and the family
+# training phases added 148 s, which would take a run on the slowest host
+# seen (1,021 s before them) to ~1,170 s of the 1,200 s limit.
+MOE_SERVE_LAYERS = 24
+
+
 def moe_phases(torch, dev) -> dict:
-    """Full-width qwen3-moe-30b-a3b at full depth (48 layers, random bf16
-    weights from seed 0, made once after the llama phases' tensors are
-    freed): the dense serve phase, the paged serve phase (the first 8
-    requests), the MoE block check and a profiled decode step."""
+    """Full-width qwen3-moe-30b-a3b at MOE_SERVE_LAYERS of its layers
+    (random bf16 weights from seed 0, made once after the llama phases'
+    tensors are freed): the dense serve phase, the paged serve phase (the
+    first 8 requests), the MoE block check and a profiled decode step."""
     import dataclasses
 
-    cfg, params, memory = fresh_model(torch, dev, "qwen3-moe-30b-a3b")
+    cfg, params, memory = fresh_model(torch, dev, "qwen3-moe-30b-a3b", MOE_SERVE_LAYERS)
     t0 = time.perf_counter()
     serve = serve_phase(torch, dev, cfg, params=params)
     serve["params_init_s"] = memory["params_init_s"]
@@ -4354,9 +4598,9 @@ def decoder_block_phase(torch, dev, cfg, params, prompt_len: int = 37) -> dict:
             x = embed_tokens(params["embed"], toks)
         for i in range(cfg.num_layers):
             lp = tree.map(lambda a: a[i], params["blocks"])
-            y, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
+            y, _, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
             if i in checked:
-                y_host, _ = tfm.apply_block_full(tree.map(lambda a: a.cpu(), lp), x.cpu(), cfg, kind, pos.cpu())
+                y_host, _, _ = tfm.apply_block_full(tree.map(lambda a: a.cpu(), lp), x.cpu(), cfg, kind, pos.cpu())
                 errs[f"block_{i}"] = rel_err(y - x, y_host - x.cpu())  # the block's own contribution
             x = y
     check(bool(torch.isfinite(x).all()), "non-finite hidden state after the last block")
@@ -4617,7 +4861,7 @@ def train_block_check(torch, dev, cfg, params, t: int = TRAIN_BLOCK_T) -> dict:
         leaves, struct = tree.flatten(lp)
         live = [a.detach().requires_grad_() for a in leaves]
         xi = x.detach().requires_grad_()
-        y, _ = tfm.apply_block_full(tree.unflatten(struct, live), xi, cfg, kind, p)
+        y, _, _ = tfm.apply_block_full(tree.unflatten(struct, live), xi, cfg, kind, p)
         return torch.autograd.grad(y, [xi, *live], dy)
 
     with torch.no_grad():
@@ -4634,11 +4878,22 @@ def train_block_check(torch, dev, cfg, params, t: int = TRAIN_BLOCK_T) -> dict:
                 host = block_grads(tree.map(lambda a: a.cpu(), weights), x.cpu(), dy.cpu(), pos.cpu())
                 out[f"block_{i}"] = {n: rel_err(a, b) for n, a, b in zip(names, here, host)}
         with torch.no_grad():
-            x, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
+            x, _, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
     worst = max(max(e.values()) for e in errs.values())
     check(worst <= TRAIN_GRAD_TOL, f"train block gradients differ from the host's beyond {TRAIN_GRAD_TOL}: {errs}")
     return {"batch": 1, "seq": t, "attention_fan_in_d": True, "rel_err": errs, "worst": worst,
             "jax_init_rel_err": jax_rule}
+
+
+# The small hybrid of the training card-vs-host step: 2 layers, the shared
+# block after each (applied twice, as in hybrid_train). small_config's 5
+# layers (2 groups of 2 and a tail) are too noisy in bf16 to be read at
+# TRAIN_GRAD_TOL: on the host alone their bf16 gradients differ from the
+# same step's fp32 gradients by up to 8-11 % of max on in_B, in_C and the
+# tail's conv_C (the card's from the host's by 5.3 %); at 2 layers by 2.5 %.
+# The tail is compared at full width instead: hybrid_train's 14 layers end in
+# a tail of 2, and family_block_check holds its last block card vs host.
+TRAIN_SMALL_HYBRID = {"num_layers": 2, "shared_attn_every": 1}
 
 
 def train_card_vs_host(torch, dev, cfg, seq: int = 256, batch: int = 2) -> dict:
@@ -4646,9 +4901,13 @@ def train_card_vs_host(torch, dev, cfg, seq: int = 256, batch: int = 2) -> dict:
     CPU from the same bf16 params and batch: the step's loss and grad_norm
     within TRAIN_TOL relative, every gradient leaf within TRAIN_GRAD_TOL of
     its max |g|. Its attention is drawn at fan-in d
-    (:func:`attention_fan_in_d`), as :func:`train_block_check`'s, and an
+    (:func:`attention_fan_in_d`), as :func:`train_block_check`'s, an
     enc-dec's cross-attention reads unit-scale states
-    (:func:`encdec_unit_cross_keys`)."""
+    (:func:`encdec_unit_cross_keys`), an MoE model's host step routes
+    every token to the experts the card's chose (:class:`RoutingReplay`),
+    and a hybrid runs TRAIN_SMALL_HYBRID's depth."""
+    import dataclasses
+
     from repro_torch import tree
     from repro_torch.checkpointing.manager import _flatten_with_paths
     from repro_torch.configs.base import ShapeConfig
@@ -4658,6 +4917,8 @@ def train_card_vs_host(torch, dev, cfg, seq: int = 256, batch: int = 2) -> dict:
     from repro_torch.training.train_step import init_train_state, make_train_step
 
     small = small_config(cfg)
+    if small.family == "hybrid":  # see TRAIN_SMALL_HYBRID
+        small = dataclasses.replace(small, **TRAIN_SMALL_HYBRID)
     model = build_model(small)
     state = init_train_state(model, 0, device=dev)
     data = SyntheticTokenPipeline(small, ShapeConfig("small", seq, batch, "train"), seed=0, device=dev)
@@ -4669,16 +4930,23 @@ def train_card_vs_host(torch, dev, cfg, seq: int = 256, batch: int = 2) -> dict:
     host_state = tree.map(lambda x: x.cpu(), state)
     host_b = tree.map(lambda x: x.cpu(), b)
     step = make_train_step(model, AdamWConfig(lr=TRAIN_LR), cosine_schedule(TRAIN_LR, 1, 10))
-    _, m_card = step(state, b)
-    _, m_host = step(host_state, host_b)
-    g_card = grads_of(torch, model, state["params"], b)
-    g_host = grads_of(torch, model, host_state["params"], host_b)
+    routing = RoutingReplay()
+    with routing.recording():
+        _, m_card = step(state, b)
+        g_card = grads_of(torch, model, state["params"], b)
+    with routing.replaying():
+        _, m_host = step(host_state, host_b)
+        g_host = grads_of(torch, model, host_state["params"], host_b)
     names = list(_flatten_with_paths(state["params"]))
     out = {"arch": small.name, "d_model": small.d_model, "layers": small.num_layers, "seq": seq, "batch": batch,
            "attention_fan_in_d": True,
            "loss": {"card": float(m_card["loss"]), "host": float(m_host["loss"])},
            "grad_norm": {"card": float(m_card["grad_norm"]), "host": float(m_host["grad_norm"])},
            "grad_rel_err": {n: rel_err(a, c) for n, a, c in zip(names, g_card, g_host)}}
+    if small.family == "moe":
+        out.update(routing_replayed=True, tokens_routed_otherwise_on_the_host=routing.differed,
+                   moe_aux={"card": float(m_card["moe_aux"]), "host": float(m_host["moe_aux"])},
+                   moe_dropped={"card": float(m_card["moe_dropped"]), "host": float(m_host["moe_dropped"])})
     for key in ("loss", "grad_norm"):
         c, h = out[key]["card"], out[key]["host"]
         check(math.isfinite(c) and abs(c - h) <= TRAIN_TOL * abs(h), f"train small {key}: card {c}, host {h}")
@@ -4722,22 +4990,23 @@ def train_restart_phase(torch, dev, cfg) -> dict:
             "final_loss": {"no_failures": hist_a[-1]["loss"], "with_failures": hist_b[-1]["loss"]}}
 
 
-def launch_train_phase(torch, dev) -> dict:
+def launch_train_phase(torch, dev, args=None) -> dict:
     """``python -m repro_torch.launch.train`` (LAUNCH_TRAIN: full-width
-    llama3.2-1b, 6 steps of 2 x 2048 tokens, no checkpoint) in a process of
-    its own with no ``--device``: it must run on the card, exit 0 and print
-    its JSON line with finite losses."""
+    llama3.2-1b, 6 steps of 2 x 2048 tokens, no checkpoint; LAUNCH_TRAIN_SSM:
+    full-width mamba2-370m) in a process of its own with no ``--device``: it
+    must run on the card, exit 0 and print its JSON line with finite losses."""
     import gc
     import os
     import tempfile
 
+    args = LAUNCH_TRAIN if args is None else args
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_TRAIN, "--ckpt-dir", d],
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args, "--ckpt-dir", d],
                               cwd=ROOT, env=env, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S)
         seconds = time.perf_counter() - t0
     check(proc.returncode == 0, f"launch_train: exit {proc.returncode}: {proc.stderr[-3000:]}")
@@ -4746,7 +5015,7 @@ def launch_train_phase(torch, dev) -> dict:
     rec = lines[0]
     check(rec["device"] == dev.type, f"launch_train: ran on {rec['device']}, not {dev.type}")
     check(math.isfinite(rec["first_loss"]) and math.isfinite(rec["final_loss"]), f"launch_train: {rec}")
-    return {"args": list(LAUNCH_TRAIN), "seconds": seconds, **rec}
+    return {"args": list(args), "seconds": seconds, **rec}
 
 
 def training_phases(torch, dev, cfg) -> dict:
@@ -4779,6 +5048,312 @@ def training_phases(torch, dev, cfg) -> dict:
           f"launch_train {t4 - t3:.1f} s", file=sys.stderr)
     return {"launches": train["launches"], "seconds": {"train": t1 - t0, "card_vs_host": t2 - t1,
                                                         "restart": t3 - t2, "launch_train": t4 - t3}}
+
+
+# The MoE, SSM and hybrid families trained on the card: (architecture, line
+# key, layers, AdamW's rate). qwen3-moe-30b-a3b at full width with 2 of its 48 layers: the
+# whole model's training state would be ~367 GB; at 4 layers (6.23 GB of bf16
+# params, 31 GB of state) and at 3 (4.98 GB) the first AdamW update ran out of
+# the card's 79 GiB. That is the port's memory design, not the card's size:
+# the functional update holds the old and the new state at once, beside two
+# gradient trees and the fp32 temporaries of one stacked expert leaf (2.25-3
+# GiB each); an update in place and an earlier free of each microbatch's
+# gradients would fit 4 (ROADMAP.md, Queue 3). mamba2-370m at full width and
+# depth (~4.4 GB of state). zamba2-7b at full width with 14 of its 81 layers:
+# two groups of 6, so that the shared attention block is applied twice, and a
+# tail of 2, so that the tail's blocks train on the card and the block check
+# (:func:`family_block_check`: the last SSM block) compares a tail block. The
+# rates: at llama's 1e-2 (TRAIN_LR) the MoE model's gradients are small
+# (grad_norm 0.4-22, not clipped), each step moved the weights by half their
+# scale, the routers collapsed onto few experts (moe_aux 3.4 -> 19.6, 70 % of
+# the tokens dropped) and the loss rose from 12.5 to 31; zamba2-7b's loss
+# rose at 1e-3 (10.90 -> 11.06 over the first and last 3 of 8 steps) and fell
+# at 3e-4 and 1e-4 (on an NVIDIA H100 80GB HBM3 at 700.00 W).
+FAMILY_TRAIN = (("qwen3-moe-30b-a3b", "moe", 2, 1e-3), ("mamba2-370m", "ssm", None, 1e-3),
+                ("zamba2-7b", "hybrid", 14, 3e-4))
+FAMILY_TRAIN_STEPS = 8
+FAMILY_TRAIN_BATCH = 4  # train_4k's rows on one card: 2 microbatches of 2 x 4096 tokens
+FAMILY_TRAIN_MICRO = 2
+FAMILY_RESTART = ("moe", "ssm")  # the bit-exact restart on a small MoE and a small SSM model
+LAUNCH_TRAIN_SSM = ("--arch", "mamba2-370m", "--steps", "4", "--batch", "2", "--seq", "1024", "--ckpt-every", "0")
+
+
+def family_expected_launches(cfg, applied: int) -> dict:
+    """Each kernel's launches in ``applied`` microbatch steps of ``cfg``
+    (full width, its remat): the forward kernels twice per layer under remat
+    (torch.utils.checkpoint re-runs the forward), each backward kernel once."""
+    r = 2 if cfg.remat else 1
+    if cfg.family == "moe":
+        n = cfg.num_layers * applied
+        return {"moe_gmm": 3 * n * r, **dict.fromkeys(MOE_GRAD_KERNELS, 3 * n), "flash_attention": n * r,
+                **dict.fromkeys(GRAD_KERNELS, n)}
+    n = cfg.num_layers * applied
+    want = {"ssd_scan": n * r, **dict.fromkeys(SSD_GRAD_KERNELS, n)}
+    if cfg.family == "hybrid":
+        shared = cfg.num_layers // cfg.shared_attn_every * applied
+        want.update({"flash_attention": shared * r, **dict.fromkeys(GRAD_KERNELS, shared)})
+    return want
+
+
+def family_config(arch: str, layers: int | None):
+    """``arch`` at full width with ``layers`` of its layers (None: all)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def family_train_phase(torch, dev, arch: str, layers: int | None, lr: float) -> tuple[dict, object, object]:
+    """Full-width ``arch`` (``layers`` of its layers, None: all) trained for
+    FAMILY_TRAIN_STEPS steps through TrainLoop at T = 4096, a batch of 4 as 2
+    microbatches, remat as its config has it. Checks: every loss, moe_aux and
+    grad_norm finite, the mean of the last 3 losses below the first 3's, each
+    kernel launched exactly as :func:`family_expected_launches` counts, no
+    other kernel and no plain version. Reports step ms (p50), tokens/s, peak
+    allocated memory and its share of the card, the state's bytes,
+    moe_dropped and moe_aux, and from one more step under torch.profiler the
+    device's busy share and the hand-written kernels' device time. Returns
+    (the line, the final params, the config)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import init_train_state
+
+    card = dev.type == "cuda"
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = family_config(arch, layers)
+    tcfg = dataclasses.replace(cfg, microbatches=FAMILY_TRAIN_MICRO)
+    t0 = time.perf_counter()
+    state = init_train_state(build_model(tcfg), 0, device=dev)
+    if card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = lambda t: sum(x.numel() * x.element_size() for x in tree.leaves(t))  # noqa: E731
+    state_bytes = {"params": nbytes(state["params"]), "moments": nbytes(state["opt"]["m"]) + nbytes(state["opt"]["v"])}
+    shape = ShapeConfig("train_4k on one card", TRAIN_SEQ, FAMILY_TRAIN_BATCH, "train")
+    ops.reset_counts()
+    _, state, hist, step_fn = train_loop_run(torch, dev, tcfg, state, FAMILY_TRAIN_STEPS, shape, lr)
+    counts = ops.counts()
+    losses, norms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
+    aux, dropped = [h["moe_aux"] for h in hist], [h["moe_dropped"] for h in hist]
+    check(all(map(math.isfinite, losses + norms + aux + dropped)),
+          f"{arch} train: a non-finite loss, grad_norm or MoE metric: {losses} {norms} {aux} {dropped}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    check(last < first, f"{arch} train: the loss did not fall: first 3 {first}, last 3 {last}")
+    if cfg.family == "moe":
+        check(all(a > 0 for a in aux), f"{arch} train: moe_aux not positive: {aux}")
+    want = family_expected_launches(cfg, FAMILY_TRAIN_STEPS * FAMILY_TRAIN_MICRO)
+    if card:
+        check(all(counts[k] == want.get(k, 0) for k in build.KERNELS),
+              f"{arch} train: launches {counts}, expected {want}")
+        check(all(counts[k] == 0 for k in PLAIN), f"{arch} train: a plain version ran on the card: {counts}")
+    elif cfg.family == "moe":  # the host: the plain versions stand in for K5 and its gradient
+        check(counts["gmm_ref"] == want["moe_gmm"] and counts["gmm_ref_bwd"] == want["moe_gmm_bwd_dx"],
+              f"{arch} train on the host: plain calls {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    total = torch.cuda.get_device_properties(dev).total_memory if card else 1
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    p50 = statistics.median(step_ms[1:])
+
+    profile = None
+    if card:
+        data = SyntheticTokenPipeline(tcfg, shape, seed=0, start_batch=FAMILY_TRAIN_STEPS, device=dev)
+        batch = next(data)
+        data.close()
+
+        def one_step() -> float:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) * 1e3
+
+        prof = device_profile(torch, one_step, 1)
+        dev_ms = prof["device_kernel_ms_per_step"]
+        profile = {"wall_ms": prof["wall_ms_per_step"], "device_kernel_ms": dev_ms,
+                   "device_busy_share": prof["device_busy_share"],
+                   "port_kernel_share": sum(v["ms_per_step"] for v in prof["port_kernels"].values()) / dev_ms,
+                   "port_kernels": prof["port_kernels"], "top_kernels": prof["top_kernels"]}
+    out = {
+        "arch": cfg.name, "layers": cfg.num_layers, "full_layers": get_arch(arch).num_layers,
+        "reduced": layers is not None,
+        "d_model": cfg.d_model, "remat": cfg.remat, "seq": TRAIN_SEQ, "batch": FAMILY_TRAIN_BATCH,
+        "microbatches": FAMILY_TRAIN_MICRO, "steps": FAMILY_TRAIN_STEPS, "lr": lr,
+        "params_dtype": "bfloat16", "moments_dtype": "float32", "data": "affine, seed 0",
+        "losses": losses, "grad_norms": norms, "moe_aux": aux, "moe_dropped": dropped,
+        "first3_mean_loss": first, "last3_mean_loss": last,
+        "step_ms": step_ms, "step_ms_p50": p50, "tokens_per_s": FAMILY_TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+        "state_bytes": {**state_bytes, "grads": state_bytes["params"],
+                        "total": 2 * state_bytes["params"] + state_bytes["moments"]},
+        "peak_allocated_gb": peak / 1e9, "peak_share": peak / total, "device_gb": total / 1e9,
+        "params_init_s": init_s, "launches": {k: counts[k] for k in want}, "expected_launches": want,
+        "plain_calls": {k: counts[k] for k in PLAIN}, "profile": profile,
+    }
+    return out, state["params"], cfg
+
+
+class RoutingReplay:
+    """Routing is discontinuous: the card's and the host's bf16 roundings
+    of a router's input differ, and a token whose top-k choice is a near-tie
+    goes to other experts on the two sides, so no gradient compares. Inside
+    ``recording()`` every ``moe.route`` call keeps its experts; inside
+    ``replaying()`` each call, in the same order, takes the recorded experts
+    in place of its own top-k (its probabilities, and the weights gathered
+    from them at those experts, are its own: the gradient flows as in
+    ``route``) and counts the tokens whose own top-k set differed."""
+
+    def __init__(self):
+        self.experts: list = []
+        self.calls = 0
+        self.differed: list[int] = []
+
+    def _patched(self, replay: bool):
+        import contextlib
+
+        from repro_torch.models import moe
+
+        real = moe.route
+
+        def route(params, x, cfg):
+            probs, e_flat, w, pos = real(params, x, cfg)
+            if not replay:
+                self.experts.append(e_flat)
+                return probs, e_flat, w, pos
+            k = cfg.num_experts_per_tok
+            e_card = self.experts[self.calls].to(x.device)
+            self.calls += 1
+            idx = e_card.reshape(*probs.shape[:-1], k)
+            own = e_flat.reshape(-1, k).sort(-1).values
+            self.differed.append(int((own != idx.reshape(-1, k).sort(-1).values).any(-1).sum()))
+            w = probs.gather(-1, idx)
+            w = w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+            return probs, e_card, w.reshape(-1, k), moe.slot_positions(e_card)
+
+        @contextlib.contextmanager
+        def patched():
+            moe.route = route
+            try:
+                yield self
+            finally:
+                moe.route = real
+
+        return patched()
+
+    def recording(self):
+        return self._patched(replay=False)
+
+    def replaying(self):
+        self.calls = 0
+        return self._patched(replay=True)
+
+
+def family_block_check(torch, dev, cfg, params, t: int | None = None) -> dict:
+    """The full-width model's first and last block (the hybrid: the first
+    and last SSM block and the shared block's first application), forward
+    and backward at B = 1, T = ``t``, on the card and on the host's CPU (the
+    plain versions) from the same bf16 weights, input (the hidden state the
+    blocks before give on the card for a random prompt) and output gradient:
+    dx and every parameter gradient within TRAIN_GRAD_TOL of its max |g|.
+    Attention's wq and wk are rescaled to fan-in d (:func:`attention_fan_in_d`);
+    an MoE block's host pass routes every token to the experts the card's
+    chose (:class:`RoutingReplay`)."""
+    from repro_torch import tree
+    from repro_torch.checkpointing.manager import _flatten_with_paths
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_tokens
+
+    t = TRAIN_BLOCK_T if t is None else t
+    gen = torch.Generator(device=dev).manual_seed(37)
+    pos = torch.arange(t, device=dev)[None]
+    toks = torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=dev, dtype=torch.int32)
+    if cfg.family == "moe":
+        blocks = [(f"block_{i}", "moe", tree.map(lambda a, i=i: a[i], params["blocks"])) for i in range(cfg.num_layers)]
+        checked = {blocks[0][0], blocks[-1][0]}
+    else:
+        blocks = model_blocks(cfg, params)
+        ssm_names = [name for name, kind, _ in blocks if kind == "ssm"]
+        checked = {ssm_names[0], ssm_names[-1]} | ({"shared_0"} if cfg.family == "hybrid" else set())
+    errs, rerouted = {}, {}
+
+    def block_grads(lp, x, dy, kind, p):
+        leaves, struct = tree.flatten(lp)
+        live = [a.detach().requires_grad_() for a in leaves]
+        xi = x.detach().requires_grad_()
+        y, _, _ = tfm.apply_block_full(tree.unflatten(struct, live), xi, cfg, kind, p)
+        return torch.autograd.grad(y, [xi, *live], dy)
+
+    with torch.no_grad():
+        x = embed_tokens(params["embed"], toks)
+    for name, kind, lp in blocks:
+        if name in checked:
+            dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+            soft = tree.map(torch.clone, lp)
+            attention_fan_in_d(soft, cfg)
+            routing = RoutingReplay()
+            with routing.recording():
+                here = block_grads(soft, x, dy, kind, pos)
+            with routing.replaying():
+                host = block_grads(tree.map(lambda a: a.cpu(), soft), x.cpu(), dy.cpu(), kind, pos.cpu())
+            names = ["dx"] + ["d" + k for k in _flatten_with_paths(lp)]
+            errs[name] = {n: rel_err(a, b) for n, a, b in zip(names, here, host)}
+            if kind == "moe":
+                rerouted[name] = routing.differed
+        with torch.no_grad():
+            x, _, _ = tfm.apply_block_full(lp, x, cfg, kind, pos)
+    worst = max(max(e.values()) for e in errs.values())
+    check(worst <= TRAIN_GRAD_TOL, f"{cfg.name} block gradients differ from the host's beyond {TRAIN_GRAD_TOL}: {errs}")
+    return {"batch": 1, "seq": t, "attention_fan_in_d": True, "rel_err": errs, "worst": worst,
+            **({"routing_replayed": True, "tokens_routed_otherwise_on_the_host": rerouted}
+               if cfg.family == "moe" else {})}
+
+
+def family_training_phases(torch, dev) -> dict:
+    """The MoE, SSM and hybrid families trained on the card (FAMILY_TRAIN):
+    for each, the ``<key>_train`` line (:func:`family_train_phase`) and the
+    ``<key>_train_card_vs_host`` line (a small model's step, as
+    ``train_card_vs_host``, and the full-width blocks,
+    :func:`family_block_check`: an MoE model's host pass routed as the
+    card's, :class:`RoutingReplay`); the bit-exact restart on a small MoE and a
+    small SSM model (``<key>_train_restart``); and the launcher on full-width
+    mamba2-370m (``launch_train_ssm``). Returns each family's launches and
+    the phases' seconds."""
+    import gc
+
+    launches, seconds = {}, {}
+    for arch, key, layers, lr in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        train, params, cfg = family_train_phase(torch, dev, arch, layers, lr)
+        print(json.dumps({f"{key}_train": train}), flush=True)
+        t1 = time.perf_counter()
+        blocks = family_block_check(torch, dev, cfg, params)
+        del params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        small = train_card_vs_host(torch, dev, cfg)
+        print(json.dumps({f"{key}_train_card_vs_host": {"small": small, "blocks": blocks}}), flush=True)
+        t2 = time.perf_counter()
+        launches[key] = train["launches"]
+        seconds[f"{key}_train"], seconds[f"{key}_card_vs_host"] = t1 - t0, t2 - t1
+        if key in FAMILY_RESTART:
+            print(json.dumps({f"{key}_train_restart": train_restart_phase(torch, dev, cfg)}), flush=True)
+            seconds[f"{key}_restart"] = time.perf_counter() - t2
+        print(f"{key} training phases {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    print(json.dumps({"launch_train_ssm": launch_train_phase(torch, dev, LAUNCH_TRAIN_SSM)}), flush=True)
+    seconds["launch_train_ssm"] = time.perf_counter() - t0
+    return {"launches": launches, "seconds": seconds}
 
 
 def control_plane_phases(torch, dev, cfg, serve: dict, serve_tokens: list) -> dict:
@@ -4846,7 +5421,7 @@ def main() -> int:
     # full float32 matmuls wherever fp32 appears (norms, RoPE, logits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     dev_line = device_line()
     print(dev_line, flush=True)
 
@@ -4874,9 +5449,14 @@ def main() -> int:
     kern["flash_attention_bwd"] = flash_grad_cases(torch, F)
     torch.cuda.empty_cache()  # the plain backward's fp32 scores
     grad_cases_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    kern["moe_gmm_bwd"] = moe_grad_cases(torch)
+    kern["ssd_scan_bwd"] = ssd_grad_cases(torch)
+    torch.cuda.empty_cache()
+    family_grad_cases_s = time.perf_counter() - t1
     print(json.dumps({"grad_refusal": grad_refusal_check(torch)}), flush=True)
-    print(f"kernel phase {time.perf_counter() - t0:.1f} s (K3's gradient cases {grad_cases_s:.1f} s)",
-          file=sys.stderr)
+    print(f"kernel phase {time.perf_counter() - t0:.1f} s (K3's gradient cases {grad_cases_s:.1f} s, K5's and "
+          f"K6's {family_grad_cases_s:.1f} s)", file=sys.stderr)
     retain_tracers(True)  # the llama phases' traces outlive their platforms, for the export
     t0 = time.perf_counter()
     serve_tokens: list = []
@@ -4930,12 +5510,21 @@ def main() -> int:
     print(json.dumps({"launch_serve": launch_serve_phase(torch, dev)}), flush=True)
     print(f"launch_serve phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     encdec = encdec_phases(torch, dev)
+    family = family_training_phases(torch, dev)
+    family["seconds"]["grad_cases"] = family_grad_cases_s
+    print(json.dumps({"family_train_seconds": {**family["seconds"], "total": sum(family["seconds"].values())}}),
+          flush=True)
+    fam = family["launches"]
     train_launches = training["launches"]
     check(len({train_launches[k] for k in GRAD_KERNELS}) == 1,
           f"train: the three backward kernels launched apart: {train_launches}")
     launches = {**serve["launches"], **paged["launches"]["fused"], "moe_gmm": moe["launches"]["moe_gmm"],
                 "ssd_scan": ssm["launches"]["ssd_scan"] + hybrid["launches"]["ssd_scan"],
-                "flash_attention_bwd": train_launches["flash_attention_bwd"]}
+                "flash_attention_bwd": train_launches["flash_attention_bwd"],
+                "moe_gmm_bwd": fam["moe"]["moe_gmm_bwd_dx"],
+                "ssd_scan_bwd": fam["ssm"]["ssd_scan_bwd_walk"] + fam["hybrid"]["ssd_scan_bwd_walk"]}
+    check(launches["moe_gmm_bwd"] > 0 and launches["ssd_scan_bwd"] > 0,
+          f"the families' training ran no K5 or K6 gradient: {fam}")
     by_path = {name: {"llama3.2-1b": serve["launches"][name], "qwen3-moe-30b-a3b": moe["launches"][name],
                       "zamba2-7b": hybrid["launches"][name],
                       "llama3.2-1b coldstart": coldstart["launches"][name],
@@ -4959,7 +5548,16 @@ def main() -> int:
     by_path["flash_attention_bwd"] = {"llama3.2-1b train": {k: train_launches[k] for k in GRAD_KERNELS},
                                       f"{ENCDEC_ARCH} train": {k: encdec["train_launches"][k] for k in GRAD_KERNELS}}
     by_path["moe_gmm"] = {"qwen3-moe-30b-a3b": moe["launches"]["moe_gmm"],
-                          "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"]}
+                          "qwen3-moe-30b-a3b paged": moe["paged_launches"]["moe_gmm"],
+                          "qwen3-moe-30b-a3b train": fam["moe"]["moe_gmm"]}
+    by_path["ssd_scan"].update({"mamba2-370m train": fam["ssm"]["ssd_scan"],
+                                "zamba2-7b train": fam["hybrid"]["ssd_scan"]})
+    for key, arch in (("moe", "qwen3-moe-30b-a3b"), ("hybrid", "zamba2-7b")):
+        by_path["flash_attention"][f"{arch} train"] = fam[key]["flash_attention"]
+        by_path["flash_attention_bwd"][f"{arch} train"] = {k: fam[key][k] for k in GRAD_KERNELS}
+    by_path["moe_gmm_bwd"] = {"qwen3-moe-30b-a3b train": {k: fam["moe"][k] for k in MOE_GRAD_KERNELS}}
+    by_path["ssd_scan_bwd"] = {f"{arch} train": {k: fam[key][k] for k in SSD_GRAD_KERNELS}
+                               for key, arch in (("ssm", "mamba2-370m"), ("hybrid", "zamba2-7b"))}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
     part_src = {"flash_attention": serve["launch_parts"], "decode_attention": serve["launch_parts"],
                 "paged_decode_attention": paged["launch_parts"]["fused"],
@@ -4967,9 +5565,10 @@ def main() -> int:
     parts = {k: {p: src[p][k] for p in ("eager", "replayed")} for k, src in part_src.items()}
     parts["ssd_scan"] = {p: ssm["parts"][p]["ssd_scan"] + hybrid["parts"][p]["ssd_scan"]
                          for p in ("eager", "replayed")}
-    parts["flash_attention_bwd"] = {"eager": launches["flash_attention_bwd"], "replayed": 0}  # training: eager
+    for kernel in ("flash_attention_bwd", "moe_gmm_bwd", "ssd_scan_bwd"):  # training: eager
+        parts[kernel] = {"eager": launches[kernel], "replayed": 0}
     print(json.dumps(kernels_line(kern, launches, by_path, captured, parts)), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

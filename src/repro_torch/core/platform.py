@@ -815,6 +815,14 @@ class ProvusePlatform:
             except UnknownFunctionError:
                 self._ensure_live(callee)  # raced a park — resurrect and retry
                 out = self._dispatch_sync(callee, args)
+            except InvocationError:
+                # Raced a merge swap, as _invoke_with_retry's entry can: the
+                # hop resolved the callee's old instance and a publish retired
+                # it before the request began. Re-resolving takes the new
+                # route. (The reference lets the hop fail; a merge's health
+                # check that made the hop then aborted with no record, and the
+                # chain stayed split.)
+                out = self._dispatch_sync(callee, args)
         wait = self.clock.now() - t0
         if cur is not None:
             cur[0].emit(f"{caller_fn}->{callee}", "cross-function-sync",

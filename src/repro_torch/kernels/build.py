@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu", "moe_gmm.cu",
-           "ssd_scan.cu")
+           "moe_gmm_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu")
 # included by sources; hashed with them, never compiled alone
 HEADERS = ("async_copy.cuh", "mma_bf16.cuh", "row_policy.cuh", "decode_split.cuh", "flash_sweep.cuh",
            "wgmma_tma.cuh")
@@ -57,17 +57,24 @@ SIGNATURES = {
     "repro_paged_chunk_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # xe, w, rows (or null), out, E, C, D, F, active, stream
     "repro_moe_gmm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xe, w, rows (or null), dy, dxe, dw, E, C, D, F, stream
+    "repro_moe_gmm_bwd": [_P] * 6 + [_I] * 4 + [_P],
     # x, bm, cm, dt, a_log, d_skip, y, state, B, T, H, P, G, N, stream
     "repro_ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, bm, cm, dt, a_log, d_skip, dy, dstate (or null), ws_s, ws_z, part, ticket, dx, dbm, dcm, ddt, da_log,
+    # dd_skip, B, T, H, P, G, N, stream
+    "repro_ssd_scan_bwd": [_P] * 18 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
-#: The kernels whose launches are counted (one name per wrapper; K3's
-#: gradient counts each of its three kernels by its own name).
+#: The kernels whose launches are counted (one name per wrapper; the
+#: gradients count each of their kernels by its own name: K3's three, K5's
+#: two products, K6's walks and chunks).
 KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_chunk_attention",
-           "moe_gmm", "ssd_scan", "flash_attention_bwd_prep", "flash_attention_bwd", "flash_attention_bwd_post")
+           "moe_gmm", "ssd_scan", "flash_attention_bwd_prep", "flash_attention_bwd", "flash_attention_bwd_post",
+           "moe_gmm_bwd_dx", "moe_gmm_bwd_dw", "ssd_scan_bwd_walk", "ssd_scan_bwd_chunk")
 
 
 class LaunchCounts:
@@ -216,7 +223,8 @@ def load() -> ctypes.CDLL:
 
 def refuse_grad(what: str, *tensors) -> None:
     """Raise before a launch whose output would silently drop a gradient:
-    every kernel but K3 has no backward on the card yet, and an output
+    the decode and paged kernels (K4, K1, K2) have no backward on the card
+    (K3, K5 and K6 have theirs), and an output
     filled through ctypes carries no ``grad_fn``. Grad mode with an input that
     requires grad is refused; ``torch.no_grad()`` (the serve paths) passes."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors if isinstance(t, torch.Tensor)):

@@ -11,6 +11,11 @@ and writes exact zeros for every row at or past ``rows[e]``; any C, any d
 and f that are multiples of 8, at most 256 experts. Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.gmm_ref`, re-exported here as :data:`plain`.
 It replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py: moe_gmm``.
+
+Under autograd its gradient is ``csrc/moe_gmm_bwd.cu`` on the card (dxe =
+dy w^T and dw = xe^T dy over the kept rows, two launches, no atomics) and
+:func:`repro_torch.kernels.ref.gmm_ref_bwd` (:data:`plain_bwd`) on the CPU;
+``rows`` and ``active`` carry no gradient.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import gmm_ref as plain
+from repro_torch.kernels.ref import gmm_ref_bwd as plain_bwd
 
 MAX_EXPERTS = 256  # the kernel keeps its list of active experts in shared memory
 
@@ -78,6 +84,47 @@ def _(info, in_dims, xe, w, rows, active):
     return build.per_lane(info, in_dims, _op, xe, w, rows, active)
 
 
+def backward(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None, dy: torch.Tensor):
+    """(dxe, dw) of ``moe_gmm(xe, w, rows)`` for the output gradient ``dy``
+    (E, C, f): K5's backward kernels for CUDA tensors (or a raise), the plain
+    backward for CPU tensors."""
+    if xe.device.type == "cpu":
+        return plain_bwd(xe, w, rows, dy)
+    if xe.device.type != "cuda":
+        raise ValueError(f"moe_gmm backward: unsupported device {xe.device}")
+    _check(xe, w, rows)
+    dy = dy.contiguous()
+    e, c, d = xe.shape
+    f = w.shape[2]
+    if dy.shape != (e, c, f) or dy.dtype != xe.dtype or dy.device != xe.device or dy.data_ptr() % 16:
+        raise ValueError(f"moe_gmm backward: dy must be ({e}, {c}, {f}) {xe.dtype} on {xe.device}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    dxe, dw = torch.empty_like(xe), torch.empty_like(w)
+    if xe.numel() == 0 or dy.numel() == 0:
+        return dxe.zero_(), dw.zero_()
+    err = build.load().repro_moe_gmm_bwd(
+        xe.data_ptr(), w.data_ptr(), None if rows is None else rows.data_ptr(), dy.data_ptr(), dxe.data_ptr(),
+        dw.data_ptr(), e, c, d, f, torch.cuda.current_stream(xe.device).cuda_stream)
+    build.check(err, "moe_gmm backward launch")
+    build.count_launch("moe_gmm_bwd_dx")
+    build.count_launch("moe_gmm_bwd_dw")
+    return dxe, dw
+
+
+def _setup_context(ctx, inputs, output):
+    xe, w, rows, _ = inputs
+    ctx.save_for_backward(xe, w, rows)
+
+
+def _backward(ctx, dy):
+    xe, w, rows = ctx.saved_tensors
+    dxe, dw = backward(xe, w, rows, dy)
+    return dxe, dw, None, None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def moe_gmm(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None,
             active: int | None = None) -> torch.Tensor:
     """xe: (E, C, d); w: (E, d, f) -> (E, C, f) in the dtype of ``xe``.
@@ -90,9 +137,8 @@ def moe_gmm(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None,
     value is correct, a tight one is fast; None means E.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape."""
+    plain version; a meta tensor returns an empty output of the right shape.
+    Under autograd the gradient of ``xe`` and ``w`` is :func:`backward`."""
     e = xe.shape[0]
     active = e if active is None else max(1, min(active, e))
-    if xe.device.type == "cuda":
-        build.refuse_grad("moe_gmm", xe, w)
     return _op(xe, w, rows, active)

@@ -15,7 +15,7 @@ import threading
 import torch
 
 CALLS = {"mha_ref": 0, "mha_ref_bwd": 0, "decode_attn_ref": 0, "paged_decode_attn_ref": 0,
-         "paged_chunk_attn_ref": 0, "gmm_ref": 0, "ssd_ref": 0}
+         "paged_chunk_attn_ref": 0, "gmm_ref": 0, "gmm_ref_bwd": 0, "ssd_ref": 0, "ssd_ref_bwd": 0}
 _CALLS_LOCK = threading.Lock()
 
 
@@ -149,6 +149,33 @@ def gmm_ref(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None)
     return torch.einsum("ecd,edf->ecf", xe.float(), w.float()).to(xe.dtype)
 
 
+def _kept(xe: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor | None:
+    """(E, C, 1) bool: the rows of each expert below ``rows[e]`` (None: all)."""
+    if rows is None:
+        return None
+    return (torch.arange(xe.shape[1], device=xe.device)[None, :] < rows.to(xe.device)[:, None])[:, :, None]
+
+
+def gmm_ref_bwd(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None, dy: torch.Tensor):
+    """The gradient of :func:`gmm_ref` (K5's gradient, the plain version),
+    written out: for ``dy`` (E, C, f),
+
+        dxe[e] = dy[e] w[e]^T on the rows below rows[e], exact zeros past them
+        dw[e]  = xe[e]^T dy[e] over the rows below rows[e]
+
+    in fp32, returned in the dtypes of ``xe`` and ``w``. An expert with
+    ``rows[e] == 0`` gets exact zeros in both."""
+    _called("gmm_ref_bwd")
+    keep = _kept(xe, rows)
+    dyf = dy.float()
+    if keep is not None:
+        dyf = dyf.masked_fill(~keep, 0)
+    xf = xe.float() if keep is None else xe.float().masked_fill(~keep, 0)
+    dxe = torch.einsum("ecf,edf->ecd", dyf, w.float())
+    dw = torch.einsum("ecd,ecf->edf", xf, dyf)
+    return dxe.to(xe.dtype), dw.to(w.dtype)
+
+
 def ssd_ref(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
             a_log: torch.Tensor, d_skip: torch.Tensor):
     """Naive O(T^2) SSD (the exact dual form, no chunking).
@@ -177,3 +204,61 @@ def ssd_ref(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tenso
     bh = torch.repeat_interleave(bm, hpg, dim=2).float()  # (B,T,H,N)
     state = torch.einsum("bthp,bthn->bhpn", xf * w_j[..., None], bh)
     return y, state
+
+
+def ssd_ref_bwd(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                d_skip: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None):
+    """The gradient of :func:`ssd_ref` (K6's gradient, the plain version),
+    written out in the same dense O(T^2) form: for the cotangents ``dy`` of y
+    (B,T,H,P) and ``dstate`` of the final state (B,H,P,N) fp32 (None: zero),
+    (dx, dbm, dcm, ddt, da_log, dd_skip) in the dtypes of the inputs.
+
+    With cum_t = sum_{s<=t} a dt_s, E[i,j] = exp(cum_i - cum_j) for j <= i,
+    L = E dt_j, CB = C_i.B_j, M = dy_i.x_j, A = L CB M, the state weights
+    u_j = exp(cum_T - cum_j) (T the last row) and q_j = x_j.(dS B_j):
+
+        dx_j  = D dy_j + sum_i L_ij CB_ij dy_i + u_j dt_j dS B_j
+        dC_i  = sum_heads sum_j L_ij M_ij B_j
+        dB_j  = sum_heads (sum_i L_ij M_ij C_i + u_j dt_j dS^T x_j)
+        dcum_t = sum_j A_tj - sum_i A_it - u_t dt_t q_t + [t = T] sum_j u_j dt_j q_j
+        ddt_s = sum_i E_is CB_is M_is + u_s q_s + a sum_{t>=s} dcum_t
+        dA_log = a sum_{b,s} dt_s sum_{t>=s} dcum_t,   dD = sum_{b,t} dy.x
+
+    (a head's dB and dC add up over the heads of its group)."""
+    _called("ssd_ref_bwd")
+    b, t, h, p = x.shape
+    g = bm.shape[2]
+    hpg = h // g
+    a = -torch.exp(a_log.float())
+    dtf = dt.float()
+    xf, dyf = x.float(), dy.float()
+    bh = torch.repeat_interleave(bm.float(), hpg, dim=2)  # (B,T,H,N)
+    ch = torch.repeat_interleave(cm.float(), hpg, dim=2)
+    cum = torch.cumsum(dtf * a, dim=1)  # (B,T,H)
+    li = cum[:, :, None, :] - cum[:, None, :, :]  # (B,Ti,Tj,H)
+    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()[None, :, :, None]
+    e = torch.exp(torch.where(causal, li, torch.full_like(li, float("-inf"))))
+    lm = e * dtf[:, None, :, :]
+    cb = torch.einsum("bihn,bjhn->bijh", ch, bh)
+    m = torch.einsum("bihp,bjhp->bijh", dyf, xf)
+    lcb, lmm = lm * cb, lm * m
+    u = torch.exp(cum[:, -1:, :] - cum)  # (B,T,H)
+    ds = torch.zeros(b, h, p, bh.shape[-1], dtype=torch.float32, device=x.device) if dstate is None \
+        else dstate.float()
+    dsb = torch.einsum("bhpn,bthn->bthp", ds, bh)  # dS B_j
+    dx = dyf * d_skip.float()[None, None, :, None] + torch.einsum("bijh,bihp->bjhp", lcb, dyf) \
+        + (u * dtf)[..., None] * dsb
+    dch = torch.einsum("bijh,bjhn->bihn", lmm, bh)
+    dbh = torch.einsum("bijh,bihn->bjhn", lmm, ch) + (u * dtf)[..., None] * torch.einsum("bhpn,bthp->bthn", ds, xf)
+    q = (xf * dsb).sum(-1)  # (B,T,H)
+    am = lmm * cb
+    dcum = am.sum(2) - am.sum(1) - u * dtf * q
+    dcum[:, -1] += (u * dtf * q).sum(1)
+    rcum = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])  # sum_{t>=s}
+    ddt = (e * cb * m).sum(1) + u * q + a * rcum
+    da_log = a * (dtf * rcum).sum((0, 1))
+    dd = (dyf * xf).sum((0, 1, 3))
+    dbm = dbh.reshape(b, t, g, hpg, -1).sum(3)
+    dcm = dch.reshape(b, t, g, hpg, -1).sum(3)
+    return (dx.to(x.dtype), dbm.to(bm.dtype), dcm.to(cm.dtype), ddt.to(dt.dtype), da_log.to(a_log.dtype),
+            dd.to(d_skip.dtype))

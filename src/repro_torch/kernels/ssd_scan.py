@@ -10,6 +10,11 @@ multiple of 32, B and C grouped by ``h // (H / G)``. Its plain PyTorch
 version is :func:`repro_torch.kernels.ref.ssd_ref`, re-exported here as
 :data:`plain`. It replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py:
 ssd_scan`` (which returns y only).
+
+Under autograd its gradient is ``csrc/ssd_scan_bwd.cu`` on the card (two
+kernels: the chunk-boundary states recomputed, then the chunks' terms; the
+final state's cotangent taken when it is given) and
+:func:`repro_torch.kernels.ref.ssd_ref_bwd` (:data:`plain_bwd`) on the CPU.
 """
 from __future__ import annotations
 
@@ -17,9 +22,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_ref as plain
+from repro_torch.kernels.ref import ssd_ref_bwd as plain_bwd
 
 STATE_DIMS = (64, 128)  # csrc/ssd_scan.cu instantiates N = 64 and 128
 HEAD_DIM_MULTIPLE = 32  # a block takes a 64-wide slice of the head dim where P is a multiple of 64, else 32
+GRAD_HEAD_DIM = 64  # csrc/ssd_scan_bwd.cu's chunk kernel takes P = 64
+GRAD_CHUNK = 64  # ... and chunks of 64 rows
 
 
 def _check(x, bm, cm, dt, a_log, d_skip) -> None:
@@ -91,6 +99,64 @@ def _(info, in_dims, x, bm, cm, dt, a_log, d_skip):
     return (build.unfold_lanes(info, y), build.unfold_lanes(info, state)), (0, 0)
 
 
+def backward(x, bm, cm, dt, a_log, d_skip, dy, dstate=None):
+    """(dx, dbm, dcm, ddt, da_log, dd_skip) of ``ssd_scan`` for the
+    cotangents ``dy`` of y and ``dstate`` of the final state (None: zero):
+    K6's backward kernels for CUDA tensors (or a raise), the plain backward
+    for CPU tensors. On the card the chunk-boundary states and their
+    cotangents are recomputed into a transient workspace of 2 B H
+    ceil(T / 64) P N fp32 values."""
+    if x.device.type == "cpu":
+        return plain_bwd(x, bm, cm, dt, a_log, d_skip, dy, dstate)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan backward: unsupported device {x.device}")
+    _check(x, bm, cm, dt, a_log, d_skip)
+    b, t, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    if p != GRAD_HEAD_DIM:
+        raise ValueError(f"ssd_scan backward kernel takes a head dim of {GRAD_HEAD_DIM}, got {p}")
+    dy = dy.to(x.dtype).contiguous()
+    if dy.shape != x.shape or dy.device != x.device or dy.data_ptr() % 16:
+        raise ValueError(f"ssd_scan backward: dy must be {tuple(x.shape)} on {x.device}, got {tuple(dy.shape)}")
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+        if dstate.shape != (b, h, p, n) or dstate.device != x.device:
+            raise ValueError(f"ssd_scan backward: dstate must be ({b}, {h}, {p}, {n}), got {tuple(dstate.shape)}")
+    dx, dbm, dcm = torch.empty_like(x), torch.empty_like(bm), torch.empty_like(cm)
+    ddt = torch.empty_like(dt)
+    da_log, dd_skip = torch.empty_like(a_log), torch.empty_like(d_skip)
+    if not x.numel():
+        return dx, dbm, dcm, ddt, da_log.zero_(), dd_skip.zero_()
+    nc = -(-t // GRAD_CHUNK)
+    ws_s = torch.empty(b, h, nc, p, n, dtype=torch.float32, device=x.device)
+    ws_z = torch.empty_like(ws_s)
+    part = torch.empty(b, nc, h, 2, dtype=torch.float32, device=x.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+    err = build.load().repro_ssd_scan_bwd(
+        x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(), d_skip.data_ptr(),
+        dy.data_ptr(), None if dstate is None else dstate.data_ptr(), ws_s.data_ptr(), ws_z.data_ptr(),
+        part.data_ptr(), ticket.data_ptr(), dx.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), ddt.data_ptr(),
+        da_log.data_ptr(), dd_skip.data_ptr(), b, t, h, p, g, n, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "ssd_scan backward launch")
+    build.count_launch("ssd_scan_bwd_walk")
+    build.count_launch("ssd_scan_bwd_chunk")
+    return dx, dbm, dcm, ddt, da_log, dd_skip
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy, dstate):
+    saved = ctx.saved_tensors  # once: under torch.utils.checkpoint a second unpack raises
+    if dy is None:
+        dy = torch.zeros_like(saved[0])
+    return backward(*saved, dy, dstate)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor,
              a_log: torch.Tensor, d_skip: torch.Tensor, return_state: bool = False):
     """x: (B,T,H,P); bm/cm: (B,T,G,N); dt: (B,T,H) fp32; a_log, d_skip: (H,)
@@ -99,8 +165,7 @@ def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tens
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version; a meta tensor returns empty outputs of the right shapes
-    (the shape-only run of a fused unit)."""
-    if x.device.type == "cuda":
-        build.refuse_grad("ssd_scan", x, bm, cm, dt, a_log, d_skip)
+    (the shape-only run of a fused unit). Under autograd the gradient is
+    :func:`backward`."""
     y, state = _op(x, bm, cm, dt, a_log, d_skip)
     return (y, state) if return_state else y

@@ -76,7 +76,7 @@ def encode(params, src: torch.Tensor, cfg: ModelConfig):
     weights' dtype (the frames are cast to it, as the vlm's embeds are)."""
     src = src.to(params["encoder"]["attn"]["wq"].dtype)
     positions = torch.arange(src.shape[1], device=src.device)[None, :]
-    x, _ = tfm.apply_stack_full(params["encoder"], src, cfg, "dense", positions, causal=False)
+    x, _, _ = tfm.apply_stack_full(params["encoder"], src, cfg, "dense", positions, causal=False)
     return x
 
 
@@ -90,7 +90,7 @@ def cross_kv_from_enc(params, enc: torch.Tensor):
 
 def _decoder_block_train(layer_params, h: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
                          positions: torch.Tensor) -> torch.Tensor:
-    h, _ = tfm.apply_block_full(layer_params, h, cfg, "dense", positions, causal=True)
+    h, _, _ = tfm.apply_block_full(layer_params, h, cfg, "dense", positions, causal=True)
     return _apply_cross(layer_params, h, _cross_kv(layer_params, enc), cfg)
 
 

@@ -15,6 +15,7 @@ shape, simpler plumbing.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import donate, tree
 from repro_torch.configs.base import ModelConfig
@@ -42,7 +43,14 @@ def hybrid_defs(cfg: ModelConfig):
 
 def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                       collect_cache: bool = False, attn_into: dict | None = None):
-    """Returns (x, caches). caches (collect_cache=True) = {'groups': SSM
+    """Returns (x, caches); no block of the hybrid has MoE metrics. Under
+    autograd the shared block's gradient adds up over its applications, as
+    the reference's ``lax.scan`` over the groups accumulates it; with remat
+    (``tfm.remat_active``) each application runs under
+    ``torch.utils.checkpoint``, as each SSM block does (the reference
+    checkpoints the group body that holds both).
+
+    caches (collect_cache=True) = {'groups': SSM
     states (n_groups, every, ...), 'attn': {'k','v'} (n_groups, B, S, KV,
     hd), 'tail': SSM states (tail, ...)}; else None. ``attn_into``: {'k',
     'v'} (n_groups, B, S_max, KV, hd) tensors that each application's K/V
@@ -52,16 +60,20 @@ def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torc
     group's copy is held beside them."""
     n_groups, _, tail = split_layers(cfg)
     groups = attn = None
+    remat = tfm.remat_active(cfg, x, params["shared"], collect_cache)
     for gi in range(n_groups):
         group = tree.map(lambda a: a[gi], params["groups"])
         into = None if groups is None else tree.map(lambda a: a[gi], groups)
-        x, ssm_cache = tfm.apply_stack_full(group, x, cfg, "ssm", positions, collect_cache=collect_cache,
-                                            into=into)
+        x, ssm_cache, _ = tfm.apply_stack_full(group, x, cfg, "ssm", positions, collect_cache=collect_cache,
+                                               into=into)
         if collect_cache and groups is None:
             groups = tfm.stack_into(groups, gi, n_groups, ssm_cache)
         ssm_cache = None
-        x, kv = tfm.apply_block_full(params["shared"], x, cfg, "dense", positions, causal=True,
-                                     collect_cache=collect_cache)
+        args = (params["shared"], x, cfg, "dense", positions, True, collect_cache)
+        if remat:  # the reference checkpoints the whole group body, the shared block in it
+            x, kv, _ = checkpoint(tfm.apply_block_full, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, kv, _ = tfm.apply_block_full(*args)
         if collect_cache and attn_into is not None:
             for name, part in zip("kv", kv):
                 attn_into[name][gi, :, : part.shape[1]] = part.to(attn_into[name].dtype)
@@ -69,8 +81,8 @@ def apply_hybrid_full(params, x: torch.Tensor, cfg: ModelConfig, positions: torc
             attn = tfm.stack_into(attn, gi, n_groups, kv)
     tail_cache = None
     if tail:
-        x, tail_cache = tfm.apply_stack_full(params["tail"], x, cfg, "ssm", positions,
-                                             collect_cache=collect_cache)
+        x, tail_cache, _ = tfm.apply_stack_full(params["tail"], x, cfg, "ssm", positions,
+                                                collect_cache=collect_cache)
     if not collect_cache:
         return x, None
     caches = {"groups": groups, "attn": attn if attn_into is None else attn_into}

@@ -8,10 +8,10 @@ what the Provuse platform deploys as FaaS functions):
   prefill_fn(params, batch)         -> (last_logits, cache)     [serve]
   decode_fn(params, batch, cache)   -> (logits, new_cache)      [serve]
 
-``loss_fn`` trains the dense, vlm and audio families (``tokens``,
-``embeds``, or ``src_embeds`` and ``tgt_tokens``): their only kernel, K3,
-has a gradient on the card. The MoE, SSM and hybrid families raise until
-K5's and K6's gradients exist (ROADMAP.md, Queue 1 item 11).
+``loss_fn`` trains every family the port serves (``tokens``, ``embeds``,
+or ``src_embeds`` and ``tgt_tokens``): K3, K5 and K6 have gradients on the
+card, and the MoE family's loss adds ``router_aux_weight`` times the MoE
+layers' aux loss, as the reference's does.
 
 plus ``cache_defs`` (the decode cache's ParamDef tree for a shape: the
 dense KV cache, the SSM states, the hybrid's mix of both, or the enc-dec's
@@ -43,7 +43,9 @@ from repro_torch.models.params import ParamDef, init_params
 
 ENCDEC_TGT_CACHE = 4096  # decoder self-cache length for enc-dec decode cells
 CE_CHUNK = 512
-TRAINED_FAMILIES = ("dense", "vlm", "audio")
+# the families build_model serves and loss_fn trains (all of them since K5's
+# and K6's gradients)
+TRAINED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 @dataclasses.dataclass
@@ -95,8 +97,8 @@ def chunked_ce(emb_params, hidden: torch.Tensor, targets: torch.Tensor, cfg: Mod
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
-        raise NotImplementedError(f"the port serves the dense, moe, vlm, ssm, hybrid and audio families, not {fam!r}")
+    if fam not in TRAINED_FAMILIES:
+        raise NotImplementedError(f"the port serves and trains the {', '.join(TRAINED_FAMILIES)} families, not {fam!r}")
     L = cfg.num_layers
     kind = tfm.layer_kind(cfg)
     defs: dict = {"embed": embedding_defs(cfg), "ln_f": norm_defs(cfg)}
@@ -110,27 +112,30 @@ def build_model(cfg: ModelConfig) -> Model:
     def loss_fn(params, batch):
         """(loss, metrics): the mean next-token cross-entropy of ``batch``
         (``tokens`` or ``embeds``, or the enc-dec's ``src_embeds`` and
-        ``tgt_tokens``, and ``targets``); ``metrics`` holds ``ce``, ``loss``
-        and the MoE metrics of the reference (0 here)."""
-        if fam not in TRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"the port trains the dense, vlm and audio families, not {fam!r}: training it needs the "
-                "gradients of K5 and K6 and the MoE aux loss (ROADMAP.md, Queue 1 item 11)")
+        ``tgt_tokens``, and ``targets``) plus ``router_aux_weight`` times
+        the MoE aux loss; ``metrics`` holds ``ce``, ``loss`` and the MoE
+        metrics summed over the layers (``moe_aux``, ``moe_dropped``; zeros
+        without MoE layers), as the reference's."""
         if fam == "audio":
             enc = ed.encode(params["encdec"], batch["src_embeds"], cfg)
             tgt = embed_tokens(params["embed"], batch["tgt_tokens"])
             h = ed.decode_train(params["encdec"], tgt, enc, cfg)
+            metrics = None
         else:
             if "embeds" in batch:  # vlm: stub frontend embeddings, in the weights' dtype
                 x = batch["embeds"].to(params["embed"]["table"].dtype)
             else:
                 x = embed_tokens(params["embed"], batch["tokens"])
             positions = torch.arange(x.shape[1], device=x.device)[None, :]
-            h, _ = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True)
+            if fam == "hybrid":
+                h, _ = hy.apply_hybrid_full(params["hybrid"], x, cfg, positions)
+                metrics = None
+            else:
+                h, _, metrics = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True)
         h = apply_norm(params["ln_f"], h, cfg)
         ce = chunked_ce(params["embed"], h, batch["targets"], cfg)
-        zero = torch.zeros((), dtype=torch.float32, device=h.device)
-        metrics = {"moe_aux": zero, "moe_dropped": zero}
+        if metrics is None:  # no MoE layer: the reference's zeros
+            metrics = tfm.zero_metrics(h)
         loss = ce + cfg.router_aux_weight * metrics["moe_aux"]
         out = dict(metrics)
         out.update(ce=ce, loss=loss)
@@ -158,8 +163,8 @@ def build_model(cfg: ModelConfig) -> Model:
         if fam == "hybrid":
             h, cache = hy.apply_hybrid_full(params["hybrid"], x, cfg, positions, collect_cache=True)
         else:
-            h, cache = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True,
-                                            collect_cache=True)
+            h, cache, _ = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True,
+                                               collect_cache=True)
         h = apply_norm(params["ln_f"], h[:, -1:], cfg)
         return unembed(params["embed"], h)[:, 0], cache  # last position only
 

@@ -67,16 +67,20 @@ def route(params, x: torch.Tensor, cfg: ModelConfig):
     w, idx = torch.topk(probs, k, dim=-1)  # sorted, as jax.lax.top_k
     w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
     e_flat = idx.reshape(-1)
-    # pos[i] = #{j < i : e[j] == e[i]}: a stable sort groups each expert's
-    # choices in token order; a slot is its distance from its run's start
+    return probs, e_flat, w.reshape(-1, k), slot_positions(e_flat)
+
+
+def slot_positions(e_flat: torch.Tensor) -> torch.Tensor:
+    """pos[i] = #{j < i : e[j] == e[i]}: each (token, choice)'s slot in its
+    expert's buffer. A stable sort groups each expert's choices in token
+    order; a slot is its distance from its run's start."""
     order = torch.argsort(e_flat, stable=True)
     sorted_e = e_flat[order]
-    pos_in_row = torch.arange(e_flat.shape[0], device=x.device)
+    pos_in_row = torch.arange(e_flat.shape[0], device=e_flat.device)
     is_start = torch.ones_like(sorted_e, dtype=torch.bool)
     is_start[1:] = sorted_e[1:] != sorted_e[:-1]
     run_start = torch.cummax(torch.where(is_start, pos_in_row, 0), dim=0).values
-    pos = torch.zeros_like(order).scatter(0, order, pos_in_row - run_start)
-    return probs, e_flat, w.reshape(-1, k), pos
+    return torch.zeros_like(order).scatter(0, order, pos_in_row - run_start)
 
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, rules=None):

@@ -10,7 +10,10 @@ On the card the SSD scan of a prefill is the hand-written kernel K6
 state in one launch (the JAX package computes the state on the TPU by a
 second pass over x, B and dt, in closed form). On the CPU the
 chunked scan below runs, as the JAX package runs it off the TPU (its
-``lax.scan`` over chunks is a Python loop here).
+``lax.scan`` over chunks is a Python loop here). Under autograd the card's
+scan takes K6's gradient kernels and the CPU's loop is differentiated by
+autograd; the full-sequence pass then runs its fp32 intermediates out of
+place (:func:`_in_place_ok`).
 """
 from __future__ import annotations
 
@@ -76,14 +79,28 @@ def _project_inputs(params, u: torch.Tensor, cfg: ModelConfig):
     return z, x, bm, cm, dt
 
 
+def _in_place_ok(params, *xs: torch.Tensor) -> bool:
+    """Whether a full-sequence pass may update its fp32 intermediates in
+    place: not under autograd with an input or a parameter that requires
+    grad, where an in-place op overwrites a tensor the backward reads."""
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (*xs, *params.values()) if isinstance(t, torch.Tensor)))
+
+
 def _gated_out(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, eps: float = 1e-5):
-    """SiLU(z)-gated RMSNorm then output projection. The fp32 (B, T, d_inner)
-    intermediates are updated in place (the same products in the same order
-    as ``y.float() * silu(z.float())`` etc.), so a prefill holds one at a time
-    beside the square, not three."""
-    yf = F.silu(z.float(), inplace=True).mul_(y)
-    ms = yf.square().mean(dim=-1, keepdim=True)
-    yf.mul_(torch.rsqrt(ms + eps)).mul_(params["gate_norm"].float())
+    """SiLU(z)-gated RMSNorm then output projection. Without autograd the fp32
+    (B, T, d_inner) intermediates are updated in place (the same products in
+    the same order as ``y.float() * silu(z.float())`` etc.), so a prefill
+    holds one at a time beside the square, not three; under autograd the
+    same ops run out of place."""
+    if _in_place_ok(params, y, z):
+        yf = F.silu(z.float(), inplace=True).mul_(y)
+        ms = yf.square().mean(dim=-1, keepdim=True)
+        yf.mul_(torch.rsqrt(ms + eps)).mul_(params["gate_norm"].float())
+    else:
+        yf = F.silu(z.float()) * y
+        ms = yf.square().mean(dim=-1, keepdim=True)
+        yf = yf * torch.rsqrt(ms + eps) * params["gate_norm"].float()
     return torch.einsum("bte,ed->btd", yf.to(y.dtype), params["out"])
 
 
@@ -147,9 +164,10 @@ def ssd_inputs(params, u: torch.Tensor, cfg: ModelConfig):
     fp32) — the SSD scan's inputs and what the decode cache keeps."""
     b, t, _ = u.shape
     z, x0, bm0, cm0, dt = _project_inputs(params, u, cfg)
-    x = F.silu(_causal_conv(x0, params["conv_x"]).float(), inplace=True).to(x0.dtype)
-    bm = F.silu(_causal_conv(bm0, params["conv_B"]).float(), inplace=True).to(bm0.dtype)
-    cm = F.silu(_causal_conv(cm0, params["conv_C"]).float(), inplace=True).to(cm0.dtype)
+    inplace = _in_place_ok(params, u)  # the convs' fp32 outputs: in place but under autograd
+    x = F.silu(_causal_conv(x0, params["conv_x"]).float(), inplace=inplace).to(x0.dtype)
+    bm = F.silu(_causal_conv(bm0, params["conv_B"]).float(), inplace=inplace).to(bm0.dtype)
+    cm = F.silu(_causal_conv(cm0, params["conv_C"]).float(), inplace=inplace).to(cm0.dtype)
     xh = x.reshape(b, t, cfg.ssm_nheads, cfg.ssm_head_dim)
     return z, x0, bm0, cm0, xh, bm, cm, dt
 

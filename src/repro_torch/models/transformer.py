@@ -10,8 +10,10 @@ A block's ``kind`` is "dense" (SwiGLU MLP), "moe" (the MoE layer in the
 MLP's place) or "ssm" (a pre-norm Mamba-2 mixer, no attention and no MLP),
 as in the JAX package. An attention block's cache entry is (k, v); an SSM
 block's is its state dict (``models/ssm.py: ssm_cache_shapes``), which has
-no pages. The MoE layer's metrics (aux loss, drop share) are discarded here,
-as the JAX serving engine discards them.
+no pages. A full-sequence pass returns the MoE layers' metrics (aux loss,
+drop share) summed over the layers, as the reference's stack does (None for
+a stack without an MoE layer, where the reference's are zeros); the serve
+paths discard them, as the JAX serving engine does.
 
 Under autograd (training), a full-sequence pass takes each layer's slice of
 the stacked parameters once (one ``unbind`` per leaf, whose backward builds
@@ -60,11 +62,33 @@ def stack_block_defs(cfg: ModelConfig, kind: str, n_layers: int):
     return stack_defs(block_defs(cfg, kind), n_layers)
 
 
-def _ffn(params, h: torch.Tensor, cfg: ModelConfig, kind: str) -> torch.Tensor:
-    """The block's second half: the MoE layer or the dense MLP."""
+def _ffn(params, h: torch.Tensor, cfg: ModelConfig, kind: str):
+    """The block's second half: (the MoE layer's or the dense MLP's output,
+    the MoE layer's metrics or None)."""
     if kind == "moe":
-        return moe_mod.apply_moe(params["moe"], h, cfg)[0]
-    return apply_mlp(params["mlp"], h, cfg)
+        return moe_mod.apply_moe(params["moe"], h, cfg)
+    return apply_mlp(params["mlp"], h, cfg), None
+
+
+def zero_metrics(x: torch.Tensor) -> dict:
+    """The MoE metrics of a block without an MoE layer: fp32 zeros."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return {"moe_aux": zero, "moe_dropped": zero}
+
+
+def add_metrics(total: dict | None, m: dict | None) -> dict | None:
+    """The MoE metrics summed so far plus a block's (None: no MoE layer)."""
+    if m is None or total is None:
+        return total if m is None else dict(m)
+    return {k: total[k] + m[k] for k in total}
+
+
+def remat_active(cfg: ModelConfig, x: torch.Tensor, params, collect_cache: bool) -> bool:
+    """Whether a full-sequence pass runs its blocks under
+    ``torch.utils.checkpoint``: ``cfg.remat``, under autograd, with no cache
+    collected, and something to differentiate (``x`` or a parameter)."""
+    return cfg.remat and not collect_cache and torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in tree.leaves(params)))
 
 
 def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -73,15 +97,16 @@ def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, kind: str, positions: torch.Tensor,
                      causal: bool = True, collect_cache: bool = False):
-    """Full-sequence block. Returns (x, cache entry or None): (k, v) in the
-    cache dtype for attention kinds, the state dict for 'ssm'."""
+    """Full-sequence block. Returns (x, cache entry or None, the MoE layer's
+    metrics or None): (k, v) in the cache dtype for attention kinds, the
+    state dict for 'ssm'."""
     if kind == "ssm":
         h = apply_norm(params["ln1"], x, cfg)
         if collect_cache:
             out, cache = ssm_mod.apply_ssm(params["ssm"], h, cfg, return_cache=True)
         else:
             out, cache = ssm_mod.apply_ssm(params["ssm"], h, cfg), None
-        return x + out, cache
+        return x + out, cache, None
     h = apply_norm(params["ln1"], x, cfg)
     q, k, v = attn_mod.qkv_project(params["attn"], h, cfg, positions)
     out = attn_mod.full_attention(q, k, v, causal=causal)
@@ -90,8 +115,8 @@ def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, kind: str, posit
     if collect_cache:
         entry = (k.to(_cache_dtype(cfg)), v.to(_cache_dtype(cfg)))
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + _ffn(params, h, cfg, kind)
-    return x, entry
+    y, metrics = _ffn(params, h, cfg, kind)
+    return x + y, entry, metrics
 
 
 def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig, kind: str,
@@ -110,7 +135,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig, k
     out = attn_mod.decode_attention(q, k_cache, v_cache, cur_len + 1)
     x = x + attn_mod.attn_output(params["attn"], out)
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + _ffn(params, h, cfg, kind)
+    x = x + _ffn(params, h, cfg, kind)[0]
     return x, {"k": k_cache, "v": v_cache}
 
 
@@ -140,7 +165,7 @@ def apply_block_decode_paged(params, x: torch.Tensor, k_pages: torch.Tensor, v_p
     out = attn_mod.paged_decode_attention(q, k_pages, v_pages, block_table, cur_len + 1)
     x = x + attn_mod.attn_output(params["attn"], out)
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + _ffn(params, h, cfg, kind)
+    x = x + _ffn(params, h, cfg, kind)[0]
     return x, k_pages, v_pages
 
 
@@ -166,7 +191,7 @@ def apply_block_prefill_chunk_paged(params, x: torch.Tensor, k_pages: torch.Tens
     out = attn_mod.paged_chunk_attention(q, k_pages, v_pages, block_table, start)
     x = x + attn_mod.attn_output(params["attn"], out)
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + _ffn(params, h, cfg, kind)
+    x = x + _ffn(params, h, cfg, kind)[0]
     return x, k_pages, v_pages
 
 
@@ -211,24 +236,26 @@ def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: st
                      into=None):
     """Full-sequence pass through the stack. Returns (x, the cache stacked on
     a leading 'layers' axis — {'k','v'} for attention kinds, the SSM state
-    dict for 'ssm' — or None). ``into``: a stacked cache of the right shapes
-    (e.g. a view of a larger one) that the layers' caches are copied into,
-    in place of a new one. Under autograd with ``cfg.remat``, each block
-    runs under ``torch.utils.checkpoint`` (recomputed in the backward)."""
+    dict for 'ssm' — or None, the MoE metrics summed over the layers or
+    None). ``into``: a stacked cache of the right shapes (e.g. a view of a
+    larger one) that the layers' caches are copied into, in place of a new
+    one. Under autograd with ``cfg.remat`` (:func:`remat_active`), each
+    block runs under ``torch.utils.checkpoint`` (recomputed in the backward;
+    its metrics are those of the forward)."""
     n = _num_layers(stacked_params)
     layers = _layers(stacked_params)
-    remat = cfg.remat and not collect_cache and torch.is_grad_enabled() and (
-        x.requires_grad or any(p.requires_grad for p in tree.leaves(stacked_params)))
-    cache = into
+    remat = remat_active(cfg, x, stacked_params, collect_cache)
+    cache, metrics = into, None
     for i, lp in enumerate(layers):
+        args = (lp, x, cfg, kind, positions, causal, collect_cache)
         if remat:
-            x, entry = checkpoint(apply_block_full, lp, x, cfg, kind, positions, causal, collect_cache,
-                                  use_reentrant=False, preserve_rng_state=False)
+            x, entry, m = checkpoint(apply_block_full, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, entry = apply_block_full(lp, x, cfg, kind, positions, causal, collect_cache)
+            x, entry, m = apply_block_full(*args)
+        metrics = add_metrics(metrics, m)
         if collect_cache:
             cache = stack_into(cache, i, n, entry)
-    return x, cache
+    return x, cache, metrics
 
 
 def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: ModelConfig, kind: str,

@@ -210,7 +210,7 @@ class ServingEngine:
                     h, new_cache = tfm.apply_stack_decode(params, x, old, cfg, kind, cur_len)
                 else:  # prefill: build the cache and place it in the max_len slots
                     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-                    h, built = tfm.apply_stack_full(params, x, cfg, kind, positions, collect_cache=True)
+                    h, built, _ = tfm.apply_stack_full(params, x, cfg, kind, positions, collect_cache=True)
                     if kind == "ssm":  # the built state IS the cache
                         new_cache = built
                     else:

@@ -50,8 +50,15 @@ CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-5  # fp32 (tests/test_kernels.py)
 # serial traffic on a busy host: promotion by measured sync waits would make
-# the merge order depend on timing (chip_smoke.SERVE_POLICY turns it off too)
-FUSING = dict(min_observations=2, merge_cost_s=0.0, promote_wait_s=float("inf"))
+# the merge order depend on timing (chip_smoke.SERVE_POLICY turns it off too),
+# and so would the amortization gate: it weighs an edge's measured sync wait
+# x the horizon against the EWMA of measured build seconds, and under load
+# the innermost edge of a chain fell under it at its first decision after a
+# park, so the chain fused another pair first (a group never built: a cold
+# merge). With a horizon this long any measured wait pays for any build, the
+# decisions read observation counts alone, and the merges follow the
+# candidates' order.
+FUSING = dict(min_observations=2, merge_cost_s=0.0, promote_wait_s=float("inf"), amortization_horizon=10**9)
 
 
 def _leaf_fn(tanh):
@@ -679,7 +686,8 @@ arch, max_len, steps, out, snap = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]
 cfg = dataclasses.replace(reduced_config(get_arch(arch)), kv_cache_dtype="float32")
 model = build_model(cfg)
 params = jax.tree.map(lambda x: x.astype(jnp.float32), model.init(jax.random.PRNGKey(0)))
-platform = TinyJaxBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0, promote_wait_s=float("inf")),
+platform = TinyJaxBackend(FusionPolicy(min_observations=2, merge_cost_s=0.0, promote_wait_s=float("inf"),
+                                       amortization_horizon=10**9),
                           snapshot_dir=snap)
 toks = jnp.asarray(np.load(out + ".prompt.npy"))
 

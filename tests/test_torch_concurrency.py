@@ -152,3 +152,46 @@ def test_overlapping_merges_held_before_the_swap_end_in_one_unit(backend_cls):
         np.testing.assert_allclose(p.invoke("A", x).numpy(), jax_reference(x.numpy()), rtol=FP32, atol=FP32)
     finally:
         p.shutdown()
+
+
+@pytest.mark.parametrize("backend_cls", BACKENDS)
+def test_a_hop_whose_callee_a_swap_retired_takes_the_new_route(backend_cls):
+    """A merge's health check runs the candidate unit on a member's canary,
+    and the unit's hop to a function outside it can resolve that function's
+    instance just as another publish retires it (the reconciler swapping in
+    {B,C} while ``merger.wait_idle`` ran the {A,B} merge on the caller's
+    thread: under load a three-function trough merge lost its second merge
+    that way, with no record). The hop re-resolves and runs on the new
+    route, as a client's entry does (``_invoke_with_retry``); here C's
+    instance is replaced and retired between the hop's resolve and its run.
+    The reference lets the hop raise."""
+    from repro_torch.core.function import FunctionInstance
+
+    p = backend_cls(FusionPolicy(min_observations=10**6, merge_cost_s=0.0))
+    try:
+        deploy_chain(p)
+        x = torch.from_numpy(np.full((2, 24), 0.3, np.float32))
+        unit = FunctionInstance({n: p.spec_of(n) for n in "AB"}, p)
+        p.attach_instance(unit)
+        resolve = p.registry.resolve
+        swapped = []
+
+        def racing_resolve(name):
+            inst = resolve(name)
+            if name == "C" and not swapped:
+                fresh = FunctionInstance({"C": p.spec_of("C")}, p)
+                p.attach_instance(fresh)
+                fresh.mark_ready()
+                swapped.append(p.lifecycle.publish({"C": fresh}, kind="merge", expect={"C": inst}))
+            return inst
+
+        p.registry.resolve = racing_resolve
+        try:
+            out = unit.execute("A", (x,))
+        finally:
+            p.registry.resolve = resolve
+        assert swapped and swapped[0] is not None and swapped[0].retired  # C's old instance retired mid-hop
+        np.testing.assert_allclose(out.numpy(), jax_reference(x.numpy()), rtol=FP32, atol=FP32)
+        p.detach_instance(unit)
+    finally:
+        p.shutdown()

@@ -1,6 +1,7 @@
 """The hand-written kernels K3 (flash_attention, and its gradient), K4 (decode_attention),
-K1 (paged_decode_attention), K2 (paged_chunk_attention), K5 (moe_gmm) and
-K6 (ssd_scan) against their plain versions, on the card.
+K1 (paged_decode_attention), K2 (paged_chunk_attention), K5 (moe_gmm, and its
+gradient) and K6 (ssd_scan, and its gradient) against their plain versions,
+on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a CUDA
 device. The file imports no JAX, so it runs where only PyTorch is
@@ -691,13 +692,13 @@ def test_flash_gradient_through_a_model_layer_on_the_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["decode_attention", "paged_decode_attention",
-                                    "paged_chunk_attention", "moe_gmm", "ssd_scan"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "paged_decode_attention", "paged_chunk_attention"])
 def test_kernel_refuses_an_input_that_requires_grad(cuda, kernel):
-    """The five kernels without a backward: under grad mode, a CUDA input
+    """The three kernels without a backward: under grad mode, a CUDA input
     that requires grad raises before the launch (an output filled by the
-    kernel would carry no gradient); under no_grad the kernel runs. K3 has
-    its gradient (test_flash_gradient_matches_plain)."""
+    kernel would carry no gradient); under no_grad the kernel runs. K3, K5
+    and K6 have their gradients (test_flash_gradient_matches_plain,
+    test_moe_gmm_gradient_matches_plain, test_ssd_gradient_matches_plain)."""
     bf = dict(device=cuda, dtype=torch.bfloat16)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     pages = torch.zeros(3, 16, 2, 64, **bf)
@@ -709,11 +710,6 @@ def test_kernel_refuses_an_input_that_requires_grad(cuda, kernel):
         "paged_decode_attention": lambda x: tpaged.paged_decode_attention(x[:, 0].contiguous(), pages, pages, table,
                                                                           one),
         "paged_chunk_attention": lambda x: tpaged.paged_chunk_attention(x, pages, pages, table, one),
-        "moe_gmm": lambda x: tgmm.moe_gmm(x.reshape(4, 8, 64), torch.zeros(4, 64, 32, **bf)),
-        "ssd_scan": lambda x: tssd.ssd_scan(x.reshape(1, 8, 2, 128)[..., :64].contiguous(),
-                                            torch.zeros(1, 8, 1, 64, **bf), torch.zeros(1, 8, 1, 64, **bf),
-                                            torch.ones(1, 8, 2, device=cuda), torch.zeros(2, device=cuda),
-                                            torch.ones(2, device=cuda)),
     }[kernel]
     with torch.enable_grad():
         with pytest.raises(RuntimeError, match="no backward on the card"):
@@ -856,3 +852,124 @@ def test_decode_kernel_reads_one_layer_of_stacked_caches_in_place(cuda, b):
         heads_first = k[0, layer].transpose(1, 2).contiguous().transpose(1, 2)  # (b, s, kv, hd), rows strided
         with pytest.raises(ValueError, match="contiguous"):
             tdec.decode_attention(q[0], heads_first, heads_first, cur[0])
+
+
+GRAD_TOL = 2e-2  # of each gradient's max |g|: bf16 inputs, fp32 sums in another order
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f,ragged", [
+    (128, 640, 2048, 768, True),   # qwen3-moe-30b-a3b's gate/up at its train shape (2 x 4096 tokens)
+    (128, 640, 768, 2048, True),   # its down-projection: w is (E, f, d)
+    (8, 37, 64, 40, True),         # ragged edges of every tile
+    (4, 64, 128, 64, False),       # every row kept (rows = None)
+])
+def test_moe_gmm_gradient_matches_plain(cuda, e, c, d, f, ragged):
+    """K5's gradient against gmm_ref_bwd within 2e-2 of each output's max:
+    one launch of each of its two kernels a call, equal bits on two calls
+    and through autograd, exact zeros in dxe past rows[e] and in dw of an
+    expert with no row."""
+    gen = torch.Generator(device=cuda).manual_seed(e + c)
+    rows = None
+    keep = torch.ones(e, c, 1, dtype=torch.bool, device=cuda)
+    if ragged:
+        rows = torch.randint(0, c + 1, (e,), generator=gen, device=cuda, dtype=torch.int32)
+        rows[0], rows[1] = 0, c
+        keep = (torch.arange(c, device=cuda)[None] < rows[:, None])[..., None]
+    xe = torch.randn(e, c, d, generator=gen, device=cuda).to(torch.bfloat16).masked_fill(~keep, 0)
+    w = (torch.randn(e, d, f, generator=gen, device=cuda) * d ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(e, c, f, generator=gen, device=cuda).to(torch.bfloat16)
+    before = {n: build.launches(n) for n in ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw")}
+    got = tgmm.backward(xe, w, rows, dy)
+    torch.cuda.synchronize()
+    assert {n: build.launches(n) - before[n] for n in before} == dict.fromkeys(before, 1)
+    for g, want in zip(got, tgmm.plain_bwd(xe, w, rows, dy)):
+        assert torch.isfinite(g.float()).all() and rel_err(g, want) <= GRAD_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, tgmm.backward(xe, w, rows, dy)))
+    x = [xe.clone().requires_grad_(), w.clone().requires_grad_()]
+    auto = torch.autograd.grad(tgmm.moe_gmm(*x, rows), x, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, auto))
+    if ragged:
+        assert (got[0].masked_select(~keep) == 0).all() and not got[1][0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,g,n,with_state", [
+    (1, 512, 32, 1, 128, False),   # mamba2-370m's heads over a state of 128
+    (1, 300, 112, 1, 64, True),    # zamba2-7b's 112 heads over 64, a partial chunk
+    (2, 130, 8, 2, 64, True),      # two groups, two sequences
+    (1, 37, 4, 1, 128, True),      # one partial chunk
+    (1, 64, 4, 1, 64, False),      # one whole chunk
+])
+def test_ssd_gradient_matches_plain(cuda, b, t, h, g, n, with_state):
+    """K6's gradient against ssd_ref_bwd within 2e-2 of each output's max
+    (dx, dB and dC summed over each group's heads, ddt, dA_log, dD), with and
+    without the final state's cotangent: one launch of each of its two
+    kernels a call, equal bits on two calls and through autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(t + h)
+    x = torch.randn(b, t, h, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    bm, cm = ((torch.randn(b, t, g, n, generator=gen, device=cuda) * 0.5).to(torch.bfloat16) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=gen, device=cuda))
+    a_log = torch.randn(h, generator=gen, device=cuda) * 0.3
+    d_skip = torch.randn(h, generator=gen, device=cuda)
+    dy = torch.randn(b, t, h, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    ds = torch.randn(b, h, 64, n, generator=gen, device=cuda) if with_state else None
+    ins = (x, bm, cm, dt, a_log, d_skip)
+    before = {k: build.launches(k) for k in ("ssd_scan_bwd_walk", "ssd_scan_bwd_chunk")}
+    got = tssd.backward(*ins, dy, ds)
+    torch.cuda.synchronize()
+    assert {k: build.launches(k) - before[k] for k in before} == dict.fromkeys(before, 1)
+    for gr, want in zip(got, tssd.plain_bwd(*ins, dy, ds)):
+        assert gr.dtype == want.dtype and torch.isfinite(gr.float()).all() and rel_err(gr, want) <= GRAD_TOL
+    assert all(torch.equal(a, c) for a, c in zip(got, tssd.backward(*ins, dy, ds)))
+    live = [v.clone().requires_grad_() for v in ins]
+    y, state = tssd.ssd_scan(*live, return_state=True)
+    outs, cot = ((y, state), (dy, ds)) if with_state else ((y,), (dy,))
+    auto = torch.autograd.grad(outs, live, cot)
+    assert all(torch.equal(a, c) for a, c in zip(got, auto))
+
+
+@pytest.mark.cuda
+def test_ssd_gradient_kernel_rejects_what_it_does_not_take(cuda):
+    """The backward takes a head dim of 64 only: another raises before any
+    launch."""
+    x = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
+    bm = torch.zeros(1, 8, 1, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tssd.backward(x, bm, bm, torch.ones(1, 8, 2, device=cuda), torch.zeros(2, device=cuda),
+                      torch.ones(2, device=cuda), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-370m"])
+def test_small_model_loss_backward_on_the_card_goes_through_the_gradients(cuda, arch):
+    """A small MoE or SSM model's loss backward on the card: K5's (three
+    products per MoE layer) or K6's (one per SSM layer) backward kernels
+    launched, no plain backward called, every gradient finite."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.kernels import ref
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import value_and_grad
+
+    cfg = reduced_config(get_arch(arch))
+    cfg = dataclasses.replace(cfg, d_model=256, **({"d_head": 64} if cfg.num_heads else {}),
+                              **({"ssm_head_dim": 64, "ssm_state": 64} if cfg.ssm_state else {}))
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), device=cuda, dtype=torch.int32)
+    names = ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw") if cfg.family == "moe" else ("ssd_scan_bwd_walk", "ssd_scan_bwd_chunk")
+    before = {k: build.launches(k) for k in names}
+    plain = ref.CALLS["gmm_ref_bwd"] + ref.CALLS["ssd_ref_bwd"]
+    loss, _, grads = value_and_grad(model, params, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    torch.cuda.synchronize()
+    per_layer = 3 if cfg.family == "moe" else 1
+    assert {k: build.launches(k) - before[k] for k in names} == dict.fromkeys(names, per_layer * cfg.num_layers)
+    assert ref.CALLS["gmm_ref_bwd"] + ref.CALLS["ssd_ref_bwd"] == plain
+    assert torch.isfinite(loss) and all(torch.isfinite(g.float()).all() for g in tree.leaves(grads))

@@ -267,7 +267,7 @@ def test_ssm_block_kind_through_the_stacks_and_paged_refusal():
     x = torch.randn(1, 7, cfg.d_model, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     pos = torch.arange(7)[None]
     with torch.no_grad():
-        h, cache = tfm.apply_stack_full(params, x, cfg, "ssm", pos, collect_cache=True)
+        h, cache, _ = tfm.apply_stack_full(params, x, cfg, "ssm", pos, collect_cache=True)
         assert set(cache) == {"ssd", "conv_x", "conv_B", "conv_C"}
         assert cache["ssd"].shape == (cfg.num_layers, 1, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state)
         h2, new = tfm.apply_stack_decode(params, h[:, -1:], cache, cfg, "ssm", torch.tensor([7], dtype=torch.int32))
