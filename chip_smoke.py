@@ -60,12 +60,16 @@ Phases (any failed check exits non-zero and prints no result):
    top-8 routing; gate/up, the down-projection, a ragged ``rows`` with
    experts at 0, at full C and between) and K6's gradient
    (``csrc/ssd_scan_bwd.cu``: the walks, then the chunks; SSD_GRAD_CASES)
-   checked at T <= 512 (mamba2's and zamba2's heads, T = 300, two groups,
-   a final-state cotangent) and timed at the train shapes (B = 2, T =
-   4096), where the plain backward does not fit: each output within 2e-2 of
+   at T <= 512 (mamba2's and zamba2's heads, T = 300, two groups, a
+   final-state cotangent) and at the train shapes (B = 2, T = 4096, where
+   the plain backward runs in fp32 over slices of 8 heads; dt at the model's
+   scale and at a slow decay whose states reach across tens of chunks):
+   each output within 2e-2 of
    its max |g| against ``gmm_ref_bwd`` / ``ssd_ref_bwd``, equal bits on two
    calls and through autograd, one launch of each kernel a call; timed
-   beside the plain backward and, for K5, two ``torch.bmm``. A
+   beside the plain backward and, for K5, two ``torch.bmm``, with each of
+   the two kernels' own ms (``kernel_ms``, torch.profiler) and, for K6, the
+   split of a group's heads and the bytes of its state workspace. A
    ``grad_refusal`` line: each of the three wrappers without a backward (K4,
    K1, K2), given a CUDA input that requires grad under grad mode, raises
    before its launch; K3, K5 and K6 under grad launch their forward and each
@@ -210,15 +214,18 @@ Phases (any failed check exits non-zero and prints no result):
    ``train`` — full-width ``llama3.2-1b`` (remat as its config has it)
    trained 16 steps through ``TrainLoop`` at T = 4096 with a batch of 4 as
    2 microbatches (bf16 params, fp32 moments, AdamW at lr 1e-2 with the
-   launcher's cosine schedule, the affine stream, seed 0): every loss and
+   launcher's cosine schedule, the affine stream, seed 0; the state handed
+   to the loop, AdamW in place): every loss and
    grad_norm finite, the last 4 losses' mean below the first 4's, K3's
    forward launched exactly twice (remat) and each backward kernel once per
    layer of each microbatch, no plain version; step ms, tokens/s, peak
-   memory, the state's bytes, and one profiled step's busy share and K3's
-   share. ``train_card_vs_host`` — a small model's step (loss, grad_norm
-   within 2e-2; every gradient within 5e-2 of its max) and the first and
-   last full-width block's forward and backward at T = 512 (dx and every
-   parameter gradient within 5e-2 of its max), attention at fan-in d.
+   memory, the state's bytes, one profiled step's busy share and K3's
+   share, and where a step peaks. ``train_card_vs_host`` — a small model's
+   step (loss, grad_norm within 2e-2; every gradient within 5e-2 of its
+   max), its donated step equal bit for bit to its functional one, and the
+   first and last full-width block's forward and backward at T = 512 (dx
+   and every parameter gradient within 5e-2 of its max), attention at
+   fan-in d.
    ``train_restart`` — the reference's restart (12 steps, a checkpoint
    every 4, failures at 5 and 9) bit-exact under
    ``torch.use_deterministic_algorithms``. ``launch_train`` —
@@ -311,20 +318,24 @@ Phases (any failed check exits non-zero and prints no result):
    pools for about 10 s, its data and bookkeeping checked as on the host.
 
 16. Family training phases (``family_training_phases``), the earlier tensors
-   freed: ``moe_train`` (qwen3-moe-30b-a3b at full width, 2 of its 48
-   layers: at 3 and 4 the port's functional AdamW update ran out of the
-   card), ``ssm_train`` (mamba2-370m, full width and depth) and
+   freed: ``moe_train`` (qwen3-moe-30b-a3b at full width, 4 of its 48
+   layers), ``ssm_train`` (mamba2-370m, full width and depth) and
    ``hybrid_train`` (zamba2-7b at full width, 14 of its 81 layers: two groups
-   of 6, the shared block applied twice, and a tail of 2), each 8 AdamW steps (lr 1e-3, 1e-3, 3e-4) at T =
-   4096, a batch of 4 as 2 microbatches, remat: losses, moe_aux and
+   of 6, the shared block applied twice, and a tail of 2), each 8 AdamW steps
+   (lr 5e-4, 1e-3, 3e-4) at T = 4096, a batch of 4 as 2 microbatches, remat,
+   the state handed to the loop (``donate.donating()``: AdamW in place, one
+   training state on the card): losses, moe_aux and
    grad_norm finite, the last 3 losses' mean below the first 3's, every
    kernel's launches exact
    (``family_expected_launches``: the forward kernels twice a layer under
    remat, K5 3 and its two gradient kernels 3 per MoE layer, K6 and its two
    gradient kernels 1 per Mamba layer, K3 and its gradient per attention),
-   no plain version; step ms, tokens/s, peak memory, moe_dropped, and a
-   profiled step's busy share. Each family's ``<key>_train_card_vs_host``:
-   a small model's step (``train_card_vs_host``) and the full-width first
+   no plain version; step ms, tokens/s, peak memory, moe_dropped, a
+   profiled step's busy share and where a step peaks (``step_memory``: the
+   peak inside each microbatch's forward and backward and inside the
+   update). Each family's ``<key>_train_card_vs_host``: a small model's
+   step (``train_card_vs_host``), its donated step against its functional
+   step bit for bit (``donated_step_check``) and the full-width first
    and last block (the hybrid's shared block too; its last is a tail block) at T = 512
    (``family_block_check``); an MoE model's host pass takes the card's
    routing (``RoutingReplay``: routing is discontinuous, and the two sides'
@@ -791,18 +802,49 @@ def flash_grad_cases(torch, F) -> list:
 MOE_GRAD_TOKENS = 2 * 4096
 MOE_GRAD_KERNELS = ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw")
 # K6's gradient (csrc/ssd_scan_bwd.cu: the walks, then the chunks): (label,
-# B, T, H, G, N, state cotangent, checked against the plain backward). The
-# plain backward holds (B, T, T, H) fp32 tensors: at T = 4096 tens of GB, so
-# the train shapes are timed only, and checked at T = 512 and below
+# B, T, H, G, N, state cotangent, the plain backward's slice of heads, dt's
+# scale). The plain backward holds (B, T, T, H) fp32 tensors: at T = 4096 tens
+# of GB, so at the train shapes it runs over slices of 8 of a group's heads at
+# once (None: whole), in fp32, the slices' dB and dC summed
+# (ssd_plain_bwd_by_heads). dt's scale "model" is the recipe's softplus of a
+# unit normal, ~0.8 (the ports' SSM layers give ~0.7: dt_bias 0, A_log 0):
+# a state decays by ~e^-50 over a chunk, so the walks' states add little.
+# "slow" draws dt ~0.02 and A_log ~ -2 (a ~ -0.14): a state keeps ~e^-0.2 of
+# itself over a chunk and reaches across tens of the 64 chunks, so the
+# gradient leans on the bf16 states of long walks.
 SSD_GRAD_CASES = (
-    ("mamba2-370m T=512", 1, 512, 32, 1, 128, False, True),
-    ("zamba2-7b T=512, dS", 1, 512, 112, 1, 64, True, True),
-    ("T=300, dS", 1, 300, 32, 1, 128, True, True),
-    ("G=2", 2, 130, 8, 2, 64, True, True),
-    ("mamba2-370m train B=2 T=4096", 2, 4096, 32, 1, 128, False, False),
-    ("zamba2-7b train B=2 T=4096", 2, 4096, 112, 1, 64, False, False),
+    ("mamba2-370m T=512", 1, 512, 32, 1, 128, False, None, "model"),
+    ("zamba2-7b T=512, dS", 1, 512, 112, 1, 64, True, None, "model"),
+    ("T=300, dS", 1, 300, 32, 1, 128, True, None, "model"),
+    ("G=2", 2, 130, 8, 2, 64, True, None, "model"),
+    ("mamba2-370m train B=2 T=4096", 2, 4096, 32, 1, 128, False, 8, "model"),
+    ("zamba2-7b train B=2 T=4096", 2, 4096, 112, 1, 64, False, 8, "model"),
+    ("mamba2-370m train B=2 T=4096, slow decay", 2, 4096, 32, 1, 128, False, 8, "slow"),
+    ("zamba2-7b train B=2 T=4096, slow decay", 2, 4096, 112, 1, 64, False, 8, "slow"),
 )
 SSD_GRAD_KERNELS = ("ssd_scan_bwd_walk", "ssd_scan_bwd_chunk")
+
+
+def kernel_ms(torch, fn, names, calls: int = 5) -> dict:
+    """Each named kernel's device time per call of ``fn`` (ms, averaged over
+    ``calls`` calls under torch.profiler, after one untimed call): how a
+    function's time splits between its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    out[name] += e.time_range.elapsed_us() / 1e3 / calls
+    return out
 
 
 def dev_err(a, b) -> tuple[float, float]:
@@ -865,6 +907,8 @@ def moe_grad_cases(torch) -> list:
         cases.append({
             "shape": f"{label}: E={e} C={c} d={d} f={f} active={active} rows={kept} bf16",
             "max_abs_err": abs_err, "rel_err": errs, "ms": ms,
+            "kernel_ms": kernel_ms(torch, lambda: gm.backward(xe, w, rows, dy),
+                                   ("moe_gmm_bwd_dx_kernel", "moe_gmm_bwd_dw_kernel")),
             "plain_ms": time_ms(torch, lambda: gm.plain_bwd(xe, w, rows, dy), PLAIN_GRAD_SAMPLES, REPS),
             "library_ms": time_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2)), torch.bmm(xe.transpose(1, 2), dy))),
             "library": "two torch.bmm on the full buffers (dy w^T, xe^T dy)",
@@ -892,26 +936,52 @@ def ssd_grad_bound(b, t, h, g, p, n, with_state: bool = False) -> tuple[float, s
     return bound(flops, nbytes)
 
 
+def ssd_plain_bwd_by_heads(torch, sd, ins, dy, ds, k: int):
+    """K6's plain backward (``sd.plain_bwd``) over slices of ``k`` of each
+    group's heads, its inputs cast to fp32 (so its outputs stay fp32); the
+    per-head outputs put in place and the slices' dB and dC summed in
+    slice order: the plain backward where its (B, T, T, H) tensors do not fit
+    at once."""
+    x, bm, cm, dt, a_log, d_skip = ins
+    h, g = x.shape[2], bm.shape[2]
+    hpg = h // g
+    f32 = torch.float32
+    dx, ddt = torch.empty(x.shape, dtype=f32, device=x.device), torch.empty(dt.shape, dtype=f32, device=x.device)
+    da, dd = torch.empty(h, dtype=f32, device=x.device), torch.empty(h, dtype=f32, device=x.device)
+    dbm, dcm = torch.zeros(bm.shape, dtype=f32, device=x.device), torch.zeros(cm.shape, dtype=f32, device=x.device)
+    for j0 in range(0, hpg, k):
+        idx = torch.tensor([gi * hpg + j for gi in range(g) for j in range(j0, min(j0 + k, hpg))], device=x.device)
+        out = sd.plain_bwd(x[:, :, idx].float(), bm.float(), cm.float(), dt[:, :, idx].float(), a_log[idx].float(),
+                           d_skip[idx].float(), dy[:, :, idx].float(), None if ds is None else ds[:, idx].float())
+        dx[:, :, idx], ddt[:, :, idx], da[idx], dd[idx] = out[0], out[3], out[4], out[5]
+        dbm += out[1]
+        dcm += out[2]
+        del out
+    return dx, dbm, dcm, ddt, da, dd
+
+
 def ssd_grad_cases(torch) -> list:
     """K6's gradient at SSD_GRAD_CASES on unit-scale inputs (ssd_kernel_cases'
-    recipe, dy of std 1): each output (dx, dB, dC summed over a group's
-    heads, ddt, dA_log, dD) within GRAD_TOL of its max |g| of ``ssd_ref_bwd``
-    where checked, equal bits on two calls and through autograd, one launch
-    of each kernel a call; timed beside the plain backward where checked (no
-    single PyTorch call computes it: library "none")."""
+    recipe, dy of std 1; dt and A_log as the case's scale says): each output
+    (dx, dB, dC summed over a group's heads, ddt, dA_log, dD) within GRAD_TOL
+    of its max |g| of ``ssd_ref_bwd`` (whole, or over slices of heads at the
+    train shapes), equal bits on two calls and through autograd, one launch
+    of each kernel a call; timed beside the whole plain backward where it
+    runs (no single PyTorch call computes it: library "none")."""
     from repro_torch.kernels import build
     from repro_torch.kernels import ssd_scan as sd
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(28)
     cases = []
-    for label, b, t, h, g, n, with_state, checked in SSD_GRAD_CASES:
+    for label, b, t, h, g, n, with_state, slice_heads, scale in SSD_GRAD_CASES:
         t0 = time.perf_counter()
         p = 64
         x = torch.randn(b, t, h, p, generator=gen, device=dev).to(torch.bfloat16)
         bm, cm = ((torch.randn(b, t, g, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16) for _ in range(2))
-        dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=gen, device=dev))
-        a_log = torch.randn(h, generator=gen, device=dev) * 0.3
+        shift = 0.0 if scale == "model" else -4.0
+        dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=gen, device=dev) + shift)
+        a_log = torch.randn(h, generator=gen, device=dev) * 0.3 + (0.0 if scale == "model" else -2.0)
         d_skip = torch.ones(h, device=dev)
         dy = torch.randn(b, t, h, p, generator=gen, device=dev).to(torch.bfloat16)
         ds = torch.randn(b, h, p, n, generator=gen, device=dev) if with_state else None
@@ -930,26 +1000,35 @@ def ssd_grad_cases(torch) -> list:
         auto = torch.autograd.grad(outs, live, cot)
         check(all(torch.equal(a, c) for a, c in zip(got, auto)), f"K6 gradient {label}: autograd's differ in bits")
         del live, y, state, auto
-        errs, abs_err, plain_ms = None, None, None
-        if checked:
-            want = sd.plain_bwd(*ins, dy, ds)
-            names = ("dx", "dbm", "dcm", "ddt", "da_log", "dd_skip")
-            both = {k: dev_err(a, w) for k, a, w in zip(names, got, want)}
-            errs = {k: v[1] for k, v in both.items()}
-            abs_err = max(v[0] for v in both.values())
-            check(max(errs.values()) <= GRAD_TOL, f"K6 gradient {label}: beyond {GRAD_TOL} of max |g|: {errs}")
-            del want
-            torch.cuda.empty_cache()
+        plain_ms = None
+        want = (sd.plain_bwd(*ins, dy, ds) if slice_heads is None
+                else ssd_plain_bwd_by_heads(torch, sd, ins, dy, ds, slice_heads))
+        names = ("dx", "dbm", "dcm", "ddt", "da_log", "dd_skip")
+        both = {k: dev_err(a, w) for k, a, w in zip(names, got, want)}
+        errs = {k: v[1] for k, v in both.items()}
+        abs_err = max(v[0] for v in both.values())
+        check(max(errs.values()) <= GRAD_TOL, f"K6 gradient {label}: beyond {GRAD_TOL} of max |g|: {errs}")
+        del want
+        torch.cuda.empty_cache()
+        if slice_heads is None:
             plain_ms = time_ms(torch, lambda: sd.plain_bwd(*ins, dy, ds), PLAIN_GRAD_SAMPLES, PLAIN_GRAD_REPS)
             torch.cuda.empty_cache()
         b_ms, b_by = ssd_grad_bound(b, t, h, g, p, n, with_state)
         ms = time_ms(torch, lambda: sd.backward(*ins, dy, ds))
+        nc = -(-t // SSD_CHUNK)
+        states = 2 * 2 * b * h * nc * p * n  # S_c and Z_c in bf16, written once and read once
+        splits = sd.grad_splits(b, nc, g, h // g, torch.cuda.get_device_properties(dev).multi_processor_count)
         cases.append({
             "shape": f"{label}: B={b} T={t} H={h} G={g} P={p} N={n} x/dy/B/C bf16, dt fp32"
                      f"{', dstate fp32' if with_state else ''}",
-            "checked": checked, "max_abs_err": abs_err, "rel_err": errs, "ms": ms, "plain_ms": plain_ms,
+            "plain": "whole" if slice_heads is None else f"fp32, slices of {slice_heads} heads", "dt_scale": scale,
+            "max_abs_err": abs_err, "rel_err": errs, "ms": ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms(torch, lambda: sd.backward(*ins, dy, ds),
+                                   ("ssd_bwd_walk_kernel", "ssd_bwd_chunk_kernel")),
             "library_ms": None, "library": "none", "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
-            "workspace_bytes": 2 * 4 * b * h * -(-t // SSD_CHUNK) * p * n, "seconds": time.perf_counter() - t0,
+            "splits": splits, "workspace_bytes": states,
+            "workspace_floor_ms": 2 * states / PEAK_BYTES_PER_S * 1e3,
+            "partials_bytes": 4 * splits * b * g * nc * 2 * SSD_CHUNK * n, "seconds": time.perf_counter() - t0,
         })
     return cases
 
@@ -4705,13 +4784,16 @@ LAUNCH_TRAIN = ("--arch", "llama3.2-1b", "--steps", "6", "--batch", "2", "--seq"
 
 
 def train_loop_run(torch, dev, cfg, state, steps: int, shape, lr: float, ckpt_every: int = 0, seed: int = 0,
-                   injector=None):
+                   injector=None, donate: bool = False):
     """``steps`` steps of ``cfg`` from ``state`` through the port's
     TrainLoop (AdamW, the launcher's cosine schedule, the affine stream of
-    ``seed`` on ``dev``; checkpoints in a temporary directory). Returns
-    (loop, final state, history, the step function)."""
+    ``seed`` on ``dev``; checkpoints in a temporary directory); with
+    ``donate`` the loop is handed ``state`` and updates it in place from the
+    first step (else from the second). Returns (loop, final state, history,
+    the step function)."""
     import tempfile
 
+    from repro_torch import donate as donation
     from repro_torch.checkpointing import CheckpointManager
     from repro_torch.data import SyntheticTokenPipeline
     from repro_torch.models.model import build_model
@@ -4724,7 +4806,8 @@ def train_loop_run(torch, dev, cfg, state, steps: int, shape, lr: float, ckpt_ev
         loop = TrainLoop(step_fn, lambda start: SyntheticTokenPipeline(cfg, shape, seed=seed, mode="affine",
                                                                       start_batch=start, device=dev),
                          CheckpointManager(d), ckpt_every=ckpt_every)
-        state, history = loop.run(state, steps, injector)
+        with donation.donating(donate):
+            state, history = loop.run(state, steps, injector)
     return loop, state, history, step_fn
 
 
@@ -4742,6 +4825,7 @@ def train_phase(torch, dev, cfg) -> tuple[dict, dict]:
     import dataclasses
     import gc
 
+    from repro_torch import donate as donation
     from repro_torch import tree
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticTokenPipeline
@@ -4764,7 +4848,7 @@ def train_phase(torch, dev, cfg) -> tuple[dict, dict]:
     state_bytes = {"params": nbytes(state["params"]), "moments": nbytes(state["opt"]["m"]) + nbytes(state["opt"]["v"])}
     shape = ShapeConfig("train_4k on one card", TRAIN_SEQ, TRAIN_BATCH, "train")
     ops.reset_counts()
-    _, state, hist, step_fn = train_loop_run(torch, dev, tcfg, state, TRAIN_STEPS, shape, TRAIN_LR)
+    _, state, hist, step_fn = train_loop_run(torch, dev, tcfg, state, TRAIN_STEPS, shape, TRAIN_LR, donate=True)
     counts = ops.counts()
     losses, norms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
     check(all(map(math.isfinite, losses + norms)), f"train: a non-finite loss or grad_norm: {losses} {norms}")
@@ -4793,7 +4877,8 @@ def train_phase(torch, dev, cfg) -> tuple[dict, dict]:
     def one_step() -> float:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        step_fn(state, batch)
+        with donation.donating():
+            step_fn(state, batch)
         torch.cuda.synchronize()
         return (time.perf_counter() - t1) * 1e3
 
@@ -4808,7 +4893,8 @@ def train_phase(torch, dev, cfg) -> tuple[dict, dict]:
                    "k3_backward_share": sum(k3.get(n, {}).get("ms_per_step", 0.0)
                                             for n in ("flash_bwd_prep_kernel", "flash_bwd_kernel",
                                                       "flash_bwd_post_kernel")) / dev_ms,
-                   "port_kernels": k3, "top_kernels": prof["top_kernels"], "kernels": prof["kernels_per_step"]}
+                   "port_kernels": k3, "top_kernels": prof["top_kernels"], "kernels": prof["kernels_per_step"],
+                   "step_memory": step_memory(torch, tcfg, state, batch, TRAIN_LR)}
     out = {
         "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
         "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "remat": cfg.remat, "seq": TRAIN_SEQ,
@@ -5034,8 +5120,8 @@ def training_phases(torch, dev, cfg) -> dict:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    print(json.dumps({"train_card_vs_host": {"small": train_card_vs_host(torch, dev, cfg), "blocks": blocks}}),
-          flush=True)
+    print(json.dumps({"train_card_vs_host": {"small": train_card_vs_host(torch, dev, cfg), "blocks": blocks,
+                                             "donated_step": donated_step_check(torch, dev, cfg)}}), flush=True)
     t2 = time.perf_counter()
     print(json.dumps({"train_restart": train_restart_phase(torch, dev, cfg)}), flush=True)
     t3 = time.perf_counter()
@@ -5051,14 +5137,15 @@ def training_phases(torch, dev, cfg) -> dict:
 
 
 # The MoE, SSM and hybrid families trained on the card: (architecture, line
-# key, layers, AdamW's rate). qwen3-moe-30b-a3b at full width with 2 of its 48 layers: the
-# whole model's training state would be ~367 GB; at 4 layers (6.23 GB of bf16
-# params, 31 GB of state) and at 3 (4.98 GB) the first AdamW update ran out of
-# the card's 79 GiB. That is the port's memory design, not the card's size:
-# the functional update holds the old and the new state at once, beside two
-# gradient trees and the fp32 temporaries of one stacked expert leaf (2.25-3
-# GiB each); an update in place and an earlier free of each microbatch's
-# gradients would fit 4 (ROADMAP.md, Queue 3). mamba2-370m at full width and
+# key, layers, AdamW's rate). qwen3-moe-30b-a3b at full width with 4 of its 48
+# layers (6.23 GB of bf16 params, 31 GB of training state; the whole model's
+# would be ~367 GB): each loop and profile step is donated, so the update is
+# AdamW in place (one state, its fp32 temporaries one piece of 2^24 elements
+# at a time) and the microbatches' gradients add into one accumulator. Until
+# the port updated in place, its functional update held the old and the new
+# state at once beside two gradient trees and the fp32 temporaries of a
+# whole stacked expert leaf, and at 4 and 3 layers the first update ran out
+# of the card's 79 GiB (2 layers ran). mamba2-370m at full width and
 # depth (~4.4 GB of state). zamba2-7b at full width with 14 of its 81 layers:
 # two groups of 6, so that the shared attention block is applied twice, and a
 # tail of 2, so that the tail's blocks train on the card and the block check
@@ -5066,10 +5153,14 @@ def training_phases(torch, dev, cfg) -> dict:
 # rates: at llama's 1e-2 (TRAIN_LR) the MoE model's gradients are small
 # (grad_norm 0.4-22, not clipped), each step moved the weights by half their
 # scale, the routers collapsed onto few experts (moe_aux 3.4 -> 19.6, 70 % of
-# the tokens dropped) and the loss rose from 12.5 to 31; zamba2-7b's loss
-# rose at 1e-3 (10.90 -> 11.06 over the first and last 3 of 8 steps) and fell
-# at 3e-4 and 1e-4 (on an NVIDIA H100 80GB HBM3 at 700.00 W).
-FAMILY_TRAIN = (("qwen3-moe-30b-a3b", "moe", 2, 1e-3), ("mamba2-370m", "ssm", None, 1e-3),
+# the tokens dropped) and the loss rose from 12.5 to 31; at 2 layers it fell
+# at 1e-3, at 4 it rose there (12.46 -> 12.52 over the first and last 3 of 8
+# steps) and fell at 1e-4, 3e-4 and 5e-4 (12.49 -> 12.45). The in-place step
+# is not the cause: at 2 layers and 1e-3 its 8 losses and final state equal
+# the functional step's bit for bit (tools/probes/moe_donated.py). zamba2-7b's loss
+# rose at 1e-3 (10.90 -> 11.06) and fell at 3e-4 and 1e-4 (on an NVIDIA H100
+# 80GB HBM3 at 700.00 W).
+FAMILY_TRAIN = (("qwen3-moe-30b-a3b", "moe", 4, 5e-4), ("mamba2-370m", "ssm", None, 1e-3),
                 ("zamba2-7b", "hybrid", 14, 3e-4))
 FAMILY_TRAIN_STEPS = 8
 FAMILY_TRAIN_BATCH = 4  # train_4k's rows on one card: 2 microbatches of 2 x 4096 tokens
@@ -5119,6 +5210,7 @@ def family_train_phase(torch, dev, arch: str, layers: int | None, lr: float) -> 
     import dataclasses
     import gc
 
+    from repro_torch import donate as donation
     from repro_torch import tree
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
@@ -5143,7 +5235,7 @@ def family_train_phase(torch, dev, arch: str, layers: int | None, lr: float) -> 
     state_bytes = {"params": nbytes(state["params"]), "moments": nbytes(state["opt"]["m"]) + nbytes(state["opt"]["v"])}
     shape = ShapeConfig("train_4k on one card", TRAIN_SEQ, FAMILY_TRAIN_BATCH, "train")
     ops.reset_counts()
-    _, state, hist, step_fn = train_loop_run(torch, dev, tcfg, state, FAMILY_TRAIN_STEPS, shape, lr)
+    _, state, hist, step_fn = train_loop_run(torch, dev, tcfg, state, FAMILY_TRAIN_STEPS, shape, lr, donate=True)
     counts = ops.counts()
     losses, norms = [h["loss"] for h in hist], [h["grad_norm"] for h in hist]
     aux, dropped = [h["moe_aux"] for h in hist], [h["moe_dropped"] for h in hist]
@@ -5175,7 +5267,8 @@ def family_train_phase(torch, dev, arch: str, layers: int | None, lr: float) -> 
         def one_step() -> float:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            step_fn(state, batch)
+            with donation.donating():
+                step_fn(state, batch)
             torch.cuda.synchronize()
             return (time.perf_counter() - t1) * 1e3
 
@@ -5184,7 +5277,8 @@ def family_train_phase(torch, dev, arch: str, layers: int | None, lr: float) -> 
         profile = {"wall_ms": prof["wall_ms_per_step"], "device_kernel_ms": dev_ms,
                    "device_busy_share": prof["device_busy_share"],
                    "port_kernel_share": sum(v["ms_per_step"] for v in prof["port_kernels"].values()) / dev_ms,
-                   "port_kernels": prof["port_kernels"], "top_kernels": prof["top_kernels"]}
+                   "port_kernels": prof["port_kernels"], "top_kernels": prof["top_kernels"],
+                   "step_memory": step_memory(torch, tcfg, state, batch, lr)}
     out = {
         "arch": cfg.name, "layers": cfg.num_layers, "full_layers": get_arch(arch).num_layers,
         "reduced": layers is not None,
@@ -5201,6 +5295,100 @@ def family_train_phase(torch, dev, arch: str, layers: int | None, lr: float) -> 
         "plain_calls": {k: counts[k] for k in PLAIN}, "profile": profile,
     }
     return out, state["params"], cfg
+
+
+def step_memory(torch, cfg, state, batch, lr: float) -> dict:
+    """Where one donated train step of ``state`` peaks on the card, its
+    parts run here one by one as ``training/train_step.py`` runs them: the
+    memory allocated when the step starts (the training state and what the
+    phase holds beside it), the peak allocated inside each microbatch's
+    forward and backward (``value_and_grad``, the gradient accumulator live
+    beside it) and inside the in-place AdamW update (``adamw_update_``,
+    which advances ``state`` by one step), in GB."""
+    from repro_torch import tree
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, adamw_update_
+    from repro_torch.training.train_step import value_and_grad
+
+    model, n = build_model(cfg), max(1, cfg.microbatches)
+    parts: list = []
+
+    def measured(part, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        parts.append({"part": part, "allocated_before_gb": before / 1e9,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        return out
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    params = state["params"]
+    micro = tree.map(lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:]), batch)
+    acc = tree.map(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device), params) if n > 1 else None
+    for i in range(n):
+        _, _, g = measured("microbatch forward + backward",
+                           lambda: value_and_grad(model, params, tree.map(lambda x: x[i], micro)))
+        if acc is None:
+            acc = g
+        else:
+            for a, b in zip(tree.leaves(acc), tree.leaves(g)):
+                a.add_(b.to(a.dtype))
+        del g
+    for a in tree.leaves(acc) if n > 1 else ():
+        a.div_(n)
+    measured("AdamW update in place", lambda: adamw_update_(params, acc, state["opt"], AdamWConfig(lr=lr)))
+    del acc
+    top = max(parts, key=lambda x: x["peak_gb"])
+    total = torch.cuda.get_device_properties(0).total_memory
+    return {"allocated_at_start_gb": start / 1e9, "parts": parts, "peaks_in": top["part"],
+            "peak_gb": top["peak_gb"], "peak_share": top["peak_gb"] * 1e9 / total}
+
+
+def donated_step_check(torch, dev, cfg) -> dict:
+    """One train step of ``small_config(cfg)`` (2 microbatches) on the card
+    from one state, functional and donated (``donate.donating()``: the
+    in-place AdamW, the state's own tensors returned): every param, moment,
+    the step and every metric equal bit for bit. Both run under
+    torch.use_deterministic_algorithms, so that their gradients sum in one
+    order (the CE's gather backward sums with atomics otherwise)."""
+    import dataclasses
+
+    from repro_torch import donate, tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.training.train_step import init_train_state, make_train_step
+
+    small = dataclasses.replace(small_config(cfg), microbatches=2)
+    if small.family == "hybrid":
+        small = dataclasses.replace(small, **TRAIN_SMALL_HYBRID)
+    model = build_model(small)
+    data = SyntheticTokenPipeline(small, ShapeConfig("donated", 128, 4, "train"), seed=0, device=dev)
+    batch = next(data)
+    data.close()
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR), cosine_schedule(TRAIN_LR, 1, 10))
+    state = init_train_state(model, 0, device=dev)
+    given = tree.map(torch.clone, state)
+    ptrs = [x.data_ptr() for x in tree.leaves(given)]
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        want, m_want = step(state, batch)
+        with donate.donating():
+            got, m_got = step(given, batch)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    same = [torch.equal(a, b) for a, b in zip(tree.leaves(got), tree.leaves(want))]
+    in_place = got is given and ptrs == [x.data_ptr() for x in tree.leaves(got)]
+    metrics = all(torch.equal(m_got[k], m_want[k]) for k in m_want)
+    check(all(same) and in_place and metrics,
+          f"{small.name}: the donated step differs from the functional one: {same.count(False)} of {len(same)} "
+          f"leaves, in place {in_place}, metrics equal {metrics}")
+    return {"arch": small.name, "microbatches": 2, "leaves": len(same), "bit_exact": True, "in_place": True}
 
 
 class RoutingReplay:
@@ -5342,7 +5530,9 @@ def family_training_phases(torch, dev) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         small = train_card_vs_host(torch, dev, cfg)
-        print(json.dumps({f"{key}_train_card_vs_host": {"small": small, "blocks": blocks}}), flush=True)
+        donated = donated_step_check(torch, dev, cfg)
+        print(json.dumps({f"{key}_train_card_vs_host": {"small": small, "blocks": blocks, "donated_step": donated}}),
+              flush=True)
         t2 = time.perf_counter()
         launches[key] = train["launches"]
         seconds[f"{key}_train"], seconds[f"{key}_card_vs_host"] = t1 - t0, t2 - t1

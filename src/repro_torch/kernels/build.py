@@ -61,9 +61,9 @@ SIGNATURES = {
     "repro_moe_gmm_bwd": [_P] * 6 + [_I] * 4 + [_P],
     # x, bm, cm, dt, a_log, d_skip, y, state, B, T, H, P, G, N, stream
     "repro_ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, bm, cm, dt, a_log, d_skip, dy, dstate (or null), ws_s, ws_z, part, ticket, dx, dbm, dcm, ddt, da_log,
-    # dd_skip, B, T, H, P, G, N, stream
-    "repro_ssd_scan_bwd": [_P] * 18 + [_I] * 6 + [_P],
+    # x, bm, cm, dt, a_log, d_skip, dy, dstate (or null), ws_s, ws_z, part_bc, part, ticket, dx, dbm, dcm, ddt,
+    # da_log, dd_skip, B, T, H, P, G, N, n_split, stream
+    "repro_ssd_scan_bwd": [_P] * 19 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

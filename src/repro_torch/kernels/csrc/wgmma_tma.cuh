@@ -1,5 +1,5 @@
 // Hopper's asynchronous machinery for the hand-written kernels that run on
-// wgmma fed by TMA (flash_attention_bwd.cu): mbarriers, TMA tensor loads,
+// wgmma fed by TMA (flash_attention_bwd.cu, moe_gmm_bwd.cu): mbarriers, TMA tensor loads,
 // bulk copies and reductions between shared and global memory, the
 // warpgroup MMA (wgmma) with its shared-memory descriptors, register
 // rebalancing (setmaxnreg) and named barriers. Every instruction here exists
@@ -68,6 +68,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ------------------------------------------------- TMA and bulk copies
 
+// A 3-D box of the tensor map at coordinates (c0 innermost) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // A 4-D box of the tensor map at coordinates (c0 innermost) into shared
 // memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
@@ -101,6 +112,23 @@ __device__ __forceinline__ void bulk_reduce_add_f32(void* dst, const void* src, 
                "r"(smem_u32(src)), "r"(bytes)
                : "memory");
 }
+
+// A 3-D box of shared memory (128-byte swizzled, as the tensor map says)
+// stored to the tensor map's box at coordinates (c0 innermost); elements past
+// the tensor's dims are not written. Part of this thread's open bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// Close this thread's open bulk group.
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Wait until the shared memory of every bulk group this thread committed has
+// been read (the global writes may still be in flight).
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
 
 // Close this thread's bulk group and wait until every group it issued has
 // completed (the writes performed, the shared memory read).
@@ -268,6 +296,17 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Make the current device's primary context current on the calling thread.
+// A driver call such as cuTensorMapEncodeTiled needs it, and a thread that
+// has made no runtime call yet has none (PyTorch's autograd runs a CUDA
+// backward on a thread of its own, and may reach a kernel's host code there
+// before any launch).
+inline cudaError_t bind_context() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
 
 // cuTensorMapEncodeTiled, fetched through the runtime (no link to libcuda).
 inline EncodeTiled encode_tiled() {

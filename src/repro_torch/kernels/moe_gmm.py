@@ -13,7 +13,9 @@ and f that are multiples of 8, at most 256 experts. Its plain PyTorch version is
 It replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py: moe_gmm``.
 
 Under autograd its gradient is ``csrc/moe_gmm_bwd.cu`` on the card (dxe =
-dy w^T and dw = xe^T dy over the kept rows, two launches, no atomics) and
+dy w^T and dw = xe^T dy over the kept rows: two persistent kernels, one
+block per SM, on wgmma fed by TMA, their tile lists built on the card from
+``rows``, so the wrapper never reads ``rows`` on the host; no atomics) and
 :func:`repro_torch.kernels.ref.gmm_ref_bwd` (:data:`plain_bwd`) on the CPU;
 ``rows`` and ``active`` carry no gradient.
 """

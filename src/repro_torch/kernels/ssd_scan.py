@@ -12,8 +12,9 @@ version is :func:`repro_torch.kernels.ref.ssd_ref`, re-exported here as
 ssd_scan`` (which returns y only).
 
 Under autograd its gradient is ``csrc/ssd_scan_bwd.cu`` on the card (two
-kernels: the chunk-boundary states recomputed, then the chunks' terms; the
-final state's cotangent taken when it is given) and
+kernels: the chunk-boundary states recomputed into a bf16 workspace, then
+the chunks' terms, a group's heads split over :func:`grad_splits` blocks;
+the final state's cotangent taken when it is given) and
 :func:`repro_torch.kernels.ref.ssd_ref_bwd` (:data:`plain_bwd`) on the CPU.
 """
 from __future__ import annotations
@@ -28,6 +29,25 @@ STATE_DIMS = (64, 128)  # csrc/ssd_scan.cu instantiates N = 64 and 128
 HEAD_DIM_MULTIPLE = 32  # a block takes a 64-wide slice of the head dim where P is a multiple of 64, else 32
 GRAD_HEAD_DIM = 64  # csrc/ssd_scan_bwd.cu's chunk kernel takes P = 64
 GRAD_CHUNK = 64  # ... and chunks of 64 rows
+GRAD_BLOCKS_PER_SM = 2  # its chunk kernel's blocks that share an SM (shared memory and registers)
+
+
+def grad_splits(b: int, nc: int, g: int, heads_per_group: int, sms: int) -> int:
+    """The number of blocks over which K6's gradient splits a group's heads:
+    each (chunk, sequence, group) gets that many blocks, each a contiguous
+    run of ceil(heads / splits) heads, every run non-empty. A block's time
+    is about its heads plus one head's worth of set-up (B, C, C B^T, the
+    partials' sum), and the card runs GRAD_BLOCKS_PER_SM blocks on each of
+    ``sms`` SMs at once, so the split that takes the fewest (waves of blocks)
+    x (heads + 1) is chosen, the fewer splits on a tie."""
+    tiles, slots = nc * b * g, GRAD_BLOCKS_PER_SM * sms
+
+    def cost(n: int) -> int:
+        per = -(-heads_per_group // n)
+        return -(-tiles * (-(-heads_per_group // per)) // slots) * (per + 1)
+
+    best = min(range(1, heads_per_group + 1), key=lambda n: (cost(n), n))
+    return -(-heads_per_group // -(-heads_per_group // best))
 
 
 def _check(x, bm, cm, dt, a_log, d_skip) -> None:
@@ -105,7 +125,8 @@ def backward(x, bm, cm, dt, a_log, d_skip, dy, dstate=None):
     K6's backward kernels for CUDA tensors (or a raise), the plain backward
     for CPU tensors. On the card the chunk-boundary states and their
     cotangents are recomputed into a transient workspace of 2 B H
-    ceil(T / 64) P N fp32 values."""
+    ceil(T / 64) P N bf16 values, and each split of a group's heads
+    (:func:`grad_splits`) sums its dB and dC into an fp32 partial."""
     if x.device.type == "cpu":
         return plain_bwd(x, bm, cm, dt, a_log, d_skip, dy, dstate)
     if x.device.type != "cuda":
@@ -128,15 +149,18 @@ def backward(x, bm, cm, dt, a_log, d_skip, dy, dstate=None):
     if not x.numel():
         return dx, dbm, dcm, ddt, da_log.zero_(), dd_skip.zero_()
     nc = -(-t // GRAD_CHUNK)
-    ws_s = torch.empty(b, h, nc, p, n, dtype=torch.float32, device=x.device)
+    splits = grad_splits(b, nc, g, h // g, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    ws_s = torch.empty(b, h, nc, p, n, dtype=torch.bfloat16, device=x.device)
     ws_z = torch.empty_like(ws_s)
+    part_bc = torch.empty(splits, b, g, nc, 2, GRAD_CHUNK, n, dtype=torch.float32, device=x.device)
     part = torch.empty(b, nc, h, 2, dtype=torch.float32, device=x.device)
-    ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+    ticket = torch.zeros(1 + nc * b * g, dtype=torch.int32, device=x.device)
     err = build.load().repro_ssd_scan_bwd(
         x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(), d_skip.data_ptr(),
         dy.data_ptr(), None if dstate is None else dstate.data_ptr(), ws_s.data_ptr(), ws_z.data_ptr(),
-        part.data_ptr(), ticket.data_ptr(), dx.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), ddt.data_ptr(),
-        da_log.data_ptr(), dd_skip.data_ptr(), b, t, h, p, g, n, torch.cuda.current_stream(x.device).cuda_stream)
+        part_bc.data_ptr(), part.data_ptr(), ticket.data_ptr(), dx.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+        ddt.data_ptr(), da_log.data_ptr(), dd_skip.data_ptr(), b, t, h, p, g, n, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssd_scan backward launch")
     build.count_launch("ssd_scan_bwd_walk")
     build.count_launch("ssd_scan_bwd_chunk")

@@ -18,6 +18,16 @@ the bf16 weights of :func:`serve`'s default). ``--reduced`` gives the JAX packag
 configuration; on the card its heads are widened to 64, the smallest head
 dim the attention kernels take (``kernels/flash_attention.py``).
 
+One default differs: ``--min-observations`` is 1 here, 2 there. The
+reference's first hop over each edge compiles its callee, a wait past the
+policy's ``promote_wait_s`` (50 ms) that promotes the edge and halves its
+floor of 2 to 1, so each edge fuses at its first sight, the head's first.
+The port's first run compiles nothing: under a floor of 2 the head's edge,
+with a sub-millisecond wait, is weighed only after the inner edges'
+merges have raised the measured merge cost, and was left out in some runs.
+At 1 the port takes the reference's merges in the reference's order
+(``tests/test_torch_launch.py``).
+
 The JAX launcher's ``maybe_enable_from_env`` (XLA's persistent compilation
 cache) has no counterpart: the port's executable index
 (``launch/compile_cache.py``) lives in the process, and the only state kept
@@ -79,7 +89,7 @@ def prompt_inputs(cfg, batch: int, prompt_len: int, device, dtype=torch.bfloat16
 
 
 def serve(cfg, *, backend: str = "tinytorch", fusion: bool = True, batch: int = 2, prompt_len: int = 16,
-          tokens: int = 16, max_len: int = 64, min_observations: int = 2, device=None,
+          tokens: int = 16, max_len: int = 64, min_observations: int = 1, device=None,
           params=None) -> tuple[dict, torch.Tensor]:
     """Deploy ``cfg`` on a fresh platform and generate ``tokens`` greedy
     tokens for the launcher's prompts. ``params``: the model's weights (made
@@ -136,7 +146,7 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=64)
-    ap.add_argument("--min-observations", type=int, default=2)
+    ap.add_argument("--min-observations", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

@@ -10,7 +10,9 @@ falls back to the host). ``--reduced`` gives the JAX package's reduced
 configuration; on the card its heads are widened to 64, the smallest head
 dim the attention kernels take. Checkpoints go under ``--ckpt-dir`` (by
 default ``repro_torch_ckpt`` in the temporary directory); a run restores the
-latest checkpoint it finds there, as the reference's does.
+latest checkpoint it finds there, as the reference's does. The run hands
+its state to the loop (``donate.donating()``), so AdamW updates it in place
+from the first step and the card holds one training state.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ def main(argv=None) -> None:
 
     import dataclasses
 
+    from repro_torch import donate
     from repro_torch.checkpointing import CheckpointManager
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticTokenPipeline
@@ -67,7 +70,8 @@ def main(argv=None) -> None:
         ckpt_every=args.ckpt_every,
     )
     t0 = time.perf_counter()
-    state, history = loop.run(state, args.steps)
+    with donate.donating():  # the launcher keeps no other use for its state: every step updates it in place
+        state, history = loop.run(state, args.steps)
     wall = time.perf_counter() - t0
     for h in history[:: args.log_every]:
         print(f"step {h['step']:5d} loss {h['loss']:.4f} {h['seconds']*1e3:.0f}ms")

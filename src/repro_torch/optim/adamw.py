@@ -1,14 +1,20 @@
 """AdamW with fp32 first and second moments (the JAX package's
 ``optim/adamw.py``).
 
-Functional, as the reference: :func:`adamw_update` returns new parameter
-and moment tensors and leaves its inputs as they were, so a caller that
-keeps the old state (a training loop's initial state, a checkpoint being
-written) still holds it. The update is clipped by the global norm of the
-gradients and runs in float32, one leaf at a time in the reference's order
-of operations; each new parameter is cast back to its own dtype. On the
-card every quantity stays a tensor (the step, the learning rate, the norm):
-an update never reads a device value on the host.
+:func:`adamw_update` is functional, as the reference: it returns new
+parameter and moment tensors and leaves its inputs as they were, so a
+caller that keeps the old state (a training loop's initial state, a
+checkpoint being written) still holds it. :func:`adamw_update_` computes
+the same bits in place, for a caller that hands its state over: the
+reference jits its step and XLA reuses the donated buffers, while eager
+PyTorch would hold the old and the new state at once. It walks each leaf's
+storage in pieces of at most ``piece`` elements (a stacked leaf is cut
+along its leading axes), so its fp32 temporaries are one piece's and not a
+128-expert leaf's. Either update is clipped by the global norm of the
+gradients and runs in float32 in the reference's order of operations; each
+new parameter is cast back to its own dtype. On the card every quantity
+stays a tensor (the step, the learning rate, the norm): an update never
+reads a device value on the host.
 """
 from __future__ import annotations
 
@@ -58,19 +64,24 @@ def global_norm(t) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack([torch.sum(torch.square(x.float())) for x in tree.leaves(t)])))
 
 
+def _step_terms(step: torch.Tensor, grads, cfg: AdamWConfig, lr_schedule):
+    """(lr, the gradients' global norm, the clip's scale, the two bias
+    corrections) of the update that makes ``step``."""
+    stepf = step.float()
+    lr = lr_schedule(step) if lr_schedule is not None else torch.tensor(cfg.lr, dtype=torch.float32,
+                                                                        device=step.device)
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+    return lr, gnorm, scale, 1 - cfg.b1 ** stepf, 1 - cfg.b2 ** stepf
+
+
 def adamw_update(params, grads, opt_state, cfg: AdamWConfig,
                  lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None):
     """Returns (new_params, new_opt_state, metrics): ``metrics`` holds the
     gradients' global norm before clipping (``grad_norm``) and the step's
     learning rate (``lr``), both 0-d fp32 tensors."""
     step = opt_state["step"] + 1
-    stepf = step.float()
-    lr = lr_schedule(step) if lr_schedule is not None else torch.tensor(cfg.lr, dtype=torch.float32,
-                                                                        device=step.device)
-    gnorm = global_norm(grads)
-    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
-    bc1 = 1 - cfg.b1 ** stepf
-    bc2 = 1 - cfg.b2 ** stepf
+    lr, gnorm, scale, bc1, bc2 = _step_terms(step, grads, cfg, lr_schedule)
 
     def upd(p, g, m, v):
         g32 = g.float() * scale
@@ -90,3 +101,38 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig,
                  "m": tree.unflatten(struct, [o[1] for o in out]),
                  "v": tree.unflatten(struct, [o[2] for o in out])}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+UPDATE_PIECE = 1 << 24  # elements of a leaf updated at once in place: 64 MB per fp32 temporary
+
+
+def _pieces(leaves):
+    """The leaves (a param and its gradient and moments) as tuples of
+    views of consecutive pieces of their storage, at most UPDATE_PIECE
+    elements each; the whole leaves where one is not contiguous."""
+    if not all(x.is_contiguous() for x in leaves):
+        return [leaves]
+    n, piece = leaves[0].numel(), UPDATE_PIECE
+    return [tuple(x.view(-1)[i:i + piece] for x in leaves) for i in range(0, n, piece)] or [leaves]
+
+
+@torch.no_grad()
+def adamw_update_(params, grads, opt_state, cfg: AdamWConfig,
+                  lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None):
+    """:func:`adamw_update` in place: the params, m, v and the step of
+    ``opt_state`` become the new state, equal bit for bit to the functional
+    update's (the same operations on the same elements: a piece is a view,
+    and no ``alpha=`` form fuses two of them). Returns the metrics."""
+    step = opt_state["step"]
+    step.add_(1)
+    lr, gnorm, scale, bc1, bc2 = _step_terms(step, grads, cfg, lr_schedule)
+    for leaves in zip(tree.leaves(params), tree.leaves(grads), tree.leaves(opt_state["m"]),
+                      tree.leaves(opt_state["v"])):
+        for p, g, m, v in _pieces(leaves):
+            g32 = g.float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
+            del g32
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
+    return {"grad_norm": gnorm, "lr": lr}

@@ -12,6 +12,15 @@ Failure model:
 
 A step's clock stops after a device sync on its metrics (the reference's
 ``jax.block_until_ready``). There is no ``jit_step``: the port runs eagerly.
+
+State ownership (the reference's jit donates the state to each step): every
+state a step returns belongs to the loop, so each later step runs inside
+:func:`repro_torch.donate.donating` and updates it in place. The caller's
+``init_state`` is written only when the caller hands it over, by calling
+:meth:`TrainLoop.run` inside ``donating()``; then, when a
+:class:`FailureInjector` may send the loop back to it, the loop first keeps
+a host copy to restart from. Otherwise the first step is functional and
+``init_state`` stays as it was.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import donate, tree
 from repro_torch.checkpointing.manager import CheckpointManager
 
 
@@ -79,15 +89,29 @@ class TrainLoop:
         self.restarts = 0
 
     def run(self, init_state, num_steps: int, failure_injector: FailureInjector | None = None):
+        """Steps from the latest checkpoint (else from ``init_state``) to
+        ``num_steps``; returns (final state, history). Inside
+        ``donate.donating()`` ``init_state`` is handed over and may be
+        updated in place."""
         history: list[dict] = []
         step_times: list[float] = []
+        handed_over = donate.donated()
+        # what a restart with no checkpoint goes back to: init_state itself,
+        # or a host copy when the loop may write init_state in place
+        host_init = (tree.map(lambda x: x.detach().to("cpu", copy=True), init_state)
+                     if handed_over and failure_injector is not None else None)
+
+        def from_init():
+            if host_init is None:
+                return init_state, handed_over
+            return tree.map(lambda h, like: h.to(like.device, copy=True), host_init, init_state), True
 
         latest = self.manager.latest_step()
         if latest is not None:
-            state = self.manager.restore(init_state, latest)
+            state, owned = self.manager.restore(init_state, latest), True
             step = latest
         else:
-            state = init_state
+            state, owned = init_state, handed_over
             step = 0
         data = self.make_data(step)
 
@@ -97,7 +121,9 @@ class TrainLoop:
                 if failure_injector is not None:
                     failure_injector.maybe_fail(step)
                 t0 = time.perf_counter()
-                state, metrics = self.train_step(state, batch)
+                with donate.donating(owned):
+                    state, metrics = self.train_step(state, batch)
+                owned = True
                 _block_until_ready(metrics)
                 dt = time.perf_counter() - t0
                 step += 1
@@ -115,11 +141,12 @@ class TrainLoop:
                 if hasattr(data, "close"):
                     data.close()
                 latest = self.manager.latest_step()
+                state = None  # the crashed state, before its replacement is allocated
                 if latest is None:
-                    state = init_state
+                    state, owned = from_init()
                     step = 0
                 else:
-                    state = self.manager.restore(init_state, latest)
+                    state, owned = self.manager.restore(init_state, latest), True
                     step = latest
                 data = self.make_data(step)
         self.manager.wait()

@@ -4,18 +4,25 @@ gradient-accumulation microbatching (the JAX package's
 
 ``torch.autograd.grad`` takes the place of ``jax.value_and_grad``: the
 params' leaves are detached views that require grad, so a step never
-accumulates into ``.grad`` and leaves its input state as it was. The
-microbatches run one after the other (the reference scans over them) and
-their gradients accumulate in the grad dtype (bf16 for bf16 params), then
-divide by their number, as the reference does.
+accumulates into ``.grad``. The microbatches run one after the other (the
+reference scans over them) and their gradients accumulate in the grad dtype
+(bf16 for bf16 params), then divide by their number, as the reference does:
+into one accumulator, in place, each microbatch's tree freed once it is
+added.
+
+A step leaves its input state as it was, unless the caller hands the state
+over (inside :func:`repro_torch.donate.donating`, the counterpart of the
+reference's donated jit argument): then the update is
+:func:`~repro_torch.optim.adamw.adamw_update_`, in place, equal bit for bit
+to the functional one, and the returned state is the input's tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import tree
+from repro_torch import donate, tree
 from repro_torch.models.model import Model
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_state_defs, adamw_update
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_state_defs, adamw_update, adamw_update_
 
 
 def make_train_state_defs(model: Model):
@@ -45,11 +52,14 @@ def value_and_grad(model: Model, params, batch):
 def make_train_step(model: Model, opt_cfg: AdamWConfig | None = None, lr_schedule=None):
     """``train_step(state, batch) -> (new_state, metrics)``: the loss's
     metrics (``loss``, ``ce``, ...) averaged over the microbatches, plus
-    ``grad_norm`` and ``lr``, all 0-d fp32 tensors on the state's device."""
+    ``grad_norm`` and ``lr``, all 0-d fp32 tensors on the state's device.
+    Called inside ``donate.donating()``, it updates ``state`` in place and
+    returns it."""
     opt_cfg = opt_cfg or AdamWConfig()
     n_micro = max(1, model.cfg.microbatches)
 
     def train_step(state, batch):
+        in_place = donate.donated()
         params = state["params"]
         if n_micro == 1:
             loss, metrics, grads = value_and_grad(model, params, batch)
@@ -60,19 +70,29 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig | None = None, lr_schedul
 
             micro = tree.map(split, batch)
             grads = tree.map(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device), params)
+            acc = tree.leaves(grads)
             loss = metrics = None
             for i in range(n_micro):
                 l, m, g = value_and_grad(model, params, tree.map(lambda x: x[i], micro))
-                grads = tree.map(lambda a, b: a + b.to(a.dtype), grads, g)
+                g = tree.leaves(g)
+                for a, b in zip(acc, g):
+                    a.add_(b.to(a.dtype))
+                del g  # this microbatch's gradients, before the next one's
                 loss = l if loss is None else loss + l
                 metrics = m if metrics is None else tree.map(lambda a, b: a + b, metrics, m)
-            grads = tree.map(lambda g: g / n_micro, grads)
+            for a in acc:
+                a.div_(n_micro)
             loss = loss / n_micro
             metrics = tree.map(lambda m: m / n_micro, metrics)
 
-        new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg, lr_schedule)
+        if in_place:
+            opt_metrics = adamw_update_(params, grads, state["opt"], opt_cfg, lr_schedule)
+            new_state = state
+        else:
+            new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg, lr_schedule)
+            new_state = {"params": new_params, "opt": new_opt}
         metrics = dict(metrics)
         metrics.update(opt_metrics)
-        return {"params": new_params, "opt": new_opt}, metrics
+        return new_state, metrics
 
     return train_step

@@ -934,6 +934,33 @@ def test_ssd_gradient_matches_plain(cuda, b, t, h, g, n, with_state):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,n", [(2, 512, 32, 128), (1, 300, 112, 64)])
+def test_ssd_gradient_head_split_matches_one_block_per_group(cuda, monkeypatch, b, t, h, n):
+    """The chunk kernel with a group's heads split over blocks (the
+    wrapper's grad_splits, and two) against one block per group: dx, ddt,
+    dA_log and dD equal bit for bit (each head is one block's), dB and dC
+    (fp32 partials summed in split order, then rounded to bf16) within two
+    bf16 roundings of their max."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    x = torch.randn(b, t, h, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    bm, cm = ((torch.randn(b, t, 1, n, generator=gen, device=cuda) * 0.5).to(torch.bfloat16) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=gen, device=cuda))
+    a_log = torch.randn(h, generator=gen, device=cuda) * 0.3
+    dy = torch.randn(b, t, h, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    ins = (x, bm, cm, dt, a_log, torch.ones(h, device=cuda), dy)
+    split = [tssd.backward(*ins)]
+    monkeypatch.setattr(tssd, "grad_splits", lambda *a: 2)
+    split.append(tssd.backward(*ins))
+    monkeypatch.setattr(tssd, "grad_splits", lambda *a: 1)
+    whole = tssd.backward(*ins)
+    for got in split:
+        for i in (0, 3, 4, 5):
+            assert torch.equal(got[i], whole[i])
+        for i in (1, 2):
+            assert rel_err(got[i], whole[i]) <= 2 ** -7
+
+
+@pytest.mark.cuda
 def test_ssd_gradient_kernel_rejects_what_it_does_not_take(cuda):
     """The backward takes a head dim of 64 only: another raises before any
     launch."""

@@ -44,7 +44,8 @@ def run_json(main, argv, monkeypatch, capsys, **kw) -> dict:
 def test_launcher_prints_the_reference_keys(arch, monkeypatch, capsys):
     """``--reduced --device cpu``: the reference launcher's keys and one
     more, ``device``; the chain fused to one instance by one healthy merge of
-    every member, as the reference's does."""
+    every member, as the reference's does, through the reference's merges in
+    the reference's order (the head's edge first)."""
     ref = run_json(jax_serve.main, ["--arch", arch, *SMALL], monkeypatch, capsys, argv_style="sys")
     got = run_json(serve.main, ["--arch", arch, *SMALL, "--device", "cpu"], monkeypatch, capsys)
     assert set(got) == set(ref) | {"device"}
@@ -53,7 +54,25 @@ def test_launcher_prints_the_reference_keys(arch, monkeypatch, capsys):
     assert got["instances_left"] == ref["instances_left"] == 1
     chain = {f"{arch}/embed", f"{arch}/g0", f"{arch}/g1", f"{arch}/head"}
     assert set(got["merges"][-1]) == set(ref["merges"][-1]) == chain
+    assert [set(m) for m in got["merges"]] == [set(m) for m in ref["merges"]]
     assert len(got["generated"]) == len(ref["generated"]) == 5
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen3-moe-30b-a3b", "zamba2-7b"])
+def test_the_launcher_takes_the_reference_merges_at_its_defaults(arch, monkeypatch, capsys):
+    """The SSM, MoE and hybrid chains at both launchers' defaults: the same
+    healthy merges in the same order, ending in one instance. The
+    reference's first hop over each edge compiles its callee (over 100 ms
+    for these heads on the host, ``tools/probes/launch_order.py``), which
+    promotes the edge under its floor of 2; the port's first run compiles
+    nothing, and its floor of 1 takes the same decisions. Under the port's
+    old floor of 2 (``--min-observations 2``) the order varied from run to
+    run, the head's edge often last."""
+    ref = run_json(jax_serve.main, ["--arch", arch, *SMALL], monkeypatch, capsys, argv_style="sys")
+    got = run_json(serve.main, ["--arch", arch, *SMALL, "--device", "cpu"], monkeypatch, capsys)
+    assert got["instances_left"] == ref["instances_left"] == 1
+    assert [set(m) for m in got["merges"]] == [set(m) for m in ref["merges"]]
+    assert f"{arch}/head" in got["merges"][0]
 
 
 def jax_tokens(arch, params, inputs, steps, max_len):
@@ -119,17 +138,18 @@ def test_the_enc_dec_architecture_is_served_and_fuses(monkeypatch, capsys):
     merge of both members, as the reference launcher's does, with the
     reference's keys and ``device``.
 
-    Both launchers run with ``--min-observations 1``. A generate makes one
-    prefill, the only call that crosses the app's synchronous edge (a decode
-    step invokes the decoder itself), so under the default of 2 the edge
-    fuses only when its one wait reaches the policy's promotion threshold
-    (50 ms): the reference's first call compiles and always does, the
-    port's eager first call on the CPU does in some runs only. The default
-    run serves the same tokens, fused or not."""
+    Both launchers run at their defaults. A generate makes one prefill, the
+    only call that crosses the app's synchronous edge (a decode step invokes
+    the decoder itself). The reference's floor is 2, and its first call
+    compiles, a wait past the policy's promotion threshold (50 ms) that
+    halves the floor to 1; the port's floor is 1. Under the port's old floor
+    of 2 (``--min-observations 2``) the edge fused only when the port's
+    eager first call reached 50 ms, in some runs only: that run serves the
+    same tokens, fused or not."""
     arch = "seamless-m4t-medium"
     assert dataclasses.asdict(serve.resolve_arch(arch)) == dataclasses.asdict(jax_get_arch(arch))
     assert list(serve.NOT_SERVED) == ["phi3.5-moe-42b-a6.6b"]
-    argv = ["--arch", arch, *SMALL, "--min-observations", "1"]
+    argv = ["--arch", arch, *SMALL]
     ref = run_json(jax_serve.main, argv, monkeypatch, capsys, argv_style="sys")
     got = run_json(serve.main, [*argv, "--device", "cpu"], monkeypatch, capsys)
     assert set(got) == set(ref) | {"device"} and got["device"] == "cpu"
@@ -137,9 +157,9 @@ def test_the_enc_dec_architecture_is_served_and_fuses(monkeypatch, capsys):
     chain = {f"{arch}/embed", f"{arch}/decoder"}
     assert [set(m) for m in got["merges"]] == [set(m) for m in ref["merges"]] == [chain]
     assert len(got["generated"]) == len(ref["generated"]) == 5
-    default = run_json(serve.main, ["--arch", arch, *SMALL, "--device", "cpu"], monkeypatch, capsys)
-    assert default["generated"] == got["generated"]
-    assert [set(m) for m in default["merges"]] == [chain] * (2 - default["instances_left"])
+    floor2 = run_json(serve.main, [*argv, "--device", "cpu", "--min-observations", "2"], monkeypatch, capsys)
+    assert floor2["generated"] == got["generated"]
+    assert [set(m) for m in floor2["merges"]] == [chain] * (2 - floor2["instances_left"])
 
 
 def test_the_launcher_runs_on_the_card_unless_asked(monkeypatch):
