@@ -74,6 +74,30 @@ Phases (any failed check exits non-zero and prints no result):
    K1, K2), given a CUDA input that requires grad under grad mode, raises
    before its launch; K3, K5 and K6 under grad launch their forward and each
    backward kernel once, no plain version.
+2b. Dry-run phase: ``long_kernels`` — K3, K4 and K6 at the 32k cells'
+   32,768 positions (K3 causal at T = S = 32768 with llama3.2-1b's heads,
+   its first 4096 rows against the plain version on the prefix and its last
+   256 against ``mha_ref(..., q_offset=)``; K4 over a 32768-row cache, whole;
+   each (row, head) of both within RTOL of its own max, and the same check
+   must refuse a version that drops an eighth of the keys; K6 with
+   mamba2-370m's heads, y whole and the final state against
+   ``models/ssm.ssd_chunked`` in fp32 within RTOL of their max, and the same
+   check must refuse that scan with the state dropped every 4096
+   positions; its first 4096 positions elementwise against the plain
+   version), K3 and K4 also within RTOL / ATOL elementwise, equal bits on two
+   launches, timed beside its bound; then ``dryrun``: the port's dry run
+   (``repro_torch.launch.dryrun``) at DRYRUN_CELLS, each reckoned on meta
+   tensors (FLOPs, bytes and peak of a step, the batch per step that fits
+   the card, the roofline bound from the H100's datasheet peaks). The four
+   DRYRUN_EXECUTED cells (llama3.2-1b's train_4k, prefill_32k and
+   decode_32k, mamba2-370m's prefill_32k) then run on the card at that
+   batch, a step under the cost analysis and a bare timed step each: the
+   predicted peak within 10 % of the allocator's, the
+   card's FLOP count equal to the meta count, each kernel's launches equal
+   to the calls the meta run recorded; zamba2-7b's long_500k and
+   phi3.5-moe-42b-a6.6b's decode_32k must not fit. Each cell prints its step
+   ms against its step's bound; the records go to
+   ``chiprun_out/dryrun_torch.jsonl``.
 3. Serve phase: full-width ``llama3.2-1b`` (16 layers, random bf16 weights
    from a fixed seed) deployed as the six-function chain on an unfused and a
    fusing ``TinyTorchBackend`` sharing the same weights; three prompts
@@ -346,7 +370,8 @@ Phases (any failed check exits non-zero and prints no result):
    no ``--device``. ``family_train_seconds``: each part's seconds.
 
 Standard output opens with the device line and the ``ptxas`` line; its
-last lines are the ``serve``, ``trace_serve``, ``paged_serve``,
+last lines are the ``grad_refusal``, ``long_kernels``, ``dryrun``,
+``serve``, ``trace_serve``, ``paged_serve``,
 ``reference``, ``profile``, ``batched``, ``trace_batched``, ``dispatch``,
 ``coldstart``, ``chrome_trace``, ``orchestrated_serve``, ``replicas``,
 ``churn``, ``split``, ``train``, ``train_card_vs_host``, ``train_restart``,
@@ -378,9 +403,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Datasheet peaks of the H100 SXM (dense bf16 tensor-core rate, HBM3 rate).
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 RTOL = ATOL = 2e-2  # tests/test_kernels.py bf16 tolerance
 REF_TOL = 2e-2  # bf16 logits, card vs host, over max |logit| (tests/test_torch_model.py)
 # A full-width block's output, card vs host, over its max. The JAX init rule
@@ -451,8 +473,13 @@ def time_ms(torch, fn, samples: int = TIMED_SAMPLES, reps: int = REPS) -> float:
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    """The least ms of ``flops`` and ``nbytes`` at the H100 SXM's datasheet
+    peaks (dense bf16 tensor-core rate, HBM3 rate: the dry run's ``HW``), and
+    which of the two sets it."""
+    from repro_torch.launch.dryrun import HW
+
+    t_ops = flops / HW["peak_flops_bf16"] * 1e3
+    t_bytes = nbytes / HW["hbm_bw"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -464,6 +491,16 @@ def max_err(torch, got, want) -> float:
     return float((got - want).abs().max())
 
 
+def row_rel_err(torch, got, want) -> float:
+    """The largest of each row's max |got - want| over its max |want| (a row:
+    the last dimension, one query head's output or one head's P values), so
+    that a row that averages tens of thousands of values, and is small for
+    it, is held to its own scale."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(dim=-1)
+    return float((err / want.abs().amax(dim=-1).clamp_min(1e-30)).max())
+
+
 # --------------------------------------------------------------- kernel phase
 
 
@@ -472,6 +509,7 @@ def flash_case(torch, F, t, H, KV, HD, rng, causal: bool = True) -> dict:
     inputs drawn from ``rng``: against its plain version, two launches for
     equal bits, timed beside the plain version and SDPA on the same
     inputs."""
+    from repro_torch.kernels import cost as kc
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -485,9 +523,8 @@ def flash_case(torch, F, t, H, KV, HD, rng, causal: bool = True) -> dict:
     check(torch.equal(got, fa.flash_attention(q, k, v, causal=causal)), f"flash_attention T={t} is not deterministic")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kr, vr = kt.repeat_interleave(G, dim=1), vt.repeat_interleave(G, dim=1)
-    flops = 4 * H * t * t * HD / (2 if causal else 1)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-    b_ms, b_by = bound(flops, nbytes)
+    c = kc.flash_attention(1, t, t, H, KV, HD, causal=causal)
+    b_ms, b_by = bound(c.flops, c.bytes)
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal))
     return {
         "shape": f"B=1 T=S={t} H={H} KV={KV} hd={HD} {'causal' if causal else 'non-causal'} bf16",
@@ -517,6 +554,7 @@ def decode_case(torch, F, b, S, H, KV, HD, rng, lens=None, cold: bool = False) -
     copies of K and V, together at least COLD_BYTES, so that the cache comes
     from device memory and not from the L2, as in a decode step, where each
     layer's cache is read once between the other layers' weights."""
+    from repro_torch.kernels import cost as kc
     from repro_torch.kernels import decode_attention as dec
 
     dev = torch.device("cuda")
@@ -544,9 +582,8 @@ def decode_case(torch, F, b, S, H, KV, HD, rng, lens=None, cold: bool = False) -
     vs = [v] + [v.clone() for _ in range(copies - 1)]
     krs = [x.transpose(1, 2).repeat_interleave(G, dim=1) for x in ks]
     vrs = [x.transpose(1, 2).repeat_interleave(G, dim=1) for x in vs]
-    rows = int(cur.clamp(max=S).sum())
-    nbytes = 2 * (2 * rows * KV * HD + q.numel() + got.numel())
-    b_ms, b_by = bound(4 * H * HD * rows, nbytes)
+    c = kc.decode_attention(b, S, H, KV, HD, rows=int(cur.clamp(max=S).sum()))
+    b_ms, b_by = bound(c.flops, c.bytes)
     ms = time_ms(torch, rotating(lambda i: dec.decode_attention(q, ks[i], vs[i], cur), copies))
     return {
         "shape": f"B={b} S={S} H={H} KV={KV} hd={HD} cur_len={cur.tolist()} bf16",
@@ -724,6 +761,7 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen) -> dict:
     backward alone). The sweep alone is timed with the memset that re-zeroes
     its dQ counters (prep zeroes them in a whole call), and the memset apart."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import cost as kc
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -754,8 +792,7 @@ def flash_grad_case(torch, F, label, b, t, h, kv, hd, causal, gen) -> dict:
         errs[name] = abs_errs[name] / float(w.abs().max())
     del want, auto, x
     check(max(errs.values()) <= GRAD_TOL, f"K3 gradient {label}: beyond {GRAD_TOL} of max |g|: {errs}")
-    flops = 5 * 2 * b * h * t * t * hd * (0.5 if causal else 1.0)
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + dout.numel()) + 4 * (out32.numel() + lse.numel())
+    flops, nbytes, _ = kc.flash_attention_grad(b, t, t, h, kv, hd, causal)
     b_ms, b_by = bound(flops, nbytes)
     ms = time_ms(torch, lambda: fa.backward(q, k, v, out32, lse, dout, causal))
     dsum, lse2, sem = fa.backward_prep(out32, dout, lse)
@@ -863,6 +900,7 @@ def moe_grad_cases(torch) -> list:
     2 x 2 rows d f flop, and the kept rows of xe and dy, the active experts'
     w, dxe and dw (every row written) in bytes."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import cost as kc
     from repro_torch.kernels import moe_gmm as gm
 
     dev = torch.device("cuda")
@@ -900,8 +938,7 @@ def moe_grad_cases(torch) -> list:
         check(all(torch.equal(a, b) for a, b in zip(got, auto)), f"K5 gradient {label}: autograd's differ in bits")
         del want, auto, x
         kept, active = int(rows.sum()), int((rows > 0).sum())
-        flops = 2 * 2 * kept * d * f
-        nbytes = 2 * (kept * d + kept * f + active * d * f + e * c * d + e * d * f)
+        flops, nbytes, _ = kc.moe_gmm_grad(e, c, d, f, rows=kept, active=active)
         b_ms, b_by = bound(flops, nbytes)
         ms = time_ms(torch, lambda: gm.backward(xe, w, rows, dy))
         cases.append({
@@ -920,20 +957,13 @@ def moe_grad_cases(torch) -> list:
 
 
 def ssd_grad_bound(b, t, h, g, p, n, with_state: bool = False) -> tuple[float, str]:
-    """K6's gradient's least time: x, dy, B, C, dt, A_log, D (and the final
-    state's cotangent when given) read once and dx, dB, dC, ddt, dA_log, dD
-    written once (the workspace of the recomputed states is the kernel's
-    own): in bf16 x, dy, dx (B, T, H, P) and B, C, dB, dC (B, T, G, N); in
-    fp32 dt, ddt (B, T, H), the four (H,) vectors and dstate (B, H, P, N).
-    Per (b, h) and chunk of SSD_CHUNK rows the products of the backward:
-    2Q^2 N (C B^T) + 4Q^2 P (dy x^T, the transposed weights times dy) + 4Q^2
-    N (dC, dB) + 6QNP (the states' terms) + 4QNP (the two walks)."""
-    chunks = [min(SSD_CHUNK, t - c) for c in range(0, t, SSD_CHUNK)]
-    flops = b * h * sum(2 * q * q * n + 4 * q * q * p + 4 * q * q * n + 10 * q * n * p for q in chunks)
-    nbytes = 2 * (3 * b * t * h * p + 4 * b * t * g * n) + 4 * (2 * b * t * h + 4 * h)
-    if with_state:
-        nbytes += 4 * b * h * p * n
-    return bound(flops, nbytes)
+    """K6's gradient's least time (``kernels/cost.py: ssd_scan_grad``: the
+    inputs read and the gradients written once, the backward's products
+    over chunks of SSD_CHUNK rows; its state workspace is the kernel's own)."""
+    from repro_torch.kernels import cost as kc
+
+    c = kc.ssd_scan_grad(b, t, h, g, p, n, with_state)
+    return bound(c.flops, c.bytes)
 
 
 def ssd_plain_bwd_by_heads(torch, sd, ins, dy, ds, k: int):
@@ -1027,7 +1057,7 @@ def ssd_grad_cases(torch) -> list:
                                    ("ssd_bwd_walk_kernel", "ssd_bwd_chunk_kernel")),
             "library_ms": None, "library": "none", "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
             "splits": splits, "workspace_bytes": states,
-            "workspace_floor_ms": 2 * states / PEAK_BYTES_PER_S * 1e3,
+            "workspace_floor_ms": bound(0, 2 * states)[0],
             "partials_bytes": 4 * splits * b * g * nc * 2 * SSD_CHUNK * n, "seconds": time.perf_counter() - t0,
         })
     return cases
@@ -1062,14 +1092,13 @@ SSD_CHUNK = 64  # the kernel's own chunk (csrc/ssd_scan.cu: kQ)
 
 
 def ssd_bound(b, t, h, g, p, n) -> tuple[float, str]:
-    """K6's least time: x, B, C, dt, A_log, D read once, y written once and
-    the final state (B, H, P, N) fp32 written once; per (b, h) the dual
-    form's products over chunks of the kernel's SSD_CHUNK rows, sum of
-    2Q^2 N + 2Q^2 P + 4QNP."""
-    chunks = [min(SSD_CHUNK, t - c) for c in range(0, t, SSD_CHUNK)]
-    flops = b * h * sum(2 * q * q * n + 2 * q * q * p + 4 * q * n * p for q in chunks)
-    nbytes = 2 * (2 * b * t * h * p + 2 * b * t * g * n) + 4 * (b * t * h + 2 * h) + 4 * b * h * p * n
-    return bound(flops, nbytes)
+    """K6's least time (``kernels/cost.py: ssd_scan``: the inputs read, y
+    and the final state written once, the dual form's products over chunks
+    of SSD_CHUNK rows)."""
+    from repro_torch.kernels import cost as kc
+
+    c = kc.ssd_scan(b, t, h, g, p, n)
+    return bound(c.flops, c.bytes)
 
 
 def ssd_case(torch, label, x, bm, cm, dt, a_log, d_skip, captured: bool = False) -> dict:
@@ -1175,6 +1204,7 @@ def moe_kernel_cases(torch, gen) -> list:
     at least COLD_BYTES of active weights (a decode step reads each layer's
     experts once, between the other layers' weights), and its bound counts
     the active experts' bytes; the dense bound is printed beside it."""
+    from repro_torch.kernels import cost as kc
     from repro_torch.kernels import moe_gmm as gm
 
     dev = torch.device("cuda")
@@ -1204,9 +1234,9 @@ def moe_kernel_cases(torch, gen) -> list:
         check(torch.equal(got, gm.moe_gmm(xe, w)), f"moe_gmm {label}: differs from the kernel without rows")
         n_active = int((rows > 0).sum())
         kept_rows = int(rows.sum())
-        nbytes = 2 * (kept_rows * d + n_active * d * f + e * c * f)
-        b_ms, b_by = bound(2 * kept_rows * d * f, nbytes)
-        dense_ms, _ = bound(2 * e * c * d * f, 2 * (e * c * d + e * d * f + e * c * f))
+        flops, nbytes, _ = kc.moe_gmm(e, c, d, f, rows=kept_rows, active=n_active)
+        b_ms, b_by = bound(flops, nbytes)
+        dense_ms, _ = bound(*kc.moe_gmm(e, c, d, f)[:2])
         copies = min(16, -(-COLD_BYTES // (2 * n_active * d * f)))
         ws = [w] + [w.clone() for _ in range(copies - 1)]
         ms = time_ms(torch, rotating(lambda i: gm.moe_gmm(xe, ws[i], rows, active), copies))
@@ -1244,6 +1274,7 @@ def paged_kernel_cases(torch, F, gen) -> dict:
     yardstick: ``scaled_dot_product_attention`` on the PRE-GATHERED
     contiguous cache (no single PyTorch call computes the paged function;
     the gather's own time is reported apart, as ``gather_ms``)."""
+    from repro_torch.kernels import cost as kc
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import gather_pages
 
@@ -1287,9 +1318,7 @@ def paged_kernel_cases(torch, F, gen) -> dict:
         vr = gather_pages(vp, bt).transpose(1, 2).repeat_interleave(g, dim=1)
         mask = (torch.arange(n * page, device=dev)[None, :] < cur[:, None])[:, None, None, :]
         qt = q[:, :, None, :]
-        rows = sum(lens)
-        nbytes = 2 * (2 * rows * kv * hd + q.numel() + got.numel()) + 4 * (bt.numel() + b)
-        b_ms, b_by = bound(4 * h * hd * rows, nbytes)
+        b_ms, b_by = bound(*kc.paged_decode_attention(b, n, page, h, kv, hd, rows=sum(lens))[:2])
         cases.append({
             "shape": f"{label}: B={b} n={n} page={page} P={p} H={h} KV={kv} hd={hd} cur_len={lens} bf16",
             "max_abs_err": err,
@@ -1332,9 +1361,7 @@ def paged_kernel_cases(torch, F, gen) -> dict:
         vr = gather_pages(vp, bt).transpose(1, 2).repeat_interleave(g, dim=1)
         limit = start + torch.arange(c, device=dev)
         mask = (torch.arange(n * page, device=dev)[None, :] <= limit[:, None])[None, None]
-        pairs = c * start + c * (c + 1) // 2  # (row, visible column) pairs: all C rows are computed
-        nbytes = 2 * (q.numel() + got.numel() + 2 * min(start + c, n * page) * kv * hd) + 4 * (n + 1)
-        b_ms, b_by = bound(4 * h * hd * pairs, nbytes)
+        b_ms, b_by = bound(*kc.paged_chunk_attention(1, c, n, page, h, kv, hd, start=start)[:2])
         ms = time_ms(torch, lambda: pa.paged_chunk_attention(q, kp, vp, bt, st))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask))
         gather_ms = time_ms(torch, lambda: (gather_pages(kp, bt), gather_pages(vp, bt)))
@@ -5577,6 +5604,219 @@ def control_plane_phases(torch, dev, cfg, serve: dict, serve_tokens: list) -> di
     return launches
 
 
+# the dry run's cells (repro_torch.launch.dryrun): reckoned on meta tensors,
+# the first four also run on the card (at the dry run's batch per step);
+# zamba2-7b's long_500k (13 shared-attention caches of 524,288 rows) and
+# phi3.5-moe-42b-a6.6b's decode_32k (83.7 GB of bf16 weights) do not fit
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"), ("llama3.2-1b", "decode_32k"),
+                ("mamba2-370m", "prefill_32k"), ("zamba2-7b", "long_500k"), ("phi3.5-moe-42b-a6.6b", "decode_32k"))
+DRYRUN_EXECUTED = DRYRUN_CELLS[:4]
+DRYRUN_PEAK_TOL = 0.10  # predicted peak against the allocator's, relative
+LONG_T = 32768  # the 32k cells' positions: K3's T and S, K4's S, K6's T
+LONG_HEAD = 4096  # K3's rows and K6's positions checked against the plain version on the prefix
+LONG_TAIL = 256  # K3's last rows checked against mha_ref(..., q_offset=)
+LONG_FAULT = 4096  # the faults the long checks must refuse: an eighth of 32768 keys or positions
+
+
+def long_kernel_cases(torch, F) -> dict:
+    """K3, K4 and K6 at the 32k cells' lengths, B = 1 (K4: B = 4), on
+    unit-scale inputs. K3 causal at T = S = 32768 with llama3.2-1b's 32/8
+    heads of 64: its first LONG_HEAD rows against the plain version on the
+    prefix, its last LONG_TAIL rows against ``mha_ref(..., q_offset=)`` over
+    every column. K4 over a cache of 32768 rows (cur_len 32767, every row,
+    one and a random length), whole. K3's and K4's outputs average up to
+    32768 values rows of ~0.01: each (row, head) is held within RTOL of its
+    own max |want| (``row_rel_err``), and the same check must refuse a
+    faulty version (K3's tail over keys[: S - LONG_FAULT], K4 over its
+    first 7/8 of each cache: one of its 8 splits dropped; K3's head over
+    its first LONG_HEAD / 2 keys). K6 at T = 32768
+    with mamba2-370m's 32 heads of 64 over a state of 128: y whole and the
+    final state against the chunked scan of ``models/ssm.ssd_chunked`` in
+    fp32 on the card (linear in T, the state carried chunk to chunk), each
+    within RTOL of its max |want|; the same check must refuse that scan with
+    the state dropped at every LONG_FAULT-th position; y's first LONG_HEAD
+    positions also elementwise against the plain version on the prefix (y
+    reaches ~100, where the two summation orders differ by more than the
+    elementwise atol near 0 further on, as in ``ssd_case``'s captured
+    cases). K3 and K4 also within RTOL / ATOL elementwise (``max_err``).
+    Each: equal bits on two launches, timed beside SDPA where one computes it, bounds from
+    ``kernels/cost.py``."""
+    from repro_torch.kernels import cost as kc
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sd
+    from repro_torch.models import ssm
+
+    def held(label, got, want, fault):
+        err, fault_err = row_rel_err(torch, got, want), row_rel_err(torch, fault, want)
+        check(err <= RTOL, f"{label}: a row differs from its plain version by {err} of its max (limit {RTOL})")
+        check(fault_err > RTOL, f"{label}: the check cannot see a faulty version ({fault_err} <= {RTOL})")
+        return err, fault_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32768)
+    t, h, kv, hd = LONG_T, 32, 8, 64
+    q = torch.randn(1, t, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fa.plain(q[:, :LONG_HEAD], k[:, :LONG_HEAD], v[:, :LONG_HEAD])
+    head = max_err(torch, got[:, :LONG_HEAD], want)
+    head_rel, head_fault = held("flash_attention head", got[:, :LONG_HEAD], want,
+                                fa.plain(q[:, :LONG_HEAD], k[:, :LONG_HEAD // 2], v[:, :LONG_HEAD // 2]))
+    off = t - LONG_TAIL
+    want = ref.mha_ref(q[:, off:], k, v, q_offset=off)
+    tail = max_err(torch, got[:, off:], want)
+    tail_rel, tail_fault = held("flash_attention tail", got[:, off:], want,
+                                ref.mha_ref(q[:, off:], k[:, :t - LONG_FAULT], v[:, :t - LONG_FAULT], q_offset=off))
+    del want
+    check(torch.equal(got, fa.flash_attention(q, k, v, causal=True)), f"flash_attention T={t} is not deterministic")
+    c = kc.flash_attention(1, t, t, h, kv, hd, causal=True)
+    b_ms, b_by = bound(c.flops, c.bytes)
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 5, 2)
+    kr, vr = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1) for x in (k, v))
+    qt = q.transpose(1, 2)
+    flash = {"shape": f"B=1 T=S={t} H={h} KV={kv} hd={hd} causal bf16", "checked": f"rows [0, {LONG_HEAD}) "
+             f"against the plain version on the prefix, the last {LONG_TAIL} against mha_ref(q_offset={off}), "
+             f"each (row, head) within {RTOL} of its max; faults: the head over keys[:{LONG_HEAD // 2}], the "
+             f"tail over keys[:{t - LONG_FAULT}]",
+             "max_abs_err": max(head, tail), "max_row_rel_err": max(head_rel, tail_rel),
+             "fault_row_rel_err": min(head_fault, tail_fault), "ms": ms, "plain_ms": None,
+             "plain_prefix_ms": time_ms(torch, lambda: fa.plain(q[:, :LONG_HEAD], k[:, :LONG_HEAD],
+                                                                v[:, :LONG_HEAD]), 5, 2),
+             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True), 5, 2),
+             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+    del q, k, v, got, kr, vr, qt
+
+    b = 4
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16)
+    lens = [t - 1, t, 1, int(torch.randint(1, t + 1, (1,), generator=gen, device=dev))]
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = dec.decode_attention(q, k, v, cur)
+    torch.cuda.synchronize()
+    want = dec.plain(q, k, v, cur)
+    err = max_err(torch, got, want)
+    rel, fault = held("decode_attention", got, want, dec.plain(q, k, v, cur - cur // 8))
+    check(torch.equal(got, dec.decode_attention(q, k, v, cur)), f"decode_attention S={t} is not deterministic")
+    c = kc.decode_attention(b, t, h, kv, hd, rows=sum(lens))
+    b_ms, b_by = bound(c.flops, c.bytes)
+    ms = time_ms(torch, lambda: dec.decode_attention(q, k, v, cur))
+    mask = (torch.arange(t, device=dev)[None, :] < cur[:, None])[:, None, None, :]
+    kr, vr = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1) for x in (k, v))
+    decode = {"shape": f"B={b} S={t} H={h} KV={kv} hd={hd} cur_len={lens} bf16",
+              "checked": f"whole, each (row, head) within {RTOL} of its max; fault: cur_len - cur_len // 8",
+              "max_abs_err": err, "max_row_rel_err": rel, "fault_row_rel_err": fault, "ms": ms,
+              "plain_ms": time_ms(torch, lambda: dec.plain(q, k, v, cur)),
+              "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr,
+                                                                                  attn_mask=mask)),
+              "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+    del q, k, v, got, want, kr, vr, mask
+
+    h, g, p, n = 32, 1, 64, 128
+    x = torch.randn(1, t, h, p, generator=gen, device=dev).to(torch.bfloat16)
+    bm = (torch.randn(1, t, g, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    cm = (torch.randn(1, t, g, n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn(1, t, h, generator=gen, device=dev))
+    a_log = torch.randn(h, generator=gen, device=dev) * 0.3
+    d_skip = torch.ones(h, device=dev)
+    y, state = sd.ssd_scan(x, bm, cm, dt, a_log, d_skip, return_state=True)
+    torch.cuda.synchronize()
+
+    def chunked(lo, hi):  # the fp32 chunked scan of positions [lo, hi) from a zero state
+        zero = torch.zeros(1, h, p, n, dtype=torch.float32, device=dev)
+        return ssm.ssd_chunked(x[:, lo:hi].float(), bm[:, lo:hi].float(), cm[:, lo:hi].float(), dt[:, lo:hi],
+                               a_log, d_skip, kc.SSD_CHUNK, init_state=zero)
+
+    pre = (x[:, :LONG_HEAD], bm[:, :LONG_HEAD], cm[:, :LONG_HEAD], dt[:, :LONG_HEAD])
+    head = max_err(torch, y[:, :LONG_HEAD], sd.plain(*pre, a_log, d_skip)[0])
+    y_want, state_want = chunked(0, t)
+    err = max(float((y.float() - y_want).abs().max()), float((state - state_want).abs().max()))
+    y_rel, state_rel = rel_err(y, y_want), rel_err(state, state_want)
+    check(max(y_rel, state_rel) <= RTOL, f"ssd_scan T={t}: y {y_rel}, state {state_rel} of max |want| (limit {RTOL})")
+    fault = rel_err(torch.cat([chunked(lo, lo + LONG_FAULT)[0] for lo in range(0, t, LONG_FAULT)], 1), y_want)
+    check(fault > RTOL, f"ssd_scan T={t}: the check cannot see a state dropped every {LONG_FAULT} ({fault})")
+    check(torch.equal(y, sd.ssd_scan(x, bm, cm, dt, a_log, d_skip)), f"ssd_scan T={t} is not deterministic")
+    c = kc.ssd_scan(1, t, h, g, p, n)
+    b_ms, b_by = bound(c.flops, c.bytes)
+    ms = time_ms(torch, lambda: sd.ssd_scan(x, bm, cm, dt, a_log, d_skip), 5, 2)
+    ssd = {"shape": f"B=1 T={t} H={h} G={g} P={p} N={n} bf16, dt fp32",
+           "checked": f"y's first {LONG_HEAD} positions elementwise against the plain version on the prefix; y "
+                      f"whole and the final state against models/ssm.ssd_chunked in fp32 (chunks of {kc.SSD_CHUNK}), "
+                      f"each within {RTOL} of its max; fault: the state dropped every {LONG_FAULT}",
+           "max_abs_err": err, "head_max_abs_err": head, "y_rel_err": y_rel, "state_rel_err": state_rel, "fault_rel_err": fault, "ms": ms,
+           "plain_ms": None, "plain_chunked_ms": time_ms(torch, lambda: chunked(0, t), 3, 1), "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+    del x, bm, cm, dt, y, state, y_want, state_want
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "decode_attention": decode, "ssd_scan": ssd}
+
+
+def dryrun_phase(torch, dev) -> dict:
+    """The dry run (``repro_torch.launch.dryrun.run_cell``) at DRYRUN_CELLS:
+    each cell reckoned on meta tensors (FLOPs, bytes, peak, the batch per
+    step that fits the card, the roofline bound from the datasheet peaks);
+    the DRYRUN_EXECUTED cells then run on the card at that batch (a step
+    under the cost analysis, then a bare one), where the predicted peak
+    must be within DRYRUN_PEAK_TOL of the
+    allocator's (``measured.peak_bytes``: the peak since a reset, less what
+    was allocated before the cell's weights and inputs), the card's own cost
+    analysis must count the meta run's FLOPs, and each kernel must have
+    launched as often as the meta run recorded its calls. The other cells
+    must not fit, and no plain version may run. Records go to
+    chiprun_out/dryrun_torch.jsonl."""
+    from repro_torch.launch import dryrun
+
+    out_path = ROOT / "chiprun_out" / "dryrun_torch.jsonl"
+    out_path.parent.mkdir(exist_ok=True)
+    if out_path.exists():
+        out_path.unlink()
+    cells, launches = [], {}  # launches: by executed cell
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        gc_collect(torch)
+        executed = (arch, shape) in DRYRUN_EXECUTED
+        r = dryrun.run_cell(arch, shape, str(out_path), execute=executed, device="cuda")
+        label = f"{arch} {shape}"
+        check(r["status"] == "ok", f"dryrun {label}: {r.get('status')} {r.get('reason', '')}")
+        check(r["flops_per_device"] > 0 and r["bytes_per_device"] > 0 and r["memory"]["peak_bytes"] > 0,
+              f"dryrun {label}: a zero count")
+        row = {"cell": label, "batch_per_step": r["batch_per_step"], "steps": r["steps"], "fits_card": r["fits_card"],
+               "flops_per_step": r["flops_per_step"], "bytes_per_step": r["bytes_per_step"],
+               "predicted_peak_bytes": r["memory"]["peak_bytes"], "kernel_calls": r["kernel_calls_per_step"],
+               "step_bound_ms": r["roofline"]["step_bound_s"] * 1e3, "bound_s": r["roofline"]["bound_s"],
+               "dominant": r["roofline"]["dominant"], "useful_flops_ratio": r["useful_flops_ratio"],
+               "trace_s": r["trace_s"]}
+        if executed:
+            check(r["fits_card"], f"dryrun {label}: predicted not to fit the card")
+            m = r["measured"]
+            row.update(step_ms=m["step_ms"], measured_peak_bytes=m["peak_bytes"], peak_ratio=m["peak_ratio"],
+                       card_flops=m["flops"], launches=m["launches"], bound_share=row["step_bound_ms"] / m["step_ms"])
+            check(abs(m["peak_ratio"] - 1) <= DRYRUN_PEAK_TOL,
+                  f"dryrun {label}: predicted peak {r['memory']['peak_bytes']} against {m['peak_bytes']} measured")
+            check(m["flops"] == r["flops_per_step"], f"dryrun {label}: {m['flops']} FLOPs on the card, "
+                                                     f"{r['flops_per_step']} on meta")
+            check(m["kernel_calls"] == r["kernel_calls_per_step"] == m["launches"] and not m["plain_calls"],
+                  f"dryrun {label}: launches {m['launches']}, calls on the card {m['kernel_calls']}, "
+                  f"on meta {r['kernel_calls_per_step']}, plain versions {m['plain_calls']}")
+            launches[label] = m["launches"]
+        else:
+            check(not r["fits_card"], f"dryrun {label}: predicted to fit the card")
+        row["seconds"] = time.perf_counter() - t0
+        cells.append(row)
+    return {"cells": cells, "launches": launches}
+
+
+def gc_collect(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def chrome_export(path: Path) -> dict:
     """Every live tracer's records (the llama phases') as one Chrome
     ``trace_event`` file at ``path``, parsed back."""
@@ -5647,6 +5887,11 @@ def main() -> int:
     print(json.dumps({"grad_refusal": grad_refusal_check(torch)}), flush=True)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s (K3's gradient cases {grad_cases_s:.1f} s, K5's and "
           f"K6's {family_grad_cases_s:.1f} s)", file=sys.stderr)
+    t0 = time.perf_counter()
+    print(json.dumps({"long_kernels": long_kernel_cases(torch, F)}), flush=True)
+    dry = dryrun_phase(torch, dev)
+    print(json.dumps({"dryrun": dry["cells"]}), flush=True)
+    print(f"dryrun phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     retain_tracers(True)  # the llama phases' traces outlive their platforms, for the export
     t0 = time.perf_counter()
     serve_tokens: list = []
@@ -5748,6 +5993,12 @@ def main() -> int:
     by_path["moe_gmm_bwd"] = {"qwen3-moe-30b-a3b train": {k: fam["moe"][k] for k in MOE_GRAD_KERNELS}}
     by_path["ssd_scan_bwd"] = {f"{arch} train": {k: fam[key][k] for k in SSD_GRAD_KERNELS}
                                for key, arch in (("ssm", "mamba2-370m"), ("hybrid", "zamba2-7b"))}
+    for label, n in dry["launches"].items():  # the dry run's executed steps
+        for kernel in ("flash_attention", "decode_attention", "ssd_scan"):
+            if n.get(kernel):
+                by_path[kernel][f"{label} dryrun"] = n[kernel]
+        if n.get("flash_attention_bwd"):
+            by_path["flash_attention_bwd"][f"{label} dryrun"] = {k: n[k] for k in GRAD_KERNELS}
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
     part_src = {"flash_attention": serve["launch_parts"], "decode_attention": serve["launch_parts"],
                 "paged_decode_attention": paged["launch_parts"]["fused"],

@@ -1,13 +1,17 @@
 """Model + shape configuration registry.
 
-Every assigned architecture is a :class:`ModelConfig`; an input shape is a
-:class:`ShapeConfig`. The fields mirror the JAX package's, so a config
-carries across unchanged; the port reads those of the dense, vlm, MoE,
-SSM, hybrid and enc-dec (audio) families.
+Every assigned architecture is a :class:`ModelConfig`; every assigned input
+shape is a :class:`ShapeConfig`. A dry-run cell is the pair. The fields
+mirror the JAX package's, so a config carries across unchanged; the port
+reads those of the dense, vlm, MoE, SSM, hybrid and enc-dec (audio)
+families.
 """
 from __future__ import annotations
 
 import dataclasses
+
+FULL_ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +74,14 @@ class ModelConfig:
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in SUBQUADRATIC_FAMILIES
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -78,6 +90,13 @@ class ShapeConfig:
     global_batch: int
     kind: str                      # train | prefill | decode
 
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 ARCHS: dict[str, ModelConfig] = {}
 
@@ -91,6 +110,25 @@ def get_arch(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """long_500k needs sub-quadratic sequence handling: run it only for
+    SSM / hybrid archs (skip for pure full-attention — DESIGN.md §4)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        names.append("long_500k")
+    return names
+
+
+def shape_skip_reason(cfg: ModelConfig, shape: str) -> str | None:
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return "full-attention arch: 524k-token decode requires sub-quadratic attention (DESIGN.md §4)"
+    return None
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import decode_attn_ref as plain
 
 HEAD_DIMS = (64, 112, 128)
@@ -75,6 +75,7 @@ def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor
     _check(q, k, v, cur_len)
     b, h, hd = q.shape
     out = torch.empty_like(q)
+    cost.record("decode_attention", False, b=b, s=k.shape[1], h=h, kv=k.shape[2], hd=hd)
     lib = build.load()
     err = lib.repro_decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_len.data_ptr(), out.data_ptr(),
@@ -88,6 +89,9 @@ def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor
 
 @_op.register_fake
 def _(q, k, v, cur_len):
+    if q.is_meta:  # the card's branch of a shape-only run
+        b, h, hd = q.shape
+        cost.record("decode_attention", True, b=b, s=k.shape[1], h=h, kv=k.shape[2], hd=hd)
     return torch.empty_like(q)
 
 
@@ -109,8 +113,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, hd); k, v: (B, S, KV, hd); cur_len: (B,) int32 -> (B, H, hd).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape.
-    Under ``torch.func.vmap`` the lanes fold into B."""
+    plain version; a meta tensor returns an empty output of the right shape
+    and reports the call to an active cost analysis. Under
+    ``torch.func.vmap`` the lanes fold into B."""
     if q.device.type == "cuda":
         build.refuse_grad("decode_attention", q, k, v)
     return _op(q, k, v, cur_len)

@@ -30,7 +30,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import mha_ref as plain
 from repro_torch.kernels.ref import mha_ref_bwd as plain_bwd  # noqa: F401 - re-exported beside plain
 
@@ -64,6 +64,10 @@ def _forward(q, k, v, causal: bool, lse: torch.Tensor | None = None,
     b, t, h, hd = q.shape
     out = torch.empty_like(q)
     if t == 0:
+        return out
+    cost.record("flash_attention", q.is_meta, b=b, t=t, s=k.shape[1], h=h, kv=k.shape[2], hd=hd, causal=causal,
+                with_lse=lse is not None)
+    if q.is_meta:  # a shape-only run: the card's allocations, no launch
         return out
     lib = build.load()
     err = lib.repro_flash_attention_fwd(
@@ -124,7 +128,7 @@ def backward(q, k, v, out32, lse, dout, causal: bool):
     if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention backward: lse must be contiguous fp32 {(b, h, t)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention backward: the kernels run on the card, q is on {q.device} "
                          "(the plain version is mha_ref_bwd)")
     if out32.shape != q.shape or out32.dtype != torch.float32 or dout.shape != q.shape or dout.dtype != q.dtype:
@@ -135,6 +139,13 @@ def backward(q, k, v, out32, lse, dout, causal: bool):
     dout = dout.contiguous()
     if t == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if q.is_meta:  # a shape-only run: the outputs; the workspace is the cost's
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        cost.record("flash_attention_grad", True, b=b, t=t, s=k.shape[1], h=h, kv=k.shape[2], hd=q.shape[3],
+                    causal=causal)
+        return grads
+    cost.record("flash_attention_grad", False, b=b, t=t, s=k.shape[1], h=h, kv=k.shape[2], hd=q.shape[3],
+                causal=causal, sms=_sms(q.device))
     dsum, lse2, sem = backward_prep(out32, dout, lse)
     dq_acc, dk, dv, ws, splits = backward_sweep(q, k, v, dout, lse2, dsum, sem, causal)
     return backward_post(dq_acc, ws, splits, q, dk, dv), dk, dv
@@ -229,6 +240,9 @@ def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torc
 
 @_op.register_fake
 def _(q, k, v, causal):
+    b, t, h, hd = q.shape
+    if q.is_meta and t:  # the card's branch of a shape-only run
+        cost.record("flash_attention", True, b=b, t=t, s=k.shape[1], h=h, kv=k.shape[2], hd=hd, causal=causal)
     return torch.empty_like(q)
 
 
@@ -244,13 +258,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, T, H, hd); k, v: (B, S, KV, hd) -> (B, T, H, hd).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape
-    (the shape-only run of a fused unit). Under ``torch.func.vmap`` the
-    lanes fold into B. Under autograd (grad mode, an input that requires
-    grad) a CUDA call's gradient is K3's backward kernels and a CPU call's
-    is autograd through the plain version."""
+    plain version; a meta tensor takes the card's branch without a launch:
+    empty outputs of the right shapes, what the card allocates, the call
+    reported to an active cost analysis (``kernels/cost.py``) — the
+    shape-only run of a fused unit or of a dry run. Under
+    ``torch.func.vmap`` the lanes fold into B. Under autograd (grad mode, an
+    input that requires grad) a CUDA or meta call's gradient is K3's
+    backward kernels and a CPU call's is autograd through the plain
+    version."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        if q.device.type == "cuda":
+        if q.device.type in ("cuda", "meta"):
             return _FlashAttention.apply(q, k, v, causal)
         if q.device.type == "cpu":
             return plain(q, k, v, causal=causal)

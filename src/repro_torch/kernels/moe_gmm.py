@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import gmm_ref as plain
 from repro_torch.kernels.ref import gmm_ref_bwd as plain_bwd
 
@@ -65,6 +65,7 @@ def _op(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None, active: in
     out = torch.empty(e, c, f, dtype=xe.dtype, device=xe.device)
     if out.numel() == 0:
         return out
+    cost.record("moe_gmm", False, e=e, c=c, d=d, f=f, active=active)
     lib = build.load()
     err = lib.repro_moe_gmm_fwd(
         xe.data_ptr(), w.data_ptr(), None if rows is None else rows.data_ptr(), out.data_ptr(),
@@ -77,7 +78,10 @@ def _op(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None, active: in
 
 @_op.register_fake
 def _(xe, w, rows, active):
-    return xe.new_empty(xe.shape[0], xe.shape[1], w.shape[2])
+    e, c, d = xe.shape
+    if xe.is_meta and e * c * w.shape[2]:  # the card's branch of a shape-only run
+        cost.record("moe_gmm", True, e=e, c=c, d=d, f=w.shape[2], active=active)
+    return xe.new_empty(e, c, w.shape[2])
 
 
 @_op.register_vmap
@@ -89,10 +93,11 @@ def _(info, in_dims, xe, w, rows, active):
 def backward(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None, dy: torch.Tensor):
     """(dxe, dw) of ``moe_gmm(xe, w, rows)`` for the output gradient ``dy``
     (E, C, f): K5's backward kernels for CUDA tensors (or a raise), the plain
-    backward for CPU tensors."""
+    backward for CPU tensors, and for meta tensors the card's outputs with
+    no launch, the call reported to an active cost analysis."""
     if xe.device.type == "cpu":
         return plain_bwd(xe, w, rows, dy)
-    if xe.device.type != "cuda":
+    if xe.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_gmm backward: unsupported device {xe.device}")
     _check(xe, w, rows)
     dy = dy.contiguous()
@@ -104,6 +109,9 @@ def backward(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None, dy: t
     dxe, dw = torch.empty_like(xe), torch.empty_like(w)
     if xe.numel() == 0 or dy.numel() == 0:
         return dxe.zero_(), dw.zero_()
+    cost.record("moe_gmm_grad", xe.is_meta, e=e, c=c, d=d, f=f)
+    if xe.is_meta:
+        return dxe, dw
     err = build.load().repro_moe_gmm_bwd(
         xe.data_ptr(), w.data_ptr(), None if rows is None else rows.data_ptr(), dy.data_ptr(), dxe.data_ptr(),
         dw.data_ptr(), e, c, d, f, torch.cuda.current_stream(xe.device).cuda_stream)
@@ -139,8 +147,9 @@ def moe_gmm(xe: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None,
     value is correct, a tight one is fast; None means E.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape.
-    Under autograd the gradient of ``xe`` and ``w`` is :func:`backward`."""
+    plain version; a meta tensor returns an empty output of the right shape
+    and reports the call to an active cost analysis. Under autograd the
+    gradient of ``xe`` and ``w`` is :func:`backward`."""
     e = xe.shape[0]
     active = e if active is None else max(1, min(active, e))
     return _op(xe, w, rows, active)

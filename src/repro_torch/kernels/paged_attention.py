@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import paged_chunk_attn_ref as plain_chunk
 from repro_torch.kernels.ref import paged_decode_attn_ref as plain_decode
 
@@ -64,6 +64,7 @@ def _decode_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     b, h, hd = q.shape
     p, page, kv, _ = k_pages.shape
     out = torch.empty_like(q)
+    cost.record("paged_decode_attention", False, b=b, n=block_table.shape[1], page=page, h=h, kv=kv, hd=hd)
     err = build.load().repro_paged_decode_attention_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
         cur_len.data_ptr(), out.data_ptr(), b, p, page, block_table.shape[1], h, kv, hd,
@@ -76,6 +77,9 @@ def _decode_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
 
 @_decode_op.register_fake
 def _(q, k_pages, v_pages, block_table, cur_len):
+    if q.is_meta:  # the card's branch of a shape-only run
+        cost.record("paged_decode_attention", True, b=q.shape[0], n=block_table.shape[1], page=k_pages.shape[1],
+                    h=q.shape[1], kv=k_pages.shape[2], hd=q.shape[2])
     return torch.empty_like(q)
 
 
@@ -97,7 +101,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     cur_len == 0 gives exact zeros.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape."""
+    plain version; a meta tensor returns an empty output of the right shape
+    and reports the call to an active cost analysis."""
     if q.device.type == "cuda":
         build.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     return _decode_op(q, k_pages, v_pages, block_table, cur_len)
@@ -118,6 +123,7 @@ def _chunk_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     out = torch.empty_like(q)
     if c == 0:
         return out
+    cost.record("paged_chunk_attention", False, b=b, c=c, n=block_table.shape[1], page=page, h=h, kv=kv, hd=hd)
     err = build.load().repro_paged_chunk_attention_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
         start.data_ptr(), out.data_ptr(), b, c, p, page, block_table.shape[1], h, kv, hd,
@@ -130,6 +136,10 @@ def _chunk_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
 
 @_chunk_op.register_fake
 def _(q, k_pages, v_pages, block_table, start):
+    b, c, h, hd = q.shape
+    if q.is_meta and c:  # the card's branch of a shape-only run
+        cost.record("paged_chunk_attention", True, b=b, c=c, n=block_table.shape[1], page=k_pages.shape[1], h=h,
+                    kv=k_pages.shape[2], hd=hd)
     return torch.empty_like(q)
 
 
@@ -150,7 +160,8 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     int32 -> (B, C, H, hd). Row i attends the columns <= start + i.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version; a meta tensor returns an empty output of the right shape."""
+    plain version; a meta tensor returns an empty output of the right shape
+    and reports the call to an active cost analysis."""
     if q.device.type == "cuda":
         build.refuse_grad("paged_chunk_attention", q, k_pages, v_pages)
     return _chunk_op(q, k_pages, v_pages, block_table, start)

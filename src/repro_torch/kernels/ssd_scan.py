@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import ssd_ref as plain
 from repro_torch.kernels.ref import ssd_ref_bwd as plain_bwd
 
@@ -92,6 +92,7 @@ def _op(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor, a
     if not y.numel():
         state.zero_()  # no token: the zero state
         return y, state
+    cost.record("ssd_scan", False, b=b, t=t, h=h, g=bm.shape[2], p=p, n=n)
     err = build.load().repro_ssd_scan_fwd(
         x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
         d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), b, t, h, p, bm.shape[2], n,
@@ -105,6 +106,8 @@ def _op(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tensor, a
 @_op.register_fake
 def _(x, bm, cm, dt, a_log, d_skip):
     b, t, h, p = x.shape
+    if x.is_meta and x.numel():  # the card's branch of a shape-only run
+        cost.record("ssd_scan", True, b=b, t=t, h=h, g=bm.shape[2], p=p, n=bm.shape[-1])
     return torch.empty_like(x), x.new_empty(b, h, p, bm.shape[-1], dtype=torch.float32)
 
 
@@ -126,10 +129,12 @@ def backward(x, bm, cm, dt, a_log, d_skip, dy, dstate=None):
     for CPU tensors. On the card the chunk-boundary states and their
     cotangents are recomputed into a transient workspace of 2 B H
     ceil(T / 64) P N bf16 values, and each split of a group's heads
-    (:func:`grad_splits`) sums its dB and dC into an fp32 partial."""
+    (:func:`grad_splits`) sums its dB and dC into an fp32 partial. Meta
+    tensors get the card's outputs with no launch (the workspace counted by
+    ``kernels/cost.py``), the call reported to an active cost analysis."""
     if x.device.type == "cpu":
         return plain_bwd(x, bm, cm, dt, a_log, d_skip, dy, dstate)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan backward: unsupported device {x.device}")
     _check(x, bm, cm, dt, a_log, d_skip)
     b, t, h, p = x.shape
@@ -148,8 +153,13 @@ def backward(x, bm, cm, dt, a_log, d_skip, dy, dstate=None):
     da_log, dd_skip = torch.empty_like(a_log), torch.empty_like(d_skip)
     if not x.numel():
         return dx, dbm, dcm, ddt, da_log.zero_(), dd_skip.zero_()
+    if x.is_meta:
+        cost.record("ssd_scan_grad", True, b=b, t=t, h=h, g=g, p=p, n=n, with_state=dstate is not None)
+        return dx, dbm, dcm, ddt, da_log, dd_skip
     nc = -(-t // GRAD_CHUNK)
-    splits = grad_splits(b, nc, g, h // g, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    cost.record("ssd_scan_grad", False, b=b, t=t, h=h, g=g, p=p, n=n, with_state=dstate is not None, sms=sms)
+    splits = grad_splits(b, nc, g, h // g, sms)
     ws_s = torch.empty(b, h, nc, p, n, dtype=torch.bfloat16, device=x.device)
     ws_z = torch.empty_like(ws_s)
     part_bc = torch.empty(splits, b, g, nc, 2, GRAD_CHUNK, n, dtype=torch.float32, device=x.device)
@@ -189,7 +199,8 @@ def ssd_scan(x: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor, dt: torch.Tens
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version; a meta tensor returns empty outputs of the right shapes
-    (the shape-only run of a fused unit). Under autograd the gradient is
+    and reports the call to an active cost analysis (the shape-only run of a
+    fused unit or of a dry run). Under autograd the gradient is
     :func:`backward`."""
     y, state = _op(x, bm, cm, dt, a_log, d_skip)
     return (y, state) if return_state else y

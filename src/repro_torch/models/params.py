@@ -7,6 +7,9 @@ and a JAX parameter tree maps onto the port's leaf for leaf. ``init_params``
 materializes the tree from a seeded ``torch.Generator`` with the JAX
 package's init rule (``repro/models/params.py``); the random numbers differ
 from JAX's, so tests that compare the two bridge JAX's parameters instead.
+``param_structs`` gives the same tree as empty meta tensors (the JAX
+package's ``jax.ShapeDtypeStruct`` tree, without a mesh): the dry run's
+zero-allocation weights.
 """
 from __future__ import annotations
 
@@ -25,6 +28,10 @@ class ParamDef:
     init: str = "normal"          # normal | zeros | ones | embed
     scale_axis: int | None = None  # fan-in axis for 'normal' (default: -2)
     dtype: torch.dtype = torch.bfloat16
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
 
 
 def _fan_in(d: ParamDef) -> int:
@@ -67,13 +74,27 @@ def init_params(defs, seed: int = 0, *, device=None):
     return tree.map(lambda d: _init_leaf(d, gen, dev), defs)
 
 
+def param_structs(defs):
+    """``defs`` as empty meta tensors of their shapes and dtypes: no
+    storage is allocated, so a 42B-parameter train state stays symbolic."""
+    return tree.map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def param_count(defs) -> int:
+    return sum(math.prod(d.shape) for d in tree.leaves(defs))
+
+
 def param_bytes(defs) -> int:
     return sum(math.prod(d.shape) * d.dtype.itemsize for d in tree.leaves(defs))
 
 
+def map_defs(fn, defs):
+    return tree.map(fn, defs)
+
+
 def stack_defs(defs, n: int):
     """Prepend a stacking axis (layers stacked on a leading axis)."""
-    return tree.map(
+    return map_defs(
         lambda d: dataclasses.replace(
             d,
             shape=(n, *d.shape),

@@ -8,7 +8,9 @@ accumulates into ``.grad``. The microbatches run one after the other (the
 reference scans over them) and their gradients accumulate in the grad dtype
 (bf16 for bf16 params), then divide by their number, as the reference does:
 into one accumulator, in place, each microbatch's tree freed once it is
-added.
+added. A shape-only run (meta tensors) under a cost analysis runs the
+microbatch loop once and counts it ``microbatches`` times
+(``kernels.cost.trips``); on a device the loop always runs whole.
 
 A step leaves its input state as it was, unless the caller hands the state
 over (inside :func:`repro_torch.donate.donating`, the counterpart of the
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import donate, tree
+from repro_torch.kernels import cost as kcost
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_state_defs, adamw_update, adamw_update_
 
@@ -72,7 +75,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig | None = None, lr_schedul
             grads = tree.map(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device), params)
             acc = tree.leaves(grads)
             loss = metrics = None
-            for i in range(n_micro):
+            for i in kcost.trips(n_micro, "microbatches", like=tree.leaves(micro)[0]):
                 l, m, g = value_and_grad(model, params, tree.map(lambda x: x[i], micro))
                 g = tree.leaves(g)
                 for a, b in zip(acc, g):
