@@ -369,6 +369,31 @@ Phases (any failed check exits non-zero and prints no result):
    model. ``launch_train_ssm``: the launcher on full-width mamba2-370m with
    no ``--device``. ``family_train_seconds``: each part's seconds.
 
+17. Mesh phase (``mesh_phase``): (a) ``mesh_dryrun``: the dry run
+   (``launch/dryrun.py --mesh``) of ``llama3.2-1b decode_32k`` on the
+   reference's (16, 16) and (2, 16, 16) meshes and of ``qwen3-moe-30b-a3b
+   train_4k`` on (16, 16) (its expert-parallel schedule), rank 0's program
+   on meta tensors in a fake group of 512 ranks: the llama cells'
+   ``params_bytes_per_device`` and ``model_flops_per_device`` equal the
+   reference's record (``results/dryrun.jsonl``), each collective kind's
+   count and bytes printed beside the reference's (no limit: GSPMD and the
+   port choose their collectives differently); every K5 call of the qwen3
+   cell at E/16 = 8 experts, its reduce-scatter or all-reduce bytes
+   non-zero. (b) ``mesh_nccl``: one process per card over NCCL
+   (``make_smoke_mesh``: (1, 1) on one card, (2, 2) on four); full-width
+   llama3.2-1b takes MESH_TRAIN_STEPS AdamW steps under ``train_rules`` at
+   B = 2, T = 4096 (one microbatch of the train phase's shape), and the same
+   steps with no mesh: each loss within 2e-2 relative, every forward and
+   backward kernel launched as often, no plain version; then full-width
+   qwen3-moe-30b-a3b's MoE layer (``dropping_ep``) on the same mesh against
+   the layer with no mesh, K5 launched. (c) ``mesh_ep_ranks``: what each
+   rank of a 4-way expert-parallel MoE layer computes, run one rank after
+   the other on this card (one card is all there is): full-width qwen3's
+   layer, each rank's dispatch, K5 on its 32 of the 128 experts and its
+   combine's partial sum; the partials' sum within 2e-2 of max |y| of the
+   unsharded layer (K5 on all 128), the dropped share equal. What a mesh
+   costs in time, and NCCL across cards, need a machine with four.
+
 Standard output opens with the device line and the ``ptxas`` line; its
 last lines are the ``grad_refusal``, ``long_kernels``, ``dryrun``,
 ``serve``, ``trace_serve``, ``paged_serve``,
@@ -384,7 +409,8 @@ last lines are the ``grad_refusal``, ``long_kernels``, ``dryrun``,
 after their serve lines), ``launch_serve``, ``encdec_serve``, ``encdec_card_vs_host``,
 ``encdec_train``, ``kvpool_stress``, ``moe_train``, ``moe_train_card_vs_host``, ``moe_train_restart``,
 ``ssm_train``, ``ssm_train_card_vs_host``, ``ssm_train_restart``, ``hybrid_train``,
-``hybrid_train_card_vs_host``, ``launch_train_ssm``, ``family_train_seconds`` and ``kernels`` JSON
+``hybrid_train_card_vs_host``, ``launch_train_ssm``, ``family_train_seconds``, ``mesh_dryrun``,
+``mesh_nccl``, ``mesh_ep_ranks``, ``mesh_seconds`` and ``kernels`` JSON
 lines and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -5810,6 +5836,341 @@ def dryrun_phase(torch, dev) -> dict:
     return {"cells": cells, "launches": launches}
 
 
+# ------------------------------------------------------------------ mesh
+
+MESH_DRYRUN = (("llama3.2-1b", "decode_32k", "pod16x16"), ("llama3.2-1b", "decode_32k", "pod2x16x16"),
+               ("qwen3-moe-30b-a3b", "train_4k", "pod16x16"))
+MESH_TRAIN_STEPS = 4
+MESH_TRAIN_BATCH = 2  # one microbatch of the train phase: B = 2, T = TRAIN_SEQ
+MESH_TRAIN_LR = 1e-3
+MESH_LOSS_TOL = 2e-2  # the mesh's losses against the same steps with no mesh, relative
+MESH_MOE_TOKENS = (2, 1024)  # the MoE layer's (B, T) on the NCCL mesh (no token dropped)
+MESH_EP_RANKS = 4
+MESH_EP_TOKENS = (2, 2048)  # the EP rank programs' (B, T)
+MESH_EP_TOL = 2e-2  # the partials' sum against the unsharded layer, over max |y|
+
+
+def mesh_dryrun_cells(torch) -> list:
+    """(a): MESH_DRYRUN through ``dryrun.run_cell(..., mesh=)``, every K5
+    call's expert count recorded; the fake group is destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe as moe_mod
+
+    ref = {}
+    with open(ROOT / "results" / "dryrun.jsonl") as f:
+        for line in f:
+            r = json.loads(line)
+            ref.setdefault((r["arch"], r["shape"], r["mesh"]), r)
+    out_path = ROOT / "chiprun_out" / "dryrun_torch.jsonl"
+    out_path.parent.mkdir(exist_ok=True)
+    experts: list = []
+    gmm = moe_mod.kops.gmm
+
+    def recording_gmm(xe, w, rows=None, active=None):
+        experts.append(int(xe.shape[0]))
+        return gmm(xe, w, rows, active)
+
+    rows = []
+    moe_mod.kops.gmm = recording_gmm
+    try:
+        for arch, shape, mesh in MESH_DRYRUN:
+            t0 = time.perf_counter()
+            experts.clear()
+            r = dryrun.run_cell(arch, shape, str(out_path), mesh=mesh)
+            label = f"{arch} {shape} {mesh}"
+            check(r["status"] == "ok", f"mesh dryrun {label}: {r.get('status')} {r.get('reason', '')}")
+            theirs = ref.get((arch, shape, mesh))
+            coll = r["collectives"]
+            row = {"cell": label, "n_chips": r["n_chips"], "params_bytes_per_device": r["params_bytes_per_device"],
+                   "model_flops_per_device": r["model_flops_per_device"], "flops_per_device": r["flops_per_device"],
+                   "bytes_per_device": r["bytes_per_device"], "hbm_per_device_gb": r["hbm_per_device_gb"],
+                   "useful_flops_ratio": r["useful_flops_ratio"], "roofline": r["roofline"],
+                   "kernel_calls": r["kernel_calls_per_device"],
+                   "collectives": {k: v for k, v in coll.items() if k != "total_bytes"},
+                   "collective_bytes": coll["total_bytes"], "trace_s": r["trace_s"]}
+            if theirs is not None:
+                row["reference"] = {k: theirs[k] for k in ("params_bytes_per_device", "model_flops_per_device",
+                                                           "flops_per_device", "bytes_per_device", "collectives")}
+                check(r["params_bytes_per_device"] == theirs["params_bytes_per_device"]
+                      and r["model_flops_per_device"] == theirs["model_flops_per_device"],
+                      f"mesh dryrun {label}: params {r['params_bytes_per_device']} and model FLOPs "
+                      f"{r['model_flops_per_device']} per device, the reference's {theirs['params_bytes_per_device']} "
+                      f"and {theirs['model_flops_per_device']}")
+            check(coll["total_bytes"] > 0, f"mesh dryrun {label}: no collective")
+            if arch.startswith("qwen3"):
+                per_rank = 128 // 16
+                row["k5_experts"] = sorted(set(experts))
+                check(experts and all(e == per_rank for e in experts),
+                      f"mesh dryrun {label}: K5 calls at {sorted(set(experts))} experts, want {per_rank}")
+                check(coll["reduce-scatter"]["bytes"] > 0 or coll["all-reduce"]["bytes"] > 0,
+                      f"mesh dryrun {label}: no reduce-scatter or all-reduce bytes")
+            row["seconds"] = time.perf_counter() - t0
+            rows.append(row)
+    finally:
+        moe_mod.kops.gmm = gmm
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return rows
+
+
+def _mesh_state(torch, model, rules, mesh, dev):
+    """``model``'s train state from seed 0 on ``dev``; on ``mesh`` each
+    rank's shards with the strict placements."""
+    from repro_torch import tree
+    from repro_torch.sharding import spmd
+    from repro_torch.training.train_step import init_train_state, make_train_state_defs
+
+    state = init_train_state(model, 0, device=dev)
+    if rules is None:
+        return state
+    return tree.map(lambda x, d: spmd.distribute(x, mesh, spmd.strict_placements(d.shape, d.logical, rules, mesh)),
+                    state, make_train_state_defs(model))
+
+
+def mesh_rank_train(torch, dev, mesh, rules) -> dict:
+    """MESH_TRAIN_STEPS steps of full-width llama3.2-1b with no mesh and on
+    ``mesh``: losses, launches, step ms (in this rank's process)."""
+    import dataclasses
+
+    from repro_torch import donate
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), microbatches=1)
+    shape = ShapeConfig("train_4k rows on the mesh", TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+    out = {}
+    for name, r in (("no_mesh", None), ("mesh", rules)):
+        gc_collect(torch)
+        model = build_model(cfg, r)
+        state = _mesh_state(torch, model, r, mesh, dev)
+        step = make_train_step(model, AdamWConfig(lr=MESH_TRAIN_LR))
+        pipe = SyntheticTokenPipeline(cfg, shape, seed=0, device=dev, mesh=mesh if r else None, rules=r)
+        losses, ms = [], []
+        torch.cuda.synchronize(dev)
+        ops.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with donate.donating():
+            for _ in range(MESH_TRAIN_STEPS):
+                batch = next(pipe)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))  # a host sync: the step's time ends here
+                ms.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.counts()
+        pipe.close()
+        out[name] = {"losses": losses, "step_ms": ms, "counts": counts,
+                     "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del state
+    return out
+
+
+def mesh_rank_moe(torch, dev, mesh, rules) -> dict:
+    """Full-width qwen3-moe-30b-a3b's MoE layer (``dropping_ep``) on
+    ``mesh`` and with no mesh, on the same weights and input, at capacity
+    factor E / k: no token drops, so the mesh's G groups (one per data
+    rank) compute what one group does."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.specs import to_placements, to_pspec
+
+    gc_collect(torch)
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    defs = moe.moe_defs(cfg)
+    params = init_params(defs, 0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn(*MESH_MOE_TOKENS, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        ops.reset_counts()
+        want, wm = moe.apply_moe(params, x, cfg)
+        plain_counts = ops.counts()
+        dparams = {k: spmd.distribute(v, mesh, spmd.strict_placements(defs[k].shape, defs[k].logical, rules, mesh))
+                   for k, v in params.items()}
+        dx = spmd.distribute(x, mesh, to_placements(to_pspec(x.shape, ("batch", "seq", None), rules), mesh))
+        ops.reset_counts()
+        got, gm = moe.apply_moe(dparams, dx, cfg, rules)
+        counts = ops.counts()
+        got = got.full_tensor()
+    return {"tokens": list(MESH_MOE_TOKENS), "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "max_abs_y": want.float().abs().max().item(), "bits_equal": bool(torch.equal(got, want)),
+            "dropped": [gm["moe_dropped"].item(), wm["moe_dropped"].item()],
+            "aux": [gm["moe_aux"].item(), wm["moe_aux"].item()], "counts": counts, "no_mesh_counts": plain_counts}
+
+
+def _mesh_rank(rank: int, world: int, out_dir: str) -> None:
+    """(b) in one rank's process (``launch.mesh.spawn``, NCCL, one card a
+    rank): its results to ``out_dir``/rank<r>.json."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.sharding.specs import train_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()  # the kernels the parent built, from their cache
+    dev = torch.device("cuda", rank)
+    mesh = make_smoke_mesh()
+    rules = train_rules(mesh)
+    t0 = time.perf_counter()
+    train = mesh_rank_train(torch, dev, mesh, rules)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_out = mesh_rank_moe(torch, dev, mesh, rules)
+    out = {"rank": rank, "world": world, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "train": train,
+           "train_s": train_s, "moe": moe_out, "moe_s": time.perf_counter() - t0}
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def mesh_nccl(torch) -> dict:
+    """(b): spawn one rank per card over NCCL and check what they report."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    gc_collect(torch)
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as d:
+        spawn(_mesh_rank, world, d, backend="nccl")
+        ranks = [json.loads((Path(d) / f"rank{r}.json").read_text()) for r in range(world)]
+    r0 = ranks[0]
+    tr = r0["train"]
+    fwd_bwd = ("flash_attention", *GRAD_KERNELS)
+    for rk in ranks:
+        a, b = rk["train"]["no_mesh"], rk["train"]["mesh"]
+        rel = [abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"])]
+        check(all(map(math.isfinite, a["losses"] + b["losses"])) and max(rel) <= MESH_LOSS_TOL,
+              f"mesh_nccl rank {rk['rank']}: losses {b['losses']} on the mesh, {a['losses']} without")
+        check(all(b["counts"][k] == a["counts"][k] > 0 for k in fwd_bwd),
+              f"mesh_nccl rank {rk['rank']}: launches {b['counts']} on the mesh, {a['counts']} without")
+        check(all(b["counts"][k] == a["counts"][k] for k in a["counts"] if k not in PLAIN),
+              f"mesh_nccl rank {rk['rank']}: a kernel launched apart: {b['counts']} against {a['counts']}")
+        check(not any(b["counts"][k] or a["counts"][k] for k in PLAIN),
+              f"mesh_nccl rank {rk['rank']}: a plain version ran on the card: {b['counts']} {a['counts']}")
+        m = rk["moe"]
+        check(m["counts"]["moe_gmm"] > 0 and not any(m["counts"][k] for k in PLAIN),
+              f"mesh_nccl rank {rk['rank']}: the MoE layer's launches {m['counts']}")
+        check(m["max_abs_err"] <= RTOL * m["max_abs_y"],
+              f"mesh_nccl rank {rk['rank']}: the MoE layer off by {m['max_abs_err']} (max |y| {m['max_abs_y']})")
+    mesh_launches = {k: tr["mesh"]["counts"][k] for k in fwd_bwd}
+    return {"world": world, "mesh": r0["mesh"], "arch": "llama3.2-1b", "steps": MESH_TRAIN_STEPS,
+            "batch": MESH_TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": MESH_TRAIN_LR,
+            "losses": {k: tr[k]["losses"] for k in ("no_mesh", "mesh")},
+            "loss_rel_err": max(abs(x - y) / abs(y) for x, y in zip(tr["mesh"]["losses"], tr["no_mesh"]["losses"])),
+            "step_ms": {k: tr[k]["step_ms"] for k in ("no_mesh", "mesh")},
+            "step_ms_p50": {k: statistics.median(tr[k]["step_ms"][1:]) for k in ("no_mesh", "mesh")},
+            "peak_allocated_gb": {k: tr[k]["peak_allocated_gb"] for k in ("no_mesh", "mesh")},
+            "launches": mesh_launches, "no_mesh_launches": {k: tr["no_mesh"]["counts"][k] for k in fwd_bwd},
+            "moe_layer": {k: r0["moe"][k] for k in ("tokens", "max_abs_err", "max_abs_y", "bits_equal", "dropped",
+                                                    "aux")},
+            "moe_launches": r0["moe"]["counts"]["moe_gmm"], "train_s": r0["train_s"], "moe_s": r0["moe_s"]}
+
+
+def mesh_ep_ranks(torch, dev) -> dict:
+    """(c): the MESH_EP_RANKS ranks' programs of a 4-way expert-parallel
+    full-width qwen3 MoE layer, one after the other on this card, each
+    with its combine's reduction left out (its partial sum); their sum
+    against the layer with no mesh."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.specs import train_rules
+
+    class RankCtx(spmd.Ctx):
+        """Rank ``r`` of a (1, m) mesh seen from one process: the only
+        collective of the layer's program here (its tokens whole, one
+        group) is the combine's reduction over 'model', left out."""
+
+        def __init__(self, sizes: dict, coord: dict):
+            self.mesh, self.names, self.sizes, self.coord = None, tuple(sizes), sizes, coord
+
+        def reduce(self, x, axes):
+            if not self.live(axes):
+                return x
+            check(tuple(axes) == ("model",), f"mesh_ep_ranks: a reduction over {axes}")
+            return x
+
+    gc_collect(torch)
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    check(cfg.moe_impl == "dropping_ep", f"mesh_ep_ranks: {cfg.name} runs {cfg.moe_impl}")
+    m, e = MESH_EP_RANKS, cfg.num_experts
+    sizes = {"data": 1, "model": m}
+    rules = train_rules(sizes)
+    defs = moe.moe_defs(cfg)
+    params = init_params(defs, 0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    x = torch.randn(*MESH_EP_TOKENS, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    specs = {k: spmd.spec_from_rules(d.shape, d.logical, rules, strict=True) for k, d in defs.items()}
+    check(specs["wi_gate"][0] == ("model",) and not specs["router"].axes(), f"mesh_ep_ranks: specs {specs}")
+    with torch.no_grad():
+        ops.reset_counts()
+        want, wm = moe.apply_moe(params, x, cfg)
+        full_counts = ops.counts()
+        total = torch.zeros_like(want, dtype=torch.float32)
+        ranks = []
+        for r in range(m):
+            e_loc = e // m
+            local = {k: (v if k == "router" else v[r * e_loc:(r + 1) * e_loc]) for k, v in params.items()}
+            ops.reset_counts()
+            part, pm = moe.apply_moe_local(local, specs, x, tuple(x.shape), cfg, rules, RankCtx(sizes, {"model": r}),
+                                           spmd.Act())
+            counts = ops.counts()
+            total += part.float()
+            launched = counts["moe_gmm"] if dev.type == "cuda" else counts["gmm_ref"]  # the host: the plain K5
+            check(launched == 3 and (dev.type != "cuda" or not any(counts[k] for k in PLAIN)),
+                  f"mesh_ep_ranks rank {r}: launches {counts}")
+            check(pm["moe_dropped"].item() == wm["moe_dropped"].item(),
+                  f"mesh_ep_ranks rank {r}: dropped {pm['moe_dropped'].item()}, unsharded {wm['moe_dropped'].item()}")
+            ranks.append({"rank": r, "experts": [r * e_loc, (r + 1) * e_loc], "moe_gmm": launched,
+                          "partial_max_abs": part.float().abs().max().item()})
+    err = (total - want.float()).abs().max().item()
+    ymax = want.float().abs().max().item()
+    check(err <= MESH_EP_TOL * ymax, f"mesh_ep_ranks: the partials' sum off by {err} (max |y| {ymax})")
+    return {"what": "each rank's program of a 4-way EP MoE layer, run one after the other on one card",
+            "arch": cfg.name, "tokens": list(MESH_EP_TOKENS), "ranks": ranks, "max_abs_err": err,
+            "max_abs_y": ymax, "rel_err": err / ymax, "dropped": wm["moe_dropped"].item(),
+            "unsharded_moe_gmm": full_counts["moe_gmm"]}
+
+
+def mesh_phase(torch, dev) -> dict:
+    """Phase 17 (see the module docstring): its lines, and the launches of
+    each of its paths for the kernels line."""
+    seconds = {}
+    t0 = time.perf_counter()
+    ep = mesh_ep_ranks(torch, dev)
+    print(json.dumps({"mesh_ep_ranks": ep}), flush=True)
+    seconds["ep_ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = mesh_nccl(torch)
+    print(json.dumps({"mesh_nccl": nccl}), flush=True)
+    seconds["nccl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cells = mesh_dryrun_cells(torch)
+    print(json.dumps({"mesh_dryrun": cells}), flush=True)
+    seconds["dryrun"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_seconds": {**seconds, "total": sum(seconds.values())}}), flush=True)
+    print(f"mesh phase {sum(seconds.values()):.1f} s", file=sys.stderr)
+    return {"launches": {"llama3.2-1b mesh train": nccl["launches"],
+                         "qwen3-moe-30b-a3b mesh": {"moe_gmm": nccl["moe_launches"]},
+                         "qwen3-moe-30b-a3b EP rank programs": {"moe_gmm": sum(r["moe_gmm"] for r in ep["ranks"])}}}
+
+
 def gc_collect(torch) -> None:
     import gc
 
@@ -5949,6 +6310,7 @@ def main() -> int:
     family["seconds"]["grad_cases"] = family_grad_cases_s
     print(json.dumps({"family_train_seconds": {**family["seconds"], "total": sum(family["seconds"].values())}}),
           flush=True)
+    mesh = mesh_phase(torch, dev)
     fam = family["launches"]
     train_launches = training["launches"]
     check(len({train_launches[k] for k in GRAD_KERNELS}) == 1,
@@ -5999,6 +6361,11 @@ def main() -> int:
                 by_path[kernel][f"{label} dryrun"] = n[kernel]
         if n.get("flash_attention_bwd"):
             by_path["flash_attention_bwd"][f"{label} dryrun"] = {k: n[k] for k in GRAD_KERNELS}
+    mesh_train = mesh["launches"]["llama3.2-1b mesh train"]
+    by_path["flash_attention"]["llama3.2-1b mesh train"] = mesh_train["flash_attention"]
+    by_path["flash_attention_bwd"]["llama3.2-1b mesh train"] = {k: mesh_train[k] for k in GRAD_KERNELS}
+    for label in ("qwen3-moe-30b-a3b mesh", "qwen3-moe-30b-a3b EP rank programs"):
+        by_path["moe_gmm"][label] = mesh["launches"][label]["moe_gmm"]
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
     part_src = {"flash_attention": serve["launch_parts"], "decode_attention": serve["launch_parts"],
                 "paged_decode_attention": paged["launch_parts"]["fused"],

@@ -10,6 +10,13 @@ by its ``/``-joined tree path (bf16 as ``uint16`` views, float8 as
 ``uint8``), and ``meta.json`` the step, the keys, each leaf's dtype name and
 shape, and the wall time.
 
+On a mesh a state's leaves are ``DTensor``s: ``save`` writes each leaf's
+global value (gathered on every rank, written by rank 0; the others wait),
+so the format stays the reference's, and ``restore`` places each rank's
+shard of the global value onto the placements asked for (or the ``like``
+leaf's own), so a state saved on one mesh restores bit for bit on another
+or on none.
+
 A snapshot stores *logical* content: every tensor leaf of a parameter tree,
 keyed by its tree path, as a ``.npy`` file, plus a ``meta.json`` with each
 leaf's dtype and shape. numpy has no bfloat16 or float8, so such a leaf is
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.scheduler.clock import SYSTEM_CLOCK
+from repro_torch.sharding import spmd
 
 # dtypes numpy cannot hold, stored as same-width integer views
 _VIEW_AS = {
@@ -97,6 +105,17 @@ def _stored_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _global(x):
+    return x.full_tensor() if spmd.is_dtensor(x) else x
+
+
+def _writer_rank() -> bool:
+    """Whether this process writes a mesh state's checkpoint: rank 0."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class CheckpointSaveError(RuntimeError):
     """An async save worker failed. Raised on the NEXT ``wait()`` /
     ``latest_step()`` / ``save()`` — the thread itself can only die silently,
@@ -126,6 +145,17 @@ class CheckpointManager:
     # --------------------------------------------------------------- save
 
     def save(self, step: int, state) -> None:
+        if any(spmd.is_dtensor(x) for x in tree.leaves(state)):
+            import torch.distributed as dist
+
+            state = tree.map(_global, state)  # every rank gathers: a collective per leaf
+            if _writer_rank():
+                self._save_local(step, state)
+            dist.barrier()  # a synchronous save is on disk for every rank
+            return
+        self._save_local(step, state)
+
+    def _save_local(self, step: int, state) -> None:
         if self.async_save:
             host_state = tree.map(_host_copy, state)  # snapshot before the step moves on
             self.wait()  # one in-flight save at a time; surfaces a prior failure
@@ -209,11 +239,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: int | None = None, *, device=None):
+    def restore(self, like, step: int | None = None, *, device=None, mesh=None, rules=None, shardings=None):
         """Restore into the structure of ``like`` (a tree of tensors, or of
         meta tensors as the port's ``ShapeDtypeStruct``): each leaf in its
         ``like`` leaf's dtype, on ``device`` when given, else on its ``like``
-        leaf's device (a meta leaf without ``device`` raises)."""
+        leaf's device (a meta leaf without ``device`` raises). Re-shards onto
+        ``shardings`` (a matching tree of ``sharding.spmd.Spec``s on ``mesh``) or onto
+        each ``like`` leaf's own mesh and placements when it is a
+        ``DTensor``. ``rules`` is accepted as the reference's is (the
+        placements say everything)."""
+        del rules
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -224,9 +259,10 @@ class CheckpointManager:
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         flat_like = _flatten_with_paths(like)
+        flat_shard = _flatten_with_paths(shardings) if shardings is not None else {}
         restored = {}
         for key, leaf in flat_like.items():
-            dev = torch.device(device) if device is not None else leaf.device
+            dev = torch.device(device) if device is not None else spmd.local_of(leaf).device
             if dev.type == "meta":
                 raise ValueError(f"checkpoint leaf {key!r}: a meta tensor needs a device= to restore onto")
             arr = data[key]
@@ -236,7 +272,14 @@ class CheckpointManager:
             name = meta["dtypes"].get(key)
             if name in _VIEW_BACK:  # the integer view back to its true dtype
                 t = t.view(_VIEW_AS[_VIEW_BACK[name]]).view(_VIEW_BACK[name])
-            restored[key] = t.to(device=dev, dtype=leaf.dtype)
+            t = t.to(device=dev, dtype=leaf.dtype)
+            spec = flat_shard.get(key)
+            if spec is not None or spmd.is_dtensor(leaf):
+                if spec is not None:
+                    t = spmd.distribute(t, mesh, spmd.placements_of(spec, mesh))
+                else:
+                    t = spmd.distribute(t, leaf.device_mesh, leaf.placements)
+            restored[key] = t
         return tree.unflatten(tree.flatten(like)[1], [restored[k] for k in flat_like])
 
 

@@ -11,7 +11,9 @@ reference's numpy generator in the reference's order, so a batch equals the
 JAX package's bit for bit and a restarted job resumes mid-stream with the
 same data. A producer thread makes host batches ahead of the consumer (at
 most ``prefetch``); ``next`` places one on ``device`` (default: the card).
-There is no mesh: the port trains on one device.
+With ``mesh`` and ``rules``, every rank makes the same host batch and
+places its shard of each leaf as a ``DTensor`` with the strict placements
+of the leaf's logical axes (the reference's ``to_named_sharding``).
 """
 from __future__ import annotations
 
@@ -28,25 +30,25 @@ JOIN_S = 10.0  # close() waits this long for the producer thread
 
 
 def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
-    """(name -> (shape, dtype)) for the train batch of this arch. The stub
-    frontend embeddings are drawn in float32 and stay float32 on the way to
-    the device, as the reference's unsharded placement leaves them; the
-    model casts them to its own dtype."""
+    """(name -> (shape, dtype, logical)) for the train batch of this arch.
+    The stub frontend embeddings are drawn in float32 and stay float32 on
+    the way to the device, as the reference's unsharded placement leaves
+    them; the model casts them to its own dtype."""
     b, t = shape.global_batch, shape.seq_len
     if cfg.family == "audio":
         return {
-            "src_embeds": ((b, t, cfg.d_model), torch.float32),
-            "tgt_tokens": ((b, t), torch.int32),
-            "targets": ((b, t), torch.int32),
+            "src_embeds": ((b, t, cfg.d_model), torch.float32, ("batch", "seq", None)),
+            "tgt_tokens": ((b, t), torch.int32, ("batch", "seq")),
+            "targets": ((b, t), torch.int32, ("batch", "seq")),
         }
     if cfg.family == "vlm":
         return {
-            "embeds": ((b, t, cfg.d_model), torch.float32),
-            "targets": ((b, t), torch.int32),
+            "embeds": ((b, t, cfg.d_model), torch.float32, ("batch", "seq", None)),
+            "targets": ((b, t), torch.int32, ("batch", "seq")),
         }
     return {
-        "tokens": ((b, t), torch.int32),
-        "targets": ((b, t), torch.int32),
+        "tokens": ((b, t), torch.int32, ("batch", "seq")),
+        "targets": ((b, t), torch.int32, ("batch", "seq")),
     }
 
 
@@ -61,8 +63,11 @@ class SyntheticTokenPipeline:
         prefetch: int = 2,
         start_batch: int = 0,
         device=None,
+        mesh=None,
+        rules=None,
     ):
         self.cfg, self.shape = cfg, shape
+        self.mesh, self.rules = mesh, rules
         self.seed, self.mode = seed, mode
         self.device = resolve_device(device)
         self.index = start_batch
@@ -88,7 +93,7 @@ class SyntheticTokenPipeline:
         tokens = stream[:, :t].astype(np.int32)
         targets = stream[:, 1:].astype(np.int32)
         out: dict[str, np.ndarray] = {}
-        for name, (shp, _) in make_batch_specs(self.cfg, self.shape).items():
+        for name, (shp, _, _) in make_batch_specs(self.cfg, self.shape).items():
             if name in ("tokens", "tgt_tokens"):
                 out[name] = tokens
             elif name == "targets":
@@ -98,7 +103,15 @@ class SyntheticTokenPipeline:
         return out
 
     def _place(self, host: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        if self.mesh is None or self.rules is None:
+            return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        from repro_torch.sharding import spmd
+        from repro_torch.sharding.specs import to_named_sharding
+
+        specs = make_batch_specs(self.cfg, self.shape)
+        return {k: spmd.distribute(torch.from_numpy(v).to(self.device), self.mesh,
+                                   to_named_sharding(self.mesh, specs[k][0], specs[k][2], self.rules))
+                for k, v in host.items()}
 
     def _producer(self):
         while not self._stop.is_set():

@@ -27,10 +27,19 @@ every aten op, and collects what the hand-written kernels report through
               reference scales a ``while`` body by its trip count (the
               train step's microbatches); on a device it runs whole.
 
-The analysis sees its own thread and the threads the autograd engine runs
-its backward on, and no other.
+  * collectives — on a mesh (a rank's program, ``sharding/spmd.py``),
+              every ``torch.ops._c10d_functional`` collective by kind (the
+              reference's ``COLLECTIVES``) with the reference's ring-model
+              bytes per device (``hlo_analysis.py``'s
+              ``_collective_moved``): an all-gather moves (g-1)/g of its
+              result, an all-reduce twice (g-1)/g of its operand, a
+              reduce-scatter and an all-to-all (g-1)/g of it, for a group
+              of g ranks. One card moves none: ``collective_bytes`` is 0.
 
-One card moves no collective bytes: ``collective_bytes`` is 0.
+The analysis sees its own thread and the threads the autograd engine runs
+its backward on, and no other. An op on ``DTensor``s is left to the
+``DTensor`` (the mode declines it), which runs it as local ops and
+collectives that the mode then sees, as ``CommDebugMode`` does.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import cost as kcost
+from repro_torch.sharding import spmd
 
 aten = torch.ops.aten
 
@@ -58,6 +68,49 @@ _GATHERS = {aten.gather, aten.index_select, aten.embedding, aten.index, aten.tak
 _SCATTERS = {aten.scatter, aten.scatter_, aten.scatter_add, aten.scatter_add_, aten.scatter_reduce,
              aten.scatter_reduce_, aten.index_put, aten.index_put_, aten._index_put_impl_, aten.index_add,
              aten.index_add_, aten.index_copy, aten.index_copy_}
+
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+_C10D = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+         "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
+
+
+def _group_size(func, args) -> int:
+    """The ranks of a functional collective's group: its ``group_size``
+    argument, or its group's size from the name."""
+    name = func._overloadpacket.__name__
+    if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+        return int(args[-2])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(args[-1]).size()
+
+
+def _collective_moved(kind: str, g: int, operand_bytes: int, result_bytes: int) -> float:
+    """Bytes one device moves, the ring model of the reference's
+    ``hlo_analysis._collective_moved``."""
+    if g <= 1:
+        return 0.0
+    frac = (g - 1) / g
+    if kind == "all-gather":
+        return result_bytes * frac
+    if kind == "all-reduce":
+        return 2.0 * operand_bytes * frac
+    if kind in ("reduce-scatter", "all-to-all"):
+        return operand_bytes * frac
+    return float(operand_bytes)  # collective-permute
+
+
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return issubclass(t, DTensor)
+
+
+def _local(t):
+    """A ``DTensor``'s local shard (its storage is what this rank holds)."""
+    with torch.no_grad():
+        return spmd.local_of(t)
 
 
 def _tensor_bytes(x) -> int:
@@ -79,6 +132,10 @@ class CostSummary:
     kernel_bytes: float = 0.0
     kernel_calls: dict = dataclasses.field(default_factory=dict)  # by build.KERNELS name
     workspace_bytes: int = 0  # the largest kernel workspace
+    # per COLLECTIVES kind: {"count", "bytes"} (bytes per device, ring model)
+    collective_detail: dict = dataclasses.field(
+        default_factory=lambda: {op: {"count": 0, "bytes": 0.0} for op in COLLECTIVES})
+    top_collectives: list = dataclasses.field(default_factory=list)
 
 
 class CostAnalysis(TorchDispatchMode, kcost.Sink):
@@ -96,9 +153,10 @@ class CostAnalysis(TorchDispatchMode, kcost.Sink):
         self._refs: dict[int, weakref.ref] = {}
         self._cur = 0
         self._kernel_sink = None
+        self._collectives: dict[tuple, list] = {}
         for t in tree_leaves(inputs):
             if isinstance(t, torch.Tensor):
-                self._track(t)
+                self._track(_local(t))
         self._s.input_bytes = self._cur
         self._s.peak_bytes = self._cur
 
@@ -136,12 +194,16 @@ class CostAnalysis(TorchDispatchMode, kcost.Sink):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented  # the DTensor runs it as local ops, which come back here
         if func.namespace == "aten":
             out = func(*args, **kwargs)
         else:  # a kernel's op: its wrapper reports to this thread's sinks, where this mode is popped
             with kcost.sink(self):
                 out = func(*args, **kwargs)
         packet = func._overloadpacket
+        if func.namespace == "_c10d_functional" and packet.__name__ in _C10D:
+            self._collective(_C10D[packet.__name__], func, args, out)
         formula = flop_registry.get(packet)
         if formula is not None:
             f = formula(*args, **kwargs, out_val=out) * self.scale
@@ -173,6 +235,20 @@ class CostAnalysis(TorchDispatchMode, kcost.Sink):
                 s.peak_bytes = max(s.peak_bytes, self._cur + c.workspace_bytes)
             self._traffic_add(name, c.bytes * self.scale)
 
+    def _collective(self, kind: str, func, args, out) -> None:
+        g = _group_size(func, args)
+        operand, result = _tensor_bytes(args[0]), _tensor_bytes(out)
+        moved = _collective_moved(kind, g, operand, result) * self.scale
+        with self._lock:
+            row = self._s.collective_detail[kind]
+            row["count"] += self.scale
+            row["bytes"] += moved
+            self._s.collective_bytes += moved
+            key = (kind, g, tuple(args[0].shape), str(args[0].dtype))
+            agg = self._collectives.setdefault(key, [0.0, 0])
+            agg[0] += moved
+            agg[1] += self.scale
+
     def trips(self, name: str, n: int) -> None:
         self._s.loop_trips[name] = n
 
@@ -196,6 +272,11 @@ class CostAnalysis(TorchDispatchMode, kcost.Sink):
         s.top_traffic = sorted(({"op": op, "total_bytes": b, "calls": n} for op, (b, n) in self._traffic.items()),
                                key=lambda r: -r["total_bytes"])[:20]
         s.kernel_calls = dict(sorted(s.kernel_calls.items()))
+        s.collective_detail = {k: dict(v) for k, v in s.collective_detail.items()}
+        s.top_collectives = sorted(({"op": kind, "group": g, "operand": list(shape), "dtype": dt,
+                                     "total_bytes": b, "calls": n}
+                                    for (kind, g, shape, dt), (b, n) in self._collectives.items()),
+                                   key=lambda r: -r["total_bytes"])[:20]
         s.loop_trips = dict(s.loop_trips)
         return s
 

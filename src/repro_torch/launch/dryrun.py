@@ -1,9 +1,9 @@
-"""Dry run on one card: every (architecture x input shape) cell traced on
-meta tensors, its FLOPs, HBM bytes and peak memory counted, and its roofline
-bound worked out from the H100's datasheet peaks.
+"""Dry run: every (architecture x input shape x mesh) cell traced on meta
+tensors, its FLOPs, HBM bytes, collectives and peak memory counted per
+device, and its roofline bound worked out from the H100's datasheet peaks.
 
-The counterpart of the JAX package's ``repro/launch/dryrun.py`` for one
-H100 and no mesh. For each cell this driver:
+The counterpart of the JAX package's ``repro/launch/dryrun.py``. On one
+H100 (``--mesh h100x1``, the default), for each cell this driver:
   1. builds the weights, optimizer state, inputs and KV caches as meta
      tensors (``param_structs``: zero allocation, so a 42B-parameter train
      state stays symbolic), as the reference builds ShapeDtypeStructs;
@@ -21,10 +21,22 @@ With ``--execute`` it also runs the cell at that batch on the card, with
 random weights — a step under the cost analysis, then a bare timed step —
 and adds what the card measured (``measured``).
 
+On a production mesh (``--mesh pod16x16`` or ``pod2x16x16``, the
+reference's (16, 16) and (2, 16, 16)) it runs rank 0's program on meta
+tensors in a fake process group of 512 ranks (``launch/mesh.py``): the
+weights, optimizer state, inputs and caches are meta ``DTensor``s with the
+strict placements of the rules the reference's ``run_cell`` picks, the
+program is the model built with those rules (``models/sharded.py``), at the
+shape's whole global batch, and the record carries the reference's
+per-device fields, its collectives counted by kind with ring-model bytes.
+The SSM, hybrid and enc-dec families are recorded ``skipped`` there.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k
   python -m repro_torch.launch.dryrun --all   # every cell, a subprocess each
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k --execute   # on the card
+  python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k --mesh pod16x16
+  python -m repro_torch.launch.dryrun --all --both-meshes   # every cell on both production meshes
 """
 from __future__ import annotations
 
@@ -41,11 +53,20 @@ HW = {  # NVIDIA H100 SXM 80GB datasheet: dense bf16 tensor-core rate, HBM3 rate
     "peak_flops_bf16": 989e12,
     "hbm_bw": 3.35e12,
     "hbm_bytes": 85.0e9,
+    # NVLink 4: 18 links of 25 GB/s each way, 450 GB/s out of one GPU
+    "nvlink_bw": 450e9,
 }
+# The mesh roofline's collective_s is a device's ring-model collective
+# bytes over one GPU's NVLink rate: it takes every collective to stay inside
+# one NVLink domain. The production meshes (256 and 512 GPUs) cross nodes,
+# whose InfiniBand links (400 Gb/s per GPU, 50 GB/s) are 9x slower; the
+# term leaves that crossing out, as the reference's ICI term leaves out DCN.
 # held back from the card's memory for the CUDA context, cuBLAS's workspaces
 # and the caching allocator's rounding
 RESERVE_BYTES = 2 * 2**30
 MESH = "h100x1"
+MESH_NAMES = ("h100x1", "pod16x16", "pod2x16x16")
+FAKE_WORLD = 512  # one fake group holds both production meshes (their first ranks)
 
 
 def count_params(cfg) -> tuple[int, int]:
@@ -213,7 +234,9 @@ def choose_batch(cell: Cell, limit: int) -> tuple[int, object, bool, float]:
 
 
 def run_cell(arch: str, shape_name: str, out_path: str | None = None, execute: bool = False,
-             device: str | None = None) -> dict:
+             device: str | None = None, mesh: str = MESH) -> dict:
+    if mesh != MESH:
+        return run_mesh_cell(arch, shape_name, mesh, out_path)
     from repro_torch.configs import get_arch, get_shape, shape_skip_reason
 
     cfg = get_arch(arch)
@@ -274,6 +297,111 @@ def run_cell(arch: str, shape_name: str, out_path: str | None = None, execute: b
     if execute:
         record["measured"] = execute_cell(cell, batch, s, device) if fits else {
             "skipped": "fits_card is false"}
+    _append(out_path, record)
+    return record
+
+
+def mesh_rules(cfg, shape, mesh):
+    """The rules the reference's ``run_cell`` picks for a cell's kind."""
+    from repro_torch.sharding.specs import decode_rules, infer_rules, train_rules
+
+    if shape.kind == "decode":
+        return decode_rules(mesh, kv_heads=cfg.num_kv_heads or None, batch=shape.global_batch)
+    if shape.kind == "prefill":
+        return infer_rules(mesh, kv_heads=cfg.num_kv_heads or None)
+    return train_rules(mesh)
+
+
+def _local_bytes(t) -> int:
+    from repro_torch import tree
+    from repro_torch.launch.cost_analysis import _local
+
+    return sum(_local(x).numel() * x.dtype.itemsize for x in tree.leaves(t))
+
+
+def run_mesh_cell(arch: str, shape_name: str, mesh_name: str, out_path: str | None = None) -> dict:
+    """One cell on a production mesh, as rank 0 of a fake group sees it (see
+    the module docstring): the reference's per-device record."""
+    from repro_torch.configs import get_arch, get_shape, shape_skip_reason
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models.model import MESH_FAMILIES
+
+    cfg = get_arch(arch)
+    shape = get_shape(shape_name)
+    record: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "kind": shape.kind}
+    skip = shape_skip_reason(cfg, shape_name)
+    if skip is None and cfg.family not in MESH_FAMILIES:
+        skip = f"the {cfg.family} family on a mesh is the next slice (ROADMAP Queue 1 item 16)"
+    if skip:
+        record.update(status="skipped", reason=skip)
+        _append(out_path, record)
+        return record
+
+    import torch
+
+    from repro_torch import donate
+    from repro_torch.launch.cost_analysis import CostAnalysis
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import param_structs
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.training.train_step import make_train_state_defs, make_train_step
+
+    t0 = time.perf_counter()
+    meshes.init_fake_world(FAKE_WORLD)
+    mesh = meshes.make_production_mesh(multi_pod=meshes.MESHES[mesh_name])
+    n_chips = mesh.size()
+    rules = mesh_rules(cfg, shape, mesh)
+    model = build_model(cfg, rules)
+    inputs = param_structs(model.input_defs(shape), mesh, rules)
+    params = param_structs(model.param_defs, mesh, rules)
+    if shape.kind == "train":
+        args = (param_structs(make_train_state_defs(model), mesh, rules), inputs)
+        fn = make_train_step(model, AdamWConfig(), cosine_schedule(3e-4, 100, 10000))
+    elif shape.kind == "prefill":
+        args, fn = (params, inputs), model.prefill_fn
+    else:
+        args, fn = (params, inputs, param_structs(model.cache_defs(shape), mesh, rules)), model.decode_fn
+    mode = CostAnalysis(args)
+    with mode, torch.set_grad_enabled(shape.kind == "train"), donate.donating(shape.kind != "prefill"):
+        fn(*args)
+    s = mode.summary()
+    trace_s = time.perf_counter() - t0
+
+    mf = model_flops(cfg, shape)
+    total_params, active_params = count_params(cfg)
+    terms = {"compute_s": s.flops / HW["peak_flops_bf16"], "memory_s": s.bytes / HW["hbm_bw"],
+             "collective_s": s.collective_bytes / HW["nvlink_bw"]}
+    dominant = max(terms, key=terms.get)
+    record.update(
+        status="ok",
+        n_chips=n_chips,
+        hw=HW["name"],
+        trace_s=round(trace_s, 2),
+        flops_per_device=s.flops,
+        bytes_per_device=s.bytes,
+        kernel_flops_per_device=s.kernel_flops,
+        kernel_calls_per_device=s.kernel_calls,
+        collectives={"total_bytes": s.collective_bytes, **s.collective_detail},
+        top_collectives=s.top_collectives[:8],
+        loop_trips=s.loop_trips,
+        top_traffic=s.top_traffic[:8],
+        memory={"argument_bytes": s.input_bytes, "peak_bytes": s.peak_bytes,
+                "workspace_bytes": s.workspace_bytes, "input_bytes": _local_bytes(inputs)},
+        hbm_per_device_gb=round(s.peak_bytes / 2**30, 3),
+        fits_card=s.peak_bytes + RESERVE_BYTES <= HW["hbm_bytes"],
+        params_bytes_per_device=_local_bytes(params),
+        params_total=total_params,
+        params_active=active_params,
+        model_flops_global=mf,
+        model_flops_per_device=mf / n_chips,
+        useful_flops_ratio=(mf / n_chips) / s.flops if s.flops else 0.0,
+        roofline={
+            **{k: round(v, 6) for k, v in terms.items()},
+            "dominant": dominant,
+            "bound_s": round(max(terms.values()), 6),
+            "collective_rate": "nvlink_bw",
+        },
+    )
     _append(out_path, record)
     return record
 
@@ -354,12 +482,19 @@ def main(argv=None) -> None:
     ap.add_argument("--timeout", type=int, default=3600)
     ap.add_argument("--execute", action="store_true", help="also run one step of the cell on the card")
     ap.add_argument("--device", default=None, help="the device of --execute (default cuda; never falls back)")
+    ap.add_argument("--mesh", default=MESH, choices=MESH_NAMES,
+                    help="one card (default) or a production mesh, reckoned on meta tensors in a fake group")
+    ap.add_argument("--both-meshes", action="store_true", help="both production meshes (pod16x16, pod2x16x16)")
     args = ap.parse_args(argv)
+    if args.execute and args.mesh != MESH:
+        ap.error("--execute runs on one card (--mesh h100x1)")
+    meshes = ["pod16x16", "pod2x16x16"] if args.both_meshes else [args.mesh]
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     if not args.all:
-        record = run_cell(args.arch, args.shape, args.out, args.execute, args.device)
-        print(json.dumps(record, indent=2))
+        for mesh in meshes:
+            record = run_cell(args.arch, args.shape, args.out, args.execute, args.device, mesh)
+            print(json.dumps(record, indent=2))
         return
 
     done = set()
@@ -373,12 +508,12 @@ def main(argv=None) -> None:
                     continue
 
     def one(cell):
-        arch, shape_name = cell
-        if (arch, shape_name, MESH) in done:
-            print(f"[skip-done] {arch} {shape_name} {MESH}", flush=True)
+        arch, shape_name, mesh = cell
+        if (arch, shape_name, mesh) in done:
+            print(f"[skip-done] {arch} {shape_name} {mesh}", flush=True)
             return
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape_name,
-               "--out", args.out]
+               "--out", args.out, "--mesh", mesh]
         if args.execute:
             cmd.append("--execute")
         if args.device:
@@ -389,12 +524,12 @@ def main(argv=None) -> None:
             if proc.returncode != 0:
                 err = (proc.stderr or "").strip().splitlines()
                 msg = err[-1] if err else f"exit {proc.returncode}"
-                _append(args.out, {"arch": arch, "shape": shape_name, "mesh": MESH, "status": "error",
+                _append(args.out, {"arch": arch, "shape": shape_name, "mesh": mesh, "status": "error",
                                    "reason": msg[-500:]})
                 print(f"[cell] {arch} {shape_name}: ERROR {msg[-200:]}", flush=True)
                 return
         except subprocess.TimeoutExpired:
-            _append(args.out, {"arch": arch, "shape": shape_name, "mesh": MESH, "status": "timeout"})
+            _append(args.out, {"arch": arch, "shape": shape_name, "mesh": mesh, "status": "timeout"})
             print(f"[cell] {arch} {shape_name}: TIMEOUT", flush=True)
             return
         print(f"[cell] {arch} {shape_name} done in {time.perf_counter() - t0:.0f}s", flush=True)
@@ -402,7 +537,7 @@ def main(argv=None) -> None:
     # each cell a process of its own, half the host's cores at once: meta
     # tensors hold no memory, and a GELU model's prefill_32k traces for minutes
     with ThreadPoolExecutor(max(1, (os.cpu_count() or 2) // 2)) as pool:
-        list(pool.map(one, list(all_cells())))
+        list(pool.map(one, [(a, sh, m) for a, sh in all_cells() for m in meshes]))
 
 
 if __name__ == "__main__":

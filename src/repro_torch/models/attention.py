@@ -27,14 +27,14 @@ from repro_torch.models.params import ParamDef
 def attn_defs(cfg: ModelConfig):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     defs = {
-        "wq": ParamDef((d, h, hd)),
-        "wk": ParamDef((d, kv, hd)),
-        "wv": ParamDef((d, kv, hd)),
-        "wo": ParamDef((h, hd, d)),
+        "wq": ParamDef((d, h, hd), ("embed_fsdp", "heads", "head_dim")),
+        "wk": ParamDef((d, kv, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, kv, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+        "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed_fsdp")),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), init="ones")
-        defs["k_norm"] = ParamDef((hd,), init="ones")
+        defs["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
+        defs["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
     return defs
 
 

@@ -31,10 +31,10 @@ from repro_torch.models.params import ParamDef, stack_defs
 def cross_attn_defs(cfg: ModelConfig):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
-        "wq": ParamDef((d, h, hd)),
-        "wk": ParamDef((d, kv, hd)),
-        "wv": ParamDef((d, kv, hd)),
-        "wo": ParamDef((h, hd, d)),
+        "wq": ParamDef((d, h, hd), ("embed_fsdp", "heads", "head_dim")),
+        "wk": ParamDef((d, kv, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, kv, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+        "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed_fsdp")),
     }
 
 

@@ -33,11 +33,11 @@ def split_layers(cfg: ModelConfig) -> tuple[int, int, int]:
 def hybrid_defs(cfg: ModelConfig):
     n_groups, every, tail = split_layers(cfg)
     defs = {
-        "groups": stack_defs(stack_defs(tfm.block_defs(cfg, "ssm"), every), n_groups),
+        "groups": stack_defs(stack_defs(tfm.block_defs(cfg, "ssm"), every, "inner"), n_groups, "groups"),
         "shared": tfm.block_defs(cfg, "dense"),
     }
     if tail:
-        defs["tail"] = stack_defs(tfm.block_defs(cfg, "ssm"), tail)
+        defs["tail"] = stack_defs(tfm.block_defs(cfg, "ssm"), tail, "inner")
     return defs
 
 

@@ -18,8 +18,8 @@ from repro_torch.models.params import ParamDef
 def norm_defs(cfg: ModelConfig, d: int | None = None):
     d = d or cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": ParamDef((d,), init="ones")}
-    return {"scale": ParamDef((d,), init="ones"), "bias": ParamDef((d,), init="zeros")}
+        return {"scale": ParamDef((d,), ("embed",), init="ones")}
+    return {"scale": ParamDef((d,), ("embed",), init="ones"), "bias": ParamDef((d,), ("embed",), init="zeros")}
 
 
 def apply_norm(params, x: torch.Tensor, cfg: ModelConfig, eps: float = 1e-5) -> torch.Tensor:
@@ -67,11 +67,11 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "silu":  # SwiGLU: gate + up + down
         return {
-            "wi_gate": ParamDef((d, f)),
-            "wi_up": ParamDef((d, f)),
-            "wo": ParamDef((f, d)),
+            "wi_gate": ParamDef((d, f), ("embed_fsdp", "ff")),
+            "wi_up": ParamDef((d, f), ("embed_fsdp", "ff")),
+            "wo": ParamDef((f, d), ("ff", "embed_fsdp")),
         }
-    return {"wi": ParamDef((d, f)), "wo": ParamDef((f, d))}
+    return {"wi": ParamDef((d, f), ("embed_fsdp", "ff")), "wo": ParamDef((f, d), ("ff", "embed_fsdp"))}
 
 
 # float32 values of the tanh GELU's temporaries at once: the activation runs
@@ -105,9 +105,9 @@ def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def embedding_defs(cfg: ModelConfig):
-    defs = {"table": ParamDef((cfg.vocab_size, cfg.d_model), init="embed")}
+    defs = {"table": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed_fsdp"), init="embed")}
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size))
+        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size), ("embed_fsdp", "vocab"))
     return defs
 
 

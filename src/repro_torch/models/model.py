@@ -42,10 +42,19 @@ from repro_torch.models.layers import apply_norm, embed_tokens, embedding_defs, 
 from repro_torch.models.params import ParamDef, init_params
 
 ENCDEC_TGT_CACHE = 4096  # decoder self-cache length for enc-dec decode cells
+# the logical axes of an SSM layer's cache leaves (the reference's model.py)
+SSM_CACHE_LOGICAL = {
+    "ssd": ("batch", "ssm_heads", None, None),
+    "conv_x": ("batch", "conv_k", "ssm_inner"),
+    "conv_B": ("batch", "conv_k", None, "ssm_state"),
+    "conv_C": ("batch", "conv_k", None, "ssm_state"),
+}
 CE_CHUNK = 512
 # the families build_model serves and loss_fn trains (all of them since K5's
 # and K6's gradients)
 TRAINED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+# the families whose programs run on a mesh (build_model(cfg, rules))
+MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -95,10 +104,16 @@ def chunked_ce(emb_params, hidden: torch.Tensor, targets: torch.Tensor, cfg: Mod
     return tot / (b * t)
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, rules=None) -> Model:
+    """The model of ``cfg``; with ``rules`` (``sharding.specs``, made on a
+    ``DeviceMesh``) its programs run on the mesh, each rank on its shards
+    (``models/sharded.py``): the dense, vlm and MoE families."""
     fam = cfg.family
     if fam not in TRAINED_FAMILIES:
         raise NotImplementedError(f"the port serves and trains the {', '.join(TRAINED_FAMILIES)} families, not {fam!r}")
+    if rules is not None and fam not in MESH_FAMILIES:
+        raise NotImplementedError(f"the {fam} family on a mesh is ROADMAP Queue 1 item 16; the port runs "
+                                  f"{', '.join(MESH_FAMILIES)} on one")
     L = cfg.num_layers
     kind = tfm.layer_kind(cfg)
     defs: dict = {"embed": embedding_defs(cfg), "ln_f": norm_defs(cfg)}
@@ -183,40 +198,44 @@ def build_model(cfg: ModelConfig) -> Model:
         h = apply_norm(params["ln_f"], h, cfg)
         return unembed(params["embed"], h)[:, 0], new_cache
 
-    def _attn_cache_defs(lead: tuple, batch: int, seq: int):
+    def _attn_cache_defs(lead: tuple, lead_logical: tuple, batch: int, seq: int):
         sh = (*lead, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+        lg = (*lead_logical, "batch", "cache_seq", "cache_kv_heads", "head_dim")
         dt = getattr(torch, cfg.kv_cache_dtype)
-        return {"k": ParamDef(sh, init="zeros", dtype=dt), "v": ParamDef(sh, init="zeros", dtype=dt)}
+        return {"k": ParamDef(sh, lg, init="zeros", dtype=dt), "v": ParamDef(sh, lg, init="zeros", dtype=dt)}
 
-    def _ssm_cache_defs(lead: tuple, batch: int):
-        return {name: ParamDef((*lead, *sh), init="zeros", dtype=dt)
+    def _ssm_cache_defs(lead: tuple, lead_logical: tuple, batch: int):
+        return {name: ParamDef((*lead, *sh), (*lead_logical, *SSM_CACHE_LOGICAL[name]), init="zeros", dtype=dt)
                 for name, (sh, dt) in ssm_mod.ssm_cache_shapes(cfg, batch).items()}
 
     def cache_defs(shape: ShapeConfig):
         b, s = shape.global_batch, shape.seq_len
         if fam == "ssm":
-            return _ssm_cache_defs((L,), b)
+            return _ssm_cache_defs((L,), ("layers",), b)
         if fam == "hybrid":
             n_groups, every, tail = hy.split_layers(cfg)
-            out = {"groups": _ssm_cache_defs((n_groups, every), b), "attn": _attn_cache_defs((n_groups,), b, s)}
+            out = {"groups": _ssm_cache_defs((n_groups, every), ("groups", "inner"), b),
+                   "attn": _attn_cache_defs((n_groups,), ("groups",), b, s)}
             if tail:
-                out["tail"] = _ssm_cache_defs((tail,), b)
+                out["tail"] = _ssm_cache_defs((tail,), ("inner",), b)
             return out
         if fam == "audio":
             # the reference declares cross at s rows; a prefill builds it at
             # the source length (ServingEngine.prefill takes only "self")
             ld = cfg.num_decoder_layers
-            return {"self": _attn_cache_defs((ld,), b, min(ENCDEC_TGT_CACHE, s)),
-                    "cross": _attn_cache_defs((ld,), b, s)}
-        return _attn_cache_defs((L,), b, s)
+            return {"self": _attn_cache_defs((ld,), ("layers",), b, min(ENCDEC_TGT_CACHE, s)),
+                    "cross": _attn_cache_defs((ld,), ("layers",), b, s)}
+        return _attn_cache_defs((L,), ("layers",), b, s)
 
     def input_defs(shape: ShapeConfig):
         """The inputs of a ``train`` batch, a ``prefill`` request or a
         ``decode`` step at ``shape``, as ParamDefs (the reference's
         ``input_defs``)."""
         b, s = shape.global_batch, shape.seq_len
-        tok = lambda t: ParamDef((b, t), init="zeros", dtype=torch.int32)  # noqa: E731
-        emb = lambda t: ParamDef((b, t, cfg.d_model), init="normal", dtype=torch.bfloat16)  # noqa: E731
+        tok = lambda t: ParamDef((b, t), ("batch", "seq"), init="zeros", dtype=torch.int32)  # noqa: E731
+        tok1 = ParamDef((b, 1), ("batch", None), init="zeros", dtype=torch.int32)
+        emb = lambda t: ParamDef((b, t, cfg.d_model), ("batch", "seq", None), init="normal",  # noqa: E731
+                                 dtype=torch.bfloat16)
         if shape.kind == "train":
             if fam == "audio":
                 return {"src_embeds": emb(s), "tgt_tokens": tok(s), "targets": tok(s)}
@@ -225,11 +244,11 @@ def build_model(cfg: ModelConfig) -> Model:
             return {"tokens": tok(s), "targets": tok(s)}
         if shape.kind == "prefill":
             if fam == "audio":
-                return {"src_embeds": emb(s), "tokens": tok(1)}
+                return {"src_embeds": emb(s), "tokens": tok1}
             if fam == "vlm":
                 return {"embeds": emb(s)}
             return {"tokens": tok(s)}
-        return {"tokens": tok(1), "cur_len": ParamDef((b,), init="zeros", dtype=torch.int32)}
+        return {"tokens": tok1, "cur_len": ParamDef((b,), ("batch",), init="zeros", dtype=torch.int32)}
 
     def make_inputs(shape: ShapeConfig, seed: int = 0, *, device=None):
         """``input_defs(shape)`` drawn from ``seed`` on ``device`` (default:
@@ -251,6 +270,10 @@ def build_model(cfg: ModelConfig) -> Model:
                 out[name] = (x * 0.02).to(d.dtype)
         return out
 
+    if rules is not None:
+        from repro_torch.models import sharded
+
+        loss_fn, prefill_fn, decode_fn = sharded.programs(cfg, rules, kind, CE_CHUNK)
     return Model(
         cfg=cfg,
         param_defs=defs,

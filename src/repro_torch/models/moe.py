@@ -16,8 +16,20 @@ The Switch-Transformer capacity formulation of the JAX package
 Nothing here reads a tensor value on the host and no shape depends on the
 data (no ``nonzero``, no boolean indexing), so a fused chain that holds MoE
 layers stays one unit under the platform's shape-only run on meta tensors.
-The JAX package's sharded schedules (``shard_map`` dispatch and the
-expert-parallel combine) need a device mesh and are not ported.
+
+Under a mesh (``rules``) the tokens go in G groups, one per data-parallel
+shard (:func:`num_groups`), and each rank runs its group's dispatch and
+combine locally, as the reference's ``shard_map`` over the data-parallel
+axes does (:func:`apply_moe_local`). With ``moe_impl="dropping_ep"`` the
+expert-parallel schedule: each 'model' rank gathers its group's tokens,
+builds only its E/m experts' buffer (slot E/m drops), runs K5 on it, and the
+partial token outputs are reduced with a reduce-scatter over 'model' (an
+all-reduce when the tokens are not split over it), as the reference's
+``psum_scatter`` / ``psum``. Without it (``dropping``) the group's buffer of
+all experts is built on every 'model' rank, each runs K5 on its slice of
+experts and an all-gather brings the outputs back for the combine. Groups
+that do not line up with the data-parallel shards (a decode batch smaller
+than G) are computed on every rank from the gathered tokens.
 """
 from __future__ import annotations
 
@@ -32,10 +44,10 @@ from repro_torch.models.params import ParamDef
 def moe_defs(cfg: ModelConfig):
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     return {
-        "router": ParamDef((d, e), dtype=torch.float32),
-        "wi_gate": ParamDef((e, d, f)),
-        "wi_up": ParamDef((e, d, f)),
-        "wo": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), ("embed_fsdp", None), dtype=torch.float32),
+        "wi_gate": ParamDef((e, d, f), ("experts", "embed_fsdp", "expert_ff")),
+        "wi_up": ParamDef((e, d, f), ("experts", "embed_fsdp", "expert_ff")),
+        "wo": ParamDef((e, f, d), ("experts", "expert_ff", "embed_fsdp")),
     }
 
 
@@ -49,12 +61,17 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def num_groups(n_tokens: int, batch: int, cfg: ModelConfig, rules=None) -> int:
-    """Token groups of the dispatch. The JAX package takes one per
-    data-parallel shard of its mesh; without a mesh (``rules is None``, the
-    only case the port runs) there is one."""
-    if rules is not None:
-        raise NotImplementedError("the port runs the MoE layer without a device mesh")
-    return 1
+    """Groups = data-parallel shard count when per-group token counts stay
+    healthy (>= ~4 slots/expert); halved otherwise (tiny decode batches).
+    One without a mesh."""
+    target = cfg.moe_min_group_tokens or 4 * cfg.num_experts
+    if rules is None:
+        g = 1
+    else:
+        g = rules.mesh_axis_sizes.get("pod", 1) * rules.mesh_axis_sizes.get("data", 1)
+    while g > 1 and ((n_tokens // g) < target or n_tokens % g or (g > batch and g % batch)):
+        g //= 2
+    return max(1, g)
 
 
 def route(params, x: torch.Tensor, cfg: ModelConfig):
@@ -85,11 +102,19 @@ def slot_positions(e_flat: torch.Tensor) -> torch.Tensor:
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, rules=None):
     """x: (B, T, d) -> (y (B, T, d), metrics {'moe_aux', 'moe_dropped'} as
-    fp32 tensors)."""
+    fp32 tensors). Under ``rules`` (a mesh), ``params`` and ``x`` are
+    ``DTensor``s (``x`` laid out as ('batch', 'seq', None)); ``y`` comes back
+    as one in ``x``'s layout and the metrics as every rank's same values."""
+    if rules is not None:
+        from repro_torch.sharding import spmd
+
+        ctx = spmd.ctx_for(rules.mesh)
+        (p_l, x_l), (specs, x_spec) = spmd.split((params, x))
+        y, metrics = apply_moe_local(p_l, specs, x_l, tuple(x.shape), cfg, rules, ctx, spmd.Act.of(x_spec))
+        return spmd.as_dtensor(y, rules.mesh, x.placements, x.shape), metrics
     b, t, d = x.shape
     n = b * t
     k, e = cfg.num_experts_per_tok, cfg.num_experts
-    num_groups(n, b, cfg, rules)  # one group: there is no mesh to shard over
     cap = capacity(n, cfg)
 
     probs, e_flat, w, pos = route(params, x, cfg)
@@ -125,3 +150,110 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, rules=None):
     aux = e * torch.sum(counts / n / k * probs.mean(dim=(0, 1)))
     dropped = 1.0 - kept.float().mean()
     return y, {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def apply_moe_local(params, specs, x: torch.Tensor, shape: tuple, cfg: ModelConfig, rules, ctx, act):
+    """This rank's program of the MoE layer under a mesh. ``params``: local
+    shards with per-dim ``specs`` (``spmd.spec_of``); ``x``: the local
+    (B_l, T_l, d) block of the global ``shape`` (B, T, d), split as ``act``.
+    Returns (y in ``x``'s layout, metrics the same on every rank)."""
+    b, t, d = shape
+    n = b * t
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    g = num_groups(n, b, cfg, rules)
+    nl = n // g
+    cap = capacity(nl, cfg)
+    dp = rules.dp_axes()
+    msize = ctx.sizes.get("model", 1)
+    local_groups = g == ctx.count(dp) and act.batch == dp  # one group per dp rank, the rank's rows
+    experts_split = "model" in specs["wi_gate"][0]
+    ep = cfg.moe_impl == "dropping_ep" and local_groups and msize > 1 and experts_split
+
+    # route on this rank's tokens (the reference routes the (B, T, d) stream
+    # before grouping)
+    router = ctx.param(params["router"], specs["router"], act.axes)
+    probs = torch.softmax(torch.einsum("btd,de->bte", x.float(), router), dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # the tokens of this rank's group(s): its rows over the whole sequence,
+    # or every token when the groups do not follow the dp shards. Under EP
+    # each 'model' rank uses its own experts' share of them (the gather's
+    # backward sums); otherwise every rank does the same work on them.
+    bwd = "sum" if ep else "slice"
+    gather_axes = ((), act.seq) if local_groups else (act.batch, act.seq)
+
+    def tokens(z, grad=True):
+        for dim, axes in enumerate(gather_axes):
+            z = ctx.gather(z, dim, axes, bwd) if grad else ctx.all_gather(z, dim, axes)
+        return z
+
+    xg, wg, ig = tokens(x), tokens(w), tokens(idx, grad=False)
+    bg, tg = xg.shape[:2]
+    n_loc = bg * tg  # tokens this rank dispatches: one group's, or all g groups'
+    groups = n_loc // nl
+    e_flat = ig.reshape(-1)
+    gi = torch.arange(n_loc * k, device=x.device) // (nl * k)  # each choice's group
+    pos = slot_positions(gi * e + e_flat)  # a slot per (group, expert) run
+    kept = pos < cap
+    xr = xg.reshape(n_loc, d).repeat_interleave(k, dim=0)
+    # the experts see different tokens on each dp rank only when each holds its own group
+    wi_gate, wi_up, wo = (ctx.param(params[n_], specs[n_], act.batch if local_groups else ())
+                          for n_ in ("wi_gate", "wi_up", "wo"))
+    e_loc = wi_gate.shape[0]  # this rank's experts: E / m when split over 'model'
+    e0 = ctx.index(("model",)) * e_loc if experts_split else 0
+
+    if ep:
+        rel = e_flat - e0
+        ok = kept & (rel >= 0) & (rel < e_loc)
+        slot = torch.where(ok, rel * cap + pos, e_loc * cap)  # the rank's (E/m, C) buffer, spare row last
+        buf = xg.new_zeros(e_loc * cap + 1, d).index_put((slot,), xr)
+        rows = torch.zeros(e_loc, dtype=torch.int32, device=x.device).index_add(
+            0, torch.where(ok, rel, 0), ok.int())
+        ye = _experts(buf[: e_loc * cap].view(1, e_loc, cap, d), wi_gate, wi_up, wo, rows[None],
+                      min(e_loc, nl * k))
+        yk = ye.reshape(e_loc * cap, d).index_select(0, torch.where(ok, slot, 0))
+        yk = torch.where(ok[:, None], yk, torch.zeros((), dtype=yk.dtype, device=yk.device))
+        y = (yk.reshape(n_loc, k, d) * wg.reshape(n_loc, k, 1).to(ye.dtype)).sum(dim=1).reshape(bg, tg, d)
+        y = ctx.scatter(y, 1, ("model",)) if act.seq else ctx.reduce(y, ("model",))
+    else:
+        slot = (gi * e + e_flat) * cap + torch.where(kept, pos, 0)
+        spare = groups * e * cap
+        buf = xg.new_zeros(spare + 1, d).index_put((torch.where(kept, slot, spare),), xr)
+        xe = buf[:spare].view(groups, e, cap, d)
+        rows = torch.zeros(groups * e, dtype=torch.int32, device=x.device).index_add(
+            0, gi * e + e_flat, kept.int()).view(groups, e)
+        if experts_split:  # each 'model' rank its experts' slice; the outputs gathered back
+            xe = ctx.chunk(xe, 1, ("model",))
+            rows = ctx.take(rows, 1, ("model",))
+        ye = _experts(xe, wi_gate, wi_up, wo, rows, min(e_loc, nl * k))
+        if experts_split:
+            ye = ctx.gather(ye, 1, ("model",), "slice")
+        yk = ye.reshape(spare, d).index_select(0, slot)
+        yk = torch.where(kept[:, None], yk, torch.zeros((), dtype=yk.dtype, device=yk.device))
+        y = (yk.reshape(n_loc, k, d) * wg.reshape(n_loc, k, 1).to(ye.dtype)).sum(dim=1).reshape(bg, tg, d)
+        for dim, axes in enumerate(gather_axes):  # back to this rank's block
+            y = ctx.chunk(y, dim, axes)
+
+    # Switch load-balance aux over all G groups: E * sum_e f_e * P_e
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add(
+        0, e_flat, torch.ones(n_loc * k, dtype=torch.float32, device=x.device))
+    n_kept = kept.float().sum()
+    if local_groups:  # the other groups' counts are on the other dp ranks
+        counts, n_kept = ctx.all_reduce(counts, dp), ctx.all_reduce(n_kept, dp)
+    p_e = ctx.reduce(probs.sum(dim=(0, 1)), act.axes) / n
+    aux = e * torch.sum(counts / n / k * p_e)
+    dropped = 1.0 - n_kept / (n * k)
+    return y, {"moe_aux": aux, "moe_dropped": dropped}
+
+
+def _experts(xe: torch.Tensor, wi_gate, wi_up, wo, rows: torch.Tensor, active: int) -> torch.Tensor:
+    """The expert FFN on (G, E, C, d) buffers through K5, one group at a
+    time (G is 1 on a rank that holds its own group)."""
+    out = []
+    for xe_g, rows_g in zip(xe.unbind(0), rows.unbind(0)):
+        gate = kops.gmm(xe_g, wi_gate, rows_g, active)
+        up = kops.gmm(xe_g, wi_up, rows_g, active)
+        h = F.silu(gate.float()).to(xe_g.dtype) * up
+        out.append(kops.gmm(h, wo, rows_g, active))
+    return torch.stack(out)

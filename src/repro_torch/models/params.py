@@ -8,8 +8,10 @@ materializes the tree from a seeded ``torch.Generator`` with the JAX
 package's init rule (``repro/models/params.py``); the random numbers differ
 from JAX's, so tests that compare the two bridge JAX's parameters instead.
 ``param_structs`` gives the same tree as empty meta tensors (the JAX
-package's ``jax.ShapeDtypeStruct`` tree, without a mesh): the dry run's
-zero-allocation weights.
+package's ``jax.ShapeDtypeStruct`` tree): the dry run's zero-allocation
+weights; on a mesh, meta ``DTensor``s with the strict placements of each
+leaf's logical axes, so each rank's local shape is the reference's shard
+shape. ``param_pspecs`` gives those strict specs.
 """
 from __future__ import annotations
 
@@ -25,9 +27,16 @@ from repro_torch.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...] | None = None  # per-dim logical axis names (None: all unnamed)
     init: str = "normal"          # normal | zeros | ones | embed
     scale_axis: int | None = None  # fan-in axis for 'normal' (default: -2)
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.logical is None:
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"ParamDef rank mismatch: {self.shape} vs {self.logical}")
 
 
 def is_def(x) -> bool:
@@ -74,10 +83,30 @@ def init_params(defs, seed: int = 0, *, device=None):
     return tree.map(lambda d: _init_leaf(d, gen, dev), defs)
 
 
-def param_structs(defs):
+def param_pspecs(defs, rules):
+    """Each leaf's strict spec (``sharding.specs.to_pspec``, strict=True) as
+    a ``sharding.spmd.Spec``: a tree leaf, which ``CheckpointManager.restore``
+    takes as ``shardings``."""
+    from repro_torch.sharding import spmd
+
+    return tree.map(lambda d: spmd.spec_from_rules(d.shape, d.logical, rules, strict=True), defs)
+
+
+def param_structs(defs, mesh=None, rules=None):
     """``defs`` as empty meta tensors of their shapes and dtypes: no
-    storage is allocated, so a 42B-parameter train state stays symbolic."""
-    return tree.map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+    storage is allocated, so a 42B-parameter train state stays symbolic.
+    With ``mesh`` and ``rules``, each leaf is a meta ``DTensor`` with the
+    strict placements of its logical axes (uneven dims drop their axis)."""
+    if mesh is None or rules is None:
+        return tree.map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+    from repro_torch.sharding import spmd
+
+    def one(d: ParamDef):
+        placements = spmd.strict_placements(d.shape, d.logical, rules, mesh)
+        local = spmd.local_shape(d.shape, placements, mesh)
+        return spmd.as_dtensor(torch.empty(local, dtype=d.dtype, device="meta"), mesh, placements, d.shape)
+
+    return tree.map(one, defs)
 
 
 def param_count(defs) -> int:
@@ -92,12 +121,13 @@ def map_defs(fn, defs):
     return tree.map(fn, defs)
 
 
-def stack_defs(defs, n: int):
+def stack_defs(defs, n: int, logical: str = "layers"):
     """Prepend a stacking axis (layers stacked on a leading axis)."""
     return map_defs(
         lambda d: dataclasses.replace(
             d,
             shape=(n, *d.shape),
+            logical=(logical, *d.logical),
             scale_axis=None if d.scale_axis is None else (d.scale_axis if d.scale_axis < 0 else d.scale_axis + 1),
         ),
         defs,

@@ -30,19 +30,19 @@ def ssm_defs(cfg: ModelConfig):
     d, di = cfg.d_model, cfg.d_inner
     h, n, grp = cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_groups
     return {
-        "in_z": ParamDef((d, di)),
-        "in_x": ParamDef((d, di)),
-        "in_B": ParamDef((d, grp, n)),
-        "in_C": ParamDef((d, grp, n)),
-        "in_dt": ParamDef((d, h)),
-        "conv_x": ParamDef((cfg.conv_kernel, di)),
-        "conv_B": ParamDef((cfg.conv_kernel, grp, n)),
-        "conv_C": ParamDef((cfg.conv_kernel, grp, n)),
-        "A_log": ParamDef((h,), init="zeros", dtype=torch.float32),
-        "D": ParamDef((h,), init="ones", dtype=torch.float32),
-        "dt_bias": ParamDef((h,), init="zeros", dtype=torch.float32),
-        "gate_norm": ParamDef((di,), init="ones"),
-        "out": ParamDef((di, d)),
+        "in_z": ParamDef((d, di), ("embed_fsdp", "ssm_inner")),
+        "in_x": ParamDef((d, di), ("embed_fsdp", "ssm_inner")),
+        "in_B": ParamDef((d, grp, n), ("embed_fsdp", None, "ssm_state")),
+        "in_C": ParamDef((d, grp, n), ("embed_fsdp", None, "ssm_state")),
+        "in_dt": ParamDef((d, h), ("embed_fsdp", "ssm_heads")),
+        "conv_x": ParamDef((cfg.conv_kernel, di), ("conv_k", "ssm_inner")),
+        "conv_B": ParamDef((cfg.conv_kernel, grp, n), ("conv_k", None, "ssm_state")),
+        "conv_C": ParamDef((cfg.conv_kernel, grp, n), ("conv_k", None, "ssm_state")),
+        "A_log": ParamDef((h,), ("ssm_heads",), init="zeros", dtype=torch.float32),
+        "D": ParamDef((h,), ("ssm_heads",), init="ones", dtype=torch.float32),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros", dtype=torch.float32),
+        "gate_norm": ParamDef((di,), ("ssm_inner",), init="ones"),
+        "out": ParamDef((di, d), ("ssm_inner", "embed_fsdp")),
     }
 
 

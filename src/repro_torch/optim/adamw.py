@@ -15,6 +15,11 @@ gradients and runs in float32 in the reference's order of operations; each
 new parameter is cast back to its own dtype. On the card every quantity
 stays a tensor (the step, the learning rate, the norm): an update never
 reads a device value on the host.
+
+On a mesh the train step runs either update on each rank's local shards
+(the same operations on the same elements) and hands it the global norm
+(:func:`sharded_global_norm`): each leaf's local sum of squares, summed
+over the mesh axes that shard the leaf (a replicated leaf counted once).
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ def adamw_state_defs(param_defs):
     the params' shapes in fp32, zero-initialized."""
     as_fp32 = lambda d: dataclasses.replace(d, dtype=torch.float32, init="zeros")  # noqa: E731
     return {
-        "step": ParamDef((), init="zeros", dtype=torch.int32),
+        "step": ParamDef((), (), init="zeros", dtype=torch.int32),
         "m": tree.map(as_fp32, param_defs),
         "v": tree.map(as_fp32, param_defs),
     }
@@ -64,24 +69,37 @@ def global_norm(t) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack([torch.sum(torch.square(x.float())) for x in tree.leaves(t)])))
 
 
-def _step_terms(step: torch.Tensor, grads, cfg: AdamWConfig, lr_schedule):
+def sharded_global_norm(grads, specs, ctx) -> torch.Tensor:
+    """:func:`global_norm` of the global gradients from a rank's local
+    shards: the leaves grouped by the mesh axes that shard them, each
+    group's local sum of squares all-reduced over those axes."""
+    groups: dict[tuple, list] = {}
+    for g, spec in zip(tree.leaves(grads), tree.leaves(specs)):
+        axes = tuple(a for a in ctx.names if a in spec.axes())
+        groups.setdefault(axes, []).append(torch.sum(torch.square(g.float())))
+    total = [ctx.all_reduce(torch.sum(torch.stack(parts)), axes) for axes, parts in groups.items()]
+    return torch.sqrt(torch.sum(torch.stack(total)))
+
+
+def _step_terms(step: torch.Tensor, grads, cfg: AdamWConfig, lr_schedule, gnorm=None):
     """(lr, the gradients' global norm, the clip's scale, the two bias
-    corrections) of the update that makes ``step``."""
+    corrections) of the update that makes ``step``; ``gnorm``: the norm
+    when the caller has it (a mesh's, from the ranks' shards)."""
     stepf = step.float()
     lr = lr_schedule(step) if lr_schedule is not None else torch.tensor(cfg.lr, dtype=torch.float32,
                                                                         device=step.device)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     return lr, gnorm, scale, 1 - cfg.b1 ** stepf, 1 - cfg.b2 ** stepf
 
 
 def adamw_update(params, grads, opt_state, cfg: AdamWConfig,
-                 lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None):
+                 lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None, *, gnorm=None):
     """Returns (new_params, new_opt_state, metrics): ``metrics`` holds the
     gradients' global norm before clipping (``grad_norm``) and the step's
     learning rate (``lr``), both 0-d fp32 tensors."""
     step = opt_state["step"] + 1
-    lr, gnorm, scale, bc1, bc2 = _step_terms(step, grads, cfg, lr_schedule)
+    lr, gnorm, scale, bc1, bc2 = _step_terms(step, grads, cfg, lr_schedule, gnorm)
 
     def upd(p, g, m, v):
         g32 = g.float() * scale
@@ -118,14 +136,14 @@ def _pieces(leaves):
 
 @torch.no_grad()
 def adamw_update_(params, grads, opt_state, cfg: AdamWConfig,
-                  lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None):
+                  lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None, *, gnorm=None):
     """:func:`adamw_update` in place: the params, m, v and the step of
     ``opt_state`` become the new state, equal bit for bit to the functional
     update's (the same operations on the same elements: a piece is a view,
     and no ``alpha=`` form fuses two of them). Returns the metrics."""
     step = opt_state["step"]
     step.add_(1)
-    lr, gnorm, scale, bc1, bc2 = _step_terms(step, grads, cfg, lr_schedule)
+    lr, gnorm, scale, bc1, bc2 = _step_terms(step, grads, cfg, lr_schedule, gnorm)
     for leaves in zip(tree.leaves(params), tree.leaves(grads), tree.leaves(opt_state["m"]),
                       tree.leaves(opt_state["v"])):
         for p, g, m, v in _pieces(leaves):

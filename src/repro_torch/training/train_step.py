@@ -25,7 +25,26 @@ import torch
 from repro_torch import donate, tree
 from repro_torch.kernels import cost as kcost
 from repro_torch.models.model import Model
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_state_defs, adamw_update, adamw_update_
+from repro_torch.sharding import spmd
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_state_defs, adamw_update, adamw_update_,
+                                     sharded_global_norm)
+
+
+def _microbatches(batch, n: int) -> list:
+    """The ``n`` microbatches of ``batch``: consecutive slices of its rows;
+    on a mesh, of each rank's rows (a ``DTensor`` of the slice's global
+    shape)."""
+    def split(x):
+        if not spmd.is_dtensor(x):
+            return x.reshape(n, x.shape[0] // n, *x.shape[1:]).unbind(0)
+        local = x.to_local()
+        shape = (x.shape[0] // n, *x.shape[1:])
+        return [spmd.as_dtensor(part, x.device_mesh, x.placements, shape)
+                for part in local.reshape(n, local.shape[0] // n, *local.shape[1:]).unbind(0)]
+
+    leaves, struct = tree.flatten(batch)
+    parts = [split(x) for x in leaves]
+    return [tree.unflatten(struct, [p[i] for p in parts]) for i in range(n)]
 
 
 def make_train_state_defs(model: Model):
@@ -64,36 +83,44 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig | None = None, lr_schedul
     def train_step(state, batch):
         in_place = donate.donated()
         params = state["params"]
+        mesh = next((x.device_mesh for x in tree.leaves(params) if spmd.is_dtensor(x)), None)
         if n_micro == 1:
             loss, metrics, grads = value_and_grad(model, params, batch)
+            grads = tree.map(spmd.local_of, grads)
         else:
-            def split(x):
-                b = x.shape[0]
-                return x.reshape(n_micro, b // n_micro, *x.shape[1:])
-
-            micro = tree.map(split, batch)
-            grads = tree.map(lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device), params)
-            acc = tree.leaves(grads)
+            micro = _microbatches(batch, n_micro)
+            grads = None
             loss = metrics = None
-            for i in kcost.trips(n_micro, "microbatches", like=tree.leaves(micro)[0]):
-                l, m, g = value_and_grad(model, params, tree.map(lambda x: x[i], micro))
-                g = tree.leaves(g)
-                for a, b in zip(acc, g):
+            for i in kcost.trips(n_micro, "microbatches", like=spmd.local_of(tree.leaves(micro[0])[0])):
+                l, m, g = value_and_grad(model, params, micro[i])
+                g = tree.map(spmd.local_of, g)
+                if grads is None:  # the accumulator: in the grad dtype, on each rank's shard
+                    grads = tree.map(torch.zeros_like, g)
+                for a, b in zip(tree.leaves(grads), tree.leaves(g)):
                     a.add_(b.to(a.dtype))
                 del g  # this microbatch's gradients, before the next one's
                 loss = l if loss is None else loss + l
                 metrics = m if metrics is None else tree.map(lambda a, b: a + b, metrics, m)
-            for a in acc:
+            for a in tree.leaves(grads):
                 a.div_(n_micro)
             loss = loss / n_micro
             metrics = tree.map(lambda m: m / n_micro, metrics)
 
+        gnorm = None
+        opt = state["opt"]
+        if mesh is not None:  # the update on each rank's shards, with the global norm
+            with torch.no_grad():
+                (params, opt), (specs, _) = spmd.split((params, opt))
+            gnorm = sharded_global_norm(grads, specs, spmd.ctx_for(mesh))
         if in_place:
-            opt_metrics = adamw_update_(params, grads, state["opt"], opt_cfg, lr_schedule)
+            opt_metrics = adamw_update_(params, grads, opt, opt_cfg, lr_schedule, gnorm=gnorm)
             new_state = state
         else:
-            new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg, lr_schedule)
+            new_params, new_opt, opt_metrics = adamw_update(params, grads, opt, opt_cfg, lr_schedule, gnorm=gnorm)
             new_state = {"params": new_params, "opt": new_opt}
+            if mesh is not None:
+                new_state = tree.map(lambda new, old: spmd.as_dtensor(new, old.device_mesh, old.placements,
+                                                                      old.shape), new_state, state)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         return new_state, metrics

@@ -290,8 +290,15 @@ def test_capacity_and_groups_match_jax():
         assert moe.capacity(n, full_t) == jax_moe.capacity(n, full_j)
         assert moe.num_groups(n, 1, full_t) == jax_moe.num_groups(n, 1, full_j, None) == 1
     assert [moe.capacity(n, full_t) for n in (1, 8, 37, 128, 300, 512)] == [8, 8, 8, 16, 24, 40]
-    with pytest.raises(NotImplementedError):
-        moe.num_groups(8, 1, full_t, rules=object())
+    # on a mesh, the reference's count: one group per data-parallel shard,
+    # halved while a group would be too small
+    from repro.sharding.specs import LogicalRules as JaxRules
+    from repro_torch.sharding.specs import train_rules
+
+    for sizes in ({"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16}, {"data": 2, "model": 2}):
+        for n, b in ((1, 1), (128, 128), (256 * 4096, 256), (512, 4), (96, 3)):
+            got = moe.num_groups(n, b, full_t, train_rules(sizes))
+            assert got == jax_moe.num_groups(n, b, full_j, JaxRules({}, sizes))
 
 
 def test_apply_moe_on_meta_tensors(monkeypatch):
