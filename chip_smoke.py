@@ -23,7 +23,9 @@ Phases (any failed check exits non-zero and prints no result):
    48/1 and chameleon-34b's 64/8 of 128; K4 at stablelm's and chameleon's at
    the serve's cur_len; seamless-m4t-medium's: K3 non-causal at T = S = 300,
    16/16 heads of 64, the encoder's, and K4 over 300 source rows, all valid,
-   the decoder's cross-attention); K1 ``paged_decode_attention`` (the paged serve
+   the decoder's cross-attention; every K4 case also with ``return_lse``:
+   the same output bits, each head's logsumexp within LSE_TOL of the plain
+   one's, -inf at cur_len 0); K1 ``paged_decode_attention`` (the paged serve
    path's shape, B = 1, MQA, qwen3's 32/4 heads of 128, the two wide groups
    and chameleon's 64/8 of 128) and K2 ``paged_chunk_attention`` at the
    paged serve paths' (llama's 32/8 heads of 64, qwen3's 32/4 of 128,
@@ -383,10 +385,15 @@ Phases (any failed check exits non-zero and prints no result):
    (``make_smoke_mesh``: (1, 1) on one card, (2, 2) on four); full-width
    llama3.2-1b takes MESH_TRAIN_STEPS AdamW steps under ``train_rules`` at
    B = 2, T = 4096 (one microbatch of the train phase's shape), and the same
-   steps with no mesh: each loss within 2e-2 relative, every forward and
-   backward kernel launched as often, no plain version; then full-width
-   qwen3-moe-30b-a3b's MoE layer (``dropping_ep``) on the same mesh against
-   the layer with no mesh, K5 launched. (c) ``mesh_ep_ranks``: what each
+   steps with no mesh: every forward and backward kernel launched as often,
+   no plain version; then full-width qwen3-moe-30b-a3b's MoE layer on the
+   same mesh against the layer with no mesh, K5 launched. On (1, 1) every
+   collective is the identity and the two runs are one program, so the
+   losses, the MoE layer's y and its metrics must be equal bit for bit, and
+   the layer runs ``dropping`` (the expert-parallel schedule needs 'model'
+   over more than one rank): on one card only (c) runs EP. On a larger
+   mesh each loss must be within 2e-2 relative and y within 2e-2 of max
+   |y|, and the layer runs ``dropping_ep``. (c) ``mesh_ep_ranks``: what each
    rank of a 4-way expert-parallel MoE layer computes, run one rank after
    the other on this card (one card is all there is): full-width qwen3's
    layer, each rank's dispatch, K5 on its 32 of the 128 experts and its
@@ -431,6 +438,7 @@ SRC = ROOT / "src"
 
 RTOL = ATOL = 2e-2  # tests/test_kernels.py bf16 tolerance
 REF_TOL = 2e-2  # bf16 logits, card vs host, over max |logit| (tests/test_torch_model.py)
+LSE_TOL = 1e-3  # K4's fp32 logsumexp against its plain version's, absolute (values of ~log S)
 # A full-width block's output, card vs host, over its max. The JAX init rule
 # draws wq and wk with fan-in H = 32 and KV = 8, not d_model = 2048, so with
 # random weights q and k entries have variances 64 and 256, the attention
@@ -601,6 +609,14 @@ def decode_case(torch, F, b, S, H, KV, HD, rng, lens=None, cold: bool = False) -
     check(torch.equal(got, dec.decode_attention(q, k, v, cur)), f"decode_attention S={S} is not deterministic")
     zeros = dec.decode_attention(q, k, v, torch.zeros_like(cur))
     check(bool((zeros == 0).all()), "decode_attention must give exact zeros at cur_len == 0")
+    # the logsumexp that a sequence-split cache's combine weighs with: the
+    # same output bits beside it, the heads' lse against the plain one's
+    got_lse, lse = dec.decode_attention(q, k, v, cur, return_lse=True)
+    lse_err = (lse - dec.plain_lse(q, k, v, cur)[1]).abs().max().item()
+    check(torch.equal(got_lse, got) and lse_err <= LSE_TOL,
+          f"decode_attention S={S} with its lse: output equal {torch.equal(got_lse, got)}, lse off by {lse_err}")
+    zero_lse = dec.decode_attention(q, k, v, torch.zeros_like(cur), return_lse=True)[1]
+    check(bool(torch.isneginf(zero_lse).all()), "decode_attention's lse must be -inf at cur_len == 0")
     mask = (torch.arange(S, device=dev)[None, :] < cur[:, None])[:, None, None, :]
     qt = q[:, :, None, :]
     copies = -(-COLD_BYTES // (2 * k.numel() * k.element_size())) if cold else 1
@@ -615,6 +631,7 @@ def decode_case(torch, F, b, S, H, KV, HD, rng, lens=None, cold: bool = False) -
         "shape": f"B={b} S={S} H={H} KV={KV} hd={HD} cur_len={cur.tolist()} bf16",
         "copies": copies,
         "max_abs_err": err,
+        "lse_max_abs_err": lse_err,
         "ms": ms,
         "plain_ms": time_ms(torch, rotating(lambda i: dec.plain(q, ks[i], vs[i], cur), copies)),
         "library_ms": time_ms(torch, rotating(
@@ -5448,11 +5465,13 @@ class RoutingReplay:
     """Routing is discontinuous: the card's and the host's bf16 roundings
     of a router's input differ, and a token whose top-k choice is a near-tie
     goes to other experts on the two sides, so no gradient compares. Inside
-    ``recording()`` every ``moe.route`` call keeps its experts; inside
+    ``recording()`` every ``moe.choose_experts`` call (the router of every
+    MoE layer, on one device or a mesh) keeps its experts; inside
     ``replaying()`` each call, in the same order, takes the recorded experts
     in place of its own top-k (its probabilities, and the weights gathered
     from them at those experts, are its own: the gradient flows as in
-    ``route``) and counts the tokens whose own top-k set differed."""
+    ``choose_experts``) and counts the tokens whose own top-k set
+    differed."""
 
     def __init__(self):
         self.experts: list = []
@@ -5464,30 +5483,27 @@ class RoutingReplay:
 
         from repro_torch.models import moe
 
-        real = moe.route
+        real = moe.choose_experts
 
-        def route(params, x, cfg):
-            probs, e_flat, w, pos = real(params, x, cfg)
+        def choose(router, x, k):
+            probs, idx, w = real(router, x, k)
             if not replay:
-                self.experts.append(e_flat)
-                return probs, e_flat, w, pos
-            k = cfg.num_experts_per_tok
+                self.experts.append(idx)
+                return probs, idx, w
             e_card = self.experts[self.calls].to(x.device)
             self.calls += 1
-            idx = e_card.reshape(*probs.shape[:-1], k)
-            own = e_flat.reshape(-1, k).sort(-1).values
-            self.differed.append(int((own != idx.reshape(-1, k).sort(-1).values).any(-1).sum()))
-            w = probs.gather(-1, idx)
-            w = w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-            return probs, e_card, w.reshape(-1, k), moe.slot_positions(e_card)
+            own = idx.reshape(-1, k).sort(-1).values
+            self.differed.append(int((own != e_card.reshape(-1, k).sort(-1).values).any(-1).sum()))
+            w = probs.gather(-1, e_card)
+            return probs, e_card, w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
 
         @contextlib.contextmanager
         def patched():
-            moe.route = route
+            moe.choose_experts = choose
             try:
                 yield self
             finally:
-                moe.route = real
+                moe.choose_experts = real
 
         return patched()
 
@@ -5843,7 +5859,7 @@ MESH_DRYRUN = (("llama3.2-1b", "decode_32k", "pod16x16"), ("llama3.2-1b", "decod
 MESH_TRAIN_STEPS = 4
 MESH_TRAIN_BATCH = 2  # one microbatch of the train phase: B = 2, T = TRAIN_SEQ
 MESH_TRAIN_LR = 1e-3
-MESH_LOSS_TOL = 2e-2  # the mesh's losses against the same steps with no mesh, relative
+MESH_LOSS_TOL = 2e-2  # the mesh's losses against the same steps with no mesh, relative (more than one rank)
 MESH_MOE_TOKENS = (2, 1024)  # the MoE layer's (B, T) on the NCCL mesh (no token dropped)
 MESH_EP_RANKS = 4
 MESH_EP_TOKENS = (2, 2048)  # the EP rank programs' (B, T)
@@ -5972,10 +5988,11 @@ def mesh_rank_train(torch, dev, mesh, rules) -> dict:
 
 
 def mesh_rank_moe(torch, dev, mesh, rules) -> dict:
-    """Full-width qwen3-moe-30b-a3b's MoE layer (``dropping_ep``) on
-    ``mesh`` and with no mesh, on the same weights and input, at capacity
-    factor E / k: no token drops, so the mesh's G groups (one per data
-    rank) compute what one group does."""
+    """Full-width qwen3-moe-30b-a3b's MoE layer on ``mesh`` and with no
+    mesh, on the same weights and input, at capacity factor E / k: no token
+    drops, so the mesh's G groups (one per data rank) compute what one group
+    does. Its schedule: ``dropping_ep`` where 'model' spans more than one
+    rank, ``dropping`` on (1, 1)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -6004,8 +6021,11 @@ def mesh_rank_moe(torch, dev, mesh, rules) -> dict:
         got, gm = moe.apply_moe(dparams, dx, cfg, rules)
         counts = ops.counts()
         got = got.full_tensor()
-    return {"tokens": list(MESH_MOE_TOKENS), "max_abs_err": (got.float() - want.float()).abs().max().item(),
+    schedule = cfg.moe_impl if mesh.shape[mesh.mesh_dim_names.index("model")] > 1 else "dropping"
+    return {"tokens": list(MESH_MOE_TOKENS), "schedule": schedule,
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
             "max_abs_y": want.float().abs().max().item(), "bits_equal": bool(torch.equal(got, want)),
+            "metrics_bits_equal": all(torch.equal(gm[k], wm[k]) for k in wm),
             "dropped": [gm["moe_dropped"].item(), wm["moe_dropped"].item()],
             "aux": [gm["moe_aux"].item(), wm["moe_aux"].item()], "counts": counts, "no_mesh_counts": plain_counts}
 
@@ -6052,7 +6072,9 @@ def mesh_nccl(torch) -> dict:
     for rk in ranks:
         a, b = rk["train"]["no_mesh"], rk["train"]["mesh"]
         rel = [abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"])]
-        check(all(map(math.isfinite, a["losses"] + b["losses"])) and max(rel) <= MESH_LOSS_TOL,
+        # one rank: one program, every collective the identity, so equal bits
+        ok = a["losses"] == b["losses"] if world == 1 else max(rel) <= MESH_LOSS_TOL
+        check(all(map(math.isfinite, a["losses"] + b["losses"])) and ok,
               f"mesh_nccl rank {rk['rank']}: losses {b['losses']} on the mesh, {a['losses']} without")
         check(all(b["counts"][k] == a["counts"][k] > 0 for k in fwd_bwd),
               f"mesh_nccl rank {rk['rank']}: launches {b['counts']} on the mesh, {a['counts']} without")
@@ -6063,8 +6085,9 @@ def mesh_nccl(torch) -> dict:
         m = rk["moe"]
         check(m["counts"]["moe_gmm"] > 0 and not any(m["counts"][k] for k in PLAIN),
               f"mesh_nccl rank {rk['rank']}: the MoE layer's launches {m['counts']}")
-        check(m["max_abs_err"] <= RTOL * m["max_abs_y"],
-              f"mesh_nccl rank {rk['rank']}: the MoE layer off by {m['max_abs_err']} (max |y| {m['max_abs_y']})")
+        ok = m["bits_equal"] and m["metrics_bits_equal"] if world == 1 else m["max_abs_err"] <= RTOL * m["max_abs_y"]
+        check(ok, f"mesh_nccl rank {rk['rank']}: the MoE layer ({m['schedule']}) off by {m['max_abs_err']} "
+                  f"(max |y| {m['max_abs_y']}), metrics {m['dropped']} {m['aux']}")
     mesh_launches = {k: tr["mesh"]["counts"][k] for k in fwd_bwd}
     return {"world": world, "mesh": r0["mesh"], "arch": "llama3.2-1b", "steps": MESH_TRAIN_STEPS,
             "batch": MESH_TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": MESH_TRAIN_LR,
@@ -6074,8 +6097,8 @@ def mesh_nccl(torch) -> dict:
             "step_ms_p50": {k: statistics.median(tr[k]["step_ms"][1:]) for k in ("no_mesh", "mesh")},
             "peak_allocated_gb": {k: tr[k]["peak_allocated_gb"] for k in ("no_mesh", "mesh")},
             "launches": mesh_launches, "no_mesh_launches": {k: tr["no_mesh"]["counts"][k] for k in fwd_bwd},
-            "moe_layer": {k: r0["moe"][k] for k in ("tokens", "max_abs_err", "max_abs_y", "bits_equal", "dropped",
-                                                    "aux")},
+            "moe_layer": {k: r0["moe"][k] for k in ("tokens", "schedule", "max_abs_err", "max_abs_y", "bits_equal",
+                                                    "metrics_bits_equal", "dropped", "aux")},
             "moe_launches": r0["moe"]["counts"]["moe_gmm"], "train_s": r0["train_s"], "moe_s": r0["moe_s"]}
 
 
@@ -6128,8 +6151,8 @@ def mesh_ep_ranks(torch, dev) -> dict:
             e_loc = e // m
             local = {k: (v if k == "router" else v[r * e_loc:(r + 1) * e_loc]) for k, v in params.items()}
             ops.reset_counts()
-            part, pm = moe.apply_moe_local(local, specs, x, tuple(x.shape), cfg, rules, RankCtx(sizes, {"model": r}),
-                                           spmd.Act())
+            rank = spmd.Rank(RankCtx(sizes, {"model": r}), rules, spmd.Act(), tuple(x.shape))
+            part, pm = moe.apply_moe_local(local, specs, x, cfg, rank)
             counts = ops.counts()
             total += part.float()
             launched = counts["moe_gmm"] if dev.type == "cuda" else counts["gmm_ref"]  # the host: the plain K5
@@ -6167,7 +6190,7 @@ def mesh_phase(torch, dev) -> dict:
     print(json.dumps({"mesh_seconds": {**seconds, "total": sum(seconds.values())}}), flush=True)
     print(f"mesh phase {sum(seconds.values()):.1f} s", file=sys.stderr)
     return {"launches": {"llama3.2-1b mesh train": nccl["launches"],
-                         "qwen3-moe-30b-a3b mesh": {"moe_gmm": nccl["moe_launches"]},
+                         f"qwen3-moe-30b-a3b mesh ({nccl['moe_layer']['schedule']})": {"moe_gmm": nccl["moe_launches"]},
                          "qwen3-moe-30b-a3b EP rank programs": {"moe_gmm": sum(r["moe_gmm"] for r in ep["ranks"])}}}
 
 
@@ -6364,8 +6387,9 @@ def main() -> int:
     mesh_train = mesh["launches"]["llama3.2-1b mesh train"]
     by_path["flash_attention"]["llama3.2-1b mesh train"] = mesh_train["flash_attention"]
     by_path["flash_attention_bwd"]["llama3.2-1b mesh train"] = {k: mesh_train[k] for k in GRAD_KERNELS}
-    for label in ("qwen3-moe-30b-a3b mesh", "qwen3-moe-30b-a3b EP rank programs"):
-        by_path["moe_gmm"][label] = mesh["launches"][label]["moe_gmm"]
+    for label, n in mesh["launches"].items():
+        if label.startswith("qwen3-moe-30b-a3b"):
+            by_path["moe_gmm"][label] = n["moe_gmm"]
     captured = {"ssd_scan": [ssm["captured"], hybrid["captured"]]}
     part_src = {"flash_attention": serve["launch_parts"], "decode_attention": serve["launch_parts"],
                 "paged_decode_attention": paged["launch_parts"]["fused"],

@@ -49,8 +49,8 @@ SIGNATURES = {
     "repro_flash_attention_bwd": [_P] * 11 + [_I] * 8 + [_P],
     # dq_acc, dq, ws, dk, dv, B, T, S, H, KV, D, n_split, stream
     "repro_flash_attention_bwd_post": [_P] * 5 + [_I] * 7 + [_P],
-    # q, k, v, cur_len, out, B, S, batch (rows between sequences of k/v), H, KV, D, stream
-    "repro_decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
+    # q, k, v, cur_len, out, lse (or null), B, S, batch (rows between sequences of k/v), H, KV, D, stream
+    "repro_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, cur_len, out, B, P, page, n, H, KV, D, stream
     "repro_paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_table, start, out, B, C, P, page, n, H, KV, D, stream

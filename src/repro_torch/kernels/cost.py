@@ -71,12 +71,12 @@ def flash_attention_grad(b, t, s, h, kv, hd, causal: bool = True, sms: int = H10
     return KernelCost(flops, nbytes, work if t else 0)
 
 
-def decode_attention(b, s, h, kv, hd, rows: int | None = None) -> KernelCost:
+def decode_attention(b, s, h, kv, hd, rows: int | None = None, with_lse: bool = False) -> KernelCost:
     """K4: ``rows`` valid cache rows in all (default B S, every row);
     4 H hd per row; the rows' K and V read once, q read and the output
-    written once."""
+    written once; with ``with_lse`` also the heads' logsumexp (B, H) fp32."""
     rows = b * s if rows is None else rows
-    return KernelCost(4 * h * hd * rows, 2 * (2 * rows * kv * hd + 2 * b * h * hd))
+    return KernelCost(4 * h * hd * rows, 2 * (2 * rows * kv * hd + 2 * b * h * hd) + (4 * b * h if with_lse else 0))
 
 
 def paged_decode_attention(b, n, page, h, kv, hd, rows: int | None = None) -> KernelCost:

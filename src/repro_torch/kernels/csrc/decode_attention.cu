@@ -40,16 +40,16 @@ template <int D>
 __global__ void __launch_bounds__(decode_split::kThreads)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ cur_len,
-                        __nv_bfloat16* __restrict__ out, int H, int KV, float scale,
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int KV, float scale,
                         decode_split::Contiguous rows) {
-  decode_split::sweep<D>(q, k, v, cur_len, out, H, KV, scale, rows);
+  decode_split::sweep<D>(q, k, v, cur_len, out, lse, H, KV, scale, rows);
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* cur_len, void* out, int B, int S,
-                   int64_t batch, int H, int KV, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* cur_len, void* out, void* lse, int B,
+                   int S, int64_t batch, int H, int KV, cudaStream_t stream) {
   static std::atomic<uint32_t> smem_set{0u};
-  return decode_split::launch<D>(decode_attention_kernel<D>, smem_set, q, k, v, cur_len, out, B, H, KV, S,
+  return decode_split::launch<D>(decode_attention_kernel<D>, smem_set, q, k, v, cur_len, out, lse, B, H, KV, S,
                                  decode_split::Contiguous{S, batch}, stream);
 }
 
@@ -60,20 +60,22 @@ extern "C" {
 // q, out: (B, H, D), contiguous; k, v: (B, S, KV, D) with each sequence's
 // (S, KV, D) contiguous and sequences `batch` rows of KV * D apart (batch >=
 // S: a batched step's lanes read one layer of their stacked caches in
-// place); all bf16, 16-byte aligned; cur_len: (B,) int32 on the device.
-// Returns a cudaError_t.
+// place); all bf16, 16-byte aligned; cur_len: (B,) int32 on the device;
+// lse: null, or (B, H) fp32 for each head's logsumexp of its scaled scores
+// (-inf where cur_len == 0). Returns a cudaError_t.
 int repro_decode_attention_fwd(const void* q, const void* k, const void* v, const void* cur_len,
-                               void* out, int B, int S, long long batch, int H, int KV, int D, void* stream) {
+                               void* out, void* lse, int B, int S, long long batch, int H, int KV, int D,
+                               void* stream) {
   if (B <= 0 || S <= 0 || batch < S || KV <= 0 || H % KV != 0 || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch<64>(q, k, v, cur_len, out, B, S, batch, H, KV, st);
+      return (int)launch<64>(q, k, v, cur_len, out, lse, B, S, batch, H, KV, st);
     case 112:  // zamba2-7b's shared attention block
-      return (int)launch<112>(q, k, v, cur_len, out, B, S, batch, H, KV, st);
+      return (int)launch<112>(q, k, v, cur_len, out, lse, B, S, batch, H, KV, st);
     case 128:
-      return (int)launch<128>(q, k, v, cur_len, out, B, S, batch, H, KV, st);
+      return (int)launch<128>(q, k, v, cur_len, out, lse, B, S, batch, H, KV, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -48,7 +48,11 @@
 //     cluster barrier (a relaxed arrive) keeps every block's shared memory
 //     alive until rank 0 has read it. No float atomics, no global workspace,
 //     no second launch: two launches on the same inputs give equal bits;
-//   * cur_len == 0 gives exact zeros (every split empty: l == 0 -> 1).
+//   * cur_len == 0 gives exact zeros (every split empty: l == 0 -> 1);
+//   * with `lse` (K4 only; null otherwise) rank 0 also writes each head's
+//     logsumexp of its scaled scores, m + log(l) from the combine's own
+//     (m, l) (-inf at cur_len == 0): the weight of the output in a
+//     combine across caches split over devices (flash-decoding on a mesh).
 // The dynamic shared-memory limit is raised once per kernel and device.
 
 #pragma once
@@ -122,12 +126,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // The block's sweep and, on rank 0, the cluster's combine. q, out: (B, H, D);
-// k, v: (rows, KV, D) addressed through `rows`; cur_len: (B,).
+// lse: (B, H) fp32 or null; k, v: (rows, KV, D) addressed through `rows`;
+// cur_len: (B,).
 template <int D, class Rows>
 __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                       const __nv_bfloat16* __restrict__ v, const int* __restrict__ cur_len,
-                                      __nv_bfloat16* __restrict__ out, int H, int KV, float scale,
-                                      const Rows& rows) {
+                                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int KV,
+                                      float scale, const Rows& rows) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kChunks = D / 8;          // 16-byte chunks per head row
   constexpr int kWords = D / 2;           // bf16x2 words per head row
@@ -386,6 +391,7 @@ __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const
         l += w * lr[r];
       }
       as[g] = l == 0.f ? 1.f : l;  // l == 0 (cur_len == 0) -> exact zeros
+      if (lse != nullptr) lse[qo / D + g] = l == 0.f ? -INFINITY : m + logf(l);
     }
     __syncthreads();
     for (int o = tid; o < GD; o += kThreads) {
@@ -410,8 +416,8 @@ __device__ __forceinline__ void sweep(const __nv_bfloat16* __restrict__ q, const
 // `capacity` rows per sequence. Returns a cudaError_t.
 template <int D, class Rows, class Kernel>
 cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& smem_set, const void* q, const void* k, const void* v,
-                   const void* cur_len, void* out, int B, int H, int KV, int capacity, const Rows& rows,
-                   cudaStream_t stream) {
+                   const void* cur_len, void* out, void* lse, int B, int H, int KV, int capacity,
+                   const Rows& rows, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(H / KV);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;  // a group too wide for one block's shared memory
   cudaError_t err = allow_smem_once(kernel, kMaxSmem, smem_set);
@@ -433,8 +439,8 @@ cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& smem_set, const void* q
   const float scale = 1.0f / sqrtf((float)D);
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const __nv_bfloat16*>(q),
                            static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-                           static_cast<const int*>(cur_len), static_cast<__nv_bfloat16*>(out), H, KV, scale,
-                           rows);
+                           static_cast<const int*>(cur_len), static_cast<__nv_bfloat16*>(out),
+                           static_cast<float*>(lse), H, KV, scale, rows);
   const cudaError_t last = cudaGetLastError();  // clears a refused launch's error too
   return err != cudaSuccess ? err : last;
 }

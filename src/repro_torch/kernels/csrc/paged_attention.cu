@@ -72,8 +72,9 @@ template <int D>
 __global__ void __launch_bounds__(decode_split::kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
                     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ cur_len,
-                    __nv_bfloat16* __restrict__ out, int H, int KV, float scale, decode_split::Paged rows) {
-  decode_split::sweep<D>(q, kp, vp, cur_len, out, H, KV, scale, rows);
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int KV, float scale,
+                    decode_split::Paged rows) {
+  decode_split::sweep<D>(q, kp, vp, cur_len, out, lse, H, KV, scale, rows);  // lse: null (K4's alone)
 }
 
 template <int D>
@@ -82,8 +83,8 @@ cudaError_t launch_decode(const void* q, const void* kp, const void* vp, const v
                           int KV, cudaStream_t stream) {
   static std::atomic<uint32_t> smem_set{0u};
   const decode_split::Paged rows{static_cast<const int*>(block_table), n, page, P};
-  return decode_split::launch<D>(paged_decode_kernel<D>, smem_set, q, kp, vp, cur_len, out, B, H, KV, n * page,
-                                 rows, stream);
+  return decode_split::launch<D>(paged_decode_kernel<D>, smem_set, q, kp, vp, cur_len, out, nullptr, B, H, KV,
+                                 n * page, rows, stream);
 }
 
 // ------------------------------------------------------ K2: chunked prefill

@@ -8,9 +8,14 @@ blocks serves each (sequence, kv head), every block a contiguous run of
 heads, any G, and only rows below ``cur_len`` are read, on the device); rank
 0 combines the blocks' partial softmax states through distributed shared
 memory in rank order. The split depends on S only, and nothing is summed
-with atomics, so two launches give equal bits. Its plain PyTorch version is
-:func:`repro_torch.kernels.ref.decode_attn_ref`, re-exported here as
-:data:`plain`. It replaces the Pallas TPU kernel
+with atomics, so two launches give equal bits. With ``return_lse`` rank 0
+also writes each head's logsumexp of its scaled scores from the combine's
+own running max and sum: the weight of the output when a cache whose
+sequence is split over a mesh is attended rank by rank and the partial
+outputs are combined (``models/sharded.py``). Its plain PyTorch version is
+:func:`repro_torch.kernels.ref.decode_attn_ref` (and
+:func:`~repro_torch.kernels.ref.decode_attn_lse_ref`), re-exported here as
+:data:`plain` (and :data:`plain_lse`). It replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention.py: decode_attention``.
 """
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, cost
+from repro_torch.kernels.ref import decode_attn_lse_ref as plain_lse
 from repro_torch.kernels.ref import decode_attn_ref as plain
 
 HEAD_DIMS = (64, 112, 128)
@@ -66,20 +72,19 @@ def _batch_rows(k) -> int | None:
     return k.stride(0) // (kv * hd)
 
 
-@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
-def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return plain(q, k, v, cur_len)
+def _launch(q, k, v, cur_len, lse):
+    """One launch of the kernel on CUDA tensors; ``lse``: a (B, H) fp32
+    output for the heads' logsumexp, or None."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _check(q, k, v, cur_len)
     b, h, hd = q.shape
     out = torch.empty_like(q)
-    cost.record("decode_attention", False, b=b, s=k.shape[1], h=h, kv=k.shape[2], hd=hd)
+    cost.record("decode_attention", False, b=b, s=k.shape[1], h=h, kv=k.shape[2], hd=hd, with_lse=lse is not None)
     lib = build.load()
     err = lib.repro_decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_len.data_ptr(), out.data_ptr(),
-        b, k.shape[1], _batch_rows(k), h, k.shape[2], hd,
+        None if lse is None else lse.data_ptr(), b, k.shape[1], _batch_rows(k), h, k.shape[2], hd,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "decode_attention launch")
@@ -87,12 +92,37 @@ def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor
     return out
 
 
-@_op.register_fake
-def _(q, k, v, cur_len):
+def _fake(q, k, lse: bool):
     if q.is_meta:  # the card's branch of a shape-only run
         b, h, hd = q.shape
-        cost.record("decode_attention", True, b=b, s=k.shape[1], h=h, kv=k.shape[2], hd=hd)
+        cost.record("decode_attention", True, b=b, s=k.shape[1], h=h, kv=k.shape[2], hd=hd, with_lse=lse)
     return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return plain(q, k, v, cur_len)
+    return _launch(q, k, v, cur_len, None)
+
+
+@_op.register_fake
+def _(q, k, v, cur_len):
+    return _fake(q, k, False)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_lse", mutates_args=())
+def _op_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cur_len: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return plain_lse(q, k, v, cur_len)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, cur_len, lse), lse
+
+
+@_op_lse.register_fake
+def _(q, k, v, cur_len):
+    return _fake(q, k, True), q.new_empty(q.shape[:2], dtype=torch.float32)
 
 
 @_op.register_vmap
@@ -109,13 +139,15 @@ def _(info, in_dims, q, k, v, cur_len):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     cur_len: torch.Tensor) -> torch.Tensor:
-    """q: (B, H, hd); k, v: (B, S, KV, hd); cur_len: (B,) int32 -> (B, H, hd).
+                     cur_len: torch.Tensor, return_lse: bool = False):
+    """q: (B, H, hd); k, v: (B, S, KV, hd); cur_len: (B,) int32 -> (B, H, hd),
+    and with ``return_lse`` each head's logsumexp of its scaled scores
+    (B, H) fp32 (-inf where cur_len == 0).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version; a meta tensor returns an empty output of the right shape
     and reports the call to an active cost analysis. Under
-    ``torch.func.vmap`` the lanes fold into B."""
+    ``torch.func.vmap`` the lanes fold into B (without ``return_lse``)."""
     if q.device.type == "cuda":
         build.refuse_grad("decode_attention", q, k, v)
-    return _op(q, k, v, cur_len)
+    return _op_lse(q, k, v, cur_len) if return_lse else _op(q, k, v, cur_len)

@@ -25,10 +25,11 @@ def attention(q, k, v, *, causal: bool = True):
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
-def decode_attention(q, k, v, cur_len):
-    """q: (B,H,hd); k, v: (B,S,KV,hd); cur_len: (B,) -> (B,H,hd)."""
+def decode_attention(q, k, v, cur_len, return_lse: bool = False):
+    """q: (B,H,hd); k, v: (B,S,KV,hd); cur_len: (B,) -> (B,H,hd) (and with
+    ``return_lse`` the heads' logsumexp (B,H) fp32)."""
     TRACER.note_kernel_call("decode_attention", q)
-    return _decode.decode_attention(q, k, v, cur_len)
+    return _decode.decode_attention(q, k, v, cur_len, return_lse)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, cur_len):

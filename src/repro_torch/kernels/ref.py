@@ -81,6 +81,19 @@ def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _decode_attn(q, k, v, cur_len)
 
 
+def decode_attn_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cur_len: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attn_ref` and each head's logsumexp of its scaled
+    scores over the valid columns, (B, H) fp32 (-inf where cur_len == 0)."""
+    _called("decode_attn_ref")
+    b, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    scores = torch.einsum("bkgh,bskh->bkgs", q.reshape(b, kv, h // kv, hd).float(), k.float()) * (1.0 / math.sqrt(hd))
+    mask = torch.arange(s, device=q.device)[None, :] < cur_len[:, None].to(q.device)
+    lse = torch.logsumexp(scores.masked_fill(~mask[:, None, None, :], float("-inf")), dim=-1)
+    return _decode_attn(q, k, v, cur_len), lse.reshape(b, h)
+
+
 def _decode_attn(q, k, v, cur_len):
     b, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]

@@ -32,14 +32,17 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import donate
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import hybrid as hy
+from repro_torch.models import sharded
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, embedding_defs, norm_defs, unembed
 from repro_torch.models.params import ParamDef, init_params
+from repro_torch.sharding import spmd
 
 ENCDEC_TGT_CACHE = 4096  # decoder self-cache length for enc-dec decode cells
 # the logical axes of an SSM layer's cache leaves (the reference's model.py)
@@ -73,23 +76,33 @@ class Model:
 # ------------------------------------------------------------------ loss
 
 
-def _ce_chunk(emb_params, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _ce_chunk(emb_params, h: torch.Tensor, y: torch.Tensor, specs=spmd.NO_SPEC,
+              rank: spmd.Rank = spmd.SINGLE) -> torch.Tensor:
     """Summed cross-entropy of one chunk: fp32 logits (B, c, V), their
-    logsumexp less the target's logit."""
-    logits = unembed(emb_params, h)
+    logsumexp less the target's logit (over the rank's vocab slice on a
+    mesh that splits it)."""
+    logits, split = sharded.logits_local(rank.ctx, emb_params, specs, h, rank.act.batch)
+    if split:
+        return sharded.split_vocab_ce(rank.ctx, logits, y)
     lz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, y.long()[..., None])[..., 0]
     return torch.sum(lz - ll)
 
 
 def chunked_ce(emb_params, hidden: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig,
-               chunk: int = CE_CHUNK) -> torch.Tensor:
+               chunk: int = CE_CHUNK, specs=spmd.NO_SPEC, rank: spmd.Rank = spmd.SINGLE) -> torch.Tensor:
     """Mean cross-entropy over sequence chunks: a (B, chunk, V) logits
     buffer replaces the (B, T, V) one, the largest buffer of a train step
     otherwise. Chunks are summed in order, as the reference's scan sums
     them; under autograd with ``cfg.remat`` each chunk's logits are
-    recomputed in the backward."""
-    b, t, _ = hidden.shape
+    recomputed in the backward. On a mesh (``rank``), the rank's
+    (B_l, T_l, d) ``hidden``: its sequence is gathered and each chunk's
+    logits taken over the rank's vocab slice, and the mean is over the
+    whole batch."""
+    ctx, act = rank.ctx, rank.act
+    b, t = rank.stream_shape(hidden)[:2]
+    hidden = sharded.enter(ctx, hidden, act, sharded.vocab_split(emb_params, specs))
+    targets = ctx.all_gather(targets, 1, act.seq)
     c = min(chunk, t)
     if t % c:
         c = t
@@ -97,11 +110,12 @@ def chunked_ce(emb_params, hidden: torch.Tensor, targets: torch.Tensor, cfg: Mod
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for h, y in zip(hidden.split(c, dim=1), targets.split(c, dim=1)):
         if remat:
-            part = checkpoint(_ce_chunk, emb_params, h, y, use_reentrant=False, preserve_rng_state=False)
+            part = checkpoint(_ce_chunk, emb_params, h, y, specs, rank, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            part = _ce_chunk(emb_params, h, y)
+            part = _ce_chunk(emb_params, h, y, specs, rank)
         tot = tot + part
-    return tot / (b * t)
+    return ctx.reduce(tot, act.batch) / (b * t)
 
 
 def build_model(cfg: ModelConfig, rules=None) -> Model:
@@ -124,31 +138,59 @@ def build_model(cfg: ModelConfig, rules=None) -> Model:
     else:
         defs["blocks"] = tfm.stack_block_defs(cfg, kind, L)
 
+    def on_rank(trees: tuple, batch_at: int, name: str, b: int, t: int):
+        """(the trees' tensors, their specs, the ``spmd.Rank``) this rank
+        runs the program with: each ``DTensor``'s shard on a mesh, the trees
+        as given on one device."""
+        if rules is None:
+            return trees, (spmd.NO_SPEC,) * len(trees), spmd.SINGLE
+        return sharded.on_rank(rules, trees, batch_at, name, b, t, cfg.d_model)
+
+    def embed(params, batch, specs, rank):
+        return sharded.embed(rank.ctx, params["embed"], specs["embed"], batch["tokens"], rank.act)
+
+    def norm_f(params, specs, h, rank):
+        return apply_norm(rank.ctx.params(params["ln_f"], specs["ln_f"], rank.act.axes), h, cfg)
+
+    def logits_of(params, specs, h, rank):
+        """(B, V) fp32 logits of the (B, 1, d) ``h`` (the rank's (B_l, V_l) on a mesh)."""
+        return sharded.logits_local(rank.ctx, params["embed"], specs["embed"], h, rank.act.batch)[0][:, 0]
+
+    def logits_out(logits, specs, rank):
+        if rules is None:
+            return logits
+        return sharded.logits_out(logits, specs["embed"], rank, cfg.vocab_size)
+
     def loss_fn(params, batch):
         """(loss, metrics): the mean next-token cross-entropy of ``batch``
         (``tokens`` or ``embeds``, or the enc-dec's ``src_embeds`` and
         ``tgt_tokens``, and ``targets``) plus ``router_aux_weight`` times
         the MoE aux loss; ``metrics`` holds ``ce``, ``loss`` and the MoE
         metrics summed over the layers (``moe_aux``, ``moe_dropped``; zeros
-        without MoE layers), as the reference's."""
+        without MoE layers), as the reference's. On a mesh the loss and the
+        metrics are the same plain 0-d tensors on every rank."""
+        specs, rank = spmd.NO_SPEC, spmd.SINGLE
         if fam == "audio":
             enc = ed.encode(params["encdec"], batch["src_embeds"], cfg)
             tgt = embed_tokens(params["embed"], batch["tgt_tokens"])
             h = ed.decode_train(params["encdec"], tgt, enc, cfg)
             metrics = None
         else:
+            b, t = batch["targets"].shape
+            (params, batch), (specs, _), rank = on_rank((params, batch), 1, "targets", b, t)
             if "embeds" in batch:  # vlm: stub frontend embeddings, in the weights' dtype
                 x = batch["embeds"].to(params["embed"]["table"].dtype)
             else:
-                x = embed_tokens(params["embed"], batch["tokens"])
-            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+                x = embed(params, batch, specs, rank)
+            positions = torch.arange(t, device=x.device)[None, :]
             if fam == "hybrid":
                 h, _ = hy.apply_hybrid_full(params["hybrid"], x, cfg, positions)
                 metrics = None
             else:
-                h, _, metrics = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True)
-        h = apply_norm(params["ln_f"], h, cfg)
-        ce = chunked_ce(params["embed"], h, batch["targets"], cfg)
+                h, _, metrics = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True,
+                                                     specs=specs["blocks"], rank=rank)
+        h = norm_f(params, specs, h, rank)
+        ce = chunked_ce(params["embed"], h, batch["targets"], cfg, specs=specs["embed"], rank=rank)
         if metrics is None:  # no MoE layer: the reference's zeros
             metrics = tfm.zero_metrics(h)
         loss = ce + cfg.router_aux_weight * metrics["moe_aux"]
@@ -170,21 +212,33 @@ def build_model(cfg: ModelConfig, rules=None) -> Model:
             h, new_self = ed.decoder_step(params["encdec"], x, self_cache, cross, cfg, cur, src_len)
             h = apply_norm(params["ln_f"], h, cfg)
             return unembed(params["embed"], h)[:, 0], {"self": new_self, "cross": cross}
+        name = "embeds" if "embeds" in batch else "tokens"
+        b, t = batch[name].shape[:2]
+        (params, batch), (specs, _), rank = on_rank((params, batch), 1, name, b, t)
         if "embeds" in batch:  # vlm: precomputed frontend embeddings
             x = batch["embeds"]
         else:
-            x = embed_tokens(params["embed"], batch["tokens"])
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+            x = embed(params, batch, specs, rank)
+        positions = torch.arange(t, device=x.device)[None, :]
         if fam == "hybrid":
             h, cache = hy.apply_hybrid_full(params["hybrid"], x, cfg, positions, collect_cache=True)
         else:
             h, cache, _ = tfm.apply_stack_full(params["blocks"], x, cfg, kind, positions, causal=True,
-                                               collect_cache=True)
-        h = apply_norm(params["ln_f"], h[:, -1:], cfg)
-        return unembed(params["embed"], h)[:, 0], cache  # last position only
+                                               collect_cache=True, specs=specs["blocks"], rank=rank)
+        # the last position only: the last 'model' rank's last row when the sequence is split
+        h = rank.ctx.all_gather(h[:, -1:], 1, rank.act.seq)[:, -1:]
+        logits = logits_of(params, specs, norm_f(params, specs, h, rank), rank)
+        if rules is not None:
+            cspec = spmd.Spec(((), *sharded.cache_spec(rules, b, t, cfg)))
+            cshape = (cfg.num_layers, b, t, cfg.num_kv_heads, cfg.head_dim)
+            cache = {k: sharded.wrap(v, cspec, rules.mesh, cshape) for k, v in cache.items()}
+        return logits_out(logits, specs, rank), cache
 
     def decode_fn(params, batch, cache):
-        x = embed_tokens(params["embed"], batch["tokens"])  # (B, 1, d)
+        b = batch["tokens"].shape[0]
+        (params, batch, local_cache), (specs, _, cache_specs), rank = on_rank((params, batch, cache), 1,
+                                                                              "tokens", b, 1)
+        x = embed(params, batch, specs, rank)  # (B, 1, d)
         if fam == "hybrid":
             h, new_cache = hy.apply_hybrid_decode(params["hybrid"], x, cache, cfg, batch["cur_len"])
         elif fam == "audio":
@@ -194,9 +248,13 @@ def build_model(cfg: ModelConfig, rules=None) -> Model:
                                           src_len)
             new_cache = {"self": new_self, "cross": cross}
         else:
-            h, new_cache = tfm.apply_stack_decode(params["blocks"], x, cache, cfg, kind, batch["cur_len"])
-        h = apply_norm(params["ln_f"], h, cfg)
-        return unembed(params["embed"], h)[:, 0], new_cache
+            h, new_cache = tfm.apply_stack_decode(params["blocks"], x, local_cache, cfg, kind, batch["cur_len"],
+                                                  specs=specs["blocks"], cache_specs=cache_specs, rank=rank)
+            if rules is not None:  # donated: the caches were written in place
+                new_cache = cache if donate.donated() else {
+                    k: sharded.wrap(v, cache_specs[k], rules.mesh, cache[k].shape) for k, v in new_cache.items()}
+        logits = logits_of(params, specs, norm_f(params, specs, h, rank), rank)
+        return logits_out(logits, specs, rank), new_cache
 
     def _attn_cache_defs(lead: tuple, lead_logical: tuple, batch: int, seq: int):
         sh = (*lead, batch, seq, cfg.num_kv_heads, cfg.head_dim)
@@ -270,10 +328,6 @@ def build_model(cfg: ModelConfig, rules=None) -> Model:
                 out[name] = (x * 0.02).to(d.dtype)
         return out
 
-    if rules is not None:
-        from repro_torch.models import sharded
-
-        loss_fn, prefill_fn, decode_fn = sharded.programs(cfg, rules, kind, CE_CHUNK)
     return Model(
         cfg=cfg,
         param_defs=defs,

@@ -1,14 +1,14 @@
 """Top-k token-choice Mixture-of-Experts with capacity buffers.
 
 The Switch-Transformer capacity formulation of the JAX package
-(``repro/models/moe.py``), token for token, on one device (one group):
+(``repro/models/moe.py``), token for token:
 
   1. route: fp32 router logits -> softmax -> top-k experts per token and
      their weights, renormalised (floor 1e-9)
-  2. position: each (token, choice)'s slot in its expert's buffer, from a
-     stable sort by expert and a running maximum of the run starts; slots at
-     or past the capacity C are dropped
-  3. dispatch: scatter the token vectors into an (E, C, d) buffer
+  2. position: each (token, choice)'s slot in its (group's) expert's
+     buffer, from a stable sort by expert and a running maximum of the run
+     starts; slots at or past the capacity C are dropped
+  3. dispatch: scatter the token vectors into (G, E, C, d) buffers
   4. compute: the per-expert products gate/up and down through K5
      (``kernels.ops.gmm``), SiLU in fp32
   5. combine: gather each token's k expert outputs, weighted sum
@@ -17,10 +17,12 @@ Nothing here reads a tensor value on the host and no shape depends on the
 data (no ``nonzero``, no boolean indexing), so a fused chain that holds MoE
 layers stays one unit under the platform's shape-only run on meta tensors.
 
-Under a mesh (``rules``) the tokens go in G groups, one per data-parallel
-shard (:func:`num_groups`), and each rank runs its group's dispatch and
-combine locally, as the reference's ``shard_map`` over the data-parallel
-axes does (:func:`apply_moe_local`). With ``moe_impl="dropping_ep"`` the
+One program, :func:`apply_moe_local`, runs on one device (one group, every
+collective the identity) and on a mesh (``rules``), where the tokens go in
+G groups, one per data-parallel shard (:func:`num_groups`), and each rank
+runs its group's dispatch and combine locally, as the reference's
+``shard_map`` over the data-parallel axes does. With
+``moe_impl="dropping_ep"`` and a 'model' axis of more than one rank, the
 expert-parallel schedule: each 'model' rank gathers its group's tokens,
 builds only its E/m experts' buffer (slot E/m drops), runs K5 on it, and the
 partial token outputs are reduced with a reduce-scatter over 'model' (an
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding import spmd
 
 
 def moe_defs(cfg: ModelConfig):
@@ -74,15 +77,20 @@ def num_groups(n_tokens: int, batch: int, cfg: ModelConfig, rules=None) -> int:
     return max(1, g)
 
 
+def choose_experts(router: torch.Tensor, x: torch.Tensor, k: int):
+    """(probs (B, T, E) fp32, the top-k experts (B, T, k) and their weights
+    (B, T, k) fp32, renormalised) of x: (B, T, d)."""
+    probs = torch.softmax(torch.einsum("btd,de->bte", x.float(), router), dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)  # sorted, as jax.lax.top_k
+    return probs, idx, w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+
+
 def route(params, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, T, d) -> (probs (B, T, E) fp32, idx (N*k,) int64, weights
     (N, k) fp32, pos (N*k,) int64): each (token, choice)'s expert and its
     slot in that expert's buffer, in token-major order."""
     k = cfg.num_experts_per_tok
-    logits = torch.einsum("btd,de->bte", x.float(), params["router"])
-    probs = torch.softmax(logits, dim=-1)
-    w, idx = torch.topk(probs, k, dim=-1)  # sorted, as jax.lax.top_k
-    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    probs, idx, w = choose_experts(params["router"], x, k)
     e_flat = idx.reshape(-1)
     return probs, e_flat, w.reshape(-1, k), slot_positions(e_flat)
 
@@ -102,68 +110,33 @@ def slot_positions(e_flat: torch.Tensor) -> torch.Tensor:
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, rules=None):
     """x: (B, T, d) -> (y (B, T, d), metrics {'moe_aux', 'moe_dropped'} as
-    fp32 tensors). Under ``rules`` (a mesh), ``params`` and ``x`` are
-    ``DTensor``s (``x`` laid out as ('batch', 'seq', None)); ``y`` comes back
-    as one in ``x``'s layout and the metrics as every rank's same values."""
-    if rules is not None:
-        from repro_torch.sharding import spmd
-
-        ctx = spmd.ctx_for(rules.mesh)
-        (p_l, x_l), (specs, x_spec) = spmd.split((params, x))
-        y, metrics = apply_moe_local(p_l, specs, x_l, tuple(x.shape), cfg, rules, ctx, spmd.Act.of(x_spec))
-        return spmd.as_dtensor(y, rules.mesh, x.placements, x.shape), metrics
-    b, t, d = x.shape
-    n = b * t
-    k, e = cfg.num_experts_per_tok, cfg.num_experts
-    cap = capacity(n, cfg)
-
-    probs, e_flat, w, pos = route(params, x, cfg)
-    kept = pos < cap
-    # row of the flat (E*C + 1, d) buffer: a kept choice's slot; a dropped
-    # one writes the spare last row, which is cut off (the reference's
-    # scatter with mode="drop" and gather with mode="fill")
-    slot = e_flat * cap + torch.where(kept, pos, 0)
-    # out-of-place scatters into new zero buffers, so that under
-    # torch.func.vmap the buffers take each lane's mapped axis
-    buf = x.new_zeros(e * cap + 1, d).index_put(
-        (torch.where(kept, slot, e * cap),), x.reshape(n, d).repeat_interleave(k, dim=0))
-    xe = buf[: e * cap].view(e, cap, d)
-    # each expert's kept rows, min(count, cap), on the device: K5 reads only
-    # the experts with rows > 0 (at most min(E, N k) of them) and only their
-    # kept rows; h = silu(gate) * up is 0 on every skipped row, so the same
-    # rows hold for wo
-    rows = torch.zeros(e, dtype=torch.int32, device=x.device).index_add(0, e_flat, kept.int())
-    active = min(e, n * k)
-
-    gate = kops.gmm(xe, params["wi_gate"], rows, active)
-    up = kops.gmm(xe, params["wi_up"], rows, active)
-    h = F.silu(gate.float()).to(xe.dtype) * up
-    ye = kops.gmm(h, params["wo"], rows, active)  # wo: (E, f, d)
-
-    yk = ye.reshape(e * cap, d).index_select(0, slot)
-    yk = torch.where(kept[:, None], yk, torch.zeros((), dtype=yk.dtype, device=yk.device))
-    y = (yk.reshape(n, k, d) * w[:, :, None].to(ye.dtype)).sum(dim=1).reshape(b, t, d)
-
-    # Switch load-balance aux: E * sum_e f_e * P_e
-    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add(
-        0, e_flat, torch.ones(n * k, dtype=torch.float32, device=x.device))
-    aux = e * torch.sum(counts / n / k * probs.mean(dim=(0, 1)))
-    dropped = 1.0 - kept.float().mean()
-    return y, {"moe_aux": aux, "moe_dropped": dropped}
+    fp32 tensors): :func:`apply_moe_local` on one device. Under ``rules``
+    (a mesh), ``params`` and ``x`` are ``DTensor``s (``x`` laid out as
+    ('batch', 'seq', None)); ``y`` comes back as one in ``x``'s layout and
+    the metrics as every rank's same values."""
+    if rules is None:
+        return apply_moe_local(params, spmd.NO_SPEC, x, cfg, spmd.SINGLE)
+    (p_l, x_l), (specs, x_spec) = spmd.split((params, x))
+    rank = spmd.Rank(spmd.ctx_for(rules.mesh), rules, spmd.Act.of(x_spec), tuple(x.shape))
+    y, metrics = apply_moe_local(p_l, specs, x_l, cfg, rank)
+    return spmd.as_dtensor(y, rules.mesh, x.placements, x.shape), metrics
 
 
-def apply_moe_local(params, specs, x: torch.Tensor, shape: tuple, cfg: ModelConfig, rules, ctx, act):
-    """This rank's program of the MoE layer under a mesh. ``params``: local
-    shards with per-dim ``specs`` (``spmd.spec_of``); ``x``: the local
-    (B_l, T_l, d) block of the global ``shape`` (B, T, d), split as ``act``.
-    Returns (y in ``x``'s layout, metrics the same on every rank)."""
-    b, t, d = shape
+def apply_moe_local(params, specs, x: torch.Tensor, cfg: ModelConfig, rank: spmd.Rank):
+    """This rank's program of the MoE layer. ``params``: its shards with
+    per-dim ``specs`` (``spmd.spec_of``; ``spmd.NO_SPEC`` on one device);
+    ``x``: the rank's (B_l, T_l, d) block of the stream ``rank.shape``,
+    split as ``rank.act``. Returns (y in ``x``'s layout, metrics the same on
+    every rank). On one device (``spmd.SINGLE``) every collective is the
+    identity and the program is the one group's dispatch, K5 and combine."""
+    ctx, act, rules = rank.ctx, rank.act, rank.rules
+    b, t, d = rank.stream_shape(x)
     n = b * t
     k, e = cfg.num_experts_per_tok, cfg.num_experts
     g = num_groups(n, b, cfg, rules)
     nl = n // g
     cap = capacity(nl, cfg)
-    dp = rules.dp_axes()
+    dp = rules.dp_axes() if rules is not None else ()
     msize = ctx.sizes.get("model", 1)
     local_groups = g == ctx.count(dp) and act.batch == dp  # one group per dp rank, the rank's rows
     experts_split = "model" in specs["wi_gate"][0]
@@ -171,10 +144,7 @@ def apply_moe_local(params, specs, x: torch.Tensor, shape: tuple, cfg: ModelConf
 
     # route on this rank's tokens (the reference routes the (B, T, d) stream
     # before grouping)
-    router = ctx.param(params["router"], specs["router"], act.axes)
-    probs = torch.softmax(torch.einsum("btd,de->bte", x.float(), router), dim=-1)
-    w, idx = torch.topk(probs, k, dim=-1)
-    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    probs, idx, w = choose_experts(ctx.param(params["router"], specs["router"], act.axes), x, k)
 
     # the tokens of this rank's group(s): its rows over the whole sequence,
     # or every token when the groups do not follow the dp shards. Under EP
@@ -193,18 +163,20 @@ def apply_moe_local(params, specs, x: torch.Tensor, shape: tuple, cfg: ModelConf
     n_loc = bg * tg  # tokens this rank dispatches: one group's, or all g groups'
     groups = n_loc // nl
     e_flat = ig.reshape(-1)
-    gi = torch.arange(n_loc * k, device=x.device) // (nl * k)  # each choice's group
-    pos = slot_positions(gi * e + e_flat)  # a slot per (group, expert) run
+    # a slot per (group, expert) run; one group: the expert's own run
+    ge = e_flat if groups == 1 else torch.arange(n_loc * k, device=x.device) // (nl * k) * e + e_flat
+    pos = slot_positions(ge)
     kept = pos < cap
+    # out-of-place scatters into new zero buffers, so that under
+    # torch.func.vmap the buffers take each lane's mapped axis
     xr = xg.reshape(n_loc, d).repeat_interleave(k, dim=0)
     # the experts see different tokens on each dp rank only when each holds its own group
     wi_gate, wi_up, wo = (ctx.param(params[n_], specs[n_], act.batch if local_groups else ())
                           for n_ in ("wi_gate", "wi_up", "wo"))
     e_loc = wi_gate.shape[0]  # this rank's experts: E / m when split over 'model'
-    e0 = ctx.index(("model",)) * e_loc if experts_split else 0
 
     if ep:
-        rel = e_flat - e0
+        rel = e_flat - ctx.index(("model",)) * e_loc
         ok = kept & (rel >= 0) & (rel < e_loc)
         slot = torch.where(ok, rel * cap + pos, e_loc * cap)  # the rank's (E/m, C) buffer, spare row last
         buf = xg.new_zeros(e_loc * cap + 1, d).index_put((slot,), xr)
@@ -217,12 +189,19 @@ def apply_moe_local(params, specs, x: torch.Tensor, shape: tuple, cfg: ModelConf
         y = (yk.reshape(n_loc, k, d) * wg.reshape(n_loc, k, 1).to(ye.dtype)).sum(dim=1).reshape(bg, tg, d)
         y = ctx.scatter(y, 1, ("model",)) if act.seq else ctx.reduce(y, ("model",))
     else:
-        slot = (gi * e + e_flat) * cap + torch.where(kept, pos, 0)
+        # row of the flat (G*E*C + 1, d) buffer: a kept choice's slot; a
+        # dropped one writes the spare last row, which is cut off (the
+        # reference's scatter with mode="drop" and gather with mode="fill")
+        slot = ge * cap + torch.where(kept, pos, 0)
         spare = groups * e * cap
         buf = xg.new_zeros(spare + 1, d).index_put((torch.where(kept, slot, spare),), xr)
         xe = buf[:spare].view(groups, e, cap, d)
+        # each expert's kept rows, min(count, cap), on the device: K5 reads
+        # only the experts with rows > 0 (at most min(E, N k) of them) and
+        # only their kept rows; h = silu(gate) * up is 0 on every skipped
+        # row, so the same rows hold for wo
         rows = torch.zeros(groups * e, dtype=torch.int32, device=x.device).index_add(
-            0, gi * e + e_flat, kept.int()).view(groups, e)
+            0, ge, kept.int()).view(groups, e)
         if experts_split:  # each 'model' rank its experts' slice; the outputs gathered back
             xe = ctx.chunk(xe, 1, ("model",))
             rows = ctx.take(rows, 1, ("model",))
@@ -256,4 +235,4 @@ def _experts(xe: torch.Tensor, wi_gate, wi_up, wo, rows: torch.Tensor, active: i
         up = kops.gmm(xe_g, wi_up, rows_g, active)
         h = F.silu(gate.float()).to(xe_g.dtype) * up
         out.append(kops.gmm(h, wo, rows_g, active))
-    return torch.stack(out)
+    return out[0][None] if len(out) == 1 else torch.stack(out)

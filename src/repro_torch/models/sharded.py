@@ -1,64 +1,57 @@
-"""The block families' programs on a mesh, as one rank runs them.
+"""The mesh's branches of the block families' programs.
 
-``build_model(cfg, rules)`` for the dense, vlm and MoE families runs these
-on each rank's local shards (``sharding/spmd.py``): the parameters with the
-strict placements of ``train_rules`` / ``infer_rules`` / ``decode_rules``
-(FSDP over the data axes, gathered at each use; TP over 'model'), the
-residual stream (B, T, d) split as ('batch', 'seq', None) — batch over the
-data axes, sequence over 'model' where the rules split it (Megatron-style
-sequence parallelism). At each of the reference's ``shard_as`` sites the
-data moves with one explicit collective:
+The dense, vlm and MoE programs (``models/transformer.py``,
+``models/model.py``, ``models/moe.py``) are one program each, run by every
+rank on its local shards (``sharding/spmd.py``) and on one device with
+``spmd.SINGLE``, where every collective below is the identity. On a mesh
+the parameters carry the strict placements of ``train_rules`` /
+``infer_rules`` / ``decode_rules`` (FSDP over the data axes, gathered at
+each use by ``Ctx.param``; TP over 'model'), and the residual stream
+(B, T, d) is split as ('batch', 'seq', None): batch over the data axes,
+sequence over 'model' where the rules split it (Megatron-style sequence
+parallelism). At each of the reference's ``shard_as`` sites the data moves
+with one explicit collective:
 
   * into an attention or MLP region whose weights are split over 'model'
     (heads, ff): an all-gather of the sequence (its backward a
     reduce-scatter); out of it, a reduce-scatter of the partial sums (an
-    all-reduce when the sequence is not split). A region whose weights are
-    not split (heads or ff that 'model' does not divide) runs whole on every
-    rank;
+    all-reduce when the sequence is not split): :func:`enter`,
+    :func:`leave`. A region whose weights are not split (heads or ff that
+    'model' does not divide) runs whole on every rank;
   * GQA under TP: K/V whose heads 'model' does not divide are computed
     whole, repeated to the query heads and cut to the rank's heads (the
-    reference's repeat, ``transformer.py:90-100``); a single K/V head (MQA)
-    is shared by the rank's query heads as it is; their weights' gradients
-    sum over 'model';
+    reference's repeat, ``transformer.py:90-100``): :func:`kv_for_heads`;
   * the vocab split over 'model': the embedding looks up the rank's rows
     (the others give zeros) and reduces; the loss takes the logsumexp and
-    the target's logit over the rank's vocab slice, then reduces;
+    the target's logit over the rank's vocab slice, then reduces:
+    :func:`embed`, :func:`split_vocab_ce`;
   * decode with the KV cache's sequence split (flash-decoding): each rank
-    attends over its rows and the partial softmaxes are combined by an
-    all-reduce of their maxima, weighted outputs and sums.
+    writes the new row if it holds that position, attends over its rows,
+    and the partial softmaxes are combined by an all-reduce of their
+    maxima, weighted outputs and sums: :func:`write_rows`,
+    :func:`split_decode_attention`.
 
 The kernels run on local shards: K3 and K4 see the rank's heads (and K4 its
-cache rows), K5 the rank's experts (``moe.apply_moe_local``). Their device
-rule is unchanged: a CUDA tensor launches, a CPU tensor runs the plain
-version, a meta tensor gives an empty output and a cost record.
+cache rows), K5 the rank's experts. Their device rule is unchanged: a CUDA
+tensor launches, a CPU tensor runs the plain version, a meta tensor gives
+an empty output and a cost record.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from repro_torch import donate, tree
+from repro_torch import donate
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models import moe as moe_mod
-from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import update_kv_cache
-from repro_torch.models.layers import apply_mlp, apply_norm, apply_rope, rms_norm_1d
+from repro_torch.models.layers import unembed
 from repro_torch.sharding import spmd
-from repro_torch.sharding.specs import shard_as_bf16_grad
 
 MODEL = ("model",)
 
 
-def _split(spec: spmd.Spec, dim: int) -> bool:
+def split_over_model(spec, dim: int) -> bool:
     return "model" in spec[dim]
-
-
-def norm(ctx, p, s, x, cfg: ModelConfig, axes):
-    return apply_norm({k: ctx.param(p[k], s[k], axes) for k in p}, x, cfg)
 
 
 def enter(ctx, h, act: spmd.Act, split: bool):
@@ -77,110 +70,53 @@ def leave(ctx, o, act: spmd.Act, split: bool):
     return ctx.chunk(o, 1, act.seq) if act.seq else o
 
 
-def _kv_for_heads(ctx, k, v, cfg: ModelConfig, heads_split: bool, kv_split: bool):
+def attn_weights(ctx, ap, asp, batch_axes) -> dict:
+    """The attention weights ready for this rank's use. Where 'model'
+    splits the query heads, every K/V weight's use is a partial sum over
+    'model' (the rank's heads' share), so a K/V weight (and a QK-norm
+    scale) that 'model' does not split sums its gradient over it."""
+    if not ctx.names:
+        return ap
+    kv_axes = batch_axes + (MODEL if split_over_model(asp["wq"], 1) else ())
+    return {k: ctx.param(ap[k], asp[k], batch_axes if k in ("wq", "wo") else kv_axes) for k in ap}
+
+
+def kv_for_heads(ctx, k, v, cfg: ModelConfig, asp):
     """K/V for the rank's query heads. K/V whose heads 'model' does not
     split are computed whole on every rank, but each rank's heads use only
     their share of them: the rank's slice is a plain narrow (zero gradient
-    elsewhere), so the gradients stay partial sums like the queries'."""
-    if not heads_split or kv_split or k.shape[2] == 1:  # MQA: one head for every query head
+    elsewhere), so the gradients stay partial sums like the queries'. A
+    single K/V head (MQA) serves every query head as it is."""
+    if (not ctx.live(MODEL) or not split_over_model(asp["wq"], 1) or split_over_model(asp["wk"], 1)
+            or k.shape[2] == 1):
         return k, v
     rep = cfg.num_heads // cfg.num_kv_heads
     return (ctx.take(k.repeat_interleave(rep, dim=2), 2, MODEL),
             ctx.take(v.repeat_interleave(rep, dim=2), 2, MODEL))
 
 
-def qkv(ctx, ap, asp, h, cfg: ModelConfig, positions, batch_axes):
-    """q (rank's heads), k, v (rank's heads when split) of ``h`` (the whole
-    sequence), QK-normed and rotated. Where 'model' splits the query heads,
-    every K/V weight's use is a partial sum over 'model' (the rank's heads'
-    share), so a K/V weight that 'model' does not split sums its gradient
-    over it."""
-    heads_split = _split(asp["wq"], 1)
-    kv_axes = batch_axes + (MODEL if heads_split else ())
-    q = torch.einsum("btd,dhk->bthk", h, ctx.param(ap["wq"], asp["wq"], batch_axes))
-    k = torch.einsum("btd,dhk->bthk", h, ctx.param(ap["wk"], asp["wk"], kv_axes))
-    v = torch.einsum("btd,dhk->bthk", h, ctx.param(ap["wv"], asp["wv"], kv_axes))
-    if "q_norm" in ap:
-        q = rms_norm_1d(ctx.param(ap["q_norm"], asp["q_norm"], kv_axes), q)
-        k = rms_norm_1d(ctx.param(ap["k_norm"], asp["k_norm"], kv_axes), k)
-    if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
-def _cache_spec(rules, b: int, s: int, cfg: ModelConfig) -> spmd.Spec:
+def cache_spec(rules, b: int, s: int, cfg: ModelConfig) -> spmd.Spec:
+    """The spec of one layer's KV cache at (B, S) (unsharded without
+    rules)."""
+    if rules is None:
+        return spmd.NO_SPEC
     return spmd.spec_from_rules((b, s, cfg.num_kv_heads, cfg.head_dim),
                                 ("batch", "cache_seq", "cache_kv_heads", "head_dim"), rules, strict=True)
-
-
-def block_full(ctx, p, s, x, cfg: ModelConfig, kind: str, rules, act: spmd.Act, shape: tuple,
-               positions, causal: bool = True, collect_cache: bool = False):
-    """One block on the rank's (B_l, T_l, d) block of the (B, T, d) stream
-    ``shape``. Returns (x, cache entry in the cache's layout or None, MoE
-    metrics or None)."""
-    ap, asp = p["attn"], s["attn"]
-    heads_split = _split(asp["wq"], 1)
-    h = enter(ctx, norm(ctx, p["ln1"], s["ln1"], x, cfg, act.axes), act, heads_split)
-    q, k, v = qkv(ctx, ap, asp, h, cfg, positions, act.batch)
-    k_att, v_att = _kv_for_heads(ctx, k, v, cfg, heads_split, _split(asp["wk"], 1))
-    out = kops.attention(q.contiguous(), k_att.contiguous(), v_att.contiguous(), causal=causal)
-    o = torch.einsum("bthk,hkd->btd", out, ctx.param(ap["wo"], asp["wo"], act.batch))
-    x = shard_as_bf16_grad(x + leave(ctx, o, act, heads_split), ("batch", "seq", None), rules)
-    entry = None
-    if collect_cache:
-        cs = _cache_spec(rules, shape[0], shape[1], cfg)
-        dt = getattr(torch, cfg.kv_cache_dtype)
-        # k/v hold the whole sequence and (when 'model' splits the cache's
-        # heads) the rank's heads: cut the sequence where the cache splits it
-        entry = tuple(ctx.take(t, 1, cs[1]).to(dt) for t in (k, v))
-    h = norm(ctx, p["ln2"], s["ln2"], x, cfg, act.axes)
-    if kind == "moe":
-        y, metrics = moe_mod.apply_moe_local(p["moe"], s["moe"], h, shape, cfg, rules, ctx, act)
-    else:
-        y, metrics = mlp(ctx, p["mlp"], s["mlp"], h, cfg, act), None
-    return shard_as_bf16_grad(x + y, ("batch", "seq", None), rules), entry, metrics
-
-
-def mlp(ctx, p, s, h, cfg: ModelConfig, act: spmd.Act):
-    split = _split(s["wo"], 0)
-    w = {k: ctx.param(p[k], s[k], act.batch) for k in p}
-    return leave(ctx, apply_mlp(w, enter(ctx, h, act, split), cfg), act, split)
-
-
-def stack_full(ctx, stacked, specs, x, cfg: ModelConfig, kind: str, rules, act: spmd.Act, shape: tuple,
-               positions, causal: bool = True, collect_cache: bool = False):
-    """The stack on the rank's stream (:func:`transformer.apply_stack_full`
-    on a mesh): (x, the stacked cache entries or None, the MoE metrics
-    summed or None)."""
-    layer_specs = tree.map(lambda sp: sp.tail(), specs)
-    n = tfm._num_layers(stacked)
-    remat = tfm.remat_active(cfg, x, stacked, collect_cache)
-    cache, metrics = None, None
-    for i, lp in enumerate(tfm._layers(stacked)):
-        args = (ctx, lp, layer_specs, x, cfg, kind, rules, act, shape, positions, causal, collect_cache)
-        if remat:
-            x, entry, m = checkpoint(block_full, *args, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, entry, m = block_full(*args)
-        metrics = tfm.add_metrics(metrics, m)
-        if collect_cache:
-            cache = tfm.stack_into(cache, i, n, entry)
-    return x, cache, metrics
 
 
 # ------------------------------------------------------------------ embed / loss
 
 
-def _table(ep, es):
-    """(the unembedding weight as (V, d) or (d, V), its vocab dim)."""
-    return (ep["head"], es["head"], 1) if "head" in ep else (ep["table"], es["table"], 0)
+def _vocab(ep, es):
+    """(the unembedding's key, whether 'model' splits its vocab)."""
+    key = "head" if "head" in ep else "table"
+    return key, split_over_model(es[key], 1 if key == "head" else 0)
 
 
 def embed(ctx, ep, es, tokens, act: spmd.Act):
     """The rank's (B_l, T_l, d) block of the token embeddings."""
     spec = es["table"]
-    if not _split(spec, 0):
+    if not split_over_model(spec, 0):
         return F.embedding(tokens, ctx.param(ep["table"], spec, act.axes))
     table = ctx.param(ep["table"], spec, act.batch)  # the rank's vocab rows
     toks = ctx.all_gather(tokens, 1, act.seq).long() - ctx.index(MODEL) * table.shape[0]
@@ -191,19 +127,20 @@ def embed(ctx, ep, es, tokens, act: spmd.Act):
 
 
 def logits_local(ctx, ep, es, h, batch_axes):
-    """fp32 logits of ``h`` over the rank's vocab slice, and whether the
-    vocab is split."""
-    w, spec, vdim = _table(ep, es)
-    w = ctx.param(w, spec, batch_axes)
-    return (h @ (w if vdim == 1 else w.t())).float(), _split(spec, vdim)
+    """(fp32 logits of ``h`` over the rank's vocab slice, whether the vocab
+    is split)."""
+    key, split = _vocab(ep, es)
+    return unembed({key: ctx.param(ep[key], es[key], batch_axes)}, h), split
 
 
-def _ce_chunk(ctx, ep, es, h, y, batch_axes):
-    logits, split = logits_local(ctx, ep, es, h, batch_axes)
-    if not split:
-        lz = torch.logsumexp(logits, dim=-1)
-        return torch.sum(lz - torch.gather(logits, -1, y.long()[..., None])[..., 0])
-    # the vocab over 'model': logsumexp and the target's logit from each slice
+def vocab_split(ep, es) -> bool:
+    return _vocab(ep, es)[1]
+
+
+def split_vocab_ce(ctx, logits, y):
+    """Summed cross-entropy of logits over the rank's vocab slice: the
+    logsumexp and the target's logit from each slice, reduced over
+    'model'."""
     gmax = ctx.all_reduce(logits.detach().amax(dim=-1), MODEL, "max")
     lz = torch.log(ctx.reduce(torch.exp(logits - gmax[..., None]).sum(dim=-1), MODEL)) + gmax
     rel = y.long() - ctx.index(MODEL) * logits.shape[-1]
@@ -213,213 +150,64 @@ def _ce_chunk(ctx, ep, es, h, y, batch_axes):
     return torch.sum(lz - ll)
 
 
-def chunked_ce(ctx, ep, es, hidden, targets, cfg: ModelConfig, act: spmd.Act, shape: tuple, chunk: int):
-    """Mean cross-entropy of the rank's (B_l, T_l, d) ``hidden`` over the
-    whole batch (``model.chunked_ce`` on a mesh): the sequence is gathered
-    and cut into the reference's chunks, each chunk's logits over the
-    rank's vocab slice."""
-    b, t = shape[:2]
-    split = _split(*_table(ep, es)[1:])
-    hf = enter(ctx, hidden, act, split)
-    yf = ctx.all_gather(targets, 1, act.seq)
-    c = min(chunk, t)
-    if t % c:
-        c = t
-    remat = cfg.remat and torch.is_grad_enabled() and hf.requires_grad
-    tot = torch.zeros((), dtype=torch.float32, device=hf.device)
-    for h, y in zip(hf.split(c, dim=1), yf.split(c, dim=1)):
-        args = (ctx, ep, es, h, y, act.batch)
-        part = checkpoint(_ce_chunk, *args, use_reentrant=False, preserve_rng_state=False) if remat \
-            else _ce_chunk(*args)
-        tot = tot + part
-    return ctx.reduce(tot, act.batch) / (b * t)
-
-
-def last_logits(ctx, ep, es, h, act: spmd.Act):
-    """The last position's logits (B_l, V_l) of the rank's stream block: the
-    last position is the last 'model' rank's last row."""
-    last = ctx.all_gather(h[:, -1:], 1, act.seq)[:, -1:]
-    return logits_local(ctx, ep, es, last, act.batch)[0][:, 0]
-
-
 # ------------------------------------------------------------------ decode
 
 
-def _write_rows(cache, new, pos, own):
-    """Row ``pos[b]`` of each batch row's cache set to ``new[b]`` where
-    ``own[b]`` (this rank holds that position); in place when donated."""
-    b = cache.shape[0]
-    pos = torch.where(own, pos, 0).long()
-    rows = torch.arange(b, device=cache.device)
-    new = torch.where(own[:, None, None], new[:, 0].to(cache.dtype), cache[rows, pos])
-    if donate.donated():
-        return cache.index_put_((rows, pos), new)
-    return cache.index_put((rows, pos), new)
+def write_rows(ctx, k_cache, v_cache, k_new, v_new, cur_len, seq_axes):
+    """Row ``cur_len[b]`` of each batch row's cache rows on this rank set to
+    the new K/V where this rank holds that position (the cache's sequence
+    split over ``seq_axes``); in place when donated."""
+    s_l = k_cache.shape[1]
+    pos = cur_len.long() - ctx.index(seq_axes) * s_l
+    own = (pos >= 0) & (pos < s_l)
+    b = k_cache.shape[0]
+    pos = torch.where(own, pos, 0)
+    rows = torch.arange(b, device=k_cache.device)
+
+    def put(cache, new):
+        new = torch.where(own[:, None, None], new[:, 0].to(cache.dtype), cache[rows, pos])
+        return cache.index_put_((rows, pos), new) if donate.donated() else cache.index_put((rows, pos), new)
+
+    return put(k_cache, k_new), put(v_cache, v_new)
 
 
-def _lse(q, k, n_valid):
-    """Each query head's logsumexp of its scaled scores over the first
-    ``n_valid`` rows of ``k`` (-inf over none): the weight of this rank's
-    partial softmax."""
-    b, h, hd = q.shape
-    kv = k.shape[2]
-    scores = torch.einsum("bkgh,bskh->bkgs", q.reshape(b, kv, h // kv, hd).float(), k.float()) / math.sqrt(hd)
-    mask = torch.arange(k.shape[1], device=q.device)[None, :] < n_valid[:, None]
-    return torch.logsumexp(scores.masked_fill(~mask[:, None, None, :], float("-inf")), dim=-1).reshape(b, h)
-
-
-def decode_attention(ctx, q, k_cache, v_cache, cur_len, seq_axes):
-    """K4 on the rank's cache rows; with the cache's sequence split over
-    ``seq_axes`` the partial softmaxes are combined (flash-decoding)."""
-    if not ctx.live(seq_axes):
-        return kops.decode_attention(q.contiguous(), k_cache.contiguous(), v_cache.contiguous(), cur_len + 1)
+def split_decode_attention(ctx, q, k_cache, v_cache, cur_len, seq_axes):
+    """K4 on the rank's cache rows, the cache's sequence split over
+    ``seq_axes``: the partial softmaxes combined (flash-decoding), each
+    weighted by the logsumexp K4 returns beside its output. q:
+    (B, 1, H, hd) -> (B, 1, H, hd)."""
+    q = q[:, 0].contiguous()
     s_l = k_cache.shape[1]
     n_valid = torch.clamp(cur_len + 1 - ctx.index(seq_axes) * s_l, 0, s_l).to(cur_len.dtype)
-    out = kops.decode_attention(q.contiguous(), k_cache.contiguous(), v_cache.contiguous(), n_valid)
-    lse = _lse(q, k_cache, n_valid)
+    out, lse = kops.decode_attention(q, k_cache.contiguous(), v_cache.contiguous(), n_valid, return_lse=True)
     gmax = ctx.all_reduce(lse, seq_axes, "max")
     wgt = torch.exp(lse - gmax)  # 0 on a rank without a valid row
     num = ctx.all_reduce(torch.where(n_valid[:, None, None] > 0, out.float(), 0.0) * wgt[..., None], seq_axes)
-    return (num / ctx.all_reduce(wgt, seq_axes)[..., None]).to(q.dtype)
+    return (num / ctx.all_reduce(wgt, seq_axes)[..., None]).to(q.dtype)[:, None]
 
 
-def block_decode(ctx, p, s, x, cache, cfg: ModelConfig, kind: str, rules, act: spmd.Act, cspec: spmd.Spec,
-                 shape: tuple, cur_len):
-    """One decode step of a block on the rank's (B_l, 1, d) stream and its
-    cache rows (B_l, S_l, KV_l, hd); ``cspec``: the cache's spec (batch,
-    sequence, heads, head dim). Returns (x, new cache)."""
-    ap, asp = p["attn"], s["attn"]
-    heads_split = _split(asp["wq"], 1)
-    seq_axes = cspec[1]
-    positions = cur_len[:, None]
-    h = enter(ctx, norm(ctx, p["ln1"], s["ln1"], x, cfg, act.axes), act, heads_split)
-    q, k_new, v_new = qkv(ctx, ap, asp, h, cfg, positions, act.batch)
-    if seq_axes:
-        s_l = cache["k"].shape[1]
-        pos = cur_len.long() - ctx.index(seq_axes) * s_l
-        own = (pos >= 0) & (pos < s_l)
-        k_cache, v_cache = _write_rows(cache["k"], k_new, pos, own), _write_rows(cache["v"], v_new, pos, own)
-    else:
-        k_cache, v_cache = update_kv_cache(cache["k"], cache["v"], k_new, v_new, positions)
-    gathered = heads_split and "model" in seq_axes  # every head attends over the rank's rows
-    qh = ctx.all_gather(q[:, 0], 1, MODEL) if gathered else q[:, 0]
-    kc, vc = (k_cache, v_cache) if k_cache.dtype == q.dtype else (k_cache.to(q.dtype), v_cache.to(q.dtype))
-    if heads_split and not gathered and not _split(asp["wk"], 1):
-        kc, vc = _kv_for_heads(ctx, kc, vc, cfg, True, False)
-    out = decode_attention(ctx, qh, kc, vc, cur_len, seq_axes)
-    if gathered:
-        out = ctx.take(out, 1, MODEL)
-    o = torch.einsum("bthk,hkd->btd", out[:, None], ctx.param(ap["wo"], asp["wo"], act.batch))
-    x = x + leave(ctx, o, act, heads_split)
-    h = norm(ctx, p["ln2"], s["ln2"], x, cfg, act.axes)
-    if kind == "moe":
-        y = moe_mod.apply_moe_local(p["moe"], s["moe"], h, shape, cfg, rules, ctx, act)[0]
-    else:
-        y = mlp(ctx, p["mlp"], s["mlp"], h, cfg, act)
-    return x + y, {"k": k_cache, "v": v_cache}
+# ------------------------------------------------------------------ programs' inputs and outputs
 
 
-def stack_decode(ctx, stacked, specs, x, caches, cache_specs, cfg: ModelConfig, kind: str, rules,
-                 act: spmd.Act, shape: tuple, cur_len):
-    """One decode step through the stack (:func:`transformer.apply_stack_decode`
-    on a mesh). Returns (x, new caches); in place when donated."""
-    layer_specs = tree.map(lambda sp: sp.tail(), specs)
-    cspec = cache_specs["k"].tail()
-    n = tfm._num_layers(stacked)
-    donated = donate.donated()
-    stacked_out = caches if donated else None
-    for i in range(n):
-        old = tfm._layer(caches, i)
-        x, new = block_decode(ctx, tfm._layer(stacked, i), layer_specs, x, old, cfg, kind, rules, act, cspec,
-                              shape, cur_len)
-        if donated:
-            tree.map(lambda slot, prev, nw: prev is nw or slot[i].copy_(nw), caches, old, new)
-        else:
-            stacked_out = tfm.stack_into(stacked_out, i, n, new, like=caches)
-    return x, stacked_out
+def on_rank(rules, trees: tuple, batch_specs, name: str, b: int, t: int, d: int):
+    """(the trees' local tensors, their specs, this rank's ``spmd.Rank``) of
+    ``DTensor`` trees on ``rules.mesh``; the batch leaf ``name`` must be
+    laid out as the rules lay out ('batch', 'seq') at (B, T)."""
+    ctx = spmd.ctx_for(rules.mesh)
+    locs, specs = spmd.split(trees)
+    act = spmd.Act.from_rules(rules, b, t)
+    got = specs[batch_specs][name]
+    if tuple(got[:2]) != (act.batch, act.seq):
+        raise ValueError(f"batch leaf {name!r} is laid out {got}, the rules give {act}")
+    return locs, specs, spmd.Rank(ctx, rules, act, (b, t, d))
 
 
-# ------------------------------------------------------------------ programs
-
-
-def _wrap(local, spec: spmd.Spec, mesh, shape):
+def wrap(local, spec, mesh, shape):
+    """This rank's ``local`` as its shard of a ``DTensor`` with ``spec``."""
     return spmd.as_dtensor(local, mesh, spmd.placements_of(spec, mesh), shape)
 
 
-def programs(cfg: ModelConfig, rules, kind: str, ce_chunk: int):
-    """(loss_fn, prefill_fn, decode_fn) of a block-family model on
-    ``rules.mesh``: each takes and returns ``DTensor``s (the parameters and
-    caches with their strict placements, the batch with its logical axes'
-    placements) and runs this rank's program on their local shards. The
-    loss and the metrics are plain 0-d tensors, the same on every rank."""
-    mesh = rules.mesh
-    d = cfg.d_model
-
-    def stream(ctx, pl, ps, bl, act):
-        if "embeds" in bl:  # vlm: stub frontend embeddings, in the weights' dtype
-            return bl["embeds"].to(pl["embed"]["table"].dtype)
-        return embed(ctx, pl["embed"], ps["embed"], bl["tokens"], act)
-
-    def layout(bs, name, b, t):
-        act = spmd.Act.from_rules(rules, b, t)
-        if tuple(bs[name][:2]) != (act.batch, act.seq):
-            raise ValueError(f"batch leaf {name!r} is laid out {bs[name]}, the rules give {act}")
-        return act
-
-    def loss_fn(params, batch):
-        ctx = spmd.ctx_for(mesh)
-        (pl, bl), (ps, bs) = spmd.split((params, batch))
-        b, t = batch["targets"].shape
-        act = layout(bs, "targets", b, t)
-        x = stream(ctx, pl, ps, bl, act)
-        positions = torch.arange(t, device=x.device)[None, :]
-        h, _, metrics = stack_full(ctx, pl["blocks"], ps["blocks"], x, cfg, kind, rules, act, (b, t, d),
-                                   positions, causal=True)
-        h = norm(ctx, pl["ln_f"], ps["ln_f"], h, cfg, act.axes)
-        ce = chunked_ce(ctx, pl["embed"], ps["embed"], h, bl["targets"], cfg, act, (b, t, d), ce_chunk)
-        if metrics is None:
-            metrics = tfm.zero_metrics(h)
-        loss = ce + cfg.router_aux_weight * metrics["moe_aux"]
-        out = dict(metrics)
-        out.update(ce=ce, loss=loss)
-        return loss, out
-
-    def prefill_fn(params, batch):
-        ctx = spmd.ctx_for(mesh)
-        (pl, bl), (ps, bs) = spmd.split((params, batch))
-        name = "embeds" if "embeds" in batch else "tokens"
-        b, t = batch[name].shape[:2]
-        act = layout(bs, name, b, t)
-        x = stream(ctx, pl, ps, bl, act)
-        positions = torch.arange(t, device=x.device)[None, :]
-        h, cache, _ = stack_full(ctx, pl["blocks"], ps["blocks"], x, cfg, kind, rules, act, (b, t, d),
-                                 positions, causal=True, collect_cache=True)
-        logits = last_logits(ctx, pl["embed"], ps["embed"], norm(ctx, pl["ln_f"], ps["ln_f"], h, cfg, act.axes),
-                             act)
-        cs = _cache_spec(rules, b, t, cfg)
-        cshape = (cfg.num_layers, b, t, cfg.num_kv_heads, cfg.head_dim)
-        cache = {k: _wrap(v, spmd.Spec(((), *cs)), mesh, cshape) for k, v in cache.items()}
-        return _logits_out(logits, ps, act, b), cache
-
-    def decode_fn(params, batch, cache):
-        ctx = spmd.ctx_for(mesh)
-        (pl, bl, cl), (ps, bs, cs) = spmd.split((params, batch, cache))
-        b = batch["tokens"].shape[0]
-        act = layout(bs, "tokens", b, 1)
-        x = embed(ctx, pl["embed"], ps["embed"], bl["tokens"], act)
-        h, new_cache = stack_decode(ctx, pl["blocks"], ps["blocks"], x, cl, cs, cfg, kind, rules, act,
-                                    (b, 1, d), bl["cur_len"])
-        h = norm(ctx, pl["ln_f"], ps["ln_f"], h, cfg, act.axes)
-        logits = logits_local(ctx, pl["embed"], ps["embed"], h, act.batch)[0][:, 0]
-        if donate.donated():
-            new_cache = cache
-        else:
-            new_cache = {k: _wrap(v, cs[k], mesh, cache[k].shape) for k, v in new_cache.items()}
-        return _logits_out(logits, ps, act, b), new_cache
-
-    def _logits_out(logits, ps, act, b):
-        es = ps["embed"]
-        vocab = es["head"][1] if "head" in es else es["table"][0]
-        return _wrap(logits, spmd.Spec((act.batch, vocab)), mesh, (b, cfg.vocab_size))
-
-    return loss_fn, prefill_fn, decode_fn
+def logits_out(logits, es, rank: spmd.Rank, vocab: int):
+    """The (B_l, V_l) logits as a ``DTensor`` of (B, V)."""
+    vaxes = es["head"][1] if "head" in es else es["table"][0]
+    return wrap(logits, spmd.Spec((rank.act.batch, vaxes)), rank.rules.mesh, (rank.shape[0], vocab))

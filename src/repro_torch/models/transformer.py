@@ -21,6 +21,12 @@ the stacked gradient with one stack), and with ``cfg.remat`` runs each
 block under ``torch.utils.checkpoint``: the block's activations are dropped
 after the forward and recomputed in the backward, as the reference's
 ``jax.checkpoint`` of its scan body does.
+
+The attention blocks, their stacks and the decode step are also each rank's
+program on a mesh: given the parameters' ``specs`` and an ``spmd.Rank``
+they run on the rank's shards and move data at the reference's ``shard_as``
+sites through ``models/sharded.py``; with the defaults (``spmd.NO_SPEC``,
+``spmd.SINGLE``) each of those moves is the identity.
 """
 from __future__ import annotations
 
@@ -31,9 +37,12 @@ from repro_torch import donate, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharded
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_defs, norm_defs
 from repro_torch.models.params import stack_defs
+from repro_torch.sharding import spmd
+from repro_torch.sharding.specs import shard_as_bf16_grad
 
 
 def block_defs(cfg: ModelConfig, kind: str):
@@ -62,12 +71,20 @@ def stack_block_defs(cfg: ModelConfig, kind: str, n_layers: int):
     return stack_defs(block_defs(cfg, kind), n_layers)
 
 
-def _ffn(params, h: torch.Tensor, cfg: ModelConfig, kind: str):
+def _norm(params, specs, x: torch.Tensor, cfg: ModelConfig, rank: spmd.Rank) -> torch.Tensor:
+    return apply_norm(rank.ctx.params(params, specs, rank.act.axes), x, cfg)
+
+
+def _ffn(params, h: torch.Tensor, cfg: ModelConfig, kind: str, specs=spmd.NO_SPEC,
+         rank: spmd.Rank = spmd.SINGLE):
     """The block's second half: (the MoE layer's or the dense MLP's output,
     the MoE layer's metrics or None)."""
     if kind == "moe":
-        return moe_mod.apply_moe(params["moe"], h, cfg)
-    return apply_mlp(params["mlp"], h, cfg), None
+        return moe_mod.apply_moe_local(params["moe"], specs["moe"], h, cfg, rank)
+    ctx, act = rank.ctx, rank.act
+    split = sharded.split_over_model(specs["mlp"]["wo"], 0)
+    w = ctx.params(params["mlp"], specs["mlp"], act.batch)
+    return sharded.leave(ctx, apply_mlp(w, sharded.enter(ctx, h, act, split), cfg), act, split), None
 
 
 def zero_metrics(x: torch.Tensor) -> dict:
@@ -96,10 +113,14 @@ def _cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, kind: str, positions: torch.Tensor,
-                     causal: bool = True, collect_cache: bool = False):
+                     causal: bool = True, collect_cache: bool = False, specs=spmd.NO_SPEC,
+                     rank: spmd.Rank = spmd.SINGLE):
     """Full-sequence block. Returns (x, cache entry or None, the MoE layer's
     metrics or None): (k, v) in the cache dtype for attention kinds, the
-    state dict for 'ssm'."""
+    state dict for 'ssm'. On a mesh (``rank``, ``models/sharded.py``):
+    the rank's (B_l, T_l, d) block of the stream, its parameter shards with
+    ``specs``, ``positions`` over the whole sequence, and the cache entry in
+    the cache's layout."""
     if kind == "ssm":
         h = apply_norm(params["ln1"], x, cfg)
         if collect_cache:
@@ -107,35 +128,67 @@ def apply_block_full(params, x: torch.Tensor, cfg: ModelConfig, kind: str, posit
         else:
             out, cache = ssm_mod.apply_ssm(params["ssm"], h, cfg), None
         return x + out, cache, None
-    h = apply_norm(params["ln1"], x, cfg)
-    q, k, v = attn_mod.qkv_project(params["attn"], h, cfg, positions)
-    out = attn_mod.full_attention(q, k, v, causal=causal)
-    x = x + attn_mod.attn_output(params["attn"], out)
+    ctx, act, rules = rank.ctx, rank.act, rank.rules
+    asp = specs["attn"]
+    heads_split = sharded.split_over_model(asp["wq"], 1)
+    w = sharded.attn_weights(ctx, params["attn"], asp, act.batch)
+    h = sharded.enter(ctx, _norm(params["ln1"], specs["ln1"], x, cfg, rank), act, heads_split)
+    q, k, v = attn_mod.qkv_project(w, h, cfg, positions)
+    out = attn_mod.full_attention(q, *sharded.kv_for_heads(ctx, k, v, cfg, asp), causal=causal)
+    o = sharded.leave(ctx, attn_mod.attn_output(w, out), act, heads_split)
+    x = shard_as_bf16_grad(x + o, ("batch", "seq", None), rules)
     entry = None
     if collect_cache:
-        entry = (k.to(_cache_dtype(cfg)), v.to(_cache_dtype(cfg)))
-    h = apply_norm(params["ln2"], x, cfg)
-    y, metrics = _ffn(params, h, cfg, kind)
-    return x + y, entry, metrics
+        # k/v hold the whole sequence and (when 'model' splits the cache's
+        # heads) the rank's heads: cut the sequence where the cache splits it
+        b, t = rank.stream_shape(x)[:2]
+        seq = sharded.cache_spec(rules, b, t, cfg)[1]
+        entry = tuple(ctx.take(z, 1, seq).to(_cache_dtype(cfg)) for z in (k, v))
+    h = _norm(params["ln2"], specs["ln2"], x, cfg, rank)
+    y, metrics = _ffn(params, h, cfg, kind, specs, rank)
+    return shard_as_bf16_grad(x + y, ("batch", "seq", None), rules), entry, metrics
 
 
 def apply_block_decode(params, x: torch.Tensor, cache: dict, cfg: ModelConfig, kind: str,
-                       cur_len: torch.Tensor):
+                       cur_len: torch.Tensor, specs=spmd.NO_SPEC, cache_spec=spmd.NO_SPEC,
+                       rank: spmd.Rank = spmd.SINGLE):
     """Single-token block step. cache: {'k','v'} of shape (B, S, KV, hd), or
     the SSM state dict for 'ssm'. Returns (x, new cache) — new tensors, the
-    input cache is not written."""
+    input cache is not written. On a mesh: the rank's (B_l, 1, d) stream
+    and cache rows (B_l, S_l, KV_l, hd), ``cache_spec`` the cache's spec
+    (batch, sequence, heads, head dim)."""
     if kind == "ssm":
         h = apply_norm(params["ln1"], x, cfg)
         out, new_cache = ssm_mod.ssm_decode_step(params["ssm"], h, cache, cfg)
         return x + out, new_cache
+    ctx, act = rank.ctx, rank.act
+    asp = specs["attn"]
+    heads_split = sharded.split_over_model(asp["wq"], 1)
+    seq_axes = ctx.live(cache_spec[1])
     positions = cur_len[:, None]  # (B, 1)
-    h = apply_norm(params["ln1"], x, cfg)
-    q, k_new, v_new = attn_mod.qkv_project(params["attn"], h, cfg, positions)
-    k_cache, v_cache = attn_mod.update_kv_cache(cache["k"], cache["v"], k_new, v_new, positions)
-    out = attn_mod.decode_attention(q, k_cache, v_cache, cur_len + 1)
-    x = x + attn_mod.attn_output(params["attn"], out)
-    h = apply_norm(params["ln2"], x, cfg)
-    x = x + _ffn(params, h, cfg, kind)[0]
+    w = sharded.attn_weights(ctx, params["attn"], asp, act.batch)
+    h = sharded.enter(ctx, _norm(params["ln1"], specs["ln1"], x, cfg, rank), act, heads_split)
+    q, k_new, v_new = attn_mod.qkv_project(w, h, cfg, positions)
+    if seq_axes:
+        k_cache, v_cache = sharded.write_rows(ctx, cache["k"], cache["v"], k_new, v_new, cur_len, seq_axes)
+    else:
+        k_cache, v_cache = attn_mod.update_kv_cache(cache["k"], cache["v"], k_new, v_new, positions)
+    gathered = heads_split and "model" in seq_axes  # every head attends over the rank's rows
+    if gathered:
+        q = ctx.all_gather(q, 2, sharded.MODEL)
+        kc, vc = k_cache, v_cache
+    else:
+        kc, vc = sharded.kv_for_heads(ctx, k_cache, v_cache, cfg, asp)
+    if seq_axes:
+        kc, vc = (kc, vc) if kc.dtype == q.dtype else (kc.to(q.dtype), vc.to(q.dtype))
+        out = sharded.split_decode_attention(ctx, q, kc, vc, cur_len, seq_axes)
+    else:
+        out = attn_mod.decode_attention(q, kc, vc, cur_len + 1)
+    if gathered:
+        out = ctx.take(out, 2, sharded.MODEL)
+    x = x + sharded.leave(ctx, attn_mod.attn_output(w, out), act, heads_split)
+    h = _norm(params["ln2"], specs["ln2"], x, cfg, rank)
+    x = x + _ffn(params, h, cfg, kind, specs, rank)[0]
     return x, {"k": k_cache, "v": v_cache}
 
 
@@ -233,7 +286,7 @@ def stack_into(stacked, i: int, n: int, entry, like=None) -> dict:
 
 def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                      positions: torch.Tensor, causal: bool = True, collect_cache: bool = False,
-                     into=None):
+                     into=None, specs=spmd.NO_SPEC, rank: spmd.Rank = spmd.SINGLE):
     """Full-sequence pass through the stack. Returns (x, the cache stacked on
     a leading 'layers' axis — {'k','v'} for attention kinds, the SSM state
     dict for 'ssm' — or None, the MoE metrics summed over the layers or
@@ -241,13 +294,15 @@ def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: st
     larger one) that the layers' caches are copied into, in place of a new
     one. Under autograd with ``cfg.remat`` (:func:`remat_active`), each
     block runs under ``torch.utils.checkpoint`` (recomputed in the backward;
-    its metrics are those of the forward)."""
+    its metrics are those of the forward). On a mesh, ``specs`` are the
+    stacked parameters' and ``rank`` this rank's (:func:`apply_block_full`)."""
     n = _num_layers(stacked_params)
     layers = _layers(stacked_params)
+    layer_specs = tree.map(lambda sp: sp.tail(), specs)
     remat = remat_active(cfg, x, stacked_params, collect_cache)
     cache, metrics = into, None
     for i, lp in enumerate(layers):
-        args = (lp, x, cfg, kind, positions, causal, collect_cache)
+        args = (lp, x, cfg, kind, positions, causal, collect_cache, layer_specs, rank)
         if remat:
             x, entry, m = checkpoint(apply_block_full, *args, use_reentrant=False, preserve_rng_state=False)
         else:
@@ -259,7 +314,8 @@ def apply_stack_full(stacked_params, x: torch.Tensor, cfg: ModelConfig, kind: st
 
 
 def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: ModelConfig, kind: str,
-                       cur_len: torch.Tensor, post=None):
+                       cur_len: torch.Tensor, post=None, specs=spmd.NO_SPEC, cache_specs=spmd.NO_SPEC,
+                       rank: spmd.Rank = spmd.SINGLE):
     """One decode step through the stack; caches have a leading 'layers' dim.
     Returns (x, new caches), each in the dtype of the cache it replaces (as
     the JAX package's carry keeps it). ``post(layer_params, i, x)``, when
@@ -269,14 +325,18 @@ def apply_stack_decode(stacked_params, x: torch.Tensor, caches: dict, cfg: Model
     into its slot of ``caches`` and ``caches`` is returned: a layer that
     wrote its slot in place (an attention layer's new rows, an SSM layer's
     state) returns it as it is, and the rest (an SSM layer's new conv
-    histories) is copied in after the layer read the old values."""
+    histories) is copied in after the layer read the old values. On a mesh,
+    ``specs`` and ``cache_specs`` are the stacked parameters' and caches'
+    and ``rank`` this rank's (:func:`apply_block_decode`)."""
     n = _num_layers(stacked_params)
+    layer_specs = tree.map(lambda sp: sp.tail(), specs)
+    cache_spec = cache_specs["k"].tail()
     donated = donate.donated()
     stacked = caches if donated else None
     for i in range(n):
         old = _layer(caches, i)
         lp = _layer(stacked_params, i)
-        x, new_cache = apply_block_decode(lp, x, old, cfg, kind, cur_len)
+        x, new_cache = apply_block_decode(lp, x, old, cfg, kind, cur_len, layer_specs, cache_spec, rank)
         if post is not None:
             x = post(lp, i, x)
         if donated:

@@ -229,15 +229,18 @@ def _chunk(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
 
 class Ctx:
     """A mesh seen from this rank: axis sizes, coordinates and the
-    collectives over named axes."""
+    collectives over named axes. ``Ctx(None)`` is one device with no mesh:
+    every axis has size 1, so every collective is the identity."""
 
     def __init__(self, mesh):
         self.mesh = mesh
-        self.names = tuple(mesh.mesh_dim_names)
-        self.sizes = dict(zip(self.names, mesh.shape))
-        self.coord = dict(zip(self.names, mesh.get_coordinate()))
+        self.names = () if mesh is None else tuple(mesh.mesh_dim_names)
+        self.sizes = {} if mesh is None else dict(zip(self.names, mesh.shape))
+        self.coord = {} if mesh is None else dict(zip(self.names, mesh.get_coordinate()))
 
     def live(self, axes) -> tuple[str, ...]:
+        if not self.sizes:  # one device: the hot path of every unsharded block
+            return ()
         return tuple(a for a in axes if self.sizes.get(a, 1) > 1)
 
     def count(self, axes) -> int:
@@ -299,6 +302,58 @@ class Ctx:
             for a in reversed([a for a in axes if a != "model"]):  # minor first, as all_gather
                 p = self.gather(p, d, (a,), "sum" if a in data_axes else "slice")
         return self.sum_grad(p, tuple(a for a in data_axes if a not in sharding))
+
+    def params(self, p: dict, s, data_axes=()) -> dict:
+        """:meth:`param` of each leaf of the flat dict ``p`` with specs
+        ``s`` (``p`` itself with no mesh)."""
+        if not self.names:
+            return p
+        return {k: self.param(p[k], s[k], data_axes) for k in p}
+
+
+class _NoSpec:
+    """The spec tree of a program on one device: every subtree is this, and
+    every dim of every leaf is split over no axis (``NO_SPEC[i] == ()``)."""
+
+    __slots__ = ()
+
+    def __getitem__(self, key):
+        return () if isinstance(key, int) else self
+
+    def __iter__(self):
+        return iter(())
+
+    def tail(self) -> "_NoSpec":
+        return self
+
+    def axes(self) -> set:
+        return set()
+
+    def __repr__(self) -> str:
+        return "NO_SPEC"
+
+
+NO_SPEC = _NoSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class Rank:
+    """How this rank runs a block family's program: its view of the mesh,
+    the rules, the residual stream's layout and the stream's global
+    (B, T, d) (None: the stream's own shape, one device). :data:`SINGLE`
+    runs the program on one device, where every collective is the
+    identity."""
+
+    ctx: Ctx
+    rules: object = None
+    act: Act = Act()
+    shape: tuple | None = None
+
+    def stream_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape) if self.shape is None else self.shape
+
+
+SINGLE = Rank(Ctx(None))
 
 
 def ctx_for(mesh) -> Ctx:

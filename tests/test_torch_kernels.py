@@ -86,6 +86,37 @@ def test_decode_plain_exact_zeros_at_empty_cache():
     assert torch.isfinite(out).all() and out[1].abs().sum() > 0
 
 
+def test_decode_plain_lse_weighs_a_split_cache():
+    """K4's plain version with ``return_lse``: the heads' logsumexp of their
+    scaled scores over the valid rows (a numpy logsumexp; -inf at an empty
+    cache), and the output unchanged beside it. Two halves of the cache,
+    each attended alone and weighed by exp(lse), give the whole cache's
+    output: the combine of a cache split over a mesh."""
+    b, s, h, kv, hd = 3, 40, 8, 2, 16
+    qn, kn, vn = inputs(7, (b, h, hd), (b, s, kv, hd), (b, s, kv, hd))
+    q, k, v = (torch.from_numpy(x) for x in (qn, kn, vn))
+    cur = torch.tensor([0, 17, 33], dtype=torch.int32)
+    out, lse = ops.decode_attention(q, k, v, cur, return_lse=True)
+    assert torch.equal(out, ops.decode_attention(q, k, v, cur))
+    scores = np.einsum("bkgh,bskh->bkgs", qn.reshape(b, kv, h // kv, hd), kn) / np.sqrt(hd)
+    for i, n in enumerate(cur.tolist()):
+        if n == 0:
+            assert torch.isneginf(lse[i]).all()
+            continue
+        sc = scores[i, ..., :n].astype(np.float64)
+        want = sc.max(-1) + np.log(np.exp(sc - sc.max(-1, keepdims=True)).sum(-1))
+        np.testing.assert_allclose(lse[i].numpy(), want.reshape(h), rtol=1e-5, atol=1e-5)
+    half = s // 2
+    parts = [ops.decode_attention(q, k[:, lo:lo + half].contiguous(), v[:, lo:lo + half].contiguous(),
+                                  torch.clamp(cur - lo, 0, half).to(torch.int32), return_lse=True)
+             for lo in (0, half)]
+    lses = torch.stack([p[1] for p in parts])
+    gmax = lses.amax(0)
+    w = torch.where(torch.isneginf(gmax), 0.0, torch.exp(lses - gmax))
+    combined = sum(wi[..., None] * p[0] for wi, p in zip(w, parts)) / torch.clamp(w.sum(0), min=1e-30)[..., None]
+    np.testing.assert_allclose(combined[1:].numpy(), out[1:].numpy(), rtol=1e-5, atol=1e-6)
+
+
 def test_ops_shape_inference_on_meta():
     ops.reset_counts()
     q = torch.empty(2, 37, 8, 64, dtype=torch.bfloat16, device="meta")
@@ -97,6 +128,8 @@ def test_ops_shape_inference_on_meta():
     cur = torch.empty(2, dtype=torch.int32, device="meta")
     out = ops.decode_attention(qd, kd, kd, cur)
     assert out.device.type == "meta" and out.shape == qd.shape
+    out, lse = ops.decode_attention(qd, kd, kd, cur, return_lse=True)
+    assert out.shape == qd.shape and lse.shape == (2, 8) and lse.dtype == torch.float32 and lse.is_meta
     assert set(ops.counts().values()) == {0}
 
 

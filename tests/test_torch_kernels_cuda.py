@@ -95,6 +95,29 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("s", [300, 4100])
+def test_decode_kernel_lse_matches_plain(cuda, s, hd):
+    """K4 with ``return_lse``: one launch, the same output bits as without,
+    the heads' logsumexp within 1e-3 of the plain version's and -inf at
+    cur_len 0."""
+    kv, g = 2, 4
+    lens = [0, 1, 65, s]
+    b = len(lens)
+    qn, kn, vn = inputs(29, (b, g * kv, hd), (b, s, kv, hd), (b, s, kv, hd))
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (qn, kn, vn))
+    cur = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = build.launches("decode_attention")
+    got, lse = tdec.decode_attention(q, k, v, cur, return_lse=True)
+    torch.cuda.synchronize()
+    assert build.launches("decode_attention") == before + 1
+    assert torch.equal(got, tdec.decode_attention(q, k, v, cur))
+    want = tdec.plain_lse(q, k, v, cur)[1]
+    assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1:]).all()
+    np.testing.assert_allclose(lse[1:].cpu().numpy(), want[1:].cpu().numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 112, 128])
 @pytest.mark.parametrize("g", [1, 4, 8])
 @pytest.mark.parametrize("s", [300, 512, 4096, 4100])
 def test_decode_kernel_edges(cuda, s, g, hd):

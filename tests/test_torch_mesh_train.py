@@ -155,16 +155,16 @@ def _rank(rank: int, world: int, path_ref: str, out_dir: str) -> None:
     from repro_torch.sharding.specs import to_named_sharding, train_rules
     from repro_torch.training.train_step import make_train_state_defs, make_train_step
 
-    from repro_torch.models import sharded
+    from repro_torch.models import transformer as tfm
 
     ref = dict(np.load(path_ref))
     mesh = make_mesh((2, 2), ("data", "model"))
     rules = train_rules(mesh)
     out = {}
-    bf16_grad = sharded.shard_as_bf16_grad
+    bf16_grad = tfm.shard_as_bf16_grad
     for arch, variant in [(a, v) for a in ARCHS for v in ("", "_fp32")]:
         # _fp32: the residual cotangents kept in fp32 (the bf16 rounding off)
-        sharded.shard_as_bf16_grad = (lambda x, logical, rules: x) if variant else bf16_grad
+        tfm.shard_as_bf16_grad = (lambda x, logical, rules: x) if variant else bf16_grad
         cfg = small_cfg("repro_torch", arch)
         model = build_model(cfg, rules)
         defs = make_train_state_defs(model)
